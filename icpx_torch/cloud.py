@@ -1,0 +1,147 @@
+"""Point-cloud container: a fixed-capacity, mask-padded dataclass of tensors.
+
+Mirrors `icpx/cloud.py`. A cloud is an ``(N, 3)`` float32 tensor plus an
+``(N,)`` validity mask; capacity is padded to a multiple of PAD_MULTIPLE
+with PAD_COORD sentinel rows, so shapes (and therefore the tensors the
+port hands to its kernels) are identical to the JAX package's. Every
+consumer respects the mask. Covariances and payload features wait for
+later slices (ROADMAP queue 1 steps 2 and 6).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+# Same padding contract as the JAX package, so padded shapes and sentinel
+# rows agree bit for bit between the two.
+PAD_MULTIPLE = 128
+
+# Coordinate used for padded (invalid) rows: large but finite, so squared
+# distances stay finite in fp32 (1e8**2 = 1e16 << 3.4e38).
+PAD_COORD = 1.0e8
+
+
+def round_up(n: int, m: int = PAD_MULTIPLE) -> int:
+    return ((n + m - 1) // m) * m
+
+
+@dataclass(frozen=True)
+class PointCloud:
+    """A padded point cloud.
+
+    Attributes:
+      xyz:     (N, 3) float32; rows with ``mask == False`` hold PAD_COORD.
+      mask:    (N,) bool — True for real points.
+      normals: optional (N, 3) float32 unit normals (zero rows where unknown).
+    """
+
+    xyz: torch.Tensor
+    mask: torch.Tensor
+    normals: Optional[torch.Tensor] = None
+
+    # ---- construction ------------------------------------------------------
+
+    @classmethod
+    def create(
+        cls,
+        xyz,
+        normals=None,
+        *,
+        capacity: Optional[int] = None,
+        pad_multiple: int = PAD_MULTIPLE,
+        device=None,
+    ) -> "PointCloud":
+        """Build a padded cloud from an (n, 3) array (numpy or tensor)."""
+        if device is None and torch.is_tensor(xyz):
+            device = xyz.device
+        device = torch.device("cpu") if device is None else torch.device(device)
+        xyz = torch.as_tensor(xyz, dtype=torch.float32, device=device)
+        if xyz.ndim != 2 or xyz.shape[1] != 3:
+            raise ValueError(f"xyz must be (n, 3), got {tuple(xyz.shape)}")
+        n = xyz.shape[0]
+        cap = capacity if capacity is not None else round_up(max(n, 1), pad_multiple)
+        if cap < n:
+            raise ValueError(f"capacity {cap} < n {n}")
+        pad = cap - n
+        xyz_p = torch.cat(
+            [xyz, torch.full((pad, 3), PAD_COORD, dtype=torch.float32, device=device)]
+        )
+        mask = torch.arange(cap, device=device) < n
+        nrm_p = None
+        if normals is not None:
+            normals = torch.as_tensor(normals, dtype=torch.float32, device=device)
+            if tuple(normals.shape) != (n, 3):
+                raise ValueError(
+                    f"normals must be (n, 3)={n}, got {tuple(normals.shape)}"
+                )
+            nrm_p = torch.cat(
+                [normals, torch.zeros((pad, 3), dtype=torch.float32, device=device)]
+            )
+        return cls(xyz=xyz_p, mask=mask, normals=nrm_p)
+
+    def replace(self, **changes) -> "PointCloud":
+        return dataclasses.replace(self, **changes)
+
+    def to(self, device) -> "PointCloud":
+        return PointCloud(
+            xyz=self.xyz.to(device),
+            mask=self.mask.to(device),
+            normals=None if self.normals is None else self.normals.to(device),
+        )
+
+    # ---- properties --------------------------------------------------------
+
+    @property
+    def capacity(self) -> int:
+        return self.xyz.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.xyz.device
+
+    def num_valid(self) -> torch.Tensor:
+        """Count of real points (0-d int tensor on the cloud's device)."""
+        return self.mask.sum()
+
+    # ---- transforms --------------------------------------------------------
+
+    def with_xyz(self, xyz: torch.Tensor) -> "PointCloud":
+        """New coordinates for valid rows; pad rows keep their sentinel."""
+        return self.replace(xyz=torch.where(self.mask[:, None], xyz, self.xyz))
+
+    def with_normals(self, normals: torch.Tensor) -> "PointCloud":
+        return self.replace(
+            normals=torch.where(self.mask[:, None], normals, torch.zeros_like(normals))
+        )
+
+    def centroid(self) -> torch.Tensor:
+        """Masked mean of valid points, (3,)."""
+        w = self.mask.to(torch.float32)
+        denom = torch.clamp(w.sum(), min=1.0)
+        return (self.xyz * w[:, None]).sum(0) / denom
+
+    def extent(self) -> torch.Tensor:
+        """Bounding-box diagonal length over valid points."""
+        m = self.mask[:, None]
+        lo = torch.where(m, self.xyz, PAD_COORD).amin(0)
+        hi = torch.where(m, self.xyz, -PAD_COORD).amax(0)
+        diag = torch.linalg.vector_norm(hi - lo)
+        return torch.where(self.mask.any(), diag, torch.zeros_like(diag))
+
+    # ---- host-side helpers -------------------------------------------------
+
+    def to_numpy(self) -> np.ndarray:
+        """Valid points only, host numpy (n, 3)."""
+        mask = self.mask.cpu().numpy()
+        return self.xyz.cpu().numpy()[mask]
+
+    def normals_to_numpy(self) -> Optional[np.ndarray]:
+        if self.normals is None:
+            return None
+        mask = self.mask.cpu().numpy()
+        return self.normals.cpu().numpy()[mask]
