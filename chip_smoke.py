@@ -5,16 +5,27 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernel from the sources in this checkout, holds
-it against its plain PyTorch version at the shapes the main path gives it,
-then drives the main path — `register()` on the cat fixture pair and on a
-65,536-point synthetic pair, brute-force NN, normals estimated on the card
-— and checks each result against its ground truth. Every phase prints one
-line (or a few); any failure raises, so the exit code is non-zero. The
-last two lines are a JSON object per kernel and the verdict
-``{"ok": true, "device": {...}}``. Without a CUDA device it refuses to run.
+It builds the port's three CUDA kernels from the sources in this checkout
+(one `nvcc` per source, started together), holds each against its plain
+PyTorch version at the shapes the main path gives it, then drives the
+main paths through `register()` and checks each result against its ground
+truth:
+
+* the brute-force path: the cat fixture pair and a 65,536-point synthetic
+  pair (normals on the card);
+* the block path: `bench.py`'s 1,048,576-point flagship pair with normals
+  estimated inside the registration, once through the kernels and once on
+  the plain torch path, and a 16,384-point pair on the card against the
+  same pair on the CPU.
+
+Launch counters are set to 0 just before each path and read just after.
+Every phase prints one line (or a few); any failure raises, so the exit
+code is non-zero. The last two lines are a JSON object per kernel and the
+verdict ``{"ok": true, "device": {...}}``. Without a CUDA device it refuses
+to run.
 """
 
+import dataclasses
 import json
 import math
 import statistics
@@ -26,6 +37,14 @@ import numpy as np
 import torch
 
 N_PAIR = 65536  # one rotating-LiDAR sweep; the round-1 `bench.py --n 65536` point
+N_FLAG = 1048576  # bench.py's flagship pair
+N_SMALL = 16384  # the block pair run on the card and on the CPU
+
+# Peak rates of one H100 SXM (NVIDIA data sheet, at the 700 W limit): the
+# bound of a kernel is the larger of its bytes over the memory rate and its
+# fp32 operations (an FMA counts 2) over the non-tensor-core fp32 rate.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
 
 
 def _fail(msg: str) -> None:
@@ -61,6 +80,25 @@ def _event_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def _bound(bytes_moved: float, flops: float):
+    """(bound ms, "bytes" or "operations")."""
+    t_mem, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops else "operations")
+
+
+def _transform_diff(a, b):
+    """(rotation angle, translation distance) between two nearby transforms,
+    in float64 on the host. The angle comes from the skew part of Ra^T Rb
+    (its norm is sin(angle)): the trace form arccos((tr - 1) / 2) cannot
+    resolve angles below ~5e-4 rad, because an fp32 rotation matrix is
+    orthonormal only to ~1e-7."""
+    Ra, Rb = a.R.detach().cpu().double(), b.R.detach().cpu().double()
+    M = Ra.T @ Rb
+    w = torch.stack([M[2, 1] - M[1, 2], M[0, 2] - M[2, 0], M[1, 0] - M[0, 1]]) / 2.0
+    t = a.t.detach().cpu().double() - b.t.detach().cpu().double()
+    return float(torch.arcsin(torch.clamp(w.norm(), max=1.0))), float(t.norm())
+
+
 def _duplicate_fixture():
     """Integer coordinates with exact duplicates: the nearest copy with the
     lowest index must win (distances are exact in fp32)."""
@@ -71,47 +109,56 @@ def _duplicate_fixture():
     return query, ref, np.ones(len(ref), bool), expect
 
 
-def main(dev=None, n_pair: int = N_PAIR) -> None:
-    """`dev` and `n_pair` exist for rehearsing the script's control flow off
-    the card; run as a program it always takes the first CUDA device."""
-    if dev is None:
-        if not torch.cuda.is_available():
-            _fail("torch.cuda.is_available() is false: this check needs an NVIDIA GPU")
-        dev = torch.device("cuda", 0)
-
-    import icpx_torch  # noqa: F401  (sets the fp32 matmul policy)
-    from icpx_torch.cloud import PAD_COORD, PointCloud
+def _gt_pair(n, seed, dev, angle=0.2, translation=(0.12, -0.06, 0.03)):
+    """bench.py's construction: a synthetic surface, its rigid image under
+    the GT, shuffled with default_rng(1)."""
+    from icpx_torch.cloud import PointCloud
     from icpx_torch.geometry.transforms import make_rigid_perturbation
-    from icpx_torch.io.loaders import load_cat_pair, synthetic_surface
+    from icpx_torch.io.loaders import synthetic_surface
+
+    src = PointCloud.create(synthetic_surface(n, seed=seed), capacity=n, device=dev)
+    gt = make_rigid_perturbation(angle=angle, translation=translation, device=dev)
+    perm = torch.as_tensor(np.random.default_rng(1).permutation(n), device=dev)
+    tgt = PointCloud.create(gt.apply(src.xyz)[perm], capacity=n, device=dev)
+    return src, tgt.replace(mask=src.mask[perm]), gt
+
+
+def _block_fixtures(dev):
+    """Small inputs for both block kernels: one query tile over 4 index
+    tiles of 8 rows, integer coordinates (exact d2) with exact duplicates
+    (fold tie rule: least d2, lowest lane, earliest candidate), a fifth,
+    all-sentinel tile (a query tile whose candidates are all sentinel), and
+    padded query rows."""
+    from icpx_torch.cloud import PAD_COORD
+    from icpx_torch.kernels.blocknn import TileIndex
+
+    tiles = np.arange(5 * 8 * 3, dtype=np.float32).reshape(5, 8, 3) * 10.0 + 100.0
+    p, p2 = np.float32([1, 2, 3]), np.float32([-4, 5, -6])
+    tiles[0, 3] = tiles[1, 1] = p
+    tiles[2, 2] = tiles[3, 2] = p2
+    tiles[4] = PAD_COORD
+    query = np.full((2, 8, 3), 50.0, np.float32)
+    query[0, 0], query[0, 1] = p, p2
+    query[:, 6:] = PAD_COORD  # padded query rows
+    t = torch.as_tensor(tiles, device=dev)
+    order = torch.arange(40, dtype=torch.int32, device=dev)
+    order[32:] = -1
+    index = TileIndex(tiles=t, box_lo=t.amin(1), box_hi=t.amax(1), centroids=t.mean(1), order=order)
+    cand = torch.tensor([[0, 1, 2, 3], [4, 4, 4, 4]], device=dev)
+    payload = torch.arange(40, dtype=torch.float32, device=dev)[:, None].repeat(1, 6)
+    payload[32:, 3:] = 0.0
+    return torch.as_tensor(query, device=dev), index, cand, payload
+
+
+def _phase_nn(dev, n_pair, rng):
+    """Kernel #1 against its plain version; returns its JSON fields."""
+    from icpx_torch.cloud import PAD_COORD
     from icpx_torch.kernels import nn_cuda
     from icpx_torch.kernels.knn import knn, nearest_neighbor_reference
-    from icpx_torch.kernels.normals import estimate_normals
-    from icpx_torch.registration.icp import ICPConfig, register
 
-    # 1. Device ---------------------------------------------------------------
-    kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip()
-    print(f"device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"{torch.cuda.device_count()} visible")
-    print(smi)
-
-    # 2. Build ------------------------------------------------------------------
-    t0 = time.perf_counter()
-    nn_cuda.build()
-    print(f"build: {time.perf_counter() - t0:.2f} s -> {nn_cuda.library_path().name}")
-    for line in nn_cuda.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print(f"  ptxas: {line.strip()}")
-
-    # 3. Kernel against its plain version ---------------------------------------
     # d2: rtol 1e-5 plus atol 1e-6 |q|^2 per row (same formula, fp32 rounding
     # and FMA contraction only); indices equal wherever the best and second
     # best distances differ by more than 1e-4 relative.
-    rng = np.random.default_rng(0)
-
     def uniform(n):
         return rng.uniform(-1.0, 1.0, size=(n, 3)).astype(np.float32)
 
@@ -123,14 +170,15 @@ def main(dev=None, n_pair: int = N_PAIR) -> None:
     q_cat, m_cat = padded(3400, 3456)
     r_cat, _ = padded(3400, 3456)
     half = rng.uniform(size=70001) < 0.5
+    big = f"{n_pair}x{n_pair}"
     cases = {
-        f"{n_pair}x{n_pair}": (uniform(n_pair), uniform(n_pair), np.ones(n_pair, bool), None),
+        big: (uniform(n_pair), uniform(n_pair), np.ones(n_pair, bool), None),
         "3456x3456 (56 masked)": (q_cat, r_cat, m_cat, None),
         "1000x70001 (half masked)": (uniform(1000), uniform(70001), half, None),
         "duplicates": _duplicate_fixture(),
     }
     max_abs_err = 0.0
-    timings = {}
+    fields = {}
     for name, (q, r, m, expect) in cases.items():
         qc, rc, mc = (torch.as_tensor(x, device=dev) for x in (q, r, m))
         d_k, i_k = nn_cuda.nn_cuda(qc, rc, mc)
@@ -157,35 +205,207 @@ def main(dev=None, n_pair: int = N_PAIR) -> None:
         mism = int(((i_k != i_p) & sep & fin).sum())
         if mism:
             _fail(f"{name}: {mism} indices differ on well-separated rows")
-        line = (f"kernel vs plain {name}: max|dd2|={float(err[fin].max()) if bool(fin.any()) else 0.0:.3e}, "
+        line = (f"nn kernel vs plain {name}: max|dd2|={float(err[fin].max()) if bool(fin.any()) else 0.0:.3e}, "
                 f"index checked on {int((sep & fin).sum())}/{len(q)} rows")
-        if name.startswith((str(n_pair), "3456")):
+        if name == big:
             ms = _event_ms(lambda: nn_cuda.nn_cuda(qc, rc, mc))
             plain_ms = _event_ms(lambda: nearest_neighbor_reference(qc, rc, ref_mask=mc))
-            timings[name] = (ms, plain_ms)
-            line += f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (CUDA events, median of 5)"
+
+            def library():  # one PyTorch call for the same function, chunked over queries
+                for q0 in range(0, len(q), 4096):
+                    torch.cdist(qc[q0:q0 + 4096], rc,
+                                compute_mode="donot_use_mm_for_euclid_dist").min(dim=1)
+
+            library_ms = _event_ms(library)
+            nq, nr = len(q), len(r)
+            bound_ms, bound_by = _bound((nq + nr) * 12 + nr + nq * 8, nq * nr * 8.0)
+            fields = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                          bound_ms=bound_ms, bound_by=bound_by)
+            line += (f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, torch.cdist+min "
+                     f"{library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}) "
+                     "(CUDA events, median of 5)")
         print(line)
         del qc, rc, mc, d_k, d_p
+    return dict(fields, max_abs_err=max_abs_err)
+
+
+def _phase_moments6(dev, index, radius, fixtures):
+    """Kernel #2 against its plain version at the shapes of one flagship
+    normals launch (the target index's 8,192 x 128 self-query, k_tiles = 2),
+    plus the fixtures; returns its JSON fields."""
+    from icpx_torch.kernels import blocknn_cuda
+    from icpx_torch.kernels.blocknn import _candidate_tiles
+
+    def compare(name, query, tiles, cand, q_cent, r2):
+        out_k = blocknn_cuda.moments6_cuda(query, tiles, cand.to(torch.int32), q_cent, r2.reshape(1))
+        out_p = blocknn_cuda.moments6_reference(query, tiles, cand, q_cent, r2)
+        torch.cuda.synchronize()
+        # the same d2 bits decide the radius test: counts equal on every
+        # row; means and covariances differ only by the order of the sums
+        if not torch.equal(out_k[0], out_p[0]):
+            _fail(f"moments6 {name}: counts differ on {int((out_k[0] != out_p[0]).sum())} rows")
+        err = float((out_k[1:] - out_p[1:]).abs().max()) if out_k.numel() else 0.0
+        if not (err <= 1e-5 and bool(torch.isfinite(out_k).all())):
+            _fail(f"moments6 {name}: moments off by {err:.3e} (or not finite)")
+        return out_k, err
+
+    cand, q_cent = _candidate_tiles(index.tiles, index, 2)
+    r2 = (radius * radius).reshape(())
+    args = (index.tiles, index.tiles, cand, q_cent, r2)
+    out, err = compare(f"{tuple(index.tiles.shape)} k=2", *args)
+    query, fx_index, fx_cand, _ = fixtures
+    _, fq_cent = _candidate_tiles(query, fx_index, 4)
+    fx, fx_err = compare("fixtures", query, fx_index.tiles, fx_cand, fq_cent,
+                         torch.tensor(4.0, device=dev))
+    if float(fx[0, 8:].max()) != 0.0 or float(fx[0, 6:8].max()) != 0.0:
+        _fail("moments6 fixtures: sentinel rows or padded query rows were counted")
+    ms = _event_ms(lambda: blocknn_cuda.moments6_cuda(*args[:2], cand.to(torch.int32), q_cent, r2.reshape(1)))
+    plain_ms = _event_ms(lambda: blocknn_cuda.moments6_reference(*args))
+    tq, sq, _ = index.tiles.shape
+    n = tq * sq
+    pairs = n * cand.shape[1] * index.tile_size
+    inside = float(out[0].sum())  # pairs within the radius: 16 more flops each
+    bytes_moved = n * 12 + index.tiles.numel() * 4 + cand.numel() * 4 + tq * 12 + 4 + n * 40
+    bound_ms, bound_by = _bound(bytes_moved, pairs * 8.0 + inside * 16.0)
+    print(f"moments6 kernel vs plain {tuple(index.tiles.shape)} k=2: counts equal on all "
+          f"{n} rows (mean {float(out[0].mean()):.2f}), max|dm|={max(err, fx_err):.3e}; fixtures ok; "
+          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}) "
+          "(CUDA events, median of 5)")
+    return dict(max_abs_err=max(err, fx_err), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
+
+
+def _phase_fold6(dev, src, tgt_index, table, gt, fixtures):
+    """Kernel #3 against its plain version at the shapes of one flagship
+    refine iteration (16,384 x 64 queries, k = 6 frozen candidates, the
+    fused (T*S, 6) table), plus the fixtures; returns its JSON fields."""
+    from icpx_torch.kernels import blocknn_cuda
+    from icpx_torch.kernels.blocknn import _candidate_tiles, build_kd_index, trim_index
+
+    def compare(name, query, ops):
+        d_k, pl_k = blocknn_cuda.fold6_cuda(query, ops)
+        d_p, pl_p = blocknn_cuda.fold6_reference(query, ops)
+        torch.cuda.synchronize()
+        # the same d2 bits and scan order: the same winner on every row
+        if not (torch.equal(d_k, d_p) and torch.equal(pl_k, pl_p)):
+            _fail(f"fold6 {name}: kernel and plain differ on "
+                  f"{int(((d_k != d_p) | (pl_k != pl_p).any(1)).sum())} rows")
+        return d_k, pl_k
+
+    src_idx = trim_index(build_kd_index(src.xyz, src.mask, tile_size=64), src.capacity, multiple=4)
+    query = gt.apply(src_idx.tiles.reshape(-1, 3)).reshape(src_idx.tiles.shape).contiguous()
+    cand, _ = _candidate_tiles(query, tgt_index, 6)
+    ops = blocknn_cuda.fold6_prepare(cand, tgt_index, table)
+    d, _ = compare(f"{tuple(query.shape)} k=6", query, ops)
+    fq, f_index, f_cand, f_payload = fixtures
+    f_ops = blocknn_cuda.fold6_prepare(f_cand, f_index, f_payload)
+    fd, fpl = compare("fixtures", fq, f_ops)
+    if [float(fpl[0, 0]), float(fpl[1, 0])] != [9.0, 18.0] or float(fd[0]) != 0.0:
+        _fail("fold6 fixtures: tie rule broken (least d2, lowest lane, earliest candidate)")
+    if not (bool(torch.isinf(fd[8:14]).all()) and float(fpl[8, 0]) == 32.0):
+        _fail("fold6 fixtures: a tile of all-sentinel candidates must miss onto its first sentinel row")
+    ms = _event_ms(lambda: blocknn_cuda.fold6_cuda(query, ops))
+    plain_ms = _event_ms(lambda: blocknn_cuda.fold6_reference(query, ops))
+    tq, sq, _ = query.shape
+    n, k = tq * sq, cand.shape[1]
+    bytes_moved = n * 12 + tgt_index.tiles.numel() * 4 + tq * k * 4 + table.numel() * 4 + n * 28
+    bound_ms, bound_by = _bound(bytes_moved, n * k * tgt_index.tile_size * 8.0)
+    print(f"fold6 kernel vs plain {tuple(query.shape)} k=6: d2 and payload equal on all {n} rows "
+          f"({int(torch.isfinite(d).sum())} hits); fixtures ok (ties, misses, padded rows); "
+          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}) "
+          "(CUDA events, median of 5)")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
+
+
+def _counted(fn):
+    """Run fn with every launch counter at 0; (result, {kernel: launches})."""
+    from icpx_torch.kernels import blocknn_cuda, nn_cuda
+
+    nn_cuda.LAUNCHES = 0
+    for name in blocknn_cuda.LAUNCHES:
+        blocknn_cuda.LAUNCHES[name] = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(nn=nn_cuda.LAUNCHES, **blocknn_cuda.LAUNCHES)
+
+
+def _refine_iters(res) -> int:
+    return int(torch.isfinite(res.rmse_history).sum())
+
+
+def main(dev=None, n_pair: int = N_PAIR, n_flag: int = N_FLAG, n_small: int = N_SMALL) -> None:
+    """`dev` and the sizes exist for rehearsing the script's control flow off
+    the card; run as a program it always takes the first CUDA device."""
+    if dev is None:
+        if not torch.cuda.is_available():
+            _fail("torch.cuda.is_available() is false: this check needs an NVIDIA GPU")
+        dev = torch.device("cuda", 0)
+
+    import icpx_torch  # noqa: F401  (sets the fp32 matmul policy)
+    from icpx_torch.cloud import PointCloud
+    from icpx_torch.geometry.transforms import make_rigid_perturbation
+    from icpx_torch.io.loaders import load_cat_pair
+    from icpx_torch.kernels import blocknn_cuda, cuda_build, nn_cuda
+    from icpx_torch.kernels.blocknn import build_kd_index, fused_payload_table, trim_index
+    from icpx_torch.kernels.normals import estimate_normals
+    from icpx_torch.kernels.voxel import auto_cell_size
+    from icpx_torch.registration.icp import ICPConfig, register
+
+    # 1. Device ---------------------------------------------------------------
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip()
+    print(f"device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.device_count()} visible")
+    print(smi)
+
+    # 2. Build: one nvcc per source, started together ------------------------------
+    t0 = time.perf_counter()
+    cuda_build.compile_all()
+    nn_cuda.build()
+    blocknn_cuda.build()
+    print(f"build: {time.perf_counter() - t0:.2f} s -> "
+          f"{nn_cuda.library_path().name}, {blocknn_cuda.library_path().name}")
+    for stem, log in cuda_build.BUILD_LOGS.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                print(f"  ptxas {stem}: {line.strip()}")
+
+    # 3. Kernels against their plain versions -----------------------------------
+    rng = np.random.default_rng(0)
+    kernels = {"nn": _phase_nn(dev, n_pair, rng)}
+    f_src, f_tgt, f_gt = _gt_pair(n_flag, 0, dev)
+    tgt_index = trim_index(build_kd_index(f_tgt.xyz, f_tgt.mask, tile_size=128),
+                           f_tgt.capacity, multiple=64)
+    flat = tgt_index.tiles.reshape(-1, 3)
+    radius = auto_cell_size(flat, tgt_index.order >= 0, scale=3.0)
+    fixtures = _block_fixtures(dev)
+    kernels["moments6"] = _phase_moments6(dev, tgt_index, radius, fixtures)
+    aux = torch.as_tensor(np.random.default_rng(2).normal(size=(n_flag, 3)).astype(np.float32),
+                          device=dev)
+    table = fused_payload_table(tgt_index, aux)
+    kernels["fold6"] = _phase_fold6(dev, f_src, tgt_index, table, f_gt, fixtures)
+    del tgt_index, flat, table, aux
 
     cfg_cat = ICPConfig(objective="symmetric", max_iters=20, diff_threshold=1.0,
                         max_corr_dist=50.0, robust="huber")
     cfg_pair = ICPConfig(objective="symmetric", max_iters=10, diff_threshold=0.0,
                          rmse_change_tol=1e-6, k_normals=10, nn_method="brute",
                          tile_q=2048, tile_r=8192)
+    cfg_flag = ICPConfig(objective="symmetric", max_iters=10, diff_threshold=0.0,
+                         rmse_change_tol=1e-6, k_normals=10, tile_q=2048, tile_r=8192)
 
-    # The main path, counted: every kernel launch from here to the read below
-    # comes from register() / estimate_normals() as a user calls them.
-    nn_cuda.LAUNCHES = 0
-
-    # 4. Cat pair ----------------------------------------------------------------
+    # 4. Cat pair (brute path) --------------------------------------------------------
     src, tgt = load_cat_pair(device=dev)
     tgt_np = tgt.to_numpy()
     tgt_sh = PointCloud.create(tgt_np[np.random.default_rng(0).permutation(len(tgt_np))],
                                device=dev)
     gt_cat = make_rigid_perturbation(device=dev)
-    res = register(src, tgt_sh, cfg_cat)
-    torch.cuda.synchronize()
-    cat_launches = nn_cuda.LAUNCHES
+    res, counts = _counted(lambda: register(src, tgt_sh, cfg_cat))
+    cat_launches = counts["nn"]
     rot, terr = (float(x) for x in res.transform.distance_to(gt_cat))
     pred = res.transform.apply(src.xyz)[src.mask].cpu().numpy()
     true_rmse = float(np.sqrt(((pred - tgt_np) ** 2).sum(1).mean()))
@@ -195,7 +415,7 @@ def main(dev=None, n_pair: int = N_PAIR) -> None:
         _fail(f"cat: {cat_launches} kernel launches for {res.iters} iterations")
     # the same registration on the CPU (plain NN): the reference on a small input
     res_cpu = register(src.to("cpu"), tgt_sh.to("cpu"), cfg_cat)
-    d_rot, d_t = (float(x) for x in res.transform.to("cpu").distance_to(res_cpu.transform))
+    d_rot, d_t = _transform_diff(res.transform, res_cpu.transform)
     if res_cpu.iters != res.iters or d_rot > 1e-4 or d_t > 1e-3:
         _fail(f"cat: card and CPU runs differ (iters {res.iters} vs {res_cpu.iters}, "
               f"rot {d_rot:.2e}, t {d_t:.2e})")
@@ -206,13 +426,7 @@ def main(dev=None, n_pair: int = N_PAIR) -> None:
           f"wall {wall_cat * 1e3:.2f} ms (median of 3)")
 
     # 5. 65,536-point pair (bench.py's brute configuration) ----------------------
-    xyz = synthetic_surface(n_pair, seed=0)
-    src = PointCloud.create(xyz, capacity=n_pair, device=dev)
-    gt = make_rigid_perturbation(angle=0.2, translation=(0.12, -0.06, 0.03), device=dev)
-    perm = np.random.default_rng(1).permutation(n_pair)
-    tgt_np = gt.apply(src.xyz).cpu().numpy()
-    tgt = PointCloud.create(tgt_np[perm], capacity=n_pair, device=dev)
-    tgt = tgt.replace(mask=src.mask[torch.as_tensor(perm, device=dev)])
+    src, tgt, gt = _gt_pair(n_pair, 0, dev)
 
     def run_pair():
         # normals up front with the brute method (auto would pick the block
@@ -221,11 +435,9 @@ def main(dev=None, n_pair: int = N_PAIR) -> None:
         t = estimate_normals(tgt, k=cfg_pair.k_normals, method="brute")
         return register(s, t, cfg_pair)
 
-    before = nn_cuda.LAUNCHES
-    res = run_pair()
-    torch.cuda.synchronize()
-    pair_launches = nn_cuda.LAUNCHES - before
-    main_launches = nn_cuda.LAUNCHES  # the read: cat + 65k main-path runs
+    res, counts = _counted(run_pair)
+    pair_launches = counts["nn"]
+    kernels["nn"]["launches"] = cat_launches + pair_launches
     rot, terr = (float(x) for x in res.transform.distance_to(gt))
     if not (math.isfinite(float(res.final_rmse)) and rot < 5e-3 and terr < 5e-3):
         _fail(f"65k pair: GT not recovered (rot {rot:.3e}, t {terr:.3e})")
@@ -245,20 +457,64 @@ def main(dev=None, n_pair: int = N_PAIR) -> None:
           f"wall {wall * 1e3:.2f} ms (median of 3, normals included) = "
           f"{n_pair / wall:.4g} points/s; normals (both clouds) {wall_normals * 1e3:.2f} ms, "
           f"register {wall_reg * 1e3:.2f} ms; peak {peak:.0f} MiB")
+    del src, tgt, s_n, t_n
 
-    if main_launches < 1:
-        _fail("the main path never launched the kernel")
-    ms, plain_ms = timings[f"{n_pair}x{n_pair}"]
-    print(json.dumps({"kernels": [{
-        "name": "nn",
-        "route": "cuda",
-        "source": "icpx_torch/csrc/nn.cu",
-        "replaces": "icpx/kernels/knn_pallas.py:37",
-        "launches": main_launches,
-        "max_abs_err": max_abs_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]}))
+    # 6. The 1M flagship through register(): the kernels, then the plain path ------
+    cfg_plain = dataclasses.replace(cfg_flag, payload_mode="gather", moments_mode="xla")
+    walls = {}
+    for label, cfg in (("kernels", cfg_flag), ("plain", cfg_plain)):
+        res, counts = _counted(lambda: register(f_src, f_tgt, cfg))
+        rot, terr = (float(x) for x in res.transform.distance_to(f_gt))
+        if not (math.isfinite(float(res.final_rmse)) and rot < 5e-3 and terr < 5e-3):
+            _fail(f"flagship ({label}): GT not recovered (rot {rot:.3e}, t {terr:.3e})")
+        if label == "kernels":
+            if counts["moments6"] < 2 or counts["fold6"] < 1:
+                _fail(f"flagship: the kernels were not launched ({counts})")
+            kernels["moments6"]["launches"] = counts["moments6"]
+            kernels["fold6"]["launches"] = counts["fold6"]
+        elif counts["moments6"] or counts["fold6"]:
+            _fail(f"flagship (plain): the plain path launched a block kernel ({counts})")
+        torch.cuda.reset_peak_memory_stats()
+        wall, _ = _sync_time(lambda: register(f_src, f_tgt, cfg), reps=3)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        walls[label] = wall
+        refine = _refine_iters(res)
+        print(f"flagship 1M ({label}): iters={res.iters} (coarse {res.iters - refine}, refine "
+              f"{refine}) rmse={float(res.final_rmse):.3e} rot_err={rot:.3e} t_err={terr:.3e} "
+              f"launches={counts}; wall {wall * 1e3:.2f} ms (median of 3, normals included) = "
+              f"{n_flag / wall:.4g} points/s; peak {peak:.0f} MiB")
+    print(f"flagship 1M: kernel path {walls['kernels'] * 1e3:.2f} ms vs plain path "
+          f"{walls['plain'] * 1e3:.2f} ms")
+    del f_src, f_tgt
+
+    # 7. A 16,384-point block pair: the kernels on the card, their plain
+    #    versions on the CPU --------------------------------------------------------
+    cfg_small = dataclasses.replace(cfg_flag, payload_mode="vmem", moments_mode="vmem")
+    src, tgt, gt = _gt_pair(n_small, 3, dev, angle=0.15, translation=(0.1, -0.05, 0.02))
+    res, counts = _counted(lambda: register(src, tgt, cfg_small))
+    if counts["moments6"] < 2 or counts["fold6"] < 1:
+        _fail(f"16k pair: the kernels were not launched ({counts})")
+    res_cpu = register(src.to("cpu"), tgt.to("cpu"), cfg_small)
+    d_rot, d_t = _transform_diff(res.transform, res_cpu.transform)
+    rot, terr = (float(x) for x in res.transform.distance_to(gt))
+    if abs(res.iters - res_cpu.iters) > 1 or d_rot > 1e-4 or d_t > 1e-3 or rot > 5e-3 or terr > 5e-3:
+        _fail(f"16k pair: card and CPU runs differ (iters {res.iters} vs {res_cpu.iters}, "
+              f"rot {d_rot:.2e}, t {d_t:.2e}; GT rot {rot:.2e}, t {terr:.2e})")
+    print(f"16k block pair: iters={res.iters} on the card, {res_cpu.iters} on the CPU; "
+          f"transforms within rot {d_rot:.1e}, t {d_t:.1e}; GT rot {rot:.2e}, t {terr:.2e}; "
+          f"launches={counts}")
+
+    sources = {"nn": "icpx_torch/csrc/nn.cu", "moments6": "icpx_torch/csrc/blocknn.cu",
+               "fold6": "icpx_torch/csrc/blocknn.cu"}
+    replaces = {"nn": "icpx/kernels/knn_pallas.py:37",
+                "moments6": "icpx/kernels/blocknn_pallas.py:890",
+                "fold6": "icpx/kernels/blocknn_pallas.py:497"}
+    keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": sources[name], "replaces": replaces[name],
+         **{k: kernels[name][k] for k in keys}}
+        for name in ("nn", "moments6", "fold6")
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

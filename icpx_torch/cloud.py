@@ -25,6 +25,10 @@ PAD_MULTIPLE = 128
 # distances stay finite in fp32 (1e8**2 = 1e16 << 3.4e38).
 PAD_COORD = 1.0e8
 
+# Where the entry points put new tensors unless the caller names a device:
+# the port runs on the card, and the CPU is asked for with device="cpu".
+DEFAULT_DEVICE = torch.device("cuda", 0)
+
 
 def round_up(n: int, m: int = PAD_MULTIPLE) -> int:
     return ((n + m - 1) // m) * m
@@ -56,10 +60,14 @@ class PointCloud:
         pad_multiple: int = PAD_MULTIPLE,
         device=None,
     ) -> "PointCloud":
-        """Build a padded cloud from an (n, 3) array (numpy or tensor)."""
+        """Build a padded cloud from an (n, 3) array (numpy or tensor).
+
+        It lands on `device`; when that is None, on the tensor's own device
+        for a tensor, and on the first CUDA device otherwise (pass
+        ``device="cpu"`` for the CPU)."""
         if device is None and torch.is_tensor(xyz):
             device = xyz.device
-        device = torch.device("cpu") if device is None else torch.device(device)
+        device = DEFAULT_DEVICE if device is None else torch.device(device)
         xyz = torch.as_tensor(xyz, dtype=torch.float32, device=device)
         if xyz.ndim != 2 or xyz.shape[1] != 3:
             raise ValueError(f"xyz must be (n, 3), got {tuple(xyz.shape)}")

@@ -1,0 +1,211 @@
+// Block-NN kernels for Hopper (sm_90a): the radius moments of in-registration
+// normal estimation, and the frozen-candidate fold of every refine iteration.
+//
+//   moments6  replaces icpx/kernels/blocknn_pallas.py::_moments6_kernel
+//             (wrapper block_radius_moments_fused6);
+//   fold6     replaces icpx/kernels/blocknn_pallas.py::_fold6_kernel
+//             (wrappers fold6_prepare / block_fold_fused_pre).
+//
+// Both score each query tile (one block) against its own k candidate tiles
+// of the index, (T, S, 3) rows, listed in cand (Tq, k). The block stages the
+// k x S candidate rows in shared memory as float4; every thread of a warp
+// then reads the same row (a broadcast, no bank conflicts) while each thread
+// keeps one query and its running state in registers. Candidate tiles are
+// contiguous rows of the index, so staging reads are coalesced. The TPU
+// kernels' shapes (S-minor transposes, (Tq, k, 3, S) and (Tq, k, 8, S) prep
+// copies, the 3-term bf16 one-hot payload selection) exist for the MXU and
+// the 128-lane VMEM layout and are dropped: nothing is copied ahead of a
+// launch, and the fold copies the winning payload row straight from device
+// memory, exactly.
+//
+// Cost model. Per scored pair: 3 FSUB + 3 FMUL + 2 FADD, a compare and a
+// select (plus, for moments, 16 operations on pairs inside the radius), with
+// no memory traffic of its own: both kernels are bound by the FP32 issue
+// rate, not by bytes (the flagship moments launch scores 1M x 256 pairs and
+// moves ~70 MB; the fold scores 1M x 768 pairs and moves ~190 MB).
+//
+// Score. The direct form (q - r)^2, rounded step by step (__fmul_rn /
+// __fadd_rn forbid FMA contraction), so the plain PyTorch versions in
+// icpx_torch/kernels/blocknn_cuda.py reproduce every d2 bit for bit: the
+// radius test and the fold's winner agree exactly with them. The TPU kernels
+// score by the expansion ||r||^2 - 2 q.r (+ ||q||^2), which cancels at fp32.
+//
+// Later work (not here): more queries a thread, TMA staging, several query
+// tiles a block at small Sq.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float kValidAbs = 1.0e6f;  // a coordinate at or beyond this is a sentinel row
+constexpr float kMissD2 = 1.0e15f;   // a fold d2 at or beyond this is a miss
+
+__device__ __forceinline__ float sqdist_rn(float ax, float ay, float az,
+                                           float bx, float by, float bz) {
+  const float dx = __fsub_rn(ax, bx);
+  const float dy = __fsub_rn(ay, by);
+  const float dz = __fsub_rn(az, bz);
+  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
+}
+
+// Radius moments. out is (10, N) with N = tq * sq, one row per quantity:
+// count, mean x, y, z (de-centred), and the covariance components c00, c01,
+// c02, c11, c12, c22. Queries and candidates are centred on the query tile's
+// centroid q_cent first. A candidate row counts when it is not a sentinel
+// row and d2 <= r2; sentinel rows are staged as NaN, whose compare is false.
+__global__ void moments6_kernel(const float* __restrict__ query, const float* __restrict__ tiles,
+                                const int* __restrict__ cand, const float* __restrict__ q_cent,
+                                const float* __restrict__ r2_ptr, int sq, int s, int k,
+                                float* __restrict__ out, int64_t n) {
+  extern __shared__ float4 rows[];  // k * s centred candidate rows
+  const int tile = blockIdx.x;
+  const float cx = q_cent[3 * tile + 0];
+  const float cy = q_cent[3 * tile + 1];
+  const float cz = q_cent[3 * tile + 2];
+  const float kNaN = __int_as_float(0x7fc00000);
+  const int rows_n = k * s;
+  for (int j = threadIdx.x; j < rows_n; j += blockDim.x) {
+    const int c = j / s;
+    const int64_t row = (int64_t)cand[(int64_t)tile * k + c] * s + (j - c * s);
+    const float x = tiles[3 * row + 0], y = tiles[3 * row + 1], z = tiles[3 * row + 2];
+    float4 v = make_float4(kNaN, kNaN, kNaN, 0.f);
+    if (fabsf(x) < kValidAbs && fabsf(y) < kValidAbs && fabsf(z) < kValidAbs) {
+      v.x = __fsub_rn(x, cx);
+      v.y = __fsub_rn(y, cy);
+      v.z = __fsub_rn(z, cz);
+    }
+    rows[j] = v;
+  }
+  __syncthreads();
+  const float r2 = *r2_ptr;
+  for (int qi = threadIdx.x; qi < sq; qi += blockDim.x) {
+    const int64_t q = (int64_t)tile * sq + qi;
+    const float qx = __fsub_rn(query[3 * q + 0], cx);
+    const float qy = __fsub_rn(query[3 * q + 1], cy);
+    const float qz = __fsub_rn(query[3 * q + 2], cz);
+    float cnt = 0.f, sx = 0.f, sy = 0.f, sz = 0.f;
+    float sxx = 0.f, syy = 0.f, szz = 0.f, sxy = 0.f, sxz = 0.f, syz = 0.f;
+    for (int j = 0; j < rows_n; ++j) {
+      const float4 r = rows[j];
+      if (sqdist_rn(qx, qy, qz, r.x, r.y, r.z) <= r2) {
+        cnt += 1.f;
+        sx += r.x;
+        sy += r.y;
+        sz += r.z;
+        sxx += r.x * r.x;
+        syy += r.y * r.y;
+        szz += r.z * r.z;
+        sxy += r.x * r.y;
+        sxz += r.x * r.z;
+        syz += r.y * r.z;
+      }
+    }
+    const float safe = fmaxf(cnt, 1.f);
+    const float mx = __fdiv_rn(sx, safe), my = __fdiv_rn(sy, safe), mz = __fdiv_rn(sz, safe);
+    out[0 * n + q] = cnt;
+    out[1 * n + q] = __fadd_rn(mx, cx);
+    out[2 * n + q] = __fadd_rn(my, cy);
+    out[3 * n + q] = __fadd_rn(mz, cz);
+    out[4 * n + q] = __fsub_rn(__fdiv_rn(sxx, safe), __fmul_rn(mx, mx));
+    out[5 * n + q] = __fsub_rn(__fdiv_rn(sxy, safe), __fmul_rn(mx, my));
+    out[6 * n + q] = __fsub_rn(__fdiv_rn(sxz, safe), __fmul_rn(mx, mz));
+    out[7 * n + q] = __fsub_rn(__fdiv_rn(syy, safe), __fmul_rn(my, my));
+    out[8 * n + q] = __fsub_rn(__fdiv_rn(syz, safe), __fmul_rn(my, mz));
+    out[9 * n + q] = __fsub_rn(__fdiv_rn(szz, safe), __fmul_rn(mz, mz));
+  }
+}
+
+// Frozen-candidate fold: for each query the nearest of its tile's k x S
+// candidate rows, its d2 (+inf from kMissD2 on), and that row's payload
+// (T * S, d) copied exactly. Rows are staged lane-major, candidate-minor
+// (rows[lane * k + c]) and scanned in that order with a strict '<', which is
+// the TPU kernel's tie rule: least d2, then lowest lane, then earliest
+// candidate. Sentinel rows keep their coordinates: a query whose candidates
+// are all sentinel lands on the first sentinel row (d2 ~1e16, so +inf) and
+// gets that row's payload.
+__global__ void fold6_kernel(const float* __restrict__ query, const float* __restrict__ tiles,
+                             const int* __restrict__ cand, const float* __restrict__ payload,
+                             int sq, int s, int k, int d, float* __restrict__ out_d,
+                             float* __restrict__ out_pl) {
+  extern __shared__ float4 rows[];  // s * k candidate rows
+  const int tile = blockIdx.x;
+  const int rows_n = k * s;
+  for (int j = threadIdx.x; j < rows_n; j += blockDim.x) {
+    const int c = j / s, lane = j - c * s;
+    const int64_t row = (int64_t)cand[(int64_t)tile * k + c] * s + lane;
+    rows[lane * k + c] = make_float4(tiles[3 * row + 0], tiles[3 * row + 1], tiles[3 * row + 2], 0.f);
+  }
+  __syncthreads();
+  for (int qi = threadIdx.x; qi < sq; qi += blockDim.x) {
+    const int64_t q = (int64_t)tile * sq + qi;
+    const float qx = query[3 * q + 0], qy = query[3 * q + 1], qz = query[3 * q + 2];
+    float best = __int_as_float(0x7f800000);
+    int best_j = 0;
+#pragma unroll 6
+    for (int j = 0; j < rows_n; ++j) {
+      const float4 r = rows[j];
+      const float d2 = sqdist_rn(qx, qy, qz, r.x, r.y, r.z);
+      if (d2 < best) {  // strict: the first row in scan order keeps a tie
+        best = d2;
+        best_j = j;
+      }
+    }
+    const int lane = best_j / k, c = best_j - lane * k;
+    const int64_t pos = (int64_t)cand[(int64_t)tile * k + c] * s + lane;
+    out_d[q] = best < kMissD2 ? best : __int_as_float(0x7f800000);
+    for (int f = 0; f < d; ++f) out_pl[q * d + f] = payload[pos * d + f];
+  }
+}
+
+int threads_for(int sq) {
+  const int t = ((sq + 31) / 32) * 32;
+  return t < 32 ? 32 : (t > 256 ? 256 : t);
+}
+
+}  // namespace
+
+extern "C" {
+
+// query (tq, sq, 3), tiles (t, s, 3), q_cent (tq, 3) and r2 (1,) f32; cand
+// (tq, k) i32; out (10, tq * sq) f32. All contiguous, on `device`. Launches on
+// `stream`, does not synchronise, and returns cudaGetLastError().
+int icpx_moments6_forward(const void* query, const void* tiles, const void* cand,
+                          const void* q_cent, const void* r2, int tq, int sq, int s, int k,
+                          void* out, int device, void* stream) {
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  if (tq > 0 && sq > 0) {
+    const size_t smem = sizeof(float4) * (size_t)k * s;
+    moments6_kernel<<<tq, threads_for(sq), smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(query), static_cast<const float*>(tiles),
+        static_cast<const int*>(cand), static_cast<const float*>(q_cent),
+        static_cast<const float*>(r2), sq, s, k, static_cast<float*>(out),
+        (int64_t)tq * sq);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// query (tq, sq, 3) and tiles (t, s, 3) f32; cand (tq, k) i32; payload
+// (t * s, d) f32; outputs d2 (tq * sq,) and payload rows (tq * sq, d) f32.
+// All contiguous, on `device`. Same launch contract as above.
+int icpx_fold6_forward(const void* query, const void* tiles, const void* cand,
+                       const void* payload, int tq, int sq, int s, int k, int d,
+                       void* out_d, void* out_pl, int device, void* stream) {
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  if (tq > 0 && sq > 0) {
+    const size_t smem = sizeof(float4) * (size_t)k * s;
+    fold6_kernel<<<tq, threads_for(sq), smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(query), static_cast<const float*>(tiles),
+        static_cast<const int*>(cand), static_cast<const float*>(payload), sq, s, k, d,
+        static_cast<float*>(out_d), static_cast<float*>(out_pl));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+const char* icpx_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

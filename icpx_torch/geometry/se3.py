@@ -15,6 +15,8 @@ from dataclasses import dataclass
 
 import torch
 
+from icpx_torch.cloud import DEFAULT_DEVICE
+
 _EPS = 1e-9
 # Tiny bias inside sqrt so norms stay smooth at 0 (primal error 1e-12).
 _NORM_TINY = 1e-24
@@ -42,7 +44,7 @@ class SE3:
     # ---- constructors ------------------------------------------------------
 
     @classmethod
-    def identity(cls, batch_shape=(), dtype=torch.float32, device=None) -> "SE3":
+    def identity(cls, batch_shape=(), dtype=torch.float32, device=DEFAULT_DEVICE) -> "SE3":
         R = torch.eye(3, dtype=dtype, device=device).expand(*batch_shape, 3, 3)
         t = torch.zeros((*batch_shape, 3), dtype=dtype, device=device)
         return cls(R=R.clone(), t=t)

@@ -10,7 +10,7 @@ import math
 
 import torch
 
-from icpx_torch.cloud import PointCloud
+from icpx_torch.cloud import DEFAULT_DEVICE, PointCloud
 from icpx_torch.geometry.se3 import SE3
 
 
@@ -37,10 +37,11 @@ def make_rigid_perturbation(
     angle: float = math.pi / 4,
     translation=(2.5, 0.0, 0.0),
     *,
-    device=None,
+    device=DEFAULT_DEVICE,
 ) -> SE3:
     """The demo ground-truth family; defaults are Rz(pi/4) then (2.5, 0, 0),
-    the transform that produced the reference's `cat_out.pcd`."""
+    the transform that produced the reference's `cat_out.pcd`. On `device`
+    (default the first CUDA device)."""
     axis = torch.as_tensor(axis, dtype=torch.float32, device=device)
     axis = axis / torch.linalg.vector_norm(axis)
     return SE3.from_axis_angle(

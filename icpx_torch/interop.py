@@ -14,12 +14,15 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from icpx_torch.cloud import PointCloud
+from icpx_torch.cloud import DEFAULT_DEVICE, PointCloud
 from icpx_torch.geometry.se3 import SE3
+from icpx_torch.kernels.blocknn import TileIndex
 from icpx_torch.registration.icp import ICPConfig, ICPResult
 
+_INDEX_FIELDS = ("tiles", "box_lo", "box_hi", "centroids", "order")
 
-def cloud_from_numpy(xyz, mask, normals=None, *, device="cpu") -> PointCloud:
+
+def cloud_from_numpy(xyz, mask, normals=None, *, device=DEFAULT_DEVICE) -> PointCloud:
     """A cloud from padded arrays, taken as they are (no re-padding)."""
     xyz = torch.tensor(np.asarray(xyz, dtype=np.float32), device=device)
     mask = torch.tensor(np.asarray(mask, dtype=bool), device=device)
@@ -34,11 +37,25 @@ def cloud_from_numpy(xyz, mask, normals=None, *, device="cpu") -> PointCloud:
     return PointCloud(xyz=xyz, mask=mask, normals=nrm)
 
 
-def se3_from_numpy(R, t, *, device="cpu") -> SE3:
+def se3_from_numpy(R, t, *, device=DEFAULT_DEVICE) -> SE3:
     return SE3(
         R=torch.tensor(np.asarray(R, dtype=np.float32), device=device),
         t=torch.tensor(np.asarray(t, dtype=np.float32), device=device),
     )
+
+
+def tile_index_from_numpy(index, *, device=DEFAULT_DEVICE) -> TileIndex:
+    """A port TileIndex from any object with the JAX `TileIndex` fields
+    (`tiles`, `box_lo`, `box_hi`, `centroids`, `order`), taken as they are."""
+    arrays = {f: np.asarray(getattr(index, f)) for f in _INDEX_FIELDS}
+    out = {f: torch.tensor(a.astype(np.float32 if f != "order" else np.int32), device=device)
+           for f, a in arrays.items()}
+    return TileIndex(**out)
+
+
+def tile_index_to_numpy(index: TileIndex) -> Dict[str, np.ndarray]:
+    """Every field of a port TileIndex as host numpy."""
+    return {f: getattr(index, f).detach().cpu().numpy() for f in _INDEX_FIELDS}
 
 
 def config_from_dict(d: Dict[str, Any]) -> ICPConfig:

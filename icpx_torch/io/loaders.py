@@ -15,7 +15,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from icpx_torch.cloud import PointCloud
+from icpx_torch.cloud import DEFAULT_DEVICE, PointCloud
 from icpx_torch.io.pcd import read_pcd, write_pcd
 
 _NOT_PORTED = (".ply", ".txt", ".xyz", ".bin")
@@ -27,8 +27,9 @@ def _not_ported(ext: str) -> NotImplementedError:
     )
 
 
-def load_cloud(path, *, capacity: Optional[int] = None, device=None) -> PointCloud:
-    """Load a cloud from a ``.pcd`` file onto `device` (default CPU)."""
+def load_cloud(path, *, capacity: Optional[int] = None, device=DEFAULT_DEVICE) -> PointCloud:
+    """Load a cloud from a ``.pcd`` file onto `device` (default the first
+    CUDA device; pass ``device="cpu"`` for the CPU)."""
     path = Path(path)
     if not path.exists():
         raise FileNotFoundError(f"cloud file not found: {path}")
@@ -78,9 +79,10 @@ def has_reference_data() -> bool:
 
 
 def load_cat_pair(
-    capacity: Optional[int] = None, *, device=None
+    capacity: Optional[int] = None, *, device=DEFAULT_DEVICE
 ) -> Tuple[PointCloud, PointCloud]:
-    """The reference demo pair cat.pcd / cat_out.pcd (GT = Rz(pi/4)+(2.5,0,0)).
+    """The reference demo pair cat.pcd / cat_out.pcd (GT = Rz(pi/4)+(2.5,0,0)),
+    on `device` (default the first CUDA device).
 
     Falls back to a synthetic cat-scale cloud and the same GT transform
     when the fixtures are unavailable.

@@ -1,0 +1,516 @@
+"""Block-sparse (IVF-style) nearest neighbour: the large-cloud NN path.
+
+Mirrors `icpx/kernels/blocknn.py`. A reference cloud is cut once into T
+spatially compact tiles of S points (`build_kd_index`: a Morton pre-sort
+into segments, then median cuts along each segment's widest axis); a
+spatially sorted query tile is scored only against its K nearest tiles by
+AABB gap plus centroid distance (`_candidate_tiles`), so an NN query costs
+Nq * K * S pairs instead of Nq * Nr. A query's true NN is found iff its
+tile's candidates hold the NN's tile; a miss returns a genuine but larger
+distance.
+
+Everything here is plain PyTorch on every device, as it is XLA in the
+reference. The two hand-written kernels of this path (the frozen-candidate
+fold and the radius moments) live in `blocknn_cuda.py`. Differences from
+the reference, none of which changes a result:
+
+* sorts are `torch.sort(..., stable=True)` plus a row gather in place of
+  the multi-operand `lax.sort` (the same permutation);
+* top-k ranking sorts one int64 key per entry (the score's fp32 bit
+  pattern over the entry's index), so ties go to the lower index as in
+  `lax.top_k`; `torch.topk` alone promises no tie order;
+* chunking over query tiles is a Python loop instead of `lax.map` over
+  sentinel-padded chunks;
+* the feature-augmented metric (`query_feat`) is not ported yet and raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from icpx_torch.cloud import PAD_COORD
+
+
+@dataclasses.dataclass(frozen=True)
+class TileIndex:
+    """Spatially sorted, fixed-tile partition of a reference cloud."""
+
+    tiles: torch.Tensor  # (T, S, 3) sorted coords, PAD_COORD padding
+    box_lo: torch.Tensor  # (T, 3) per-tile AABB (sentinel-free)
+    box_hi: torch.Tensor  # (T, 3)
+    centroids: torch.Tensor  # (T, 3) masked tile centroids
+    order: torch.Tensor  # (T*S,) int32 sorted position -> original index, -1 pad
+
+    @property
+    def n_tiles(self) -> int:
+        return self.tiles.shape[0]
+
+    @property
+    def tile_size(self) -> int:
+        return self.tiles.shape[1]
+
+
+# Build constants, as in the reference (see its comments for the chip A/Bs
+# behind them): Morton segments handed to the median phase hold at most
+# _KD_SEG points; 4-way fan-out while a node has >= _FAN4_MIN tiles below it
+# (16 for builds under _FAN4_DEEP tiles), 2-way for the last levels.
+_KD_SEG = 65536
+_FAN4_MIN = 8
+_FAN4_DEEP = 8192
+
+# Candidate ranking goes hierarchical from _HIER_MIN_TILES reference tiles:
+# rank super-tiles of _SUPER_G adjacent tiles (KD subtrees) first, then only
+# the children of the best _SUPER_K.
+_SUPER_G = 64
+_SUPER_K = 4
+_HIER_MIN_TILES = 8192
+
+_VALID_ABS = 1.0e6  # coordinates at or beyond this are sentinel rows
+
+
+def _part1by2(x: torch.Tensor) -> torch.Tensor:
+    """Spread 10 bits to every 3rd bit (Morton interleave helper)."""
+    x = x & 0x3FF
+    x = (x | (x << 16)) & 0x30000FF
+    x = (x | (x << 8)) & 0x300F00F
+    x = (x | (x << 4)) & 0x30C30C3
+    x = (x | (x << 2)) & 0x9249249
+    return x
+
+
+def morton_keys(xyz: torch.Tensor, lo: torch.Tensor, inv_extent: torch.Tensor) -> torch.Tensor:
+    """(N, 3) -> (N,) int32 30-bit Morton codes over the given bounding box."""
+    u = torch.clamp((xyz - lo) * inv_extent, 0.0, 1.0 - 1e-7)
+    q = (u * 1024.0).to(torch.int32)
+    return _part1by2(q[..., 0]) | (_part1by2(q[..., 1]) << 1) | (_part1by2(q[..., 2]) << 2)
+
+
+def _bounds(pts: torch.Tensor, valid: torch.Tensor, dim: int):
+    """(lo, hi) of valid rows along `dim`; (PAD, -PAD) where none is valid."""
+    v = valid[..., None]
+    lo = torch.where(v, pts, PAD_COORD).amin(dim)
+    hi = torch.where(v, pts, -PAD_COORD).amax(dim)
+    return lo, hi
+
+
+def _finish_index(tiles: torch.Tensor, order: torch.Tensor) -> TileIndex:
+    """Per-tile boxes and centroids of (T, S, 3) tiles whose rows with
+    order < 0 are padding."""
+    t, s, _ = tiles.shape
+    tvalid = (order >= 0).reshape(t, s)
+    box_lo, box_hi = _bounds(tiles, tvalid, 1)
+    n_valid = tvalid.sum(1, keepdim=True)
+    centroids = torch.where(tvalid[..., None], tiles, 0.0).sum(1) / n_valid.clamp(min=1)
+    # empty tiles get a sentinel centroid so they never rank as candidates
+    centroids = torch.where(n_valid > 0, centroids, PAD_COORD)
+    return TileIndex(tiles=tiles, box_lo=box_lo, box_hi=box_hi,
+                     centroids=centroids, order=order)
+
+
+def _full_mask(xyz: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    if mask is None:
+        return torch.ones((xyz.shape[0],), dtype=torch.bool, device=xyz.device)
+    return mask
+
+
+def build_tile_index(xyz: torch.Tensor, mask: Optional[torch.Tensor] = None, *,
+                     tile_size: int = 256) -> TileIndex:
+    """Morton-sort (N, 3) points into (T, S, 3) tiles."""
+    n = xyz.shape[0]
+    mask = _full_mask(xyz, mask)
+    s = tile_size
+    t = -(-n // s)
+    pad = t * s - n
+    lo, hi = _bounds(xyz, mask, 0)
+    inv_extent = 1.0 / torch.clamp(hi - lo, min=1e-6)
+    keys = torch.where(mask, morton_keys(xyz, lo, inv_extent), 2**30)  # pads sort last
+    order = torch.sort(keys, stable=True).indices
+    ok = mask[order]
+    sorted_xyz = torch.where(ok[:, None], xyz[order], PAD_COORD)
+    order = torch.where(ok, order, -1).to(torch.int32)
+    if pad:
+        dev = xyz.device
+        sorted_xyz = torch.cat([sorted_xyz, torch.full((pad, 3), PAD_COORD, device=dev)])
+        order = torch.cat([order, torch.full((pad,), -1, dtype=torch.int32, device=dev)])
+    return _finish_index(sorted_xyz.reshape(t, s, 3), order)
+
+
+def _kd_tile_count(n: int, s: int) -> Tuple[int, int]:
+    """(q0, t2): the padded tile count t2 = q0 * 2^k of a KD build. From
+    4,096 tiles t rounds up to q0 * 2^k with 64 <= q0 <= 127 (padding under
+    ~1.6%); smaller builds round to a power of two."""
+    t = max(1, -(-n // s))
+    if t >= 4096:
+        k = t.bit_length() - 7
+        q0 = -(-t // (1 << k))
+        return q0, q0 << k
+    return 1, 1 << (t - 1).bit_length()
+
+
+def build_kd_index(xyz: torch.Tensor, mask: Optional[torch.Tensor] = None, *,
+                   tile_size: int = 256) -> TileIndex:
+    """Median-cut (KD-split) partition into compact, balanced tiles.
+
+    One global Morton sort cuts the cloud into segments of at most
+    `_KD_SEG` points, then each level sorts every segment by its widest
+    axis (stable) and splits it 4 or 2 ways at equal counts. Invalid rows
+    carry sentinel keys and sink to each segment's tail, ending as tile
+    padding; valid rows stay a global prefix (see `trim_index`).
+    """
+    n = xyz.shape[0]
+    dev = xyz.device
+    mask = _full_mask(xyz, mask)
+    s = tile_size
+    q0, t2 = _kd_tile_count(n, s)
+    total = t2 * s
+    pad = total - n
+
+    pts = xyz.to(torch.float32)
+    orig = torch.where(mask, torch.arange(n, dtype=torch.int32, device=dev), -1)
+    if pad:
+        pts = torch.cat([pts, torch.full((pad, 3), PAD_COORD, device=dev)])
+        orig = torch.cat([orig, torch.full((pad,), -1, dtype=torch.int32, device=dev)])
+
+    def sort_segments(key: torch.Tensor, c: int):
+        """Reorder (pts, orig) within each of c segments by key, stably."""
+        perm = torch.sort(key.reshape(c, -1), dim=1, stable=True).indices
+        p = torch.take_along_dim(pts.reshape(c, -1, 3), perm[..., None], dim=1)
+        o = torch.take_along_dim(orig.reshape(c, -1), perm, dim=1)
+        return p.reshape(total, 3), o.reshape(total)
+
+    c0 = q0
+    while total // c0 > _KD_SEG and c0 < t2:
+        c0 *= 2
+
+    if c0 > 1:
+        valid = orig >= 0
+        lo, hi = _bounds(pts, valid, 0)
+        inv_extent = 1.0 / torch.clamp(hi - lo, min=1e-6)
+        mkeys = torch.where(valid, morton_keys(pts, lo, inv_extent), 2**30)
+        pts, orig = sort_segments(mkeys, 1)
+
+    c = c0
+    min4 = _FAN4_MIN if t2 >= _FAN4_DEEP else 16
+    while c < t2:
+        fan = 4 if t2 // c >= min4 else 2
+        m = total // c
+        seg = pts.reshape(c, m, 3)
+        v = (orig >= 0).reshape(c, m)
+        lo, hi = _bounds(seg, v, 1)
+        widest = torch.argmax(hi - lo, dim=1)  # (c,): first axis among ties
+        vals = torch.take_along_dim(seg, widest[:, None, None], dim=2)[..., 0]
+        pts, orig = sort_segments(torch.where(v, vals, PAD_COORD), c)
+        c *= fan
+
+    valid = orig >= 0
+    tiles = torch.where(valid[:, None], pts, PAD_COORD).reshape(t2, s, 3)
+    return _finish_index(tiles, orig)
+
+
+def trim_index(index: TileIndex, capacity: int, multiple: int = 1) -> TileIndex:
+    """View of the leading tiles that can hold valid rows (both builders keep
+    valid rows in a global prefix), rounded up to a multiple of `multiple`
+    tiles: hierarchical ranking wants T % 64 == 0, the coarse phase
+    Tq % 4 == 0."""
+    t, s, _ = index.tiles.shape
+    keep = min(t, -(-capacity // s))
+    keep = min(t, -(-keep // multiple) * multiple)
+    if keep == t:
+        return index
+    return TileIndex(
+        tiles=index.tiles[:keep],
+        box_lo=index.box_lo[:keep],
+        box_hi=index.box_hi[:keep],
+        centroids=index.centroids[:keep],
+        order=index.order[: keep * s],
+    )
+
+
+def coarsen_index(index: TileIndex, factor: int) -> TileIndex:
+    """Merge `factor` adjacent tiles into one (T/factor, S*factor, 3) index
+    over the same flat point order (adjacent KD tiles are siblings)."""
+    t, s, _ = index.tiles.shape
+    if t % factor:
+        raise ValueError(f"tile count {t} not divisible by {factor}")
+    return _finish_index(index.tiles.reshape(t // factor, s * factor, 3), index.order)
+
+
+# ---- candidate ranking -------------------------------------------------------
+
+
+def _smallest_k(score: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the k smallest entries along the last dim, ascending, ties
+    to the lower index (`lax.top_k(-score, k)[1]`). Scores must be finite
+    and >= 0, so their fp32 bit patterns order like the values."""
+    idx = torch.arange(score.shape[-1], device=score.device)
+    key = (score.contiguous().view(torch.int32).to(torch.int64) << 32) | idx
+    return (torch.topk(key, k, dim=-1, largest=False).values & 0xFFFFFFFF).to(torch.int64)
+
+
+def _box_sqdist(lo_a, hi_a, lo_b, hi_b) -> torch.Tensor:
+    """Pairwise squared distance between AABBs (..., A, 3) x (..., B, 3)
+    -> (..., A, B); zero where boxes overlap."""
+    gap = torch.maximum(
+        lo_b[..., None, :, :] - hi_a[..., :, None, :],
+        lo_a[..., :, None, :] - hi_b[..., None, :, :],
+    )
+    gap = torch.clamp(gap, min=0.0)
+    return (gap * gap).sum(-1)
+
+
+def _query_boxes(query_tiles: torch.Tensor):
+    """(lo, hi, centroid) of each query tile's valid rows, (Tq, 3) each."""
+    qv = query_tiles.abs().amax(2) < _VALID_ABS  # (Tq, Sq)
+    q_lo, q_hi = _bounds(query_tiles, qv, 1)
+    nvalid = qv.sum(1, keepdim=True).to(torch.float32).clamp(min=1.0)
+    q_cent = torch.where(qv[..., None], query_tiles, 0.0).sum(1) / nvalid
+    return q_lo, q_hi, q_cent
+
+
+def _rank_boxes(q_lo, q_hi, q_cent, box_lo, box_hi, cent, k) -> torch.Tensor:
+    """Top-k reference boxes per query box by gap distance, centroid
+    distance breaking the zero-gap ties of overlapping boxes."""
+    box_d = _box_sqdist(q_lo, q_hi, box_lo, box_hi)
+    cent_d = (q_cent * q_cent).sum(1, keepdim=True) + (cent * cent).sum(1)[None, :] \
+        - 2.0 * (q_cent @ cent.T)
+    cd = 100.0 * box_d + torch.clamp(cent_d, min=0.0)
+    return _smallest_k(cd, k)
+
+
+def _rank_pool(q_lo, q_hi, q_cent, index: TileIndex, sup, g, k) -> torch.Tensor:
+    """Top-k child tiles from each query's selected super-tiles; children of
+    super-tile s are the id block [s*g, (s+1)*g)."""
+    tq, k_s = sup.shape
+    ts = index.n_tiles // g
+    box_d = torch.zeros((tq, k_s, g), dtype=torch.float32, device=sup.device)
+    cent_d = torch.zeros_like(box_d)
+    for a in range(3):
+        lo_a = index.box_lo[:, a].reshape(ts, g)[sup]
+        hi_a = index.box_hi[:, a].reshape(ts, g)[sup]
+        ct_a = index.centroids[:, a].reshape(ts, g)[sup]
+        qa_lo = q_lo[:, a][:, None, None]
+        qa_hi = q_hi[:, a][:, None, None]
+        gap = torch.clamp(torch.maximum(lo_a - qa_hi, qa_lo - hi_a), min=0.0)
+        box_d = box_d + gap * gap
+        dc = ct_a - q_cent[:, a][:, None, None]
+        cent_d = cent_d + dc * dc
+    cd = (100.0 * box_d + cent_d).reshape(tq, k_s * g)
+    child = (sup[:, :, None] * g + torch.arange(g, device=sup.device)).reshape(tq, k_s * g)
+    return torch.take_along_dim(child, _smallest_k(cd, k), dim=1)
+
+
+def _candidate_tiles(query_tiles: torch.Tensor, index: TileIndex,
+                     k_tiles: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Candidate reference tiles per query tile: (cand (Tq, K) int64 tile
+    ids, best first; query-tile centroids (Tq, 3)). K is clamped to the
+    number of reference tiles. From `_HIER_MIN_TILES` tiles (and T % _SUPER_G
+    == 0) the ranking is two-level."""
+    q_lo, q_hi, q_cent = _query_boxes(query_tiles)
+    t = index.n_tiles
+    g = _SUPER_G
+    if t >= _HIER_MIN_TILES and t % g == 0:
+        ts = t // g
+        s_lo = index.box_lo.reshape(ts, g, 3).amin(1)
+        s_hi = index.box_hi.reshape(ts, g, 3).amax(1)
+        # super centroid: mean of the non-empty children's centroids (an
+        # all-empty super-tile gets 0, its inverted box keeps it unranked)
+        cg = index.centroids.reshape(ts, g, 3)
+        c_ok = (cg.abs().amax(2) < _VALID_ABS)[..., None]
+        s_cent = torch.where(c_ok, cg, 0.0).sum(1) / c_ok.sum(1).to(torch.float32).clamp(min=1.0)
+        k_s = min(_SUPER_K, ts)
+        sup = _rank_boxes(q_lo, q_hi, q_cent, s_lo, s_hi, s_cent, k_s)
+        cand = _rank_pool(q_lo, q_hi, q_cent, index, sup, g, min(k_tiles, k_s * g))
+        return cand, q_cent
+    cand = _rank_boxes(q_lo, q_hi, q_cent, index.box_lo, index.box_hi, index.centroids,
+                       min(k_tiles, t))
+    return cand, q_cent
+
+
+# ---- the plain fold ----------------------------------------------------------
+
+
+def _bf16_values(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _matmul(a: torch.Tensor, b: torch.Tensor, prec: str) -> torch.Tensor:
+    """Batched a @ b at the reference's matmul precision: "highest" = fp32
+    (TF32 stays off); "bf16" = one pass on bf16-rounded inputs with fp32
+    accumulation; "high" = the three-pass bf16 split (hi*hi + hi*lo +
+    lo*hi). Rounded inputs are multiplied in fp32, where the product of two
+    bf16 values is exact, as on the TPU's matrix unit."""
+    if prec == "highest":
+        return torch.bmm(a, b)
+    a_hi, b_hi = _bf16_values(a), _bf16_values(b)
+    if prec == "bf16":
+        return torch.bmm(a_hi, b_hi)
+    if prec != "high":
+        raise ValueError(f"unknown precision {prec!r}")
+    a_lo, b_lo = _bf16_values(a - a_hi), _bf16_values(b - b_hi)
+    return torch.bmm(a_hi, b_hi) + torch.bmm(a_hi, b_lo) + torch.bmm(a_lo, b_hi)
+
+
+def _score_einsum(q4: torch.Tensor, r4: torch.Tensor, prec: str) -> torch.Tensor:
+    """The fold's (Tq, Sq, C) x (Tq, S, C) -> (Tq, Sq, S) score product."""
+    return _matmul(q4, r4.transpose(1, 2), prec)
+
+
+def _chunk_size(tq: int, max_chunk: int) -> int:
+    """Query tiles per chunk: an exact divisor of tq in [max_chunk/2,
+    max_chunk] where one exists (no ragged last chunk), else max_chunk."""
+    if tq <= max_chunk:
+        return tq
+    for c in range(max_chunk, max_chunk // 2 - 1, -1):
+        if tq % c == 0:
+            return c
+    return max_chunk
+
+
+def block_nn(
+    query_tiles: torch.Tensor,
+    index: TileIndex,
+    *,
+    k_tiles: int = 8,
+    max_chunk: int = 32768,
+    return_pos: bool = False,
+    cand_tiles: Optional[torch.Tensor] = None,
+    query_feat: Optional[torch.Tensor] = None,
+    score_prec: str = "highest",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """NN of spatially coherent query tiles (Tq, Sq, 3) into the index.
+
+    Returns (sqdist (Tq*Sq,), original ref index (Tq*Sq,) int32), or with
+    `return_pos` the sorted flat position into `index.tiles.reshape(-1, 3)`
+    (pad matches, >= ~1e15 from the sentinel, get d = inf). `cand_tiles`
+    (Tq, K) overrides candidate selection (frozen refine candidates). The
+    score is the reference's expansion ||r||^2 - 2 q.r from augmented
+    coordinates, at `score_prec` (bf16 on query-tile-centred coordinates).
+    Ties go to the earliest candidate, then the lowest lane. Above
+    `max_chunk` query tiles the work runs in chunks so the (chunk, Sq, S)
+    score stays bounded.
+    """
+    if query_feat is not None:
+        raise NotImplementedError(
+            "feature-augmented block NN (query_feat / feat_nn) is not ported yet "
+            "(ROADMAP queue 1 step 6)"
+        )
+    tq, sq, _ = query_tiles.shape
+    if tq > max_chunk:
+        chunk = _chunk_size(tq, max_chunk)
+        parts = [
+            block_nn(query_tiles[t0:t0 + chunk], index, k_tiles=k_tiles,
+                     max_chunk=max_chunk, return_pos=return_pos,
+                     cand_tiles=None if cand_tiles is None else cand_tiles[t0:t0 + chunk],
+                     score_prec=score_prec)
+            for t0 in range(0, tq, chunk)
+        ]
+        return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+    s = index.tile_size
+    if cand_tiles is None:
+        cand_tiles, _ = _candidate_tiles(query_tiles, index, k_tiles)
+    cand_tiles = cand_tiles.to(torch.int64)
+
+    qc = _query_boxes(query_tiles)[2] if score_prec == "bf16" else None  # tile centroid
+    q_cen = query_tiles - qc[:, None, :] if qc is not None else query_tiles
+    ones = torch.ones((tq, sq, 1), dtype=torch.float32, device=query_tiles.device)
+    q4 = torch.cat([-2.0 * q_cen, ones], dim=2)
+
+    best_s = torch.full((tq, sq), float("inf"), device=query_tiles.device)
+    best_p = torch.zeros((tq, sq), dtype=torch.int64, device=query_tiles.device)
+    for kk in range(cand_tiles.shape[1]):
+        tid = cand_tiles[:, kk]
+        r = index.tiles[tid]  # (Tq, S, 3) contiguous-row gather
+        if qc is not None:
+            r = r - qc[:, None, :]
+        r4 = torch.cat([r, (r * r).sum(2, keepdim=True)], dim=2)
+        smin, sarg = _score_einsum(q4, r4, score_prec).min(dim=2)  # first lane among ties
+        better = smin < best_s
+        best_s = torch.where(better, smin, best_s)
+        best_p = torch.where(better, tid[:, None] * s + sarg, best_p)
+
+    qq = (q_cen * q_cen).sum(2)
+    d = torch.clamp(best_s + qq, min=0.0).reshape(-1)
+    best_p = best_p.reshape(-1)
+    if return_pos:
+        return torch.where(d < 1e15, d, float("inf")), best_p.to(torch.int32)
+    ridx = index.order[best_p]
+    return torch.where(ridx >= 0, d, float("inf")), torch.clamp(ridx, min=0)
+
+
+def tile_payload(index: TileIndex, payload: torch.Tensor) -> torch.Tensor:
+    """Per-point payload (N, D) in original order -> the index's (T, S, D)
+    sorted-tile layout (zeros on padding)."""
+    order = index.order.to(torch.int64)
+    ok = order >= 0
+    flat = torch.where(ok[:, None], payload[torch.clamp(order, min=0)], 0.0)
+    return flat.reshape(index.n_tiles, index.tile_size, payload.shape[1])
+
+
+def fused_payload_table(index: TileIndex, aux: torch.Tensor) -> torch.Tensor:
+    """The fused (T*S, 3+D) `[xyz || aux]` table in sorted tile order: the
+    rows that `block_nn(..., return_pos=True)` positions index into."""
+    return torch.cat([index.tiles.reshape(-1, 3),
+                      tile_payload(index, aux).reshape(-1, aux.shape[1])], dim=1)
+
+
+def block_radius_moments(
+    query_tiles: torch.Tensor,
+    index: TileIndex,
+    radius,
+    *,
+    k_tiles: int = 8,
+    max_chunk: int = 8192,
+    prec: str = "highest",
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Neighbourhood moments within `radius` of each query: the reference's
+    XLA moments path (`moments_mode="xla"`).
+
+    Over every candidate-tile point within `radius` it accumulates count,
+    sum(x) and sum(x x^T), with coordinates centred on the query-tile
+    centroid first so the E[xx] - E[x]E[x] subtraction is safe in fp32.
+    The radius test uses the reference's expansion score. Returns (count
+    (N,), mean (N, 3), cov (N, 3, 3)) in sorted-query order, N = Tq*Sq.
+    """
+    tq, sq, _ = query_tiles.shape
+    if tq > max_chunk:
+        chunk = _chunk_size(tq, max_chunk)
+        parts = [block_radius_moments(query_tiles[t0:t0 + chunk], index, radius,
+                                      k_tiles=k_tiles, max_chunk=max_chunk, prec=prec)
+                 for t0 in range(0, tq, chunk)]
+        return tuple(torch.cat([p[i] for p in parts]) for i in range(3))
+    cand_tiles, q_cent = _candidate_tiles(query_tiles, index, k_tiles)
+    r2 = torch.as_tensor(radius, dtype=torch.float32, device=query_tiles.device) ** 2
+
+    qc = query_tiles - q_cent[:, None, :]
+    ones = torch.ones((tq, sq, 1), dtype=torch.float32, device=query_tiles.device)
+    q4 = torch.cat([-2.0 * qc, ones], dim=2)
+    qq = (qc * qc).sum(2)
+    m_prec = "high" if prec == "bf16" else prec
+
+    moments = torch.zeros((tq, sq, 10), dtype=torch.float32, device=query_tiles.device)
+    for kk in range(cand_tiles.shape[1]):
+        r = index.tiles[cand_tiles[:, kk]] - q_cent[:, None, :]  # (Tq, S, 3) centred
+        rvalid = r.abs().amax(2) < _VALID_ABS
+        r4 = torch.cat([r, (r * r).sum(2, keepdim=True)], dim=2)
+        d = _score_einsum(q4, r4, prec) + qq[..., None]
+        w = ((d <= r2) & rvalid[:, None, :]).to(torch.float32)
+        x, y, z = r[..., 0], r[..., 1], r[..., 2]
+        feat = torch.stack([torch.ones_like(x), x, y, z, x * x, y * y, z * z,
+                            x * y, x * z, y * z], dim=2)  # (Tq, S, 10)
+        moments = moments + _matmul(w, feat, m_prec)
+
+    m = moments.reshape(tq * sq, 10)
+    cnt = m[:, 0]
+    safe = torch.clamp(cnt, min=1.0)[:, None]
+    mean_c = m[:, 1:4] / safe
+    exx = torch.stack([
+        torch.stack([m[:, 4], m[:, 7], m[:, 8]], dim=1),
+        torch.stack([m[:, 7], m[:, 5], m[:, 9]], dim=1),
+        torch.stack([m[:, 8], m[:, 9], m[:, 6]], dim=1),
+    ], dim=1) / safe[..., None]
+    cov = exx - mean_c[:, :, None] * mean_c[:, None, :]
+    mean = mean_c + torch.repeat_interleave(q_cent, sq, dim=0)
+    return cnt, mean, cov

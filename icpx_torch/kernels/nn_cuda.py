@@ -1,10 +1,8 @@
 """Exact 1-NN: the hand-written CUDA kernel and its plain PyTorch version.
 
 The kernel (`csrc/nn.cu`) replaces the Pallas
-`icpx/kernels/knn_pallas.py::_nn_kernel`. It is built with `nvcc` into a
-shared library with a plain C entry point at first use, from the sources
-in this package only, into `icpx_torch/_build/` (keyed on a hash of the
-source and flags), and loaded with `ctypes`.
+`icpx/kernels/knn_pallas.py::_nn_kernel`. It is built at first use by
+`cuda_build` (plain `nvcc`, a C entry point, `ctypes`).
 
 Contract of both versions: ``(d2 (Nq,) f32, idx (Nq,) i32)`` with the exact
 fp32 squared distance to the nearest VALID reference row; masked rows never
@@ -19,82 +17,37 @@ distance) instead of inf.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
+
+from icpx_torch.kernels import cuda_build
 
 # Launches of the CUDA kernel in this process: `nn_cuda` adds one per
 # launch and nothing else touches it, so a caller can show that a run went
 # through the kernel (reset it to 0, run, read it).
 LAUNCHES = 0
 
-_PKG = Path(__file__).resolve().parent.parent
-_SOURCE = _PKG / "csrc" / "nn.cu"
-BUILD_DIR = _PKG / "_build"
-_NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-)
 _lib: Optional[ctypes.CDLL] = None
-# nvcc's output (ptxas register / shared-memory report) of the last build
-# this process ran; empty when the library came from the cache.
-BUILD_LOG = ""
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-
-
-def library_path() -> Path:
+def library_path():
     """Where the built library for the current sources lives."""
-    h = hashlib.sha256(_SOURCE.read_bytes())
-    h.update(" ".join(_NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libicpx_nn-{h.hexdigest()[:16]}.so"
+    return cuda_build.library_path("nn")
 
 
 def build() -> ctypes.CDLL:
     """Compile (if the cache misses) and load the kernel library."""
-    global _lib, BUILD_LOG
+    global _lib
     if _lib is not None:
         return _lib
-    path = library_path()
-    if not path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            cmd = [_nvcc(), *_NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, str(_SOURCE)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-                )
-            BUILD_LOG = proc.stdout + proc.stderr
-            os.replace(tmp, path)  # atomic: a concurrent build never sees a partial file
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-    lib = ctypes.CDLL(str(path))
+    lib = cuda_build.load("nn")
     lib.icpx_nn_forward.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.icpx_nn_forward.restype = ctypes.c_int
-    lib.icpx_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.icpx_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib
     return lib
 
@@ -137,9 +90,7 @@ def nn_cuda(
         None if ref_mask is None else ref_mask.data_ptr(),
         nq, nr, d.data_ptr(), idx.data_ptr(), query.device.index, stream,
     )
-    if rc != 0:
-        msg = lib.icpx_cuda_error_string(rc).decode()
-        raise RuntimeError(f"nn kernel launch failed: CUDA error {rc} ({msg})")
+    cuda_build.check(lib, rc, "nn kernel")
     LAUNCHES += 1
     return d, idx
 

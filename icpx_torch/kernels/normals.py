@@ -1,23 +1,29 @@
-"""kNN + PCA surface-normal estimation (brute-force neighbourhoods).
+"""PCA surface-normal estimation: kNN neighbourhoods or radius moments.
 
-Mirrors `icpx/kernels/normals.py` on its `method="brute"` path: for each
-point, its k nearest valid neighbours (self included), the weighted 3x3
-neighbourhood covariance, and the smallest-eigenvalue direction from the
-closed-form solver, oriented toward the viewpoint. `method="auto"`
-resolves as in the JAX package — to "block" (radius PCA off the KD tile
-index) from BLOCK_THRESHOLD points — and "block" is not ported yet
-(ROADMAP queue 1 step 5), so it raises rather than quietly running brute.
+Mirrors `icpx/kernels/normals.py`. `method="brute"`: for each point its k
+nearest valid neighbours (self included), the weighted 3x3 neighbourhood
+covariance, and the smallest-eigenvalue direction from the closed-form
+solver, oriented toward the viewpoint. `method="block"`: radius PCA off a
+KD tile index (`_block_radius_cov`), the radius set from k so it holds ~k
+surface neighbours; it runs the plain `block_radius_moments`, as the
+reference does while its fused moments kernel is off by default.
+`method="auto"` picks "block" from BLOCK_THRESHOLD points, as in the JAX
+package. (`register()` on the block path estimates normals off its own
+indexes instead, `registration/icp.py::_index_normals`.)
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
 
 from icpx_torch.cloud import PointCloud
+from icpx_torch.kernels.blocknn import block_radius_moments, build_kd_index
 from icpx_torch.kernels.eigh3 import smallest_eigenvector_3x3
 from icpx_torch.kernels.knn import knn
+from icpx_torch.kernels.voxel import auto_cell_size
 
 BLOCK_THRESHOLD = 32768
 # Reference-tile width of the neighbourhood kNN. Results do not depend on
@@ -27,16 +33,12 @@ BLOCK_THRESHOLD = 32768
 _KNN_TILE_R = 65536
 
 
-def _check_method(method: str, n: int) -> None:
+def _resolve_method(method: str, n: int) -> str:
     if method == "auto":
-        method = "block" if n >= BLOCK_THRESHOLD else "brute"
-    if method == "block":
-        raise NotImplementedError(
-            "block radius-PCA normals are not ported yet (ROADMAP queue 1 "
-            f"step 5); pass method='brute' (cloud capacity {n})"
-        )
-    if method != "brute":
+        return "block" if n >= BLOCK_THRESHOLD else "brute"
+    if method not in ("brute", "block"):
         raise ValueError(f"unknown normal-estimation method {method!r}")
+    return method
 
 
 def estimate_normals_xyz(
@@ -51,13 +53,40 @@ def estimate_normals_xyz(
     PCL's surface variation lambda_0 / (lambda_0 + lambda_1 + lambda_2)."""
     n = xyz.shape[0]
     mask = torch.ones((n,), dtype=torch.bool, device=xyz.device) if mask is None else mask
-    _check_method(method, n)
-    d2, idx = knn(xyz, xyz, k, ref_mask=mask, tile_r=_KNN_TILE_R)
-    neigh = xyz[idx.long()]
-    normals, curv = _pca_normals(xyz, neigh, d2, viewpoint)
+    if _resolve_method(method, n) == "block":
+        cnt, cov = _block_radius_cov(xyz, mask, k)
+        normal, ev = smallest_eigenvector_3x3(cov)
+        total = torch.clamp(ev[..., 0] + ev[..., 1] + ev[..., 2], min=1e-20)
+        curv = torch.clamp(ev[..., 0], min=0.0) / total
+        vp = torch.as_tensor(viewpoint, dtype=xyz.dtype, device=xyz.device)
+        flip = (normal * (vp[None, :] - xyz)).sum(-1) < 0.0
+        normal = torch.where(flip[:, None], -normal, normal)
+        ok = cnt >= 3.0  # degenerate neighbourhoods (< 3 points in radius): no normal
+        normals = torch.where(ok[:, None], normal, 0.0)
+        curv = torch.where(ok, curv, 0.0)
+    else:
+        d2, idx = knn(xyz, xyz, k, ref_mask=mask, tile_r=_KNN_TILE_R)
+        normals, curv = _pca_normals(xyz, xyz[idx.long()], d2, viewpoint)
     normals = torch.where(mask[:, None], normals, 0.0)
     curv = torch.where(mask, curv, 0.0)
     return normals, curv
+
+
+def _block_radius_cov(xyz: torch.Tensor, mask: torch.Tensor, k: int):
+    """(count (N,), cov (N, 3, 3)) in original point order: radius moments
+    over a KD index of 128-point tiles, each tile its own query tile, with
+    radius = spacing * 3 * sqrt(k / 10) (PCL's `setRadiusSearch` mode)."""
+    n = xyz.shape[0]
+    idx = build_kd_index(xyz, mask, tile_size=128)
+    radius = auto_cell_size(xyz, mask, scale=3.0 * math.sqrt(max(k, 1) / 10.0))
+    cnt_s, _, cov_s = block_radius_moments(idx.tiles, idx, radius, k_tiles=8)
+    # unsort: sorted position -> original row, pad rows dropped (row n)
+    safe = torch.where(idx.order >= 0, idx.order.long(), n)
+    cov = torch.zeros((n + 1, 3, 3), dtype=torch.float32, device=xyz.device)
+    cnt = torch.zeros((n + 1,), dtype=torch.float32, device=xyz.device)
+    cov[safe] = cov_s
+    cnt[safe] = cnt_s
+    return cnt[:n], cov[:n]
 
 
 def _pca_normals(query, neigh, d2, viewpoint):

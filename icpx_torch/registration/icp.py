@@ -1,17 +1,22 @@
-"""Iterate-to-convergence ICP on the brute-force NN path.
+"""Iterate-to-convergence ICP on the brute-force and block NN paths.
 
 Mirrors `icpx/registration/icp.py`: `ICPConfig` (every field, default and
 validation, so a JAX config converts field for field), `ICPResult`,
-`register`, the iteration core `_icp_scan`, and the brute branch of
-`_register_jit`. The JAX `lax.while_loop` becomes a Python `while` loop
-that syncs the stop flag to the host once per iteration; everything else
-stays on the clouds' device. A configuration that resolves to block NN
-(ROADMAP queue 1 step 5) or GICP (step 6) raises `NotImplementedError`.
+`register`, the iteration core `_icp_scan`, and both branches of
+`_register_jit`: brute-force NN (`_register_brute`) and block NN
+(`_register_block`: KD tile indexes, in-registration normals, a coarse
+phase, frozen candidates and the refine phase). The JAX `lax.while_loop`
+becomes a Python `while` loop that syncs the stop flag to the host once per
+iteration; everything else stays on the clouds' device. What the port
+lacks raises `NotImplementedError` naming its ROADMAP item: GICP, the
+feature-augmented metric, the refine-stride mid phase, and the block
+path's "infold", "select" and "vmem7" payload modes and fused fold.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import numpy as np
@@ -20,8 +25,26 @@ import torch
 from icpx_torch.cloud import PointCloud
 from icpx_torch.distributed.fault import degenerate_solve_guard
 from icpx_torch.geometry.se3 import SE3
+from icpx_torch.kernels.blocknn import (
+    _SUPER_G,
+    _candidate_tiles,
+    block_nn,
+    block_radius_moments,
+    build_kd_index,
+    build_tile_index,
+    coarsen_index,
+    tile_payload,
+    trim_index,
+)
+from icpx_torch.kernels.blocknn_cuda import (
+    block_fold_fused_pre,
+    block_radius_moments_fused6,
+    fold6_prepare,
+)
+from icpx_torch.kernels.eigh3 import smallest_eigenvector_3x3, smallest_eigenvector_3x3_soa
 from icpx_torch.kernels.knn import nearest_neighbor
 from icpx_torch.kernels.normals import estimate_normals
+from icpx_torch.kernels.voxel import auto_cell_size
 from icpx_torch.registration.step import (
     correspondence_weights,
     estimate_increment,
@@ -35,8 +58,17 @@ OBJECTIVES = ("symmetric", "p2plane", "p2p", "gicp")
 class ICPConfig:
     """Static hyperparameters; the same fields, defaults and validation as
     `icpx.registration.icp.ICPConfig` (see its comments for each knob).
-    The block-NN fields are accepted and only matter once block NN is
-    ported."""
+
+    The "auto" resolutions follow the device instead of the JAX backend,
+    and none reuses a size threshold that was measured on the TPU:
+    `payload_mode` resolves to "vmem" (the fold kernel) on a CUDA device,
+    which engages only with a frozen candidate list
+    (`_effective_payload_mode`), and `moments_mode` to "vmem" (the moments
+    kernel), at every size; on the CPU both resolve as the JAX package does
+    off the TPU ("gather", or "infold" from `payload_infold_threshold`,
+    and "xla"). An explicit "gather" or "xla" runs the plain torch path on
+    any device. `score_precision="auto"` resolves to "highest" (fp32, TF32
+    off) everywhere until a measurement on the card says otherwise."""
 
     objective: str = "symmetric"
     max_iters: int = 10
@@ -119,6 +151,37 @@ class ICPConfig:
             return self.nn_method
         return "block" if tgt_capacity >= self.block_auto_threshold else "brute"
 
+    def tile_builder(self, kind: str = ""):
+        return build_kd_index if (kind or self.tile_index) == "kd" else build_tile_index
+
+    def resolve_fused(self) -> bool:
+        # "auto" is off, as `use_fused_default()` is in the reference
+        return self.block_fused == "on"
+
+    def resolve_score_prec(self) -> str:
+        return "highest" if self.score_precision == "auto" else self.score_precision
+
+    def resolve_q_tile(self, capacity: int) -> int:
+        if self.block_q_tile_large > 0 and capacity >= self.payload_infold_threshold:
+            return self.block_q_tile_large
+        return self.block_q_tile
+
+    def resolve_payload(self, tgt_capacity: int, device) -> str:
+        if self.payload_mode != "auto":
+            return self.payload_mode
+        if torch.device(device).type == "cuda":
+            return "vmem"
+        return "infold" if tgt_capacity >= self.payload_infold_threshold else "gather"
+
+    def resolve_refine_stride(self, src_capacity: int, tgt_capacity: int) -> int:
+        # auto = 1 (no mid phase) at every size, as in the reference
+        return self.refine_stride if self.refine_stride else 1
+
+    def resolve_moments(self, capacity: int, device) -> str:
+        if self.moments_mode != "auto":
+            return self.moments_mode
+        return "vmem" if torch.device(device).type == "cuda" else "xla"
+
 
 @dataclasses.dataclass(frozen=True)
 class ICPResult:
@@ -134,15 +197,43 @@ class ICPResult:
         return dataclasses.replace(self, **changes)
 
 
-def _check_supported(config: ICPConfig, tgt_capacity: int) -> None:
+def _check_supported(config: ICPConfig, tgt_capacity: int, device) -> None:
     if config.objective == "gicp":
         raise NotImplementedError("GICP is not ported yet (ROADMAP queue 1 step 6)")
-    if config.resolve_nn(tgt_capacity) == "block":
+    block = config.resolve_nn(tgt_capacity) == "block"
+    if config.feat_nn and config.feat_nn_weight > 0:
+        if not block:
+            raise ValueError(
+                "feature-augmented matching (feat_nn) needs the block NN "
+                "path; set nn_method='block'"
+            )
         raise NotImplementedError(
-            f"block NN (target capacity {tgt_capacity} >= block_auto_threshold "
-            f"{config.block_auto_threshold}, or nn_method='block') is not ported "
-            "yet (ROADMAP queue 1 step 5); pass nn_method='brute'"
-        )
+            "feature-augmented block NN (feat_nn) is not ported yet (ROADMAP queue 1 step 6)")
+    if not block:
+        return
+    if config.resolve_fused():
+        raise NotImplementedError(
+            "block_fused='on' (the fused4 fold) is not ported yet (ROADMAP queue 2 #6)")
+    if config.resolve_refine_stride(0, tgt_capacity) > 1:
+        raise NotImplementedError(
+            "refine_stride > 1 (the mid phase) is not ported yet (ROADMAP queue 1 step 6)")
+    pmode = config.resolve_payload(tgt_capacity, device)
+    where = {"infold": "queue 1 step 6", "select": "queue 2 #5", "vmem7": "queue 2 #4"}
+    if pmode in where:
+        raise NotImplementedError(
+            f"payload_mode={pmode!r} is not ported yet (ROADMAP {where[pmode]})")
+
+
+def _effective_payload_mode(config: ICPConfig, tgt_capacity: int, device, *,
+                            use_feat: bool, fused: bool, will_freeze: bool) -> str:
+    """The payload-delivery mode a block registration actually runs: the
+    fold kernel ("vmem") needs a frozen candidate list and the 3D metric;
+    without them it falls back, as in the reference, to "infold" from
+    `payload_infold_threshold` target points and to "gather" below."""
+    pmode = config.resolve_payload(tgt_capacity, device)
+    if pmode in ("vmem", "vmem7") and (use_feat or fused or not will_freeze):
+        pmode = "infold" if tgt_capacity >= config.payload_infold_threshold else "gather"
+    return pmode
 
 
 def register(
@@ -162,13 +253,8 @@ def register(
     that centred frame, so their orientation viewpoint is the target
     centroid, as in the JAX package.
     """
-    _check_supported(config, tgt.capacity)
-    if config.feat_nn and config.feat_nn_weight > 0:
-        raise ValueError(
-            "feature-augmented matching (feat_nn) needs the block NN "
-            "path; set nn_method='block'"
-        )
     dev = tgt.device
+    _check_supported(config, tgt.capacity, dev)
     if init is None:
         init = SE3.identity(device=dev)
 
@@ -182,12 +268,23 @@ def register(
     init_c = shift @ init @ unshift
 
     needs_normals = config.objective in ("symmetric", "p2plane")
+    block = config.resolve_nn(tgt.capacity) == "block"
+    normals_for = []  # the block path estimates these off its own indexes
     if needs_normals and config.objective == "symmetric" and src.normals is None:
-        src = estimate_normals(src, k=config.k_normals)
+        if block:
+            normals_for.append("src")
+        else:
+            src = estimate_normals(src, k=config.k_normals)
     if needs_normals and tgt.normals is None:
-        tgt = estimate_normals(tgt, k=config.k_normals)
+        if block:
+            normals_for.append("tgt")
+        else:
+            tgt = estimate_normals(tgt, k=config.k_normals)
 
-    res = _register_brute(src, tgt, init_c, config, src_w=src_weight)
+    if block:
+        res = _register_block(src, tgt, init_c, config, tuple(normals_for), src_w=src_weight)
+    else:
+        res = _register_brute(src, tgt, init_c, config, src_w=src_weight)
     return res.replace(transform=unshift @ res.transform @ shift)
 
 
@@ -215,6 +312,164 @@ def _register_brute(
     return _icp_scan(config, src.xyz, src.mask, src_n, init, nn_fn, src_w=src_w)
 
 
+def _index_normals(index, k_normals: int, k_tiles: int = 4, prec: str = "highest",
+                   mode: str = "xla") -> torch.Tensor:
+    """PCA normals for an index's own tiles from self-query radius moments,
+    (N, 3) in sorted tile order: one KD build serves NN search and normal
+    estimation. `mode="vmem"` runs the moments kernel and the SoA
+    eigensolver; `"xla"` the plain `block_radius_moments`. Normals face the
+    centred frame's origin; rows with fewer than 3 neighbours, and pad
+    rows, get 0."""
+    flat = index.tiles.reshape(-1, 3)
+    valid = index.order >= 0
+    radius = auto_cell_size(flat, valid, scale=3.0 * math.sqrt(max(k_normals, 1) / 10.0))
+    if mode == "vmem":
+        cnt, _, comps = block_radius_moments_fused6(index.tiles, index, radius, k_tiles=k_tiles)
+        (vx, vy, vz), _ = smallest_eigenvector_3x3_soa(*comps)
+        flip = (vx * flat[:, 0] + vy * flat[:, 1] + vz * flat[:, 2]) > 0.0
+        normal = torch.stack([vx, vy, vz], dim=1) * torch.where(flip, -1.0, 1.0)[:, None]
+    else:
+        cnt, _, cov = block_radius_moments(index.tiles, index, radius, k_tiles=k_tiles, prec=prec)
+        normal, _ = smallest_eigenvector_3x3(cov)
+        flip = (normal * (-flat)).sum(-1) < 0.0
+        normal = torch.where(flip[:, None], -normal, normal)
+    ok = (cnt >= 3.0) & valid
+    return torch.where(ok[:, None], normal, 0.0)
+
+
+def _register_block(
+    src: PointCloud,
+    tgt: PointCloud,
+    init: SE3,
+    config: ICPConfig,
+    normals_for: tuple = (),
+    src_w: Optional[torch.Tensor] = None,
+) -> ICPResult:
+    """The block-NN branch of the reference's `_register_jit`.
+
+    Both clouds are tiled by KD indexes (source tiles of Sq rows, target
+    tiles of S). Normals named in `normals_for` come from each index's own
+    radius moments. A coarse phase of `coarse_iters` runs on every
+    `coarse_stride`-th row of merged parent tiles; the refine phase's
+    candidate tiles are then ranked once at the coarse pose and frozen,
+    and each refine iteration's NN runs the fold kernel ("vmem") or the
+    plain `block_nn` plus a row gather of the fused `[xyz || normal]`
+    table ("gather"). `iters` counts the coarse iterations too;
+    `diff_history` and `rmse_history` hold the refine phase's.
+    """
+    dev = tgt.device
+    q_tile = config.resolve_q_tile(src.capacity)
+    src_idx = trim_index(
+        config.tile_builder(config.src_tile_index)(src.xyz, src.mask, tile_size=q_tile),
+        src.capacity,
+        multiple=4,  # the coarse phase needs tq % 4 == 0
+    )
+    order = src_idx.order.long()
+    valid = order >= 0
+    safe = torch.clamp(order, min=0)
+    src_xyz = src_idx.tiles.reshape(-1, 3)  # sorted, sentinel-filled
+    src_mask = valid
+    if src_w is not None:
+        src_w = torch.where(valid, src_w[safe], 0.0)
+    tgt_index = trim_index(
+        config.tile_builder()(tgt.xyz, tgt.mask, tile_size=config.block_tile),
+        tgt.capacity,
+        multiple=_SUPER_G,  # hierarchical ranking needs T % 64 == 0
+    )
+
+    if "src" in normals_for:
+        # self-query at parent tiles: coarsen the fine source tiling to the
+        # target's tile size (same flat point order)
+        s_idx = src_idx
+        f = config.block_tile // q_tile
+        if f > 1 and s_idx.n_tiles % f == 0:
+            s_idx = coarsen_index(s_idx, f)
+        src_n_s = _index_normals(s_idx, config.k_normals, k_tiles=2,
+                                 mode=config.resolve_moments(src.capacity, dev))
+    else:
+        src_n = src.normals if src.normals is not None else torch.zeros_like(src.xyz)
+        src_n_s = torch.where(valid[:, None], src_n[safe], 0.0)
+    if "tgt" in normals_for:
+        tgt_n_sorted = _index_normals(tgt_index, config.k_normals, k_tiles=2,
+                                      mode=config.resolve_moments(tgt.capacity, dev))
+    else:
+        tgt_n = tgt.normals if tgt.normals is not None else torch.zeros_like(tgt.xyz)
+        tgt_n_sorted = tile_payload(tgt_index, tgt_n).reshape(-1, 3)
+    # one fused (N, 6) payload table in sorted tile order: one row gather
+    # (or one kernel read) per iteration delivers coordinates and normals
+    tgt_pl = torch.cat([tgt_index.tiles.reshape(-1, 3), tgt_n_sorted], dim=1)
+
+    sq = q_tile
+    tq = src_xyz.shape[0] // sq
+    coarse = (
+        config.coarse_iters > 0
+        and config.coarse_stride > 1
+        and tq % 4 == 0
+        and tq >= 8
+        and (4 * sq) % config.coarse_stride == 0
+    )
+    will_freeze = coarse and config.freeze_refine_candidates
+    pmode = _effective_payload_mode(config, tgt.capacity, dev, use_feat=False, fused=False,
+                                    will_freeze=will_freeze)
+    if pmode == "infold":
+        raise NotImplementedError(
+            "payload_mode resolves to 'infold' here (no frozen candidates at "
+            f"{tgt.capacity} target points), which is not ported yet (ROADMAP queue 1 step 6)")
+    score_prec = config.resolve_score_prec()
+
+    def make_nn(n_tiles, tile_rows, k_tiles, cand=None):
+        if pmode == "vmem" and cand is not None:
+            ops = fold6_prepare(cand, tgt_index, tgt_pl)  # once per phase
+
+            def nn_fn_vmem(p):
+                d2, pl = block_fold_fused_pre(p.reshape(n_tiles, tile_rows, 3), ops)
+                return pl[:, :3], pl[:, 3:], torch.sqrt(d2)
+
+            return nn_fn_vmem
+
+        def nn_fn(p):
+            d2, pos = block_nn(p.reshape(n_tiles, tile_rows, 3), tgt_index, k_tiles=k_tiles,
+                               return_pos=True, cand_tiles=cand, score_prec=score_prec)
+            # pad/miss rows: d2 = inf and finite PAD_COORD rows, zero weight downstream
+            pl = tgt_pl[pos.long()]
+            return pl[:, :3], pl[:, 3:], torch.sqrt(d2)
+
+        return nn_fn
+
+    prev_rmse0 = None
+    k_ref = config.block_k
+    if coarse:
+        # every stride-th row of 4 merged sibling tiles (the parent box)
+        stride = config.coarse_stride
+
+        def sub(x, d=None):
+            rows = x.reshape((tq // 4, 4 * sq) + ((d,) if d else ()))[:, ::stride]
+            return rows.reshape((-1, d) if d else (-1,))
+
+        cfg_c = dataclasses.replace(config, max_iters=config.coarse_iters, diff_threshold=0.0)
+        res_c = _icp_scan(
+            cfg_c, sub(src_xyz, 3), sub(src_mask), sub(src_n_s, 3), init,
+            make_nn(tq // 4, 4 * sq // stride, config.block_k),
+            src_w=None if src_w is None else sub(src_w),
+        )
+        init = res_c.transform
+        k_ref = config.block_k_refine if config.block_k_refine > 0 else config.block_k
+        prev_rmse0 = res_c.final_rmse
+
+    # freeze the refine candidates at the coarse-aligned pose: the residual
+    # motion is well under a tile extent, so ranking once is enough
+    cand_ref = None
+    if will_freeze:
+        cand_ref, _ = _candidate_tiles(init.apply(src_xyz).reshape(tq, sq, 3), tgt_index, k_ref)
+
+    res = _icp_scan(config, src_xyz, src_mask, src_n_s, init,
+                    make_nn(tq, sq, k_ref, cand=cand_ref),
+                    prev_rmse0=prev_rmse0, src_w=src_w)
+    if coarse:
+        res = res.replace(iters=res.iters + res_c.iters)
+    return res
+
+
 def _icp_scan(
     config: ICPConfig,
     src_xyz: torch.Tensor,
@@ -222,6 +477,7 @@ def _icp_scan(
     src_n: torch.Tensor,
     init: SE3,
     nn_fn,
+    prev_rmse0: Optional[torch.Tensor] = None,
     src_w: Optional[torch.Tensor] = None,
 ) -> ICPResult:
     """The ICP iteration core.
@@ -232,6 +488,8 @@ def _icp_scan(
     diff = inf and keeps the previous rmse; the loop stops on rejection,
     on diff < diff_threshold, and on the optional rmse_change_tol and
     transform_tol tests; converged = stop and no step was rejected.
+    `prev_rmse0` seeds the previous RMSE (the coarse phase's final one), so
+    an already converged refine phase can stop after one iteration.
     """
     dev = src_xyz.device
     f32 = dict(dtype=torch.float32, device=dev)
@@ -240,7 +498,7 @@ def _icp_scan(
     rmses = torch.full((config.max_iters,), float("nan"), **f32)
     counts = torch.zeros((config.max_iters,), **f32)
     transform = init
-    prev_rmse = inf
+    prev_rmse = inf if prev_rmse0 is None else prev_rmse0
     failed = torch.zeros((), dtype=torch.bool, device=dev)
     stop_t = torch.zeros((), dtype=torch.bool, device=dev)
     it, stop = 0, False

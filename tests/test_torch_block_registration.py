@@ -1,0 +1,230 @@
+"""Port parity: `register()` on the block-NN path, against `icpx`, plus the
+block path's resolution rules, its unported options, the default device
+of the entry points, and a run with JAX and `icpx` blocked.
+
+The slice as a whole: a 16,384-point `synthetic_surface` pair (the
+construction of tests/test_blocknn.py::test_register_payload_modes_
+equivalent), normals estimated inside the registration. The port's
+"vmem" (the fold kernel's plain version on the CPU) runs against JAX
+"vmem" (the Pallas kernel in interpret mode), the port's "gather" against
+JAX "gather". Tolerances: both recover the GT to 5e-3; final R within
+1e-5; iteration counts within 1; final rmse within 5e-6 for "vmem" (the
+two folds score by different fp32 forms, so near-tie matches differ at
+the converged noise floor: the port's direct form reaches ~1e-7, the JAX
+expansion ~4e-6).
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from icpx.cloud import PointCloud as JCloud
+from icpx.geometry.transforms import make_rigid_perturbation as j_perturb
+from icpx.io.loaders import synthetic_surface
+from icpx.registration.icp import ICPConfig as JConfig
+from icpx.registration.icp import register as j_register
+from icpx_torch import interop
+from icpx_torch.cloud import PointCloud
+from icpx_torch.geometry.se3 import SE3
+from icpx_torch.geometry.transforms import make_rigid_perturbation
+from icpx_torch.io.loaders import load_cat_pair, load_cloud, reference_data_dir
+from icpx_torch.kernels import blocknn_cuda
+from icpx_torch.registration.icp import ICPConfig, _effective_payload_mode, register
+from torch_parity import to_np, torch_cloud, torch_config, torch_se3
+
+ROOT = Path(__file__).resolve().parent.parent
+N = 16384
+CPU = torch.device("cpu")
+CUDA = torch.device("cuda")  # a device name only: nothing here allocates on it
+
+
+def _pair():
+    xyz = synthetic_surface(N, seed=3)
+    src = JCloud.create(xyz, capacity=N)
+    gt = j_perturb(angle=0.15, translation=(0.1, -0.05, 0.02))
+    tgt_np = np.asarray(gt.apply(src.xyz))[:N]
+    perm = np.random.default_rng(0).permutation(N)
+    tgt = JCloud.create(tgt_np[perm], capacity=N).replace(mask=src.mask[perm])
+    return src, tgt, gt
+
+
+def _cfg(mode):
+    return JConfig(max_iters=8, diff_threshold=0.0, rmse_change_tol=1e-6, payload_mode=mode)
+
+
+@pytest.fixture(scope="module")
+def jax_runs():
+    """One JAX registration per payload mode, shared by the tests below."""
+    src, tgt, gt = _pair()
+    out = {}
+    for mode in ("vmem", "gather"):
+        res = j_register(src, tgt, _cfg(mode))
+        jax.block_until_ready(res.transform.R)
+        out[mode] = res
+    return src, tgt, gt, out
+
+
+@pytest.mark.parametrize("mode", ["vmem", "gather"])
+def test_block_register_matches_jax(jax_runs, mode):
+    src, tgt, gt, runs = jax_runs
+    jres = runs[mode]
+    # "gather" goes through payload_mode="auto": on the CPU it resolves as
+    # the JAX package does off the TPU
+    cfg = torch_config(_cfg(mode if mode == "vmem" else "auto"))
+    assert cfg.resolve_nn(N) == "block" and cfg.resolve_payload(N, CPU) == mode
+    before = dict(blocknn_cuda.LAUNCHES)
+    res = register(torch_cloud(src), torch_cloud(tgt), cfg)
+    assert blocknn_cuda.LAUNCHES == before  # the CPU runs the plain versions
+    rot, t = (float(x) for x in res.transform.distance_to(torch_se3(gt)))
+    j_rot, j_t = (float(x) for x in jres.transform.distance_to(gt))
+    assert rot < 5e-3 and t < 5e-3 and j_rot < 5e-3 and j_t < 5e-3
+    np.testing.assert_allclose(to_np(res.transform.R), np.asarray(jres.transform.R), atol=1e-5)
+    assert abs(res.iters - int(jres.iters)) <= 1
+    assert res.iters > 2  # the coarse phase's 2 iterations are counted
+    if mode == "vmem":
+        assert abs(float(res.final_rmse) - float(jres.final_rmse)) < 5e-6
+    else:
+        assert float(res.final_rmse) < 1e-5 and float(jres.final_rmse) < 1e-5
+    assert torch.isfinite(res.final_rmse) and bool(res.converged)
+
+
+def test_block_register_with_given_normals_and_weights():
+    """Normals given up front skip the in-registration estimate; a source
+    weight rides into the sorted order. Same GT gate."""
+    src, tgt, gt = _pair()
+    jn = JCloud.create(np.asarray(src.xyz)[:N], capacity=N)
+    from icpx.kernels.normals import estimate_normals as j_normals
+
+    s_n = j_normals(jn, k=10, method="block")
+    t_n = j_normals(tgt, k=10, method="block")
+    w = np.random.default_rng(2).uniform(0.5, 1.0, N).astype(np.float32)
+    res = register(torch_cloud(s_n), torch_cloud(t_n), torch_config(_cfg("gather")),
+                   src_weight=torch.as_tensor(w))
+    rot, t = (float(x) for x in res.transform.distance_to(torch_se3(gt)))
+    assert rot < 5e-3 and t < 5e-3
+
+
+def test_resolution_rules():
+    cfg = ICPConfig()
+    assert cfg.resolve_nn(8191) == "brute" and cfg.resolve_nn(8192) == "block"
+    # payload: the fold kernel on the card at every size, the JAX package's
+    # off-TPU rule on the CPU; explicit modes win everywhere
+    assert cfg.resolve_payload(16384, CUDA) == "vmem"
+    assert cfg.resolve_payload(16384, CPU) == "gather"
+    assert cfg.resolve_payload(2 * 1024 * 1024, CPU) == "infold"
+    assert ICPConfig(payload_mode="gather").resolve_payload(16384, CUDA) == "gather"
+    assert ICPConfig(payload_mode="vmem").resolve_payload(16384, CPU) == "vmem"
+    # moments: the kernel on the card, XLA-style plain torch on the CPU
+    assert cfg.resolve_moments(1 << 20, CUDA) == "vmem"
+    assert cfg.resolve_moments(1 << 20, CPU) == "xla"
+    assert ICPConfig(moments_mode="xla").resolve_moments(1 << 20, CUDA) == "xla"
+    assert ICPConfig(moments_mode="vmem").resolve_moments(1 << 20, CPU) == "vmem"
+    # the fold engages only with a frozen candidate list and the 3D metric
+    eff = lambda c, n, dev, **kw: _effective_payload_mode(  # noqa: E731
+        c, n, dev, **{"use_feat": False, "fused": False, "will_freeze": True, **kw})
+    assert eff(cfg, 16384, CUDA) == "vmem"
+    assert eff(cfg, 16384, CUDA, will_freeze=False) == "gather"
+    assert eff(cfg, 4 * 1024 * 1024, CUDA, will_freeze=False) == "infold"
+    assert eff(cfg, 16384, CUDA, fused=True) == "gather"
+    assert eff(cfg, 16384, CUDA, use_feat=True) == "gather"
+    assert eff(cfg, 16384, CPU) == "gather"
+    assert eff(ICPConfig(payload_mode="vmem"), 16384, CPU) == "vmem"
+    # the rest, as in the reference
+    assert cfg.resolve_score_prec() == "highest"
+    assert ICPConfig(score_precision="bf16").resolve_score_prec() == "bf16"
+    assert cfg.resolve_q_tile(1 << 20) == 64 and cfg.resolve_q_tile(2 * 1024 * 1024) == 128
+    assert cfg.resolve_refine_stride(1 << 20, 1 << 20) == 1
+    assert not cfg.resolve_fused() and ICPConfig(block_fused="on").resolve_fused()
+    for jc in (JConfig(), JConfig(payload_mode="gather", score_precision="high")):
+        tc = torch_config(jc)
+        assert tc.resolve_q_tile(1 << 20) == jc.resolve_q_tile(1 << 20)
+        assert tc.resolve_payload(1 << 20, CPU) == jc.resolve_payload(1 << 20)
+        assert tc.resolve_moments(1 << 20, CPU) == jc.resolve_moments(1 << 20)
+
+
+@pytest.mark.parametrize("change,where", [
+    (dict(payload_mode="infold"), "queue 1 step 6"),
+    (dict(payload_mode="select"), "queue 2 #5"),
+    (dict(payload_mode="vmem7"), "queue 2 #4"),
+    (dict(block_fused="on"), "queue 2 #6"),
+    (dict(feat_nn="intensity", feat_nn_weight=1.0), "queue 1 step 6"),
+    (dict(refine_stride=2), "queue 1 step 6"),
+])
+def test_unported_block_options_raise(change, where):
+    src, tgt, _ = _pair()
+    cfg = dataclasses.replace(ICPConfig(nn_method="block"), **change)
+    with pytest.raises(NotImplementedError, match=where):
+        register(torch_cloud(src), torch_cloud(tgt), cfg)
+
+
+def _entry_points():
+    cat = reference_data_dir() / "cat.pcd"
+    return {
+        "PointCloud.create": lambda: PointCloud.create(np.zeros((5, 3), np.float32)),
+        "load_cloud": lambda: load_cloud(cat),
+        "load_cat_pair": lambda: load_cat_pair(),
+        "SE3.identity": lambda: SE3.identity(),
+        "make_rigid_perturbation": lambda: make_rigid_perturbation(),
+        "cloud_from_numpy": lambda: interop.cloud_from_numpy(np.zeros((4, 3)), np.ones(4, bool)),
+        "se3_from_numpy": lambda: interop.se3_from_numpy(np.eye(3), np.zeros(3)),
+    }
+
+
+@pytest.mark.parametrize("name", list(_entry_points()))
+def test_entry_points_default_to_the_card(name, monkeypatch):
+    """Without a device argument every entry point puts its tensors on the
+    first CUDA device. Where there is none, that is torch's own error, not
+    a quiet fall back to the CPU."""
+    make = _entry_points()[name]
+    if torch.cuda.is_available():
+        out = make()
+        first = out[0] if isinstance(out, tuple) else out
+        assert next(iter(vars(first).values())).device == torch.device("cuda", 0)
+        return
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises((RuntimeError, AssertionError)):
+        make()
+
+
+def test_create_follows_a_given_tensor_and_device():
+    x = torch.zeros((5, 3))
+    assert PointCloud.create(x).device == CPU  # a CPU tensor stays on the CPU
+    assert PointCloud.create(np.zeros((5, 3)), device="cpu").device == CPU
+
+
+def test_block_path_runs_with_jax_and_icpx_blocked():
+    """The port alone: with every `jax*` and `icpx*` module blocked in
+    sys.modules, import the port and run a block-path registration on the
+    CPU."""
+    code = """
+import sys
+for name in [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "icpx", "flax")]:
+    del sys.modules[name]
+for name in ("jax", "jaxlib", "icpx", "flax"):
+    sys.modules[name] = None  # any import of them now raises ImportError
+import numpy as np, torch
+torch.set_num_threads(2)
+from icpx_torch import ICPConfig, PointCloud, register
+from icpx_torch.geometry.transforms import make_rigid_perturbation
+from icpx_torch.io.loaders import synthetic_surface
+src = PointCloud.create(synthetic_surface(8192, seed=0), device="cpu")
+gt = make_rigid_perturbation(angle=0.1, translation=(0.05, 0.0, 0.02), device="cpu")
+tgt = PointCloud.create(gt.apply(src.xyz)[torch.randperm(8192)], device="cpu")
+res = register(src, tgt, ICPConfig(max_iters=6, diff_threshold=0.0, rmse_change_tol=1e-6))
+rot, t = (float(v) for v in res.transform.distance_to(gt))
+assert rot < 5e-3 and t < 5e-3, (rot, t)
+assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "icpx") and sys.modules[m]]
+print("ok", res.iters)
+"""
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.startswith("ok")

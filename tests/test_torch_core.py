@@ -37,7 +37,7 @@ def _twists(rng):
 def test_cloud_padding_matches_jax(n, capacity):
     xyz = np.random.default_rng(n).normal(size=(n, 3)).astype(np.float32)
     jc, _ = clouds(xyz, capacity=capacity)
-    tc = PointCloud.create(xyz, capacity=capacity)
+    tc = PointCloud.create(xyz, capacity=capacity, device="cpu")
     np.testing.assert_array_equal(to_np(tc.xyz), np.asarray(jc.xyz))
     np.testing.assert_array_equal(to_np(tc.mask), np.asarray(jc.mask))
     assert tc.capacity == jc.capacity
@@ -54,11 +54,11 @@ def test_cloud_padding_matches_jax(n, capacity):
 def test_with_xyz_keeps_pad_rows_and_normals():
     xyz = np.random.default_rng(1).normal(size=(100, 3)).astype(np.float32)
     nrm = np.tile(np.float32([0, 0, 1]), (100, 1))
-    tc = PointCloud.create(xyz, normals=nrm)
+    tc = PointCloud.create(xyz, normals=nrm, device="cpu")
     moved = tc.with_xyz(tc.xyz + 1.0)
     assert torch.all(moved.xyz[100:] == PAD_COORD)
     np.testing.assert_allclose(to_np(moved.xyz[:100]), xyz + 1.0)
-    gt = make_rigid_perturbation()
+    gt = make_rigid_perturbation(device="cpu")
     out = transform_cloud(tc, gt)
     assert torch.all(out.normals[100:] == 0)
     np.testing.assert_allclose(
@@ -107,7 +107,7 @@ def test_se3_compose_apply_inverse_distance_match_jax():
 
 
 def test_identity_exp_log_roundtrip():
-    I = SE3.identity()
+    I = SE3.identity(device="cpu")
     assert torch.allclose(I.log(), torch.zeros(6))
     tw = torch.as_tensor(_twists(np.random.default_rng(3))[:8])  # off the pi edge
     back = SE3.exp(tw).log()
@@ -116,7 +116,7 @@ def test_identity_exp_log_roundtrip():
 
 def test_make_rigid_perturbation_matches_jax():
     for kw in ({}, dict(angle=0.2, translation=(0.12, -0.06, 0.03))):
-        j, t = j_perturb(**kw), make_rigid_perturbation(**kw)
+        j, t = j_perturb(**kw), make_rigid_perturbation(**kw, device="cpu")
         np.testing.assert_allclose(to_np(t.R), np.asarray(j.R), atol=ATOL)
         np.testing.assert_allclose(to_np(t.t), np.asarray(j.t), atol=ATOL)
 

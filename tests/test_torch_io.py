@@ -23,7 +23,7 @@ from torch_parity import to_np
 def test_load_cat_pair_equals_jax():
     assert has_reference_data()
     js, jt = j_load_cat_pair()
-    ts, tt = load_cat_pair()
+    ts, tt = load_cat_pair(device="cpu")
     for j, t in ((js, ts), (jt, tt)):
         np.testing.assert_array_equal(to_np(t.xyz), np.asarray(j.xyz))
         np.testing.assert_array_equal(to_np(t.mask), np.asarray(j.mask))
@@ -46,10 +46,10 @@ def test_save_load_roundtrip(tmp_path, binary, with_normals):
     if with_normals:
         nrm = rng.normal(size=(333, 3)).astype(np.float32)
         nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
-    cloud = PointCloud.create(xyz, normals=nrm)
+    cloud = PointCloud.create(xyz, normals=nrm, device="cpu")
     path = tmp_path / "c.pcd"
     save_cloud(path, cloud, binary=binary)
-    back = load_cloud(path)
+    back = load_cloud(path, device="cpu")
     np.testing.assert_array_equal(back.to_numpy(), xyz)  # shortest round-trip repr
     if with_normals:
         np.testing.assert_array_equal(back.normals_to_numpy(), nrm)
@@ -84,7 +84,7 @@ def test_error_paths_match_jax(tmp_path):
         with pytest.raises(ValueError):
             load(bad)
     with pytest.raises(ValueError):
-        save_cloud(tmp_path / "out.abc", PointCloud.create(np.zeros((3, 3), np.float32)))
+        save_cloud(tmp_path / "out.abc", PointCloud.create(np.zeros((3, 3), np.float32), device="cpu"))
 
 
 def test_unported_formats_raise(tmp_path):
@@ -92,6 +92,6 @@ def test_unported_formats_raise(tmp_path):
         p = tmp_path / f"c{ext}"
         p.write_bytes(b"0 0 0\n")
         with pytest.raises(NotImplementedError, match="step 2"):
-            load_cloud(p)
+            load_cloud(p, device="cpu")
     with pytest.raises(NotImplementedError, match="step 2"):
         write_pcd(tmp_path / "c.pcd", np.zeros((2, 3), np.float32), compressed=True)

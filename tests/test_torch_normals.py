@@ -102,10 +102,14 @@ def test_brute_normals_match_jax(n, seed):
 
 
 def test_normals_auto_resolves_like_jax_and_block_raises():
-    xyz = torch.zeros((BLOCK_THRESHOLD, 3))
-    with pytest.raises(NotImplementedError, match="step 5"):
-        estimate_normals_xyz(xyz, k=10)  # auto -> block at this size
-    with pytest.raises(NotImplementedError, match="step 5"):
-        estimate_normals_xyz(xyz[:100], k=10, method="block")
-    n, c = estimate_normals_xyz(xyz[:100] + torch.arange(100.0)[:, None] * 0.0, k=3)
-    assert n.shape == (100, 3) and c.shape == (100,)
+    """auto picks block radius PCA from BLOCK_THRESHOLD points, as the JAX
+    package does (the block method itself is held to JAX in
+    test_torch_blocknn.py); an unknown method raises."""
+    xyz = torch.as_tensor(synthetic_surface(BLOCK_THRESHOLD, seed=2))
+    n_auto, c_auto = estimate_normals_xyz(xyz, k=10)
+    n_block, c_block = estimate_normals_xyz(xyz, k=10, method="block")
+    assert torch.equal(n_auto, n_block) and torch.equal(c_auto, c_block)
+    n_small, _ = estimate_normals_xyz(xyz[:100], k=3)
+    assert torch.equal(n_small, estimate_normals_xyz(xyz[:100], k=3, method="brute")[0])
+    with pytest.raises(ValueError):
+        estimate_normals_xyz(xyz[:100], k=10, method="voxel")

@@ -213,11 +213,13 @@ def test_unported_paths_raise():
     tc = torch_cloud(JCloud.create(synthetic_surface(300, seed=1)))
     with pytest.raises(NotImplementedError, match="step 6"):
         register(tc, tc, ICPConfig(objective="gicp"))
-    with pytest.raises(NotImplementedError, match="step 5"):
-        register(tc, tc, ICPConfig(nn_method="block"))
+    # block NN runs now; what it still lacks raises, whether auto (from
+    # 8192 target points) or nn_method="block" picked it
     big = torch_cloud(JCloud.create(synthetic_surface(8192, seed=1)))
-    with pytest.raises(NotImplementedError, match="step 5"):
-        register(big, big, ICPConfig())  # auto resolves to block from 8192 points
+    with pytest.raises(NotImplementedError, match="queue 2 #5"):
+        register(big, big, ICPConfig(payload_mode="select"))
+    with pytest.raises(NotImplementedError, match="queue 2 #4"):
+        register(tc, tc, ICPConfig(nn_method="block", payload_mode="vmem7"))
     with pytest.raises(ValueError, match="block NN"):
         register(tc, tc, ICPConfig(feat_nn="intensity", feat_nn_weight=1.0))
 
@@ -234,7 +236,7 @@ def test_cat_pair_shuffled_recovers_gt_and_matches_jax():
     Rz(pi/4) + (2.5, 0, 0), in as many iterations as the JAX run."""
     src, tgt_np, tsh = _shuffled_cat()
     res = register(torch_cloud(src), torch_cloud(tsh), ICPConfig(**CAT_CFG))
-    rot_err, t_err = res.transform.distance_to(make_rigid_perturbation())
+    rot_err, t_err = res.transform.distance_to(make_rigid_perturbation(device="cpu"))
     assert float(rot_err) < 5e-3 and float(t_err) < 0.5
     pred = to_np(res.transform.apply(T(np.asarray(src.xyz))))[np.asarray(src.mask)]
     assert float(np.sqrt(((pred - tgt_np) ** 2).sum(1).mean())) < 0.5

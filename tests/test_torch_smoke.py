@@ -14,7 +14,7 @@ import torch
 
 import chip_smoke
 import torch_parity  # noqa: F401  (pins torch's thread count per worker)
-from icpx_torch.kernels import nn_cuda
+from icpx_torch.kernels import blocknn_cuda, cuda_build, nn_cuda
 from icpx_torch.registration import icp
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -57,12 +57,26 @@ class _Event:
 
 
 def test_rehearsal_on_cpu(monkeypatch, capsys):
+    """Every phase at a small size on the CPU: the plain versions stand in
+    for the kernels and count launches as the kernels would, and "auto"
+    resolves to the kernels as it does on a CUDA device."""
     def fake_kernel(q, r, m=None):
         nn_cuda.LAUNCHES += 1
         return nn_cuda.nearest_neighbor_reference(q, r, ref_mask=m)
 
     def dispatch(query, ref, *, ref_mask=None, tile_q=2048, tile_r=4096):
         return fake_kernel(query.contiguous(), ref.contiguous(), ref_mask)
+
+    def fake_moments6(query, tiles, cand, q_cent, r2):
+        blocknn_cuda.LAUNCHES["moments6"] += 1
+        return blocknn_cuda.moments6_reference(query, tiles, cand, q_cent, r2.reshape(()))
+
+    def fake_fold6(query, ops):
+        blocknn_cuda.LAUNCHES["fold6"] += 1
+        return blocknn_cuda.fold6_reference(query, ops)
+
+    def as_if_cuda(resolve):
+        return lambda self, n, device: resolve(self, n, torch.device("cuda"))
 
     real_run = subprocess.run
 
@@ -73,7 +87,16 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
 
     monkeypatch.setattr(nn_cuda, "nn_cuda", fake_kernel)
     monkeypatch.setattr(nn_cuda, "build", lambda: None)
+    monkeypatch.setattr(blocknn_cuda, "build", lambda: None)
+    monkeypatch.setattr(cuda_build, "compile_all", lambda *a: None)
+    monkeypatch.setattr(blocknn_cuda, "moments6_cuda", fake_moments6)
+    monkeypatch.setattr(blocknn_cuda, "fold6_cuda", fake_fold6)
+    monkeypatch.setattr(blocknn_cuda, "moments6",
+                        lambda q, t, c, qc, r2: fake_moments6(q, t, c.to(torch.int32), qc, r2))
+    monkeypatch.setattr(icp, "block_fold_fused_pre", fake_fold6)
     monkeypatch.setattr(icp, "nearest_neighbor", dispatch)
+    for name in ("resolve_payload", "resolve_moments"):
+        monkeypatch.setattr(icp.ICPConfig, name, as_if_cuda(getattr(icp.ICPConfig, name)))
     monkeypatch.setattr(chip_smoke.subprocess, "run", fake_run)
     for name, value in (
         ("get_device_name", lambda i=0: "Fake GPU"),
@@ -85,15 +108,25 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
     ):
         monkeypatch.setattr(torch.cuda, name, value)
 
-    chip_smoke.main(dev=torch.device("cpu"), n_pair=2048)
+    chip_smoke.main(dev=torch.device("cpu"), n_pair=2048, n_flag=16384, n_small=8192)
     lines = capsys.readouterr().out.strip().splitlines()
     assert json.loads(lines[-1]) == {
         "ok": True, "device": {"platform": "gpu", "kind": "Fake GPU", "count": 1}}
-    (k,) = json.loads(lines[-2])["kernels"]
-    assert k["route"] == "cuda" and k["source"] == "icpx_torch/csrc/nn.cu"
-    assert (ROOT / k["source"]).exists()
-    assert k["replaces"] == "icpx/kernels/knn_pallas.py:37"
-    assert k["launches"] >= 2 and k["max_abs_err"] == 0.0
+    ks = json.loads(lines[-2])["kernels"]
+    assert [k["name"] for k in ks] == ["nn", "moments6", "fold6"]
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    for k in ks:
+        assert set(k) == keys and k["route"] == "cuda" and (ROOT / k["source"]).exists()
+        assert k["bound_ms"] > 0 and k["bound_by"] in ("bytes", "operations")
+    nn, mom, fold = ks
+    assert nn["replaces"] == "icpx/kernels/knn_pallas.py:37"
+    assert mom["replaces"] == "icpx/kernels/blocknn_pallas.py:890"
+    assert fold["replaces"] == "icpx/kernels/blocknn_pallas.py:497"
+    assert nn["launches"] >= 2 and nn["max_abs_err"] == 0.0 and nn["library_ms"] > 0
+    assert mom["launches"] >= 2 and fold["launches"] >= 1
+    assert mom["library_ms"] is None and fold["library_ms"] is None
     assert "Fake GPU, 700.00 W" in lines
-    assert any(line.startswith("cat: ") for line in lines)
-    assert any(line.startswith("65k pair: ") for line in lines)
+    for prefix in ("cat: ", "65k pair: ", "flagship 1M (kernels): ", "flagship 1M (plain): ",
+                   "16k block pair: ", "moments6 kernel vs plain", "fold6 kernel vs plain"):
+        assert any(line.startswith(prefix) for line in lines), prefix
