@@ -264,14 +264,29 @@ def _moments_case():
     return ji, valid, radius
 
 
-def _check_moments(cnt_t, mean_t, comps_t, cnt_j, mean_j, comps_j, valid):
+def _cov_tol(mean, comps, q_cent, sq):
+    """Per-row tolerance of the six covariance components: 1e-4 of the row's
+    trace (they are ~r^2/4 in the plane and far smaller along the normal,
+    below any fixed atol), plus 1e-5 of |mean - q_cent|^2 for the fp32
+    cancellation in E[rr^T] - m m^T, which grows with the mean's offset from
+    the query tile's centroid. A zero or swapped component fails it."""
+    q_rows = np.repeat(np.asarray(q_cent, np.float64), sq, axis=0)
+    mean, comps = np.asarray(mean, np.float64), [np.asarray(c, np.float64) for c in comps]
+    return 1e-4 * (comps[0] + comps[3] + comps[5]) + 1e-5 * ((mean - q_rows) ** 2).sum(-1)
+
+
+def _check_moments(cnt_t, mean_t, comps_t, cnt_j, mean_j, comps_j, valid, ji):
     cnt_t, cnt_j = to_np(cnt_t)[valid], np.asarray(cnt_j)[valid]
     same = cnt_t == cnt_j
     assert same.mean() >= 0.999, f"counts agree on {same.mean():.5f} of rows"
     assert cnt_j.mean() > 5  # the radius holds real neighbourhoods
     np.testing.assert_allclose(to_np(mean_t)[valid][same], np.asarray(mean_j)[valid][same], atol=1e-5)
+    _, q_cent = jb._candidate_tiles(ji.tiles, ji, 2)
+    tol = _cov_tol(mean_j, comps_j, q_cent, ji.tile_size)[valid][same]
     for ct, cj in zip(comps_t, comps_j):
-        np.testing.assert_allclose(to_np(ct)[valid][same], np.asarray(cj)[valid][same], atol=1e-4)
+        ct, cj = to_np(ct)[valid][same], np.asarray(cj)[valid][same]
+        np.testing.assert_allclose(ct, cj, atol=1e-4)
+        assert (np.abs(ct.astype(np.float64) - cj) <= tol).all(), float(np.max(np.abs(ct - cj) - tol))
 
 
 def test_moments6_plain_matches_pallas_interpret():
@@ -282,7 +297,7 @@ def test_moments6_plain_matches_pallas_interpret():
     before = dict(blocknn_cuda.LAUNCHES)
     cnt_t, mean_t, comps_t = block_radius_moments_fused6(ti.tiles, ti, radius, k_tiles=2)
     assert blocknn_cuda.LAUNCHES == before  # CPU tensors: the plain version ran
-    _check_moments(cnt_t, mean_t, comps_t, cnt_j, mean_j, comps_j, valid)
+    _check_moments(cnt_t, mean_t, comps_t, cnt_j, mean_j, comps_j, valid, ji)
 
 
 def test_xla_moments_match_pallas_interpret():
@@ -294,7 +309,7 @@ def test_xla_moments_match_pallas_interpret():
     ti = _same_index(ji)
     cnt_t, mean_t, cov_t = tb.block_radius_moments(ti.tiles, ti, radius, k_tiles=2)
     comps_t = [cov_t[:, i, j] for i, j in ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))]
-    _check_moments(cnt_t, mean_t, comps_t, cnt_j, mean_j, comps_j, valid)
+    _check_moments(cnt_t, mean_t, comps_t, cnt_j, mean_j, comps_j, valid, ji)
 
 
 def test_moments6_sentinels_never_count():
@@ -470,7 +485,11 @@ def test_cuda_moments6_matches_plain(cuda_device):
     torch.cuda.synchronize()
     assert blocknn_cuda.LAUNCHES["moments6"] == before + 1
     assert torch.equal(out_k[0], out_p[0])  # the same d2 bits: the same counts
-    torch.testing.assert_close(out_k[1:], out_p[1:], rtol=0, atol=1e-5)
+    assert torch.isfinite(out_k).all()
+    torch.testing.assert_close(out_k[1:4], out_p[1:4], rtol=0, atol=1e-5)
+    k_np, p_np = to_np(out_k).astype(np.float64), to_np(out_p)
+    tol = _cov_tol(p_np[1:4].T, p_np[4:], to_np(q_cent), ti.tile_size)
+    assert (np.abs(k_np[4:] - p_np[4:]) <= tol).all()
 
 
 @pytest.mark.cuda

@@ -27,6 +27,13 @@ def test_refuses_without_cuda(monkeypatch, capsys):
     assert '"ok"' not in capsys.readouterr().out
 
 
+def test_profile_refuses_without_cuda(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        chip_smoke.profile_flagship(n=1024)
+    assert capsys.readouterr().out == ""
+
+
 def test_script_alone_fails(tmp_path):
     """In a directory holding only chip_smoke.py the script exits non-zero
     and prints no result (no package to import, or no card)."""
@@ -116,10 +123,13 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
     assert [k["name"] for k in ks] == ["nn", "moments6", "fold6"]
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    extras = {"moments6": {"cov_max_abs_err", "cov_err_over_tol"}}
     for k in ks:
-        assert set(k) == keys and k["route"] == "cuda" and (ROOT / k["source"]).exists()
+        assert set(k) == keys | extras.get(k["name"], set())
+        assert k["route"] == "cuda" and (ROOT / k["source"]).exists()
         assert k["bound_ms"] > 0 and k["bound_by"] in ("bytes", "operations")
     nn, mom, fold = ks
+    assert 0.0 <= mom["cov_err_over_tol"] <= 1.0 and fold["max_abs_err"] == 0.0
     assert nn["replaces"] == "icpx/kernels/knn_pallas.py:37"
     assert mom["replaces"] == "icpx/kernels/blocknn_pallas.py:890"
     assert fold["replaces"] == "icpx/kernels/blocknn_pallas.py:497"
