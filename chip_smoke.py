@@ -5,7 +5,7 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the port's three CUDA kernels from the sources in this checkout
+It builds the port's six CUDA kernels from the sources in this checkout
 (one `nvcc` per source, started together), holds each against its plain
 PyTorch version at the shapes the main path gives it, then drives the
 main paths through `register()` and checks each result against its ground
@@ -14,9 +14,13 @@ truth:
 * the brute-force path: the cat fixture pair and a 65,536-point synthetic
   pair (normals on the card);
 * the block path: `bench.py`'s 1,048,576-point flagship pair with normals
-  estimated inside the registration, once through the kernels and once on
-  the plain torch path, and a 16,384-point pair on the card against the
-  same pair on the CPU.
+  estimated inside the registration, under each way the block path
+  delivers correspondences: the fold6 kernel ("auto"), the plain torch
+  path ("gather"), the fold7 kernel (payload_mode "vmem7"), the plain fold
+  with the select kernel ("select"), the plain in-fold selection
+  ("infold") and the fused4 kernel (block_fused "on"); and a 16,384-point
+  pair on the card against the same pair on the CPU under "vmem",
+  "vmem7", "select" and block_fused "on".
 
 Launch counters are set to 0 just before each path and read just after.
 Every phase prints one line (or a few); any failure raises, so the exit
@@ -26,8 +30,8 @@ to run.
 
     python3 chip_smoke.py --profile [--n 1048576]
 
-runs none of that: it profiles one flagship registration on each block
-path (`torch.profiler`) and prints where the device time goes.
+runs none of that: it profiles one flagship registration under each of
+those block paths (`torch.profiler`) and prints where the device time goes.
 """
 
 import argparse
@@ -92,6 +96,12 @@ def _bound(bytes_moved: float, flops: float):
     return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops else "operations")
 
 
+def _max_err(a, b) -> float:
+    """max |a - b| over the rows where b is finite (0 where there are none)."""
+    fin = torch.isfinite(b)
+    return float((a[fin] - b[fin]).abs().max()) if bool(fin.any()) else 0.0
+
+
 def _transform_diff(a, b):
     """(rotation angle, translation distance) between two nearby transforms,
     in float64 on the host. The angle comes from the skew part of Ra^T Rb
@@ -131,21 +141,44 @@ def _gt_pair(n, seed, dev, angle=0.2, translation=(0.12, -0.06, 0.03)):
 
 def _flag_configs():
     """bench.py's flagship config, through the kernels ("auto" resolves to
-    them on a CUDA device) and on the plain torch path."""
+    them on a CUDA device), on the plain torch path, and under the block
+    path's other ways of delivering correspondences (normals through the
+    moments kernel in each)."""
     from icpx_torch.registration.icp import ICPConfig
 
     cfg = ICPConfig(objective="symmetric", max_iters=10, diff_threshold=0.0,
                     rmse_change_tol=1e-6, k_normals=10, tile_q=2048, tile_r=8192)
     return {"kernels": cfg,
-            "plain": dataclasses.replace(cfg, payload_mode="gather", moments_mode="xla")}
+            "plain": dataclasses.replace(cfg, payload_mode="gather", moments_mode="xla"),
+            "vmem7": dataclasses.replace(cfg, payload_mode="vmem7"),
+            "select": dataclasses.replace(cfg, payload_mode="select"),
+            "infold": dataclasses.replace(cfg, payload_mode="infold"),
+            "fused": dataclasses.replace(cfg, block_fused="on")}
+
+
+# What each flagship path must launch: {kernel: "refine" (once a refine
+# iteration), "all" (once an iteration of both phases), "some" (at least
+# twice: the normals of both clouds)}; every kernel not named stays at 0.
+_FLAG_LAUNCHES = {
+    "kernels": {"moments6": "some", "fold6": "refine"},
+    "plain": {},
+    "vmem7": {"moments6": "some", "fold7": "refine"},
+    "select": {"moments6": "some", "select": "refine"},
+    "infold": {"moments6": "some"},
+    "fused": {"moments6": "some", "fused4": "all"},
+}
+# The flagship path whose launches the kernels line reports for each kernel.
+_LAUNCHES_FROM = {"moments6": "kernels", "fold6": "kernels", "fold7": "vmem7",
+                  "select": "select", "fused4": "fused"}
 
 
 def _block_fixtures(dev):
-    """Small inputs for both block kernels: one query tile over 4 index
+    """Small inputs for the block kernels: two query tiles over 4 index
     tiles of 8 rows, integer coordinates (exact d2) with exact duplicates
     (fold tie rule: least d2, lowest lane, earliest candidate), a fifth,
-    all-sentinel tile (a query tile whose candidates are all sentinel), and
-    padded query rows."""
+    all-sentinel tile (a query tile whose candidates are all sentinel; its
+    candidate list [4, 4, 4, 4] names that tile four times, which select
+    sums four times), and padded query rows."""
     from icpx_torch.cloud import PAD_COORD
     from icpx_torch.kernels.blocknn import TileIndex
 
@@ -308,12 +341,23 @@ def _phase_moments6(dev, index, radius, fixtures):
                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
-def _phase_fold6(dev, src, tgt_index, table, gt, fixtures):
+def _refine_operands(src, tgt_index, gt):
+    """The operands of one flagship refine iteration: the source's 16,384 x
+    64 query tiles at the GT pose, their k = 6 candidate tiles and the
+    query-tile centroids."""
+    from icpx_torch.kernels.blocknn import _candidate_tiles, build_kd_index, trim_index
+
+    src_idx = trim_index(build_kd_index(src.xyz, src.mask, tile_size=64), src.capacity, multiple=4)
+    query = gt.apply(src_idx.tiles.reshape(-1, 3)).reshape(src_idx.tiles.shape).contiguous()
+    cand, q_cent = _candidate_tiles(query, tgt_index, 6)
+    return query, cand, q_cent
+
+
+def _phase_fold6(dev, query, cand, tgt_index, table, fixtures):
     """Kernel #3 against its plain version at the shapes of one flagship
     refine iteration (16,384 x 64 queries, k = 6 frozen candidates, the
     fused (T*S, 6) table), plus the fixtures; returns its JSON fields."""
     from icpx_torch.kernels import blocknn_cuda
-    from icpx_torch.kernels.blocknn import _candidate_tiles, build_kd_index, trim_index
 
     def compare(name, query, ops):
         d_k, pl_k = blocknn_cuda.fold6_cuda(query, ops)
@@ -323,13 +367,8 @@ def _phase_fold6(dev, src, tgt_index, table, gt, fixtures):
         if not (torch.equal(d_k, d_p) and torch.equal(pl_k, pl_p)):
             _fail(f"fold6 {name}: kernel and plain differ on "
                   f"{int(((d_k != d_p) | (pl_k != pl_p).any(1)).sum())} rows")
-        fin = torch.isfinite(d_p)
-        err = float((d_k[fin] - d_p[fin]).abs().max()) if bool(fin.any()) else 0.0
-        return d_k, pl_k, err
+        return d_k, pl_k, _max_err(d_k, d_p)
 
-    src_idx = trim_index(build_kd_index(src.xyz, src.mask, tile_size=64), src.capacity, multiple=4)
-    query = gt.apply(src_idx.tiles.reshape(-1, 3)).reshape(src_idx.tiles.shape).contiguous()
-    cand, _ = _candidate_tiles(query, tgt_index, 6)
     ops = blocknn_cuda.fold6_prepare(cand, tgt_index, table)
     d, _, err = compare(f"{tuple(query.shape)} k=6", query, ops)
     fq, f_index, f_cand, f_payload = fixtures
@@ -351,6 +390,146 @@ def _phase_fold6(dev, src, tgt_index, table, gt, fixtures):
           "(CUDA events, median of 5)")
     return dict(max_abs_err=max(err, fx_err), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None)
+
+
+def _phase_fold7(dev, query, cand, q_cent, tgt_index, table, fixtures):
+    """Kernel #4 against its plain version at the flagship's refine shapes
+    (operands centred on the query tiles' own centroids, as the frozen
+    phase gives them), plus the fixtures; returns its JSON fields."""
+    from icpx_torch.kernels import blocknn_cuda
+
+    def compare(name, query, ops):
+        d_k, pl_k = blocknn_cuda.fold7_cuda(query, ops)
+        d_p, pl_p = blocknn_cuda.fold7_reference(query, ops)
+        torch.cuda.synchronize()
+        # the same bf16 operands, product order and scan order: bit equality
+        if not (torch.equal(d_k, d_p) and torch.equal(pl_k, pl_p)):
+            _fail(f"fold7 {name}: kernel and plain differ on "
+                  f"{int(((d_k != d_p) | (pl_k != pl_p).any(1)).sum())} rows")
+        return d_k, pl_k, _max_err(d_k, d_p)
+
+    ops = blocknn_cuda.fold7_prepare(cand, q_cent, tgt_index, table)
+    d, _, err = compare(f"{tuple(query.shape)} k=6", query, ops)
+    fq, f_index, f_cand, f_payload = fixtures
+    f_ops = blocknn_cuda.fold7_prepare(f_cand, torch.zeros((2, 3), device=dev), f_index, f_payload)
+    fd, fpl, fx_err = compare("fixtures", fq, f_ops)
+    if [float(fpl[0, 0]), float(fpl[1, 0])] != [9.0, 18.0] or float(fd[0]) != 0.0:
+        _fail("fold7 fixtures: tie rule broken (least score, lowest lane, earliest candidate)")
+    if not (bool(torch.isinf(fd[8:14]).all()) and float(fpl[8, 0]) == 32.0):
+        _fail("fold7 fixtures: a tile of all-sentinel candidates must miss onto its first sentinel row")
+    ms = _event_ms(lambda: blocknn_cuda.fold7_cuda(query, ops))
+    plain_ms = _event_ms(lambda: blocknn_cuda.fold7_reference(query, ops))
+    tq, sq, _ = query.shape
+    n, k = tq * sq, cand.shape[1]
+    s = tgt_index.tile_size
+    bytes_moved = n * 12 + ops.b.numel() * 2 + tq * k * 4 + tq * 12 + table.numel() * 4 + n * 28
+    # a pair: 3 FMUL + 3 FADD (the fourth product is 1 x B3)
+    bound_ms, bound_by = _bound(bytes_moved, n * k * s * 6.0)
+    print(f"fold7 kernel vs plain {tuple(query.shape)} k=6: d2 and payload equal on all {n} rows "
+          f"({int(torch.isfinite(d).sum())} hits); fixtures ok (ties, misses, padded rows); "
+          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}) "
+          "(CUDA events, median of 5)")
+    return dict(max_abs_err=max(err, fx_err), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
+
+
+def _phase_select(dev, query, cand, tgt_index, table, fixtures):
+    """Kernel #5 against its plain version and against the row gather
+    `table[pos]` (one PyTorch call for the same function on hits, the
+    library yardstick) at the flagship's refine shapes, with the positions
+    the plain frozen-candidate fold gives, plus the fixtures (a candidate
+    tile listed four times quadruples its row)."""
+    from icpx_torch.kernels import blocknn_cuda
+    from icpx_torch.kernels.blocknn import block_nn
+
+    tq, sq, _ = query.shape
+    _, pos = block_nn(query, tgt_index, return_pos=True, cand_tiles=cand)
+    pos = pos.reshape(tq, sq)
+    cand32 = cand.to(torch.int32)
+    s = tgt_index.tile_size
+    out_k = blocknn_cuda.select_cuda(pos, cand32, table, s)
+    out_p = blocknn_cuda.select_reference(pos, cand, table, s)
+    gathered = table[pos.reshape(-1).long()]
+    torch.cuda.synchronize()
+    if not (torch.equal(out_k, out_p) and torch.equal(out_k, gathered)):
+        _fail("select: kernel, plain version and row gather differ on "
+              f"{int(((out_k != out_p) | (out_k != gathered)).any(1).sum())} rows")
+    fq, f_index, f_cand, f_payload = fixtures
+    f_pos = torch.tensor([[9, 3, 17, 30, 0, 0, 0, 0], [32, 33, 39, 9, 0, 0, 0, 0]],
+                         dtype=torch.int32, device=dev)
+    fx_k = blocknn_cuda.select_cuda(f_pos, f_cand.to(torch.int32), f_payload, 8)
+    fx_p = blocknn_cuda.select_reference(f_pos, f_cand, f_payload, 8)
+    want = f_payload[f_pos.reshape(-1).long()] * torch.tensor(
+        [1, 1, 1, 1, 1, 1, 1, 1, 4, 4, 4, 0, 0, 0, 0, 0], dtype=torch.float32, device=dev)[:, None]
+    if not (torch.equal(fx_k, fx_p) and torch.equal(fx_k, want)):
+        _fail("select fixtures: hits, misses or a quadrupled candidate tile came out wrong")
+    err = max(_max_err(out_k, out_p), _max_err(fx_k, fx_p))
+    ms = _event_ms(lambda: blocknn_cuda.select_cuda(pos, cand32, table, s))
+    plain_ms = _event_ms(lambda: blocknn_cuda.select_reference(pos, cand, table, s))
+    flat = pos.reshape(-1).long()
+    library_ms = _event_ms(lambda: table[flat])
+    n, k = tq * sq, cand.shape[1]
+    bytes_moved = n * 4 + tq * k * 4 + table.numel() * 4 + n * table.shape[1] * 4
+    bound_ms, bound_by = _bound(bytes_moved, float(n * k))  # one compare a candidate slot
+    print(f"select kernel vs plain {tuple(pos.shape)} k=6: payload equal on all {n} rows and "
+          f"equal to table[pos]; fixtures ok (misses, a tile listed 4 times); kernel {ms:.3f} ms, "
+          f"plain {plain_ms:.3f} ms, table[pos] {library_ms:.3f} ms, bound {bound_ms:.3f} ms "
+          f"({bound_by}) (CUDA events, median of 5)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms)
+
+
+def _phase_fused4(dev, query, tgt_index, fixtures, group=4, u_max=32):
+    """Kernel #6 against its plain version at the flagship's refine shapes
+    (groups of 4 query tiles, k = 6, unions of up to 32 tiles), plus the
+    fixtures; returns its JSON fields with the union sizes."""
+    from icpx_torch.kernels import blocknn_cuda
+    from icpx_torch.kernels.blocknn import _candidate_tiles
+
+    def compare(name, query, tiles, unions, group):
+        d_k, pos_k = blocknn_cuda.fused4_cuda(query, tiles, unions.to(torch.int32), group)
+        d_p, pos_p = blocknn_cuda.fused4_reference(query, tiles, unions, group)
+        torch.cuda.synchronize()
+        if not (torch.equal(d_k, d_p) and torch.equal(pos_k, pos_p)):
+            _fail(f"fused4 {name}: kernel and plain differ on "
+                  f"{int(((d_k != d_p) | (pos_k != pos_p)).sum())} rows")
+        return d_k, pos_k, _max_err(d_k, d_p)
+
+    cand, _ = _candidate_tiles(query, tgt_index, 6)
+    unions = blocknn_cuda.group_unions(cand, group, u_max)
+    d, _, err = compare(f"{tuple(query.shape)} k=6", query, tgt_index.tiles, unions, group)
+    # slots in use: padding repeats slot 0's id
+    sizes = ((unions[:, 1:] != unions[:, :1]).sum(1) + 1).to(torch.float32)
+    fq, f_index, f_cand, _ = fixtures
+    f_unions = blocknn_cuda.group_unions(f_cand, 1, 8)  # [0, 1, 2, 3, 0, ...], [4, 4, ...]
+    fd, fpos, fx_err = compare("fixtures", fq, f_index.tiles, f_unions, 1)
+    if [int(fpos[0]), int(fpos[1])] != [9, 18] or float(fd[0]) != 0.0:
+        _fail("fused4 fixtures: tie rule broken (earliest slot in a lane, then the largest u*S + lane)")
+    if not (bool(torch.isinf(fd[8:14]).all()) and bool((fpos[8:] == 39).all())):
+        _fail("fused4 fixtures: a union of one all-sentinel tile must miss onto its last lane")
+    # p again at lane 1 of tile 0: lane 1 keeps slot 0 (key 1), lane 3 has key 3;
+    # the largest key wins (fold6's lowest lane would give 1, a flat argmax 9)
+    tiles2 = f_index.tiles.clone()
+    tiles2[0, 1] = tiles2[0, 3]
+    _, fpos2, _ = compare("fixtures, one lane tied twice", fq, tiles2, f_unions, 1)
+    if int(fpos2[0]) != 3:
+        _fail(f"fused4 fixtures: lane tie rule broken (got {int(fpos2[0])}, want 3)")
+    unions32 = unions.to(torch.int32)
+    ms = _event_ms(lambda: blocknn_cuda.fused4_cuda(query, tgt_index.tiles, unions32, group))
+    plain_ms = _event_ms(lambda: blocknn_cuda.fused4_reference(query, tgt_index.tiles, unions, group))
+    tq, sq, _ = query.shape
+    n, s = tq * sq, tgt_index.tile_size
+    pairs = float(sizes.sum()) * s * group * sq  # the union slots in use, as scored
+    bytes_moved = n * 12 + tgt_index.tiles.numel() * 4 + unions.numel() * 4 + n * 8
+    # a pair: 4 FMUL (the x2 included) + 2 FADD + 1 FSUB
+    bound_ms, bound_by = _bound(bytes_moved, pairs * 7.0)
+    print(f"fused4 kernel vs plain {tuple(query.shape)} k=6 group={group}: d2 and pos equal on "
+          f"all {n} rows ({int(torch.isfinite(d).sum())} hits); unions of {float(sizes.mean()):.2f} "
+          f"tiles on average, {int(sizes.max())} at most (of {u_max}); fixtures ok (ties, "
+          f"padded union, misses); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{bound_ms:.3f} ms ({bound_by}) (CUDA events, median of 5)")
+    return dict(max_abs_err=max(err, fx_err), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None, union_mean=float(sizes.mean()), union_max=int(sizes.max()))
 
 
 def _counted(fn):
@@ -406,7 +585,7 @@ def main(dev=None, n_pair: int = N_PAIR, n_flag: int = N_FLAG, n_small: int = N_
           f"{nn_cuda.library_path().name}, {blocknn_cuda.library_path().name}")
     for stem, log in cuda_build.BUILD_LOGS.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if any(w in line for w in ("entry function", "registers", "spill", "smem")):
                 print(f"  ptxas {stem}: {line.strip()}")
 
     # 3. Kernels against their plain versions -----------------------------------
@@ -422,8 +601,12 @@ def main(dev=None, n_pair: int = N_PAIR, n_flag: int = N_FLAG, n_small: int = N_
     aux = torch.as_tensor(np.random.default_rng(2).normal(size=(n_flag, 3)).astype(np.float32),
                           device=dev)
     table = fused_payload_table(tgt_index, aux)
-    kernels["fold6"] = _phase_fold6(dev, f_src, tgt_index, table, f_gt, fixtures)
-    del tgt_index, flat, table, aux
+    query, cand, q_cent = _refine_operands(f_src, tgt_index, f_gt)
+    kernels["fold6"] = _phase_fold6(dev, query, cand, tgt_index, table, fixtures)
+    kernels["fold7"] = _phase_fold7(dev, query, cand, q_cent, tgt_index, table, fixtures)
+    kernels["select"] = _phase_select(dev, query, cand, tgt_index, table, fixtures)
+    kernels["fused4"] = _phase_fused4(dev, query, tgt_index, fixtures)
+    del tgt_index, flat, table, aux, query, cand, q_cent
 
     cfg_cat = ICPConfig(objective="symmetric", max_iters=20, diff_threshold=1.0,
                         max_corr_dist=50.0, robust="huber")
@@ -493,60 +676,78 @@ def main(dev=None, n_pair: int = N_PAIR, n_flag: int = N_FLAG, n_small: int = N_
           f"register {wall_reg * 1e3:.2f} ms; peak {peak:.0f} MiB")
     del src, tgt, s_n, t_n
 
-    # 6. The 1M flagship through register(): the kernels, then the plain path ------
+    # 6. The 1M flagship through register(), under each block path -------------------
     walls = {}
     for label, cfg in flag_cfgs.items():
         res, counts = _counted(lambda: register(f_src, f_tgt, cfg))
         rot, terr = (float(x) for x in res.transform.distance_to(f_gt))
         if not (math.isfinite(float(res.final_rmse)) and rot < 5e-3 and terr < 5e-3):
             _fail(f"flagship ({label}): GT not recovered (rot {rot:.3e}, t {terr:.3e})")
-        if label == "kernels":
-            if counts["moments6"] < 2 or counts["fold6"] < 1:
-                _fail(f"flagship: the kernels were not launched ({counts})")
-            kernels["moments6"]["launches"] = counts["moments6"]
-            kernels["fold6"]["launches"] = counts["fold6"]
-        elif counts["moments6"] or counts["fold6"]:
-            _fail(f"flagship (plain): the plain path launched a block kernel ({counts})")
+        refine = _refine_iters(res)
+        want = {"refine": refine, "all": res.iters}
+        for name, n in counts.items():
+            rule = _FLAG_LAUNCHES[label].get(name)
+            ok = n >= 2 if rule == "some" else n == want.get(rule, 0)
+            if not ok:
+                _fail(f"flagship ({label}): {name} launched {n} times "
+                      f"({refine} refine of {res.iters} iterations; {counts})")
+        for name, path in _LAUNCHES_FROM.items():
+            if path == label:
+                kernels[name]["launches"] = counts[name]
         torch.cuda.reset_peak_memory_stats()
         wall, _ = _sync_time(lambda: register(f_src, f_tgt, cfg), reps=3)
         peak = torch.cuda.max_memory_allocated() / 2**20
         walls[label] = wall
-        refine = _refine_iters(res)
         print(f"flagship 1M ({label}): iters={res.iters} (coarse {res.iters - refine}, refine "
               f"{refine}) rmse={float(res.final_rmse):.3e} rot_err={rot:.3e} t_err={terr:.3e} "
               f"launches={counts}; wall {wall * 1e3:.2f} ms (median of 3, normals included) = "
               f"{n_flag / wall:.4g} points/s; peak {peak:.0f} MiB")
-    print(f"flagship 1M: kernel path {walls['kernels'] * 1e3:.2f} ms vs plain path "
-          f"{walls['plain'] * 1e3:.2f} ms")
+    print("flagship 1M walls: " + ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in walls.items()))
     del f_src, f_tgt
 
     # 7. A 16,384-point block pair: the kernels on the card, their plain
-    #    versions on the CPU --------------------------------------------------------
-    cfg_small = dataclasses.replace(flag_cfgs["kernels"], payload_mode="vmem", moments_mode="vmem")
+    #    versions on the CPU, under each kernel-served mode -------------------------
+    #    The new modes run a fixed 3 refine iterations: on this pair their
+    #    converged RMSE moves by ~1e-6 from one iteration to the next (the
+    #    plain fold's expansion score under "select", near-tie winners under
+    #    block_fused "on"), which is rmse_change_tol itself, so where the
+    #    stop rule fires would depend on the device's fp32 rounding.
     src, tgt, gt = _gt_pair(n_small, 3, dev, angle=0.15, translation=(0.1, -0.05, 0.02))
-    res, counts = _counted(lambda: register(src, tgt, cfg_small))
-    if counts["moments6"] < 2 or counts["fold6"] < 1:
-        _fail(f"16k pair: the kernels were not launched ({counts})")
-    res_cpu = register(src.to("cpu"), tgt.to("cpu"), cfg_small)
-    d_rot, d_t = _transform_diff(res.transform, res_cpu.transform)
-    rot, terr = (float(x) for x in res.transform.distance_to(gt))
-    if abs(res.iters - res_cpu.iters) > 1 or d_rot > 1e-4 or d_t > 1e-3 or rot > 5e-3 or terr > 5e-3:
-        _fail(f"16k pair: card and CPU runs differ (iters {res.iters} vs {res_cpu.iters}, "
-              f"rot {d_rot:.2e}, t {d_t:.2e}; GT rot {rot:.2e}, t {terr:.2e})")
-    print(f"16k block pair: iters={res.iters} on the card, {res_cpu.iters} on the CPU; "
-          f"transforms within rot {d_rot:.1e}, t {d_t:.1e}; GT rot {rot:.2e}, t {terr:.2e}; "
-          f"launches={counts}")
+    fixed = dict(max_iters=3, rmse_change_tol=0.0)
+    small = {"vmem": ("fold6", dict(payload_mode="vmem")),
+             "vmem7": ("fold7", dict(payload_mode="vmem7", **fixed)),
+             "select": ("select", dict(payload_mode="select", **fixed)),
+             "fused": ("fused4", dict(block_fused="on", **fixed))}
+    for label, (name, change) in small.items():
+        cfg_small = dataclasses.replace(flag_cfgs["kernels"], moments_mode="vmem", **change)
+        res, counts = _counted(lambda: register(src, tgt, cfg_small))
+        if counts["moments6"] < 2 or counts[name] < 1:
+            _fail(f"16k pair ({label}): the kernels were not launched ({counts})")
+        res_cpu = register(src.to("cpu"), tgt.to("cpu"), cfg_small)
+        d_rot, d_t = _transform_diff(res.transform, res_cpu.transform)
+        rot, terr = (float(x) for x in res.transform.distance_to(gt))
+        if (abs(res.iters - res_cpu.iters) > 1 or d_rot > 1e-4 or d_t > 1e-3
+                or rot > 5e-3 or terr > 5e-3):
+            _fail(f"16k pair ({label}): card and CPU runs differ (iters {res.iters} vs "
+                  f"{res_cpu.iters}, rot {d_rot:.2e}, t {d_t:.2e}; GT rot {rot:.2e}, t {terr:.2e})")
+        print(f"16k block pair ({label}): iters={res.iters} on the card, {res_cpu.iters} on "
+              f"the CPU; transforms within rot {d_rot:.1e}, t {d_t:.1e}; GT rot {rot:.2e}, "
+              f"t {terr:.2e}; launches={counts}")
 
-    sources = {"nn": "icpx_torch/csrc/nn.cu", "moments6": "icpx_torch/csrc/blocknn.cu",
-               "fold6": "icpx_torch/csrc/blocknn.cu"}
+    cu = "icpx_torch/csrc/blocknn.cu"
+    sources = {"nn": "icpx_torch/csrc/nn.cu", "moments6": cu, "fold6": cu, "fold7": cu,
+               "select": cu, "fused4": cu}
     replaces = {"nn": "icpx/kernels/knn_pallas.py:37",
                 "moments6": "icpx/kernels/blocknn_pallas.py:890",
-                "fold6": "icpx/kernels/blocknn_pallas.py:497"}
+                "fold6": "icpx/kernels/blocknn_pallas.py:497",
+                "fold7": "icpx/kernels/blocknn_pallas.py:694",
+                "select": "icpx/kernels/blocknn_pallas.py:358",
+                "fused4": "icpx/kernels/blocknn_pallas.py:101"}
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name], "replaces": replaces[name],
          **{k: kernels[name][k] for k in keys}, **kernels[name]}  # then a kernel's own extras
-        for name in ("nn", "moments6", "fold6")
+        for name in sources
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -560,11 +761,11 @@ def _device_us(evt) -> float:
 
 
 def profile_flagship(n: int = N_FLAG, top: int = 12) -> None:
-    """Where the flagship's time goes: for each path (kernels, plain) the
-    unprofiled wall (median of 3 after 2 warm calls), then one call under
-    `torch.profiler` (CPU and CUDA activity): its device time, that time's
-    share of the wall (the device-busy share), and the kernels and aten ops
-    with the most device time."""
+    """Where the flagship's time goes: for each block path of
+    `_flag_configs` the unprofiled wall (median of 3 after 2 warm calls),
+    then one call under `torch.profiler` (CPU and CUDA activity): its device
+    time, that time's share of the wall (the device-busy share), and the
+    kernels and aten ops with the most device time."""
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is false: this check needs an NVIDIA GPU")
     dev = torch.device("cuda", 0)
@@ -603,7 +804,7 @@ def profile_flagship(n: int = N_FLAG, top: int = 12) -> None:
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="only profile the 1M flagship's two paths (torch.profiler) and exit")
+                    help="only profile the 1M flagship under each block path (torch.profiler) and exit")
     ap.add_argument("--n", type=int, default=N_FLAG, help="points per cloud under --profile")
     args = ap.parse_args()
     if args.profile:

@@ -1,12 +1,20 @@
 // Block-NN kernels for Hopper (sm_90a): the radius moments of in-registration
-// normal estimation, and the frozen-candidate fold of every refine iteration.
+// normal estimation, and the ways a block registration delivers each
+// iteration's correspondences.
 //
 //   moments6  replaces icpx/kernels/blocknn_pallas.py::_moments6_kernel
 //             (wrapper block_radius_moments_fused6);
 //   fold6     replaces icpx/kernels/blocknn_pallas.py::_fold6_kernel
-//             (wrappers fold6_prepare / block_fold_fused_pre).
+//             (wrappers fold6_prepare / block_fold_fused_pre);
+//   fold7     replaces icpx/kernels/blocknn_pallas.py::_fold7_kernel
+//             (wrappers fold7_prepare / block_fold7_pre, payload_mode="vmem7");
+//   select    replaces icpx/kernels/blocknn_pallas.py::_select_kernel
+//             (wrapper payload_select_fused, payload_mode="select");
+//   fused4    replaces icpx/kernels/blocknn_pallas.py::_vpu_kernel
+//             (wrapper block_nn_fused4, block_fused="on").
 //
-// Both score each query tile (one block) against its own k candidate tiles
+// moments6 and fold6 (fold7 and fused4 alike, see theirs below) score each
+// query tile (one block) against its own k candidate tiles
 // of the index, (T, S, 3) rows, listed in cand (Tq, k). The block stages the
 // k x S candidate rows in shared memory as float4; every thread of a warp
 // then reads the same row (a broadcast, no bank conflicts) while each thread
@@ -33,6 +41,7 @@
 // Later work (not here): more queries a thread, TMA staging, several query
 // tiles a block at small Sq.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -158,6 +167,154 @@ __global__ void fold6_kernel(const float* __restrict__ query, const float* __res
   }
 }
 
+// Two bf16 values packed in 32 bits (element 0 in the low half) to fp32,
+// exactly.
+__device__ __forceinline__ float bf16_lo(unsigned v) { return __uint_as_float(v << 16); }
+__device__ __forceinline__ float bf16_hi(unsigned v) { return __uint_as_float(v & 0xffff0000u); }
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// Frozen-candidate fold scored in bf16 (fold7). b holds (tq, k, s, 4) bf16
+// score operands [-2 rc; |rc|^2], rc = r - q_cent, made once per phase by
+// fold7_prepare; each query is centred on the same q_cent and rounded to bf16
+// as (x, y, z, 1). A bf16 x bf16 product is exact in fp32, and the four are
+// summed in the fixed order ((p0 + p1) + p2) + p3 that the plain version
+// uses. qq comes from the unrounded centred query: d2 = max(smin + qq, 0).
+// Rows are staged and scanned as in fold6 (lane-major, candidate-minor,
+// strict '<'): the lowest lane, then the earliest candidate. The TPU ran this
+// score on its matrix unit; here it is 4 FMUL + 3 FADD on the FP32 pipes
+// (wgmma is later work), so the kernel is bound by FP32 issue, like fold6.
+__global__ void fold7_kernel(const float* __restrict__ query, const uint2* __restrict__ b,
+                             const int* __restrict__ cand, const float* __restrict__ q_cent,
+                             const float* __restrict__ payload, int sq, int s, int k, int d,
+                             float* __restrict__ out_d, float* __restrict__ out_pl) {
+  extern __shared__ float4 rows[];  // s * k score operands
+  const int tile = blockIdx.x;
+  const int rows_n = k * s;
+  const uint2* bt = b + (int64_t)tile * rows_n;  // (k, s) rows of 4 bf16
+  for (int j = threadIdx.x; j < rows_n; j += blockDim.x) {
+    const int c = j / s, lane = j - c * s;
+    const uint2 v = bt[j];
+    rows[lane * k + c] = make_float4(bf16_lo(v.x), bf16_hi(v.x), bf16_lo(v.y), bf16_hi(v.y));
+  }
+  __syncthreads();
+  const float cx = q_cent[3 * tile + 0];
+  const float cy = q_cent[3 * tile + 1];
+  const float cz = q_cent[3 * tile + 2];
+  for (int qi = threadIdx.x; qi < sq; qi += blockDim.x) {
+    const int64_t q = (int64_t)tile * sq + qi;
+    const float qx = __fsub_rn(query[3 * q + 0], cx);
+    const float qy = __fsub_rn(query[3 * q + 1], cy);
+    const float qz = __fsub_rn(query[3 * q + 2], cz);
+    const float qq = __fadd_rn(__fadd_rn(__fmul_rn(qx, qx), __fmul_rn(qy, qy)), __fmul_rn(qz, qz));
+    const float ax = bf16_round(qx), ay = bf16_round(qy), az = bf16_round(qz);
+    float best = __int_as_float(0x7f800000);
+    int best_j = 0;
+#pragma unroll 6
+    for (int j = 0; j < rows_n; ++j) {
+      const float4 r = rows[j];
+      const float sc = __fadd_rn(
+          __fadd_rn(__fadd_rn(__fmul_rn(ax, r.x), __fmul_rn(ay, r.y)), __fmul_rn(az, r.z)), r.w);
+      if (sc < best) {
+        best = sc;
+        best_j = j;
+      }
+    }
+    const int lane = best_j / k, c = best_j - lane * k;
+    const int64_t pos = (int64_t)cand[(int64_t)tile * k + c] * s + lane;
+    const float dd = fmaxf(__fadd_rn(best, qq), 0.f);
+    out_d[q] = dd < kMissD2 ? dd : __int_as_float(0x7f800000);
+    for (int f = 0; f < d; ++f) out_pl[q * d + f] = payload[pos * d + f];
+  }
+}
+
+// Payload selection (select): one thread a query. The query's position pos
+// (from the plain block_nn fold) counts once for every candidate slot of its
+// query tile that holds tile pos / s; the output is the payload row summed
+// that many times in fp32 (the row itself with distinct candidates, zeros
+// when pos lies in no candidate tile, twice the row for a tile listed
+// twice), as the TPU's one-hot product gives. Bound by bytes: a position
+// and a payload row read, a row written.
+__global__ void select_kernel(const int* __restrict__ pos, const int* __restrict__ cand,
+                              const float* __restrict__ payload, int sq, int s, int k, int d,
+                              int n_rows, int64_t n, float* __restrict__ out) {
+  const int64_t q = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= n) return;
+  const int64_t tile = q / sq;
+  const int p = pos[q];
+  int hits = 0;
+  if (p >= 0 && p < n_rows) {
+    const int t = p / s;
+    for (int c = 0; c < k; ++c) hits += cand[tile * k + c] == t;
+  }
+  for (int f = 0; f < d; ++f) {
+    const float v = hits ? payload[(int64_t)p * d + f] : 0.f;
+    float acc = 0.f;
+    for (int h = 0; h < hits; ++h) acc = __fadd_rn(acc, v);
+    out[q * d + f] = acc;
+  }
+}
+
+// Fused union fold (fused4): one block a group of query tiles, gq queries,
+// against the group's union of candidate tiles (unions (g, u_max), sorted
+// unique ids; the tail repeats slot 0's id as padding and is skipped: its
+// rows tie slot 0's in every lane and a strict '<' keeps the earlier slot,
+// so skipping changes nothing). The union's rows are staged lane-major as
+// (x, y, z, rr) float4, up to u_max * s * 16 bytes of dynamic shared memory.
+// Score rr - 2 (qx rx + qy ry + qz rz), uncentred, rounded step by step.
+// Per lane the earliest slot keeps a tie; across lanes the largest
+// u * s + lane among the lanes whose minimum equals smin wins, which is the
+// TPU kernel's epilogue. Bound by FP32 issue (~11 instructions a pair).
+__global__ void fused4_kernel(const float* __restrict__ query, const float* __restrict__ tiles,
+                              const int* __restrict__ unions, int gq, int s, int u_max,
+                              float* __restrict__ out_d, int* __restrict__ out_pos) {
+  extern __shared__ float4 rows[];  // n_u * s union rows, rows[lane * n_u + u]
+  const int* un = unions + (int64_t)blockIdx.x * u_max;
+  int n_u = 1;
+  while (n_u < u_max && un[n_u] != un[0]) ++n_u;
+  const int rows_n = n_u * s;
+  for (int j = threadIdx.x; j < rows_n; j += blockDim.x) {
+    const int u = j / s, lane = j - u * s;
+    const int64_t row = (int64_t)un[u] * s + lane;
+    const float x = tiles[3 * row + 0], y = tiles[3 * row + 1], z = tiles[3 * row + 2];
+    const float rr = __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z));
+    rows[lane * n_u + u] = make_float4(x, y, z, rr);
+  }
+  __syncthreads();
+  for (int qi = threadIdx.x; qi < gq; qi += blockDim.x) {
+    const int64_t q = (int64_t)blockIdx.x * gq + qi;
+    const float qx = query[3 * q + 0], qy = query[3 * q + 1], qz = query[3 * q + 2];
+    const float qq = __fadd_rn(__fadd_rn(__fmul_rn(qx, qx), __fmul_rn(qy, qy)), __fmul_rn(qz, qz));
+    float best = __int_as_float(0x7f800000);
+    int best_key = 0;
+    for (int lane = 0; lane < s; ++lane) {
+      const float4* lr = rows + lane * n_u;
+      float m = __int_as_float(0x7f800000);
+      int mu = 0;
+      for (int u = 0; u < n_u; ++u) {
+        const float4 r = lr[u];
+        const float dot = __fadd_rn(__fadd_rn(__fmul_rn(qx, r.x), __fmul_rn(qy, r.y)),
+                                    __fmul_rn(qz, r.z));
+        const float sc = __fsub_rn(r.w, __fmul_rn(2.f, dot));
+        if (sc < m) {
+          m = sc;
+          mu = u;
+        }
+      }
+      const int key = mu * s + lane;
+      if (m < best || (m == best && key > best_key)) {
+        best = m;
+        best_key = key;
+      }
+    }
+    const float dd = fmaxf(__fadd_rn(best, qq), 0.f);
+    out_d[q] = dd < kMissD2 ? dd : __int_as_float(0x7f800000);
+    out_pos[q] = un[best_key / s] * s + best_key % s;
+  }
+}
+
 int threads_for(int sq) {
   const int t = ((sq + 31) / 32) * 32;
   return t < 32 ? 32 : (t > 256 ? 256 : t);
@@ -200,6 +357,63 @@ int icpx_fold6_forward(const void* query, const void* tiles, const void* cand,
         static_cast<const float*>(query), static_cast<const float*>(tiles),
         static_cast<const int*>(cand), static_cast<const float*>(payload), sq, s, k, d,
         static_cast<float*>(out_d), static_cast<float*>(out_pl));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// query (tq, sq, 3), q_cent (tq, 3) and payload (t * s, d) f32; b (tq, k, s, 4)
+// bf16, 8-byte aligned; cand (tq, k) i32; outputs d2 (tq * sq,) and payload
+// rows (tq * sq, d) f32. Same launch contract as above.
+int icpx_fold7_forward(const void* query, const void* b, const void* cand, const void* q_cent,
+                       const void* payload, int tq, int sq, int s, int k, int d, void* out_d,
+                       void* out_pl, int device, void* stream) {
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  if (tq > 0 && sq > 0) {
+    const size_t smem = sizeof(float4) * (size_t)k * s;
+    fold7_kernel<<<tq, threads_for(sq), smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(query), static_cast<const uint2*>(b),
+        static_cast<const int*>(cand), static_cast<const float*>(q_cent),
+        static_cast<const float*>(payload), sq, s, k, d, static_cast<float*>(out_d),
+        static_cast<float*>(out_pl));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// pos (tq, sq) and cand (tq, k) i32; payload (n_rows, d) f32 with n_rows a
+// multiple of s; out (tq * sq, d) f32. Same launch contract as above.
+int icpx_select_forward(const void* pos, const void* cand, const void* payload, int tq, int sq,
+                        int s, int k, int d, int n_rows, void* out, int device, void* stream) {
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const int64_t n = (int64_t)tq * sq;
+  if (n > 0) {
+    const int threads = 256;
+    select_kernel<<<(unsigned)((n + threads - 1) / threads), threads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(pos), static_cast<const int*>(cand),
+        static_cast<const float*>(payload), sq, s, k, d, n_rows, n, static_cast<float*>(out));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// query (g * gq, 3) and tiles (t, s, 3) f32; unions (g, u_max) i32; outputs d2
+// (g * gq,) f32 and flat sorted positions (g * gq,) i32. Opts in to
+// u_max * s * 16 bytes of dynamic shared memory. Same launch contract as
+// above.
+int icpx_fused4_forward(const void* query, const void* tiles, const void* unions, int g, int gq,
+                        int s, int u_max, void* out_d, void* out_pos, int device, void* stream) {
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  if (g > 0 && gq > 0) {
+    const size_t smem = sizeof(float4) * (size_t)u_max * s;
+    const cudaError_t attr = cudaFuncSetAttribute(
+        fused4_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    fused4_kernel<<<g, threads_for(gq), smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(query), static_cast<const float*>(tiles),
+        static_cast<const int*>(unions), gq, s, u_max, static_cast<float*>(out_d),
+        static_cast<int*>(out_pos));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -440,6 +440,99 @@ def block_nn(
     return torch.where(ridx >= 0, d, float("inf")), torch.clamp(ridx, min=0)
 
 
+def block_nn_payload(
+    query_tiles: torch.Tensor,
+    index: TileIndex,
+    payload_tiles: torch.Tensor,
+    *,
+    k_tiles: int = 8,
+    max_chunk: int = 32768,
+    cand_tiles: Optional[torch.Tensor] = None,
+    query_feat: Optional[torch.Tensor] = None,
+    score_prec: str = "highest",
+    payload_prec: str = "high",
+    payload_xyz: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Like `block_nn`, but returns each query's matched payload row
+    (`payload_mode="infold"`): (sqdist (Tq*Sq,), payload (Tq*Sq, D)).
+
+    Per candidate tile the winner is the lowest lane among the least
+    scores; across candidates a strict `<` keeps the earliest. Sentinel
+    rows score inf, so a query whose candidates are all sentinel gets
+    d = inf and a zero payload (unlike the gather path's sentinel row).
+    `payload_prec="high"` copies the winning row exactly (the reference's
+    one-hot product on its matrix unit); "bf16" rounds the payload values
+    to bf16, with the first `payload_xyz` channels centred on the
+    query-tile centroid first and un-centred in fp32 after (this needs
+    `score_prec="bf16"`, which provides the centroid). `cand_tiles` and
+    chunking behave as in `block_nn`.
+    """
+    if query_feat is not None:
+        raise NotImplementedError(
+            "feature-augmented block NN (query_feat / feat_nn) is not ported yet "
+            "(ROADMAP queue 1 step 6)"
+        )
+    tq, sq, _ = query_tiles.shape
+    if tq > max_chunk:
+        chunk = _chunk_size(tq, max_chunk)
+        parts = [
+            block_nn_payload(query_tiles[t0:t0 + chunk], index, payload_tiles, k_tiles=k_tiles,
+                             max_chunk=max_chunk,
+                             cand_tiles=None if cand_tiles is None else cand_tiles[t0:t0 + chunk],
+                             score_prec=score_prec, payload_prec=payload_prec,
+                             payload_xyz=payload_xyz)
+            for t0 in range(0, tq, chunk)
+        ]
+        return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+    if cand_tiles is None:
+        cand_tiles, _ = _candidate_tiles(query_tiles, index, k_tiles)
+    cand_tiles = cand_tiles.to(torch.int64)
+    dev = query_tiles.device
+    d_pl = payload_tiles.shape[2]
+
+    qc = _query_boxes(query_tiles)[2] if score_prec == "bf16" else None
+    q_cen = query_tiles - qc[:, None, :] if qc is not None else query_tiles
+    pl_bf16 = payload_prec == "bf16"
+    center_pl = pl_bf16 and payload_xyz > 0
+    if center_pl and qc is None:
+        raise ValueError("payload_prec='bf16' with payload_xyz needs bf16 scoring "
+                         "(the query-tile centroid that makes centring available)")
+    ones = torch.ones((tq, sq, 1), dtype=torch.float32, device=dev)
+    q4 = torch.cat([-2.0 * q_cen, ones], dim=2)
+
+    best_s = torch.full((tq, sq), float("inf"), device=dev)
+    best_pl = torch.zeros((tq, sq, d_pl), dtype=torch.float32, device=dev)
+    best_valid = torch.zeros((tq, sq), dtype=torch.bool, device=dev)
+    for kk in range(cand_tiles.shape[1]):
+        tid = cand_tiles[:, kk]
+        r = index.tiles[tid]  # (Tq, S, 3)
+        pl = payload_tiles[tid]  # (Tq, S, D)
+        if center_pl:
+            pl = torch.cat([pl[..., :payload_xyz] - qc[:, None, :payload_xyz],
+                            pl[..., payload_xyz:]], dim=2)
+        rvalid = r.abs().amax(2) < _VALID_ABS
+        if qc is not None:
+            r = r - qc[:, None, :]
+        r4 = torch.cat([r, (r * r).sum(2, keepdim=True)], dim=2)
+        score = torch.where(rvalid[:, None, :], _score_einsum(q4, r4, score_prec), float("inf"))
+        smin, win = score.min(dim=2)  # the lowest lane among ties
+        cand_pl = torch.take_along_dim(pl, win[..., None], dim=1)  # (Tq, Sq, D)
+        if pl_bf16:
+            cand_pl = _bf16_values(cand_pl)
+        better = smin < best_s
+        best_s = torch.where(better, smin, best_s)
+        best_pl = torch.where(better[..., None], cand_pl, best_pl)
+        best_valid = torch.where(better, torch.isfinite(smin), best_valid)
+
+    if center_pl:  # un-centre in fp32; misses keep their zero payload
+        xyz = torch.where(best_valid[..., None],
+                          best_pl[..., :payload_xyz] + qc[:, None, :payload_xyz], 0.0)
+        best_pl = torch.cat([xyz, best_pl[..., payload_xyz:]], dim=2)
+    qq = (q_cen * q_cen).sum(2)
+    d = torch.where(best_valid, torch.clamp(best_s + qq, min=0.0), float("inf"))
+    return d.reshape(-1), best_pl.reshape(tq * sq, d_pl)
+
+
 def tile_payload(index: TileIndex, payload: torch.Tensor) -> torch.Tensor:
     """Per-point payload (N, D) in original order -> the index's (T, S, D)
     sorted-tile layout (zeros on padding)."""

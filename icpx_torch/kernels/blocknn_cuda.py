@@ -1,6 +1,7 @@
-"""Block-NN kernels: radius moments and the frozen-candidate fold.
+"""Block-NN kernels: radius moments, the frozen-candidate folds, payload
+selection and the fused union fold.
 
-Two hand-written CUDA kernels (`csrc/blocknn.cu`, built by `cuda_build`),
+Five hand-written CUDA kernels (`csrc/blocknn.cu`, built by `cuda_build`),
 each beside its plain PyTorch version with the same contract:
 
 * `moments6` replaces the Pallas `blocknn_pallas._moments6_kernel`: for each
@@ -14,8 +15,17 @@ each beside its plain PyTorch version with the same contract:
   `(T*S, D)` payload table copied exactly. `fold6_prepare` runs once per
   frozen-candidate phase and `block_fold_fused_pre` once per iteration, as
   in the reference.
+* `fold7` replaces `blocknn_pallas._fold7_kernel` (`payload_mode="vmem7"`):
+  fold6's outputs, scored in bf16 on operands centred on the frozen-phase
+  query-tile centroids (see `fold7_prepare`).
+* `select` replaces `blocknn_pallas._select_kernel`
+  (`payload_mode="select"`): flat positions from the plain `block_nn` fold
+  to payload rows (see `payload_select_fused`).
+* `fused4` replaces `blocknn_pallas._vpu_kernel` (`block_fused="on"`): 1-NN
+  over per-group unions of candidate tiles (see `block_nn_fused4`).
 
-Contracts kept from the TPU kernels: moments count a row when d2 <= r^2 and
+Contracts kept from the TPU kernels (moments6 and fold6; the other three
+state theirs in their sections below): moments count a row when d2 <= r^2 and
 the row is not a sentinel row (PAD_COORD); the fold takes the least d2, then
 the lowest lane (position in the tile), then the earliest candidate; a query
 whose candidates are all sentinel gets d2 = +inf and the payload of the
@@ -45,13 +55,15 @@ from icpx_torch.kernels.blocknn import _VALID_ABS, TileIndex, _candidate_tiles
 # Kernel launches in this process, by kernel: each wrapper adds one where it
 # launches and nowhere else, so a caller can show that a run went through the
 # kernels (reset to 0, run, read).
-LAUNCHES = {"moments6": 0, "fold6": 0}
+LAUNCHES = {"moments6": 0, "fold6": 0, "fold7": 0, "select": 0, "fused4": 0}
 
 _MISS_D2 = 1.0e15  # a fold d2 at or beyond this is a miss
 _MAX_ROWS = 3072  # k * S candidate rows a block stages (48 KB of float4)
-# Query tiles per step of the plain versions: bounds their (chunk, Sq, k*S)
-# temporaries (~200 MB each at the flagship's fold shapes).
-_PLAIN_CHUNK = {"moments6": 512, "fold6": 1024}
+_MAX_SMEM = 232448  # dynamic shared memory one block may opt in to (227 KB)
+# Query tiles (fused4: groups) per step of the plain versions: bounds their
+# (chunk, Sq, k*S) temporaries (~200 MB each at the flagship's fold shapes;
+# fused4's (chunk, G*Sq, U*S) ~128 MB at U = 32).
+_PLAIN_CHUNK = {"moments6": 512, "fold6": 1024, "fold7": 1024, "fused4": 32}
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -67,6 +79,12 @@ def build() -> ctypes.CDLL:
     lib.icpx_moments6_forward.restype = i
     lib.icpx_fold6_forward.argtypes = [p, p, p, p, i, i, i, i, i, p, p, i, p]
     lib.icpx_fold6_forward.restype = i
+    lib.icpx_fold7_forward.argtypes = [p, p, p, p, p, i, i, i, i, i, p, p, i, p]
+    lib.icpx_fold7_forward.restype = i
+    lib.icpx_select_forward.argtypes = [p, p, p, i, i, i, i, i, i, p, i, p]
+    lib.icpx_select_forward.restype = i
+    lib.icpx_fused4_forward.argtypes = [p, p, p, i, i, i, i, p, p, i, p]
+    lib.icpx_fused4_forward.restype = i
     _lib = lib
     return lib
 
@@ -274,3 +292,316 @@ def block_fold_fused_pre(query_tiles: torch.Tensor, ops: Fold6Operands) -> Tuple
     if query_tiles.is_cuda:
         return fold6_cuda(query_tiles.contiguous(), ops)
     return fold6_reference(query_tiles, ops)
+
+
+# ---- kernel #4: the bf16-scored frozen-candidate fold ---------------------------
+#
+# Contract (blocknn_pallas.py:694-855): fold6's outputs, but each score is
+# sum_i q4_i * B_i over bf16 values rounded to nearest even, with
+# q4 = bf16([q - q_cent, 1]) and B = bf16([-2 rc; |rc|^2]), rc = r - q_cent,
+# centred on the FROZEN-phase query-tile centroids, and
+# d = max(smin + |q - q_cent|^2, 0) with that qq in fp32 from the unrounded
+# centred query. A bf16 x bf16 product is exact in fp32; the four products
+# are summed in the fixed order ((p0 + p1) + p2) + p3 by both versions.
+# Ties: the earliest candidate per lane, then the lowest lane (scan order
+# lane-major, candidate-minor, strict '<', as fold6).
+
+
+@dataclasses.dataclass(frozen=True)
+class Fold7Operands:
+    """What `block_fold7_pre` needs besides the queries, made once per
+    frozen-candidate phase by `fold7_prepare`."""
+
+    cand: torch.Tensor  # (Tq, k) int32 candidate tile ids
+    b: torch.Tensor  # (Tq, k, S, 4) bf16 score operands [-2 rc; |rc|^2]
+    q_cent: torch.Tensor  # (Tq, 3) f32 frozen-phase query-tile centroids
+    payload: torch.Tensor  # (T*S, D) f32 payload table in sorted tile order
+
+
+def fold7_prepare(cand_tiles: torch.Tensor, q_cent: torch.Tensor, index: TileIndex,
+                  payload_table: torch.Tensor) -> Fold7Operands:
+    """The loop-invariant bf16 score operands of every candidate row,
+    centred on `q_cent` (plain torch, as the reference's prep is XLA), and
+    the contiguous int32 candidates and payload table."""
+    t, s, _ = index.tiles.shape
+    if payload_table.ndim != 2 or payload_table.shape[0] != t * s:
+        raise ValueError(f"payload table must be ({t * s}, D), got {tuple(payload_table.shape)}")
+    if cand_tiles.ndim != 2 or q_cent.shape != (cand_tiles.shape[0], 3):
+        raise ValueError(f"cand_tiles (Tq, k) and q_cent (Tq, 3) do not fit: "
+                         f"{tuple(cand_tiles.shape)}, {tuple(q_cent.shape)}")
+    q_cent = q_cent.to(torch.float32).contiguous()
+    rc = index.tiles[cand_tiles.to(torch.int64)] - q_cent[:, None, None, :]  # (Tq, k, S, 3)
+    x, y, z = rc.unbind(-1)
+    rrc = x * x + y * y + z * z
+    b = torch.stack([-2.0 * x, -2.0 * y, -2.0 * z, rrc], dim=-1).to(torch.bfloat16)
+    return Fold7Operands(cand=cand_tiles.to(torch.int32).contiguous(), b=b.contiguous(),
+                         q_cent=q_cent, payload=payload_table.to(torch.float32).contiguous())
+
+
+def fold7_cuda(query_tiles: torch.Tensor, ops: Fold7Operands) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the fold7 kernel: (d2 (Tq*Sq,), payload rows (Tq*Sq, D))."""
+    dev = query_tiles.device
+    if not query_tiles.is_cuda:
+        raise ValueError("the block-NN kernels need CUDA tensors")
+    _check("query_tiles", query_tiles, torch.float32, 3, dev)
+    _check("b", ops.b, torch.bfloat16, 4, dev)
+    _check("cand", ops.cand, torch.int32, 2, dev)
+    _check("q_cent", ops.q_cent, torch.float32, 2, dev)
+    _check("payload", ops.payload, torch.float32, 2, dev)
+    tq, sq, _ = query_tiles.shape
+    _, k, s, _ = ops.b.shape
+    if ops.b.shape[0] != tq or ops.cand.shape != (tq, k) or query_tiles.shape[2] != 3:
+        raise ValueError(f"shapes do not fit: query {tuple(query_tiles.shape)}, "
+                         f"b {tuple(ops.b.shape)}, cand {tuple(ops.cand.shape)}")
+    if k * s > _MAX_ROWS:
+        raise ValueError(f"k * S = {k * s} candidate rows exceed {_MAX_ROWS}")
+    if ops.b.data_ptr() % 8:
+        raise ValueError("b must be 8-byte aligned (the kernel reads 4 bf16 at once)")
+    if ops.payload.numel() >= 2**31 or query_tiles.numel() >= 2**31:
+        raise ValueError("too many rows for the kernels' int32 tile ids")
+    d_pl = ops.payload.shape[1]
+    lib = build()
+    d = torch.empty((tq * sq,), dtype=torch.float32, device=dev)
+    pl = torch.empty((tq * sq, d_pl), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.icpx_fold7_forward(
+        query_tiles.data_ptr(), ops.b.data_ptr(), ops.cand.data_ptr(), ops.q_cent.data_ptr(),
+        ops.payload.data_ptr(), tq, sq, s, k, d_pl, d.data_ptr(), pl.data_ptr(), dev.index, stream,
+    )
+    cuda_build.check(lib, rc, "fold7 kernel")
+    LAUNCHES["fold7"] += 1
+    return d, pl
+
+
+def fold7_reference(query_tiles: torch.Tensor, ops: Fold7Operands) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fold7 kernel's plain version, any device, chunked over query
+    tiles: the same bf16 operands, product order, scan order and miss rule,
+    so the same d2 bits and winners."""
+    tq, sq, _ = query_tiles.shape
+    _, k, s, _ = ops.b.shape
+    cand = ops.cand.to(torch.int64)
+    chunk = _PLAIN_CHUNK["fold7"]
+    d_parts, pos_parts = [], []
+    for t0 in range(0, tq, chunk):
+        qc = query_tiles[t0:t0 + chunk] - ops.q_cent[t0:t0 + chunk, None, :]
+        x, y, z = qc.unbind(-1)
+        qq = x * x + y * y + z * z
+        a = qc.to(torch.bfloat16).to(torch.float32)[..., None, :]  # (c, Sq, 1, 3)
+        b = ops.b[t0:t0 + chunk].to(torch.float32).transpose(1, 2)  # (c, S, k, 4)
+        b = b.reshape(b.shape[0], 1, s * k, 4)  # row j = lane * k + cand
+        score = a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2] + b[..., 3]
+        best, j = score.min(dim=2)  # first among ties
+        pos = torch.gather(cand[t0:t0 + chunk], 1, j % k) * s + j // k
+        d_parts.append(torch.clamp(best + qq, min=0.0).reshape(-1))
+        pos_parts.append(pos.reshape(-1))
+    if not d_parts:
+        dev = query_tiles.device
+        return (torch.empty((0,), device=dev),
+                torch.empty((0, ops.payload.shape[1]), device=dev))
+    d = torch.cat(d_parts)
+    return torch.where(d < _MISS_D2, d, float("inf")), ops.payload[torch.cat(pos_parts)]
+
+
+def block_fold7_pre(query_tiles: torch.Tensor, ops: Fold7Operands) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One refine iteration's NN and payload under `payload_mode="vmem7"`:
+    the kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    if query_tiles.is_cuda:
+        return fold7_cuda(query_tiles.contiguous(), ops)
+    return fold7_reference(query_tiles, ops)
+
+
+# ---- kernel #5: payload selection -------------------------------------------------
+#
+# Contract (blocknn_pallas.py:358-477): each query's output is the sum, over
+# the candidate slots c of its query tile and lanes l with
+# cand[t, c] * S + l == pos, of that payload row: with distinct candidates
+# the row itself, exactly; zeros where pos lies in no candidate tile; a
+# candidate tile listed twice doubles the row, as the TPU's one-hot product
+# does. Membership is tested as pos // S against the k ids; the sum runs in
+# candidate order in both versions.
+
+
+def select_cuda(pos: torch.Tensor, cand: torch.Tensor, payload_table: torch.Tensor,
+                s: int) -> torch.Tensor:
+    """Launch the select kernel: (Tq*Sq, D) payload rows."""
+    dev = pos.device
+    if not pos.is_cuda:
+        raise ValueError("the block-NN kernels need CUDA tensors")
+    _check("pos", pos, torch.int32, 2, dev)
+    _check("cand", cand, torch.int32, 2, dev)
+    _check("payload", payload_table, torch.float32, 2, dev)
+    tq, sq = pos.shape
+    k = cand.shape[1]
+    n_rows, d_pl = payload_table.shape
+    if cand.shape[0] != tq or n_rows % s:
+        raise ValueError(f"shapes do not fit: pos {tuple(pos.shape)}, cand {tuple(cand.shape)}, "
+                         f"payload {tuple(payload_table.shape)}, S = {s}")
+    if payload_table.numel() >= 2**31 or pos.numel() * d_pl >= 2**31:
+        raise ValueError("too many rows for the kernels' int32 positions")
+    lib = build()
+    out = torch.empty((tq * sq, d_pl), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.icpx_select_forward(
+        pos.data_ptr(), cand.data_ptr(), payload_table.data_ptr(), tq, sq, s, k, d_pl, n_rows,
+        out.data_ptr(), dev.index, stream,
+    )
+    cuda_build.check(lib, rc, "select kernel")
+    LAUNCHES["select"] += 1
+    return out
+
+
+def select_reference(pos: torch.Tensor, cand: torch.Tensor, payload_table: torch.Tensor,
+                     s: int) -> torch.Tensor:
+    """The select kernel's plain version, any device: the same membership
+    test and the same candidate-order sum."""
+    n_rows, d_pl = payload_table.shape
+    p = pos.to(torch.int64)
+    rows = payload_table[p.clamp(0, n_rows - 1)]  # (Tq, Sq, D)
+    tile = torch.where((p >= 0) & (p < n_rows), torch.div(p, s, rounding_mode="floor"), -1)
+    out = torch.zeros_like(rows)
+    for c in range(cand.shape[1]):
+        hit = cand[:, c:c + 1].to(torch.int64) == tile
+        out = out + torch.where(hit[..., None], rows, 0.0)
+    return out.reshape(-1, d_pl)
+
+
+def payload_select_fused(pos: torch.Tensor, cand_tiles: torch.Tensor,
+                         payload_tiles: torch.Tensor) -> torch.Tensor:
+    """Payload rows (Tq*Sq, D) for the flat positions (Tq, Sq) that
+    `block_nn(..., return_pos=True, cand_tiles=cand_tiles)` returned, from
+    (T, S, D) payload tiles: the kernel on a CUDA tensor, the plain version
+    on a CPU tensor."""
+    t, s, d_pl = payload_tiles.shape
+    table = payload_tiles.reshape(t * s, d_pl)
+    if pos.is_cuda:
+        return select_cuda(pos.to(torch.int32).contiguous(), cand_tiles.to(torch.int32).contiguous(),
+                           table.to(torch.float32).contiguous(), s)
+    return select_reference(pos, cand_tiles, table, s)
+
+
+# ---- kernel #6: the fused union fold -------------------------------------------------
+#
+# Contract (blocknn_pallas.py:64-196): the query tiles of a group share one
+# union of their candidate tiles (`group_unions`: sorted unique ids, padded
+# with the group's smallest id, the largest id in the last slot on
+# overflow). Score on uncentred coordinates, rr - 2 (qx rx + qy ry + qz rz)
+# with rr = (x^2 + y^2) + z^2, rounded step by step; qq is added at the end,
+# d = max(smin + qq, 0), inf from 1e15 on. Ties: within a lane the earliest
+# union slot (strict '<'); across lanes the largest u * S + lane among the
+# lanes whose minimum equals smin. pos = unions[g, u] * S + lane.
+
+
+def group_unions(cand_tiles: torch.Tensor, group: int, u_max: int) -> torch.Tensor:
+    """(Tq, K) candidate tile ids -> (Tq // group, u_max) per-group unions,
+    as `blocknn_pallas.group_unions`: the sorted unique ids, unfilled slots
+    padded with the group's smallest id; on overflow the largest id takes
+    the last slot (the reference's scatter with duplicate slots keeps the
+    last write; here it is chosen directly, with no scatter)."""
+    tq, k = cand_tiles.shape
+    g = tq // group
+    ids = torch.sort(cand_tiles[:g * group].reshape(g, group * k), dim=1).values
+    first = torch.ones_like(ids, dtype=torch.bool)
+    first[:, 1:] = ids[:, 1:] != ids[:, :-1]
+    n_unique = first.sum(1, keepdim=True)
+    # the unique ids to the front, in order: a stable sort of "not first"
+    front = torch.sort((~first).to(torch.int8), dim=1, stable=True).indices[:, :u_max]
+    uniq = torch.gather(ids, 1, front)
+    if uniq.shape[1] < u_max:
+        uniq = torch.cat([uniq, ids[:, :1].expand(g, u_max - uniq.shape[1])], dim=1)
+    slot = torch.arange(u_max, device=ids.device)
+    out = torch.where(slot < n_unique, uniq, ids[:, :1])
+    out[:, -1] = torch.where(n_unique[:, 0] >= u_max, ids[:, -1], out[:, -1])
+    return out
+
+
+def fused4_cuda(query_tiles: torch.Tensor, tiles: torch.Tensor, unions: torch.Tensor,
+                group: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the fused4 kernel: (d2 (Tq*Sq,), flat sorted position
+    (Tq*Sq,) int32)."""
+    dev = query_tiles.device
+    if not query_tiles.is_cuda:
+        raise ValueError("the block-NN kernels need CUDA tensors")
+    _check("query_tiles", query_tiles, torch.float32, 3, dev)
+    _check("tiles", tiles, torch.float32, 3, dev)
+    _check("unions", unions, torch.int32, 2, dev)
+    tq, sq, _ = query_tiles.shape
+    s = tiles.shape[1]
+    g, u_max = unions.shape
+    if g * group != tq or query_tiles.shape[2] != 3 or tiles.shape[2] != 3:
+        raise ValueError(f"shapes do not fit: query {tuple(query_tiles.shape)}, "
+                         f"tiles {tuple(tiles.shape)}, unions {tuple(unions.shape)}, group {group}")
+    if u_max * s * 16 > _MAX_SMEM:
+        raise ValueError(f"a union of {u_max} x {s} rows needs {u_max * s * 16} bytes of "
+                         f"shared memory, over {_MAX_SMEM}")
+    if tiles.numel() >= 2**31 or query_tiles.numel() >= 2**31:
+        raise ValueError("too many rows for the kernels' int32 tile ids")
+    lib = build()
+    d = torch.empty((tq * sq,), dtype=torch.float32, device=dev)
+    pos = torch.empty((tq * sq,), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.icpx_fused4_forward(
+        query_tiles.data_ptr(), tiles.data_ptr(), unions.data_ptr(), g, group * sq, s, u_max,
+        d.data_ptr(), pos.data_ptr(), dev.index, stream,
+    )
+    cuda_build.check(lib, rc, "fused4 kernel")
+    LAUNCHES["fused4"] += 1
+    return d, pos
+
+
+def fused4_reference(query_tiles: torch.Tensor, tiles: torch.Tensor, unions: torch.Tensor,
+                     group: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fused4 kernel's plain version, any device, chunked over groups:
+    the same score bits, tie rule and miss rule."""
+    tq, sq, _ = query_tiles.shape
+    s = tiles.shape[1]
+    g, u_max = unions.shape
+    gq = group * sq
+    q = query_tiles.reshape(g, gq, 3)
+    x, y, z = tiles.unbind(-1)
+    rr = x * x + y * y + z * z  # (T, S)
+    unions = unions.to(torch.int64)
+    lane = torch.arange(s, device=tiles.device)
+    chunk = _PLAIN_CHUNK["fused4"]
+    d_parts, pos_parts = [], []
+    for g0 in range(0, g, chunk):
+        u = unions[g0:g0 + chunk]
+        r = tiles[u][:, None]  # (c, 1, U, S, 3)
+        qc = q[g0:g0 + chunk][:, :, None, None, :]  # (c, GQ, 1, 1, 3)
+        dot = qc[..., 0] * r[..., 0] + qc[..., 1] * r[..., 1] + qc[..., 2] * r[..., 2]
+        score = rr[u][:, None] - 2.0 * dot  # (c, GQ, U, S)
+        bs, bu = score.min(dim=2)  # per lane: the earliest slot among ties
+        smin = bs.min(dim=2, keepdim=True).values
+        lpos = torch.where(bs == smin, bu * s + lane, -1).amax(dim=2)  # the largest u*S + lane
+        qx, qy, qz = q[g0:g0 + chunk].unbind(-1)
+        d_parts.append(torch.clamp(smin[..., 0] + (qx * qx + qy * qy + qz * qz), min=0.0).reshape(-1))
+        tid = torch.gather(u, 1, torch.div(lpos, s, rounding_mode="floor"))
+        pos_parts.append((tid * s + lpos % s).reshape(-1))
+    if not d_parts:
+        dev = query_tiles.device
+        return torch.empty((0,), device=dev), torch.empty((0,), dtype=torch.int32, device=dev)
+    d = torch.cat(d_parts)
+    return torch.where(d < _MISS_D2, d, float("inf")), torch.cat(pos_parts).to(torch.int32)
+
+
+def block_nn_fused4(query_tiles: torch.Tensor, index: TileIndex, *, k_tiles: int = 8,
+                    group: int = 4, u_max: int = 16,
+                    return_pos: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Drop-in for `blocknn.block_nn` (`block_fused="on"`): candidates
+    ranked per query tile, merged into per-group unions, then the kernel on
+    a CUDA tensor or the plain version on a CPU tensor. Returns (d2, flat
+    sorted position) with `return_pos`, else (d2, original index), pad and
+    miss rows at d = inf."""
+    tq = query_tiles.shape[0]
+    if tq % group:
+        raise ValueError(f"tq={tq} not divisible by group={group}")
+    cand, _ = _candidate_tiles(query_tiles, index, k_tiles)
+    unions = group_unions(cand, group, u_max)
+    if query_tiles.is_cuda:
+        d, pos = fused4_cuda(query_tiles.contiguous(), index.tiles.contiguous(),
+                             unions.to(torch.int32).contiguous(), group)
+    else:
+        d, pos = fused4_reference(query_tiles, index.tiles, unions, group)
+    if return_pos:
+        return d, pos
+    ridx = index.order[pos.to(torch.int64)]
+    return torch.where(ridx >= 0, d, float("inf")), torch.clamp(ridx, min=0)

@@ -7,10 +7,11 @@ validation, so a JAX config converts field for field), `ICPResult`,
 (`_register_block`: KD tile indexes, in-registration normals, a coarse
 phase, frozen candidates and the refine phase). The JAX `lax.while_loop`
 becomes a Python `while` loop that syncs the stop flag to the host once per
-iteration; everything else stays on the clouds' device. What the port
-lacks raises `NotImplementedError` naming its ROADMAP item: GICP, the
-feature-augmented metric, the refine-stride mid phase, and the block
-path's "infold", "select" and "vmem7" payload modes and fused fold.
+iteration; everything else stays on the clouds' device. The block path
+runs every `payload_mode` ("gather", "infold", "select", "vmem", "vmem7")
+and `block_fused` value of the reference. What the port lacks raises
+`NotImplementedError` naming its ROADMAP item: GICP, the feature-augmented
+metric and the refine-stride mid phase.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from icpx_torch.kernels.blocknn import (
     _SUPER_G,
     _candidate_tiles,
     block_nn,
+    block_nn_payload,
     block_radius_moments,
     build_kd_index,
     build_tile_index,
@@ -37,9 +39,13 @@ from icpx_torch.kernels.blocknn import (
     trim_index,
 )
 from icpx_torch.kernels.blocknn_cuda import (
+    block_fold7_pre,
     block_fold_fused_pre,
+    block_nn_fused4,
     block_radius_moments_fused6,
     fold6_prepare,
+    fold7_prepare,
+    payload_select_fused,
 )
 from icpx_torch.kernels.eigh3 import smallest_eigenvector_3x3, smallest_eigenvector_3x3_soa
 from icpx_torch.kernels.knn import nearest_neighbor
@@ -182,6 +188,10 @@ class ICPConfig:
             return self.moments_mode
         return "vmem" if torch.device(device).type == "cuda" else "xla"
 
+    def resolve_payload_prec(self) -> str:
+        # "auto" = "high" (exact fp32 payload values), as in the reference
+        return "high" if self.payload_prec == "auto" else self.payload_prec
+
 
 @dataclasses.dataclass(frozen=True)
 class ICPResult:
@@ -197,7 +207,7 @@ class ICPResult:
         return dataclasses.replace(self, **changes)
 
 
-def _check_supported(config: ICPConfig, tgt_capacity: int, device) -> None:
+def _check_supported(config: ICPConfig, tgt_capacity: int) -> None:
     if config.objective == "gicp":
         raise NotImplementedError("GICP is not ported yet (ROADMAP queue 1 step 6)")
     block = config.resolve_nn(tgt_capacity) == "block"
@@ -209,19 +219,9 @@ def _check_supported(config: ICPConfig, tgt_capacity: int, device) -> None:
             )
         raise NotImplementedError(
             "feature-augmented block NN (feat_nn) is not ported yet (ROADMAP queue 1 step 6)")
-    if not block:
-        return
-    if config.resolve_fused():
-        raise NotImplementedError(
-            "block_fused='on' (the fused4 fold) is not ported yet (ROADMAP queue 2 #6)")
-    if config.resolve_refine_stride(0, tgt_capacity) > 1:
+    if block and config.resolve_refine_stride(0, tgt_capacity) > 1:
         raise NotImplementedError(
             "refine_stride > 1 (the mid phase) is not ported yet (ROADMAP queue 1 step 6)")
-    pmode = config.resolve_payload(tgt_capacity, device)
-    where = {"infold": "queue 1 step 6", "select": "queue 2 #5", "vmem7": "queue 2 #4"}
-    if pmode in where:
-        raise NotImplementedError(
-            f"payload_mode={pmode!r} is not ported yet (ROADMAP {where[pmode]})")
 
 
 def _effective_payload_mode(config: ICPConfig, tgt_capacity: int, device, *,
@@ -254,7 +254,7 @@ def register(
     centroid, as in the JAX package.
     """
     dev = tgt.device
-    _check_supported(config, tgt.capacity, dev)
+    _check_supported(config, tgt.capacity)
     if init is None:
         init = SE3.identity(device=dev)
 
@@ -352,9 +352,12 @@ def _register_block(
     radius moments. A coarse phase of `coarse_iters` runs on every
     `coarse_stride`-th row of merged parent tiles; the refine phase's
     candidate tiles are then ranked once at the coarse pose and frozen,
-    and each refine iteration's NN runs the fold kernel ("vmem") or the
-    plain `block_nn` plus a row gather of the fused `[xyz || normal]`
-    table ("gather"). `iters` counts the coarse iterations too;
+    and each refine iteration's NN runs a fold kernel ("vmem": fold6,
+    "vmem7": fold7), the plain `block_nn` plus the select kernel
+    ("select") or a row gather of the fused `[xyz || normal]` table
+    ("gather"), or the plain in-fold payload selection ("infold") in both
+    phases. `block_fused="on"` freezes nothing and runs the fused4 kernel
+    in both phases. `iters` counts the coarse iterations too;
     `diff_history` and `rmse_history` hold the refine phase's.
     """
     dev = tgt.device
@@ -408,17 +411,30 @@ def _register_block(
         and tq >= 8
         and (4 * sq) % config.coarse_stride == 0
     )
-    will_freeze = coarse and config.freeze_refine_candidates
-    pmode = _effective_payload_mode(config, tgt.capacity, dev, use_feat=False, fused=False,
+    fused = config.resolve_fused()
+    group = config.block_group if tq % config.block_group == 0 else 1
+    # the fused fold ranks its own candidates every iteration: nothing freezes
+    will_freeze = coarse and not fused and config.freeze_refine_candidates
+    pmode = _effective_payload_mode(config, tgt.capacity, dev, use_feat=False, fused=fused,
                                     will_freeze=will_freeze)
-    if pmode == "infold":
-        raise NotImplementedError(
-            "payload_mode resolves to 'infold' here (no frozen candidates at "
-            f"{tgt.capacity} target points), which is not ported yet (ROADMAP queue 1 step 6)")
+    infold = not fused and pmode == "infold"
+    select = not fused and pmode == "select"
+    vmem_fold = not fused and pmode in ("vmem", "vmem7")
     score_prec = config.resolve_score_prec()
+    tgt_pl_tiles = tgt_pl.reshape(tgt_index.n_tiles, tgt_index.tile_size, tgt_pl.shape[1])
 
-    def make_nn(n_tiles, tile_rows, k_tiles, cand=None):
-        if pmode == "vmem" and cand is not None:
+    def make_nn(n_tiles, tile_rows, k_tiles, cand=None, qcent=None):
+        # "vmem"/"vmem7" and "select" engage on frozen-candidate phases;
+        # elsewhere they fall back to the row gather, as in the reference
+        if vmem_fold and cand is not None:
+            if pmode == "vmem7" and qcent is not None:
+                ops7 = fold7_prepare(cand, qcent, tgt_index, tgt_pl)  # once per phase
+
+                def nn_fn_vmem7(p):
+                    d2, pl = block_fold7_pre(p.reshape(n_tiles, tile_rows, 3), ops7)
+                    return pl[:, :3], pl[:, 3:], torch.sqrt(d2)
+
+                return nn_fn_vmem7
             ops = fold6_prepare(cand, tgt_index, tgt_pl)  # once per phase
 
             def nn_fn_vmem(p):
@@ -428,8 +444,23 @@ def _register_block(
             return nn_fn_vmem
 
         def nn_fn(p):
-            d2, pos = block_nn(p.reshape(n_tiles, tile_rows, 3), tgt_index, k_tiles=k_tiles,
-                               return_pos=True, cand_tiles=cand, score_prec=score_prec)
+            ptiles = p.reshape(n_tiles, tile_rows, 3)
+            if fused:
+                d2, pos = block_nn_fused4(ptiles, tgt_index, k_tiles=k_tiles, group=group,
+                                          u_max=config.block_u_max, return_pos=True)
+            elif infold:
+                d2, pl = block_nn_payload(ptiles, tgt_index, tgt_pl_tiles, k_tiles=k_tiles,
+                                          cand_tiles=cand, score_prec=score_prec,
+                                          payload_prec=config.resolve_payload_prec(),
+                                          payload_xyz=3)
+                # miss/pad rows: d2 = inf with a zero payload, zero weight downstream
+                return pl[:, :3], pl[:, 3:], torch.sqrt(d2)
+            else:
+                d2, pos = block_nn(ptiles, tgt_index, k_tiles=k_tiles, return_pos=True,
+                                   cand_tiles=cand, score_prec=score_prec)
+                if select and cand is not None:
+                    pl = payload_select_fused(pos.reshape(n_tiles, tile_rows), cand, tgt_pl_tiles)
+                    return pl[:, :3], pl[:, 3:], torch.sqrt(d2)
             # pad/miss rows: d2 = inf and finite PAD_COORD rows, zero weight downstream
             pl = tgt_pl[pos.long()]
             return pl[:, :3], pl[:, 3:], torch.sqrt(d2)
@@ -458,12 +489,13 @@ def _register_block(
 
     # freeze the refine candidates at the coarse-aligned pose: the residual
     # motion is well under a tile extent, so ranking once is enough
-    cand_ref = None
+    cand_ref = qcent_ref = None
     if will_freeze:
-        cand_ref, _ = _candidate_tiles(init.apply(src_xyz).reshape(tq, sq, 3), tgt_index, k_ref)
+        cand_ref, qcent_ref = _candidate_tiles(init.apply(src_xyz).reshape(tq, sq, 3),
+                                               tgt_index, k_ref)
 
     res = _icp_scan(config, src_xyz, src_mask, src_n_s, init,
-                    make_nn(tq, sq, k_ref, cand=cand_ref),
+                    make_nn(tq, sq, k_ref, cand=cand_ref, qcent=qcent_ref),
                     prev_rmse0=prev_rmse0, src_w=src_w)
     if coarse:
         res = res.replace(iters=res.iters + res_c.iters)

@@ -4,17 +4,21 @@ of the entry points, and a run with JAX and `icpx` blocked.
 
 The slice as a whole: a 16,384-point `synthetic_surface` pair (the
 construction of tests/test_blocknn.py::test_register_payload_modes_
-equivalent), normals estimated inside the registration. The port's
-"vmem" (the fold kernel's plain version on the CPU) runs against JAX
-"vmem" (the Pallas kernel in interpret mode), the port's "gather" against
-JAX "gather". Tolerances: both recover the GT to 5e-3; final R within
-1e-5; iteration counts within 1; final rmse within 5e-6 for "vmem" (the
-two folds score by different fp32 forms, so near-tie matches differ at
-the converged noise floor: the port's direct form reaches ~1e-7, the JAX
-expansion ~4e-6).
+equivalent), normals estimated inside the registration. Each payload mode
+of the port ("vmem", "vmem7", "select": the kernels' plain versions on the
+CPU; "gather", "infold": plain torch) and `block_fused="on"` runs against
+the same mode of the JAX package (its Pallas kernels in interpret mode).
+Tolerances: both recover the GT to 5e-3; final R within 1e-5; iteration
+counts within 1; final rmse within 5e-6 for "vmem" (the two folds score by
+different fp32 forms, so near-tie matches differ at the converged noise
+floor: the port's direct form reaches ~1e-7, the JAX expansion ~4e-6);
+below 2e-3 on both for "vmem7" (its bf16 score puts a noise floor of
+~(tile extent)^2 * 2^-9 under the reported distances, as
+tests/test_blocknn.py allows); below 1e-5 on both for the others.
 """
 
 import dataclasses
+import functools
 import os
 import subprocess
 import sys
@@ -26,6 +30,7 @@ import pytest
 import torch
 
 from icpx.cloud import PointCloud as JCloud
+from icpx.kernels import blocknn_pallas
 from icpx.geometry.transforms import make_rigid_perturbation as j_perturb
 from icpx.io.loaders import synthetic_surface
 from icpx.registration.icp import ICPConfig as JConfig
@@ -55,30 +60,43 @@ def _pair():
     return src, tgt, gt
 
 
+MODES = ("vmem", "gather", "infold", "select", "vmem7", "fused")
+
+
 def _cfg(mode):
-    return JConfig(max_iters=8, diff_threshold=0.0, rmse_change_tol=1e-6, payload_mode=mode)
+    """"fused" is `block_fused="on"`; the others are payload modes."""
+    kw = dict(block_fused="on") if mode == "fused" else dict(payload_mode=mode)
+    return JConfig(max_iters=8, diff_threshold=0.0, rmse_change_tol=1e-6, **kw)
 
 
 @pytest.fixture(scope="module")
 def jax_runs():
-    """One JAX registration per payload mode, shared by the tests below."""
+    """One JAX registration per mode, shared by the tests below. The JAX
+    fused4 wrapper does not switch to interpret mode off the TPU (unlike
+    the other block kernels' wrappers), so it is given interpret=True here;
+    `register` imports it at trace time, which picks the patch up."""
     src, tgt, gt = _pair()
     out = {}
-    for mode in ("vmem", "gather"):
-        res = j_register(src, tgt, _cfg(mode))
-        jax.block_until_ready(res.transform.R)
-        out[mode] = res
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(blocknn_pallas, "block_nn_fused4",
+                   functools.partial(blocknn_pallas.block_nn_fused4, interpret=True))
+        for mode in MODES:
+            res = j_register(src, tgt, _cfg(mode))
+            jax.block_until_ready(res.transform.R)
+            out[mode] = res
     return src, tgt, gt, out
 
 
-@pytest.mark.parametrize("mode", ["vmem", "gather"])
+@pytest.mark.parametrize("mode", MODES)
 def test_block_register_matches_jax(jax_runs, mode):
     src, tgt, gt, runs = jax_runs
     jres = runs[mode]
     # "gather" goes through payload_mode="auto": on the CPU it resolves as
     # the JAX package does off the TPU
-    cfg = torch_config(_cfg(mode if mode == "vmem" else "auto"))
-    assert cfg.resolve_nn(N) == "block" and cfg.resolve_payload(N, CPU) == mode
+    cfg = torch_config(_cfg("auto" if mode == "gather" else mode))
+    assert cfg.resolve_nn(N) == "block"
+    assert cfg.resolve_fused() == (mode == "fused")
+    assert cfg.resolve_payload(N, CPU) == ("gather" if mode == "fused" else mode)
     before = dict(blocknn_cuda.LAUNCHES)
     res = register(torch_cloud(src), torch_cloud(tgt), cfg)
     assert blocknn_cuda.LAUNCHES == before  # the CPU runs the plain versions
@@ -90,6 +108,8 @@ def test_block_register_matches_jax(jax_runs, mode):
     assert res.iters > 2  # the coarse phase's 2 iterations are counted
     if mode == "vmem":
         assert abs(float(res.final_rmse) - float(jres.final_rmse)) < 5e-6
+    elif mode == "vmem7":
+        assert float(res.final_rmse) < 2e-3 and float(jres.final_rmse) < 2e-3
     else:
         assert float(res.final_rmse) < 1e-5 and float(jres.final_rmse) < 1e-5
     assert torch.isfinite(res.final_rmse) and bool(res.converged)
@@ -142,18 +162,64 @@ def test_resolution_rules():
     assert cfg.resolve_q_tile(1 << 20) == 64 and cfg.resolve_q_tile(2 * 1024 * 1024) == 128
     assert cfg.resolve_refine_stride(1 << 20, 1 << 20) == 1
     assert not cfg.resolve_fused() and ICPConfig(block_fused="on").resolve_fused()
+    assert cfg.resolve_payload_prec() == "high"
+    assert ICPConfig(payload_prec="bf16").resolve_payload_prec() == "bf16"
+    # the fused fold freezes nothing: "vmem7" falls back like "vmem"
+    assert eff(ICPConfig(payload_mode="vmem7"), 16384, CUDA, fused=True) == "gather"
+    assert eff(ICPConfig(payload_mode="vmem7"), 16384, CUDA) == "vmem7"
+    assert eff(ICPConfig(payload_mode="select"), 16384, CUDA, will_freeze=False) == "select"
     for jc in (JConfig(), JConfig(payload_mode="gather", score_precision="high")):
         tc = torch_config(jc)
         assert tc.resolve_q_tile(1 << 20) == jc.resolve_q_tile(1 << 20)
         assert tc.resolve_payload(1 << 20, CPU) == jc.resolve_payload(1 << 20)
         assert tc.resolve_moments(1 << 20, CPU) == jc.resolve_moments(1 << 20)
+        assert tc.resolve_payload_prec() == jc.resolve_payload_prec()
+
+
+@pytest.mark.parametrize("mode,wrapper,phases", [
+    ("vmem", "block_fold_fused_pre", "refine"),
+    ("vmem7", "block_fold7_pre", "refine"),
+    ("select", "payload_select_fused", "refine"),
+    ("fused", "block_nn_fused4", "both"),
+    ("infold", "block_nn_payload", "both"),
+])
+def test_block_modes_route_through_their_wrappers(mode, wrapper, phases, monkeypatch):
+    """Each mode's wrapper runs once an iteration in the phases it serves
+    (the refine phase's frozen candidates, or both phases), and no other
+    correspondence wrapper runs beside it except the coarse phase's plain
+    `block_nn` (with the row gather) where the mode needs frozen
+    candidates."""
+    from icpx_torch.registration import icp
+
+    names = ("block_fold_fused_pre", "block_fold7_pre", "payload_select_fused",
+             "block_nn_fused4", "block_nn_payload", "block_nn")
+    calls = {n: 0 for n in names}
+
+    def counting(name, fn):
+        def wrapped(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    for n in names:
+        monkeypatch.setattr(icp, n, counting(n, getattr(icp, n)))
+    src, tgt, gt = _pair()
+    res = register(torch_cloud(src), torch_cloud(tgt), torch_config(_cfg(mode)))
+    rot, t = (float(x) for x in res.transform.distance_to(torch_se3(gt)))
+    assert rot < 5e-3 and t < 5e-3
+    refine = int(torch.isfinite(res.rmse_history).sum())
+    coarse = res.iters - refine
+    assert coarse == 2 and refine >= 1
+    want = refine if phases == "refine" else res.iters
+    assert calls[wrapper] == want, calls
+    # select rides on the plain fold's positions in every iteration
+    plain = res.iters if mode == "select" else (coarse if phases == "refine" else 0)
+    assert calls["block_nn"] == plain, calls
+    others = set(names) - {wrapper, "block_nn"}
+    assert not any(calls[n] for n in others), calls
 
 
 @pytest.mark.parametrize("change,where", [
-    (dict(payload_mode="infold"), "queue 1 step 6"),
-    (dict(payload_mode="select"), "queue 2 #5"),
-    (dict(payload_mode="vmem7"), "queue 2 #4"),
-    (dict(block_fused="on"), "queue 2 #6"),
     (dict(feat_nn="intensity", feat_nn_weight=1.0), "queue 1 step 6"),
     (dict(refine_stride=2), "queue 1 step 6"),
 ])

@@ -29,8 +29,13 @@ import torch
 import icpx.kernels.blocknn as jb
 from icpx.io.loaders import synthetic_surface
 from icpx.kernels.blocknn_pallas import (
+    block_fold7_pre as j_fold7,
     block_fold_fused,
+    block_nn_fused4 as j_fused4,
     block_radius_moments_fused6 as j_moments6,
+    fold7_prepare as j_fold7_prepare,
+    group_unions as j_group_unions,
+    payload_select_fused as j_select,
 )
 from icpx.kernels.normals import estimate_normals as j_estimate_normals
 from icpx.kernels.voxel import auto_cell_size as j_auto_cell_size
@@ -434,6 +439,266 @@ def test_fold6_all_sentinel_candidates_miss():
     assert np.isfinite(to_np(d_t)[:64]).all()
 
 
+# ---- in-fold payload selection ("infold", plain torch) ------------------------------
+
+
+@pytest.mark.parametrize("variant", ["plain", "frozen", "chunked", "bf16"])
+def test_block_nn_payload_matches_jax(variant):
+    """`block_nn_payload` against the JAX function, as in
+    tests/test_blocknn.py::test_block_nn_payload_matches_gather: the same
+    misses (d = inf, zero payload), d2 at the fold's tolerance, payloads
+    equal on separated rows ("bf16": payload values rounded to bf16 after
+    centring; the bf16 score moves d2 by up to 1e4 x the fp32 tolerance and
+    may swap near-tie winners, so rows are held to the bf16 payload
+    precision instead)."""
+    jq, ji, table, cand = _fold_case(seed=16)
+    pl_tiles = table.reshape(ji.n_tiles, ji.tile_size, 6)
+    kw_j, kw_t = dict(k_tiles=6), dict(k_tiles=6)
+    if variant in ("frozen", "chunked"):
+        kw_j["cand_tiles"], kw_t["cand_tiles"] = jnp.asarray(cand), torch.as_tensor(cand)
+    if variant == "chunked":
+        kw_j["max_chunk"] = kw_t["max_chunk"] = 16  # 48 query tiles: 3 chunks
+    if variant == "bf16":
+        for kw in (kw_j, kw_t):
+            kw.update(score_prec="bf16", payload_prec="bf16", payload_xyz=3)
+    d_j, pl_j = jb.block_nn_payload(jq.tiles, ji, jnp.asarray(pl_tiles), **kw_j)
+    d_t, pl_t = tb.block_nn_payload(torch.as_tensor(np.asarray(jq.tiles)), _same_index(ji),
+                                    torch.as_tensor(pl_tiles), **kw_t)
+    d_j, d_t, pl_j, pl_t = np.asarray(d_j), to_np(d_t), np.asarray(pl_j), to_np(pl_t)
+    fin = np.isfinite(d_j)  # padded query rows score real rows: huge but finite
+    assert fin.all() and np.isfinite(d_t).all()
+    atol = _dist_tol(jq.tiles) * (1e4 if variant == "bf16" else 1)
+    np.testing.assert_allclose(d_t[fin], d_j[fin], rtol=1e-5, atol=atol)
+    if variant == "bf16":
+        np.testing.assert_allclose(pl_t[fin], pl_j[fin], atol=2.0**-8 * np.abs(pl_j).max())
+        return
+    sep = _separated(jq.tiles, ji.tiles, cand) & fin
+    assert sep[fin].mean() > 0.9
+    np.testing.assert_array_equal(pl_t[sep], pl_j[sep])
+
+
+def test_block_nn_payload_all_sentinel_candidates_miss():
+    x, _ = _cloud(900, seed=13)
+    ji = jb.build_kd_index(jnp.asarray(x), tile_size=64)  # 16 tiles, the last all padding
+    table = np.asarray(jb.fused_payload_table(ji, jnp.ones((900, 3), jnp.float32)))
+    pl_tiles = table.reshape(ji.n_tiles, ji.tile_size, 6)
+    pad_tile = int(np.nonzero((np.asarray(ji.order).reshape(ji.n_tiles, -1) < 0).all(1))[0][0])
+    query, cand = np.asarray(ji.tiles[:2]), np.array([[0, 1], [pad_tile, pad_tile]])
+    d_t, pl_t = tb.block_nn_payload(torch.as_tensor(query), _same_index(ji), torch.as_tensor(pl_tiles),
+                                    cand_tiles=torch.as_tensor(cand))
+    d_j, pl_j = jb.block_nn_payload(jnp.asarray(query), ji, jnp.asarray(pl_tiles),
+                                    cand_tiles=jnp.asarray(cand, jnp.int32))
+    assert np.isinf(to_np(d_t)[64:]).all() and (to_np(pl_t)[64:] == 0).all()
+    np.testing.assert_array_equal(to_np(pl_t), np.asarray(pl_j))
+    np.testing.assert_allclose(to_np(d_t), np.asarray(d_j), rtol=1e-5, atol=_dist_tol(query))
+
+
+def test_block_nn_payload_feature_metric_raises():
+    _, jq, ji = _query_and_index(n=4096, seed=8)
+    qt = torch.as_tensor(np.asarray(jq.tiles))
+    pl = torch.zeros(ji.tiles.shape)
+    with pytest.raises(NotImplementedError, match="step 6"):
+        tb.block_nn_payload(qt, _same_index(ji), pl, query_feat=torch.zeros(qt.shape[:2]))
+    with pytest.raises(ValueError, match="bf16 scoring"):
+        tb.block_nn_payload(qt, _same_index(ji), pl, payload_prec="bf16", payload_xyz=3)
+
+
+# ---- payload selection (kernel #5) ---------------------------------------------------
+
+
+def test_select_plain_matches_pallas_interpret():
+    """The positions of the plain frozen-candidate fold to payload rows: the
+    port's plain version and the Pallas kernel agree on every row."""
+    jq, ji, table, cand = _fold_case(seed=17)
+    ti = _same_index(ji)
+    _, pos = tb.block_nn(torch.as_tensor(np.asarray(jq.tiles)), ti, return_pos=True,
+                         cand_tiles=torch.as_tensor(cand))
+    pos = pos.reshape(jq.n_tiles, jq.tile_size)
+    pl_tiles = table.reshape(ji.n_tiles, ji.tile_size, 6)
+    before = dict(blocknn_cuda.LAUNCHES)
+    pl_t = blocknn_cuda.payload_select_fused(pos, torch.as_tensor(cand), torch.as_tensor(pl_tiles))
+    assert blocknn_cuda.LAUNCHES == before  # CPU tensors: the plain version ran
+    pl_j = j_select(jnp.asarray(to_np(pos)), jnp.asarray(cand, jnp.int32), jnp.asarray(pl_tiles),
+                    interpret=True)
+    np.testing.assert_array_equal(to_np(pl_t), np.asarray(pl_j))
+    np.testing.assert_array_equal(to_np(pl_t), table[to_np(pos).reshape(-1)])  # hits: the row itself
+
+
+def test_select_duplicate_candidates_and_misses():
+    """A candidate tile listed twice doubles its row, four times quadruples
+    it; a position in no candidate tile gives zeros (the TPU kernel's one-hot
+    sum, both versions)."""
+    _, payload, fields = _tie_fixture()
+    pl_tiles = payload.reshape(4, 8, 6) + 0.25
+    pos = np.array([[9, 3, 17, 30]], np.int32)  # tiles 1, 0, 2, 3
+    for cand, mult in (([1, 1, 2, 3], [2, 0, 1, 1]), ([0, 0, 0, 0], [0, 4, 0, 0])):
+        want = pl_tiles.reshape(32, 6)[pos[0]] * np.float32(mult)[:, None]
+        got_t = blocknn_cuda.payload_select_fused(torch.as_tensor(pos), torch.tensor([cand]),
+                                                  torch.as_tensor(pl_tiles))
+        got_j = j_select(jnp.asarray(pos), jnp.asarray([cand], jnp.int32), jnp.asarray(pl_tiles),
+                         interpret=True)
+        np.testing.assert_array_equal(to_np(got_t), want)
+        np.testing.assert_array_equal(np.asarray(got_j), want)
+
+
+# ---- bf16-scored frozen-candidate fold (kernel #4) --------------------------------------
+
+
+def test_fold7_plain_matches_pallas_interpret():
+    """Winners (payload rows, unique per row) equal on >= 99.9% of rows, the
+    payload exactly; d2 within 1.2e-7 (two ulps at 0.5) wherever they agree:
+    the bf16 operands and their products are the same, but XLA's CPU bf16
+    dot sums the four exact products in an order of its own (no fixed order
+    reproduces it on every element), and every partial sum of this
+    unit-cube input stays below 0.5."""
+    jq, ji, table, cand = _fold_case(seed=18)
+    _, q_cent = jb._candidate_tiles(jq.tiles, ji, 6)
+    pl_tiles = jnp.asarray(table.reshape(ji.n_tiles, ji.tile_size, 6))
+    b, pl_c, qc, d_pl = j_fold7_prepare(jnp.asarray(cand), q_cent, ji, pl_tiles)
+    d_j, pl_j = j_fold7(jq.tiles, b, pl_c, qc, d_pl, interpret=True)
+    ops = blocknn_cuda.fold7_prepare(torch.as_tensor(cand), torch.as_tensor(np.asarray(q_cent)),
+                                     _same_index(ji), torch.as_tensor(table))
+    before = dict(blocknn_cuda.LAUNCHES)
+    d_t, pl_t = blocknn_cuda.block_fold7_pre(torch.as_tensor(np.asarray(jq.tiles)), ops)
+    assert blocknn_cuda.LAUNCHES == before
+    d_j, d_t, pl_j, pl_t = np.asarray(d_j), to_np(d_t), np.asarray(pl_j), to_np(pl_t)
+    fin = np.isfinite(d_j)
+    np.testing.assert_array_equal(np.isfinite(d_t), fin)
+    assert (~fin).sum() == np.sum(np.asarray(jq.order) < 0)
+    same = (pl_t == pl_j).all(1)
+    assert same.mean() >= 0.999, same.mean()
+    np.testing.assert_allclose(d_t[same], d_j[same], rtol=0, atol=1.2e-7)
+
+
+def _sentinel_fixture():
+    """The tie fixture plus a fifth, all-sentinel tile (order -1, zero
+    payload normals)."""
+    query, payload, fields = _tie_fixture()
+    tiles = np.concatenate([fields.tiles, np.full((1, 8, 3), PAD_COORD, np.float32)])
+    order = np.concatenate([fields.order, np.full(8, -1, np.int32)])
+    payload = np.concatenate([payload, np.zeros((8, 6), np.float32)])
+    payload[32:, :3] = PAD_COORD
+    fields = SimpleNamespace(tiles=tiles, box_lo=tiles.min(1), box_hi=tiles.max(1),
+                             centroids=tiles.mean(1), order=order)
+    return query, payload, fields
+
+
+@pytest.mark.parametrize("cand", [[0, 1, 2, 3], [3, 2, 1, 0], [4, 4, 4, 4]])
+def test_fold7_tie_rule_and_misses(cand):
+    """fold6's rule (least score, lowest lane, earliest candidate) on exact
+    ties, which integer coordinates centred on 0 keep exact in bf16; a tile
+    of all-sentinel candidates misses onto its first sentinel row. Equal to
+    the Pallas kernel."""
+    query, payload, fields = _sentinel_fixture()
+    index = interop.tile_index_from_numpy(fields, device="cpu")
+    q_cent = torch.zeros((1, 3))
+    ops = blocknn_cuda.fold7_prepare(torch.tensor([cand]), q_cent, index, torch.as_tensor(payload))
+    d_t, pl_t = blocknn_cuda.fold7_reference(torch.as_tensor(query), ops)
+    if cand[0] == 4:
+        assert np.isinf(to_np(d_t)).all() and (to_np(pl_t)[:, 0] == PAD_COORD).all()
+        assert (to_np(pl_t)[:, 3:] == 0).all()
+    else:
+        want1 = 8 * cand[min(cand.index(2), cand.index(3))] + 2
+        assert pl_t[0, 0] == 9 and pl_t[1, 0] == want1 and d_t[0] == 0 and d_t[1] == 0
+    j_index = jb.TileIndex(**{f: jnp.asarray(v) for f, v in vars(fields).items()})
+    b, pl_c, qc, d_pl = j_fold7_prepare(jnp.asarray([cand], jnp.int32), jnp.zeros((1, 3)), j_index,
+                                        jnp.asarray(payload.reshape(5, 8, 6)))
+    d_j, pl_j = j_fold7(jnp.asarray(query), b, pl_c, qc, d_pl, interpret=True)
+    np.testing.assert_array_equal(to_np(pl_t), np.asarray(pl_j))
+    np.testing.assert_array_equal(to_np(d_t), np.asarray(d_j))
+
+
+# ---- the fused union fold (kernel #6) ----------------------------------------------------
+
+
+@pytest.mark.parametrize("case", ["overflow", "duplicates", "random8", "random32"])
+def test_group_unions_match_jax(case):
+    if case == "overflow":  # 6 unique ids into 4 slots: the largest takes the last
+        cand, group, u_max, want = [[0, 1, 2], [3, 4, 5]], 2, 4, [[0, 1, 2, 5]]
+    elif case == "duplicates":  # 3 unique ids, 5 slots padded with the smallest
+        cand, group, u_max, want = [[5, 1, 1], [1, 5, 2]], 2, 8, [[1, 2, 5, 1, 1, 1, 1, 1]]
+    else:
+        rng = np.random.default_rng(19)
+        cand, group, want = rng.integers(0, 40, (64, 6)), 4, None
+        u_max = 8 if case == "random8" else 32
+    cand = np.asarray(cand, np.int32)
+    got = to_np(blocknn_cuda.group_unions(torch.as_tensor(cand), group, u_max))
+    ref = np.asarray(j_group_unions(jnp.asarray(cand), group, u_max))
+    np.testing.assert_array_equal(got, ref)
+    if want is not None:
+        np.testing.assert_array_equal(got, want)
+
+
+def test_fused4_plain_matches_pallas_interpret():
+    """tests/test_blocknn.py::test_fused4_matches_brute's case through the
+    port (exact NN on > 99.9% of rows, < 0.1% misses) and against the Pallas
+    kernel: d2 at the fold's tolerance (both score by the expansion; their
+    fp32 roundings differ), indices equal on separated rows."""
+    rng = np.random.default_rng(20)
+    r = rng.uniform(-1, 1, (8000, 3)).astype(np.float32)
+    q = rng.uniform(-1, 1, (4000, 3)).astype(np.float32)
+    ji = jb.build_kd_index(jnp.asarray(r), tile_size=128)
+    jq = jb.build_kd_index(jnp.asarray(q), tile_size=32)
+    d_j, i_j = j_fused4(jq.tiles, ji, k_tiles=12, group=4, u_max=32, interpret=True)
+    qt = torch.as_tensor(np.asarray(jq.tiles))
+    before = dict(blocknn_cuda.LAUNCHES)
+    d_t, i_t = blocknn_cuda.block_nn_fused4(qt, _same_index(ji), k_tiles=12, group=4, u_max=32)
+    assert blocknn_cuda.LAUNCHES == before
+    valid = np.asarray(jq.order) >= 0
+    d_b, i_b = nearest_neighbor_reference(qt.reshape(-1, 3), torch.as_tensor(r))
+    i_t, d_t = to_np(i_t), to_np(d_t)
+    assert (i_t[valid] == to_np(i_b)[valid]).mean() > 0.999
+    assert (d_t[valid] > to_np(d_b)[valid] + 1e-6).mean() < 0.001
+    d_j, i_j = np.asarray(d_j), np.asarray(i_j)
+    np.testing.assert_array_equal(np.isfinite(d_t), np.isfinite(d_j))
+    assert np.isinf(d_t[~valid]).all()
+    np.testing.assert_allclose(d_t[valid], d_j[valid], rtol=1e-5, atol=_dist_tol(qt))
+    _, pos = blocknn_cuda.block_nn_fused4(qt, _same_index(ji), k_tiles=12, group=4, u_max=32,
+                                          return_pos=True)
+    assert pos.dtype == torch.int32
+    np.testing.assert_array_equal(np.asarray(ji.order)[to_np(pos)][valid], i_t[valid])
+    sep = (np.abs(d_j - to_np(d_b)) < 1e-6) & valid  # rows whose union holds the exact NN
+    assert (i_t[sep] == i_j[sep]).mean() > 0.999
+
+
+def test_fused4_tie_rule_and_misses():
+    """Exact duplicates across union slots: within a lane the earliest slot
+    wins, across lanes the largest u * S + lane (the TPU kernel's epilogue,
+    not fold6's lowest lane), here through a union padded with its smallest
+    id. Equal to the Pallas kernel. A union of one all-sentinel tile misses
+    (d = inf) onto its last lane."""
+    query, _, fields = _sentinel_fixture()
+    tiles = fields.tiles.copy()
+    p, p2 = np.float32([1, 2, 3]), np.float32([-4, 5, -6])
+    tiles[0] = np.arange(24, dtype=np.float32).reshape(8, 3) * 10.0 + 100.0
+    tiles[0, 1] = tiles[1, 6] = p  # lowest lane: tile 0; largest u*S + lane: tile 1
+    tiles[2, 2] = tiles[3, 2] = p2  # one lane: the earliest slot, tile 2
+    tiles[1, 1] = 99.0
+    fields = SimpleNamespace(tiles=tiles, box_lo=tiles.min(1), box_hi=tiles.max(1),
+                             centroids=tiles.mean(1), order=fields.order)
+    index = interop.tile_index_from_numpy(fields, device="cpu")
+    qt = torch.as_tensor(query)
+    d_t, pos_t = blocknn_cuda.block_nn_fused4(qt, index, k_tiles=4, group=1, u_max=8,
+                                              return_pos=True)
+    assert int(pos_t[0]) == 8 + 6 and int(pos_t[1]) == 16 + 2
+    assert float(d_t[0]) == 0.0 and float(d_t[1]) == 0.0
+    j_index = jb.TileIndex(**{f: jnp.asarray(v) for f, v in vars(fields).items()})
+    d_j, pos_j = j_fused4(jnp.asarray(query), j_index, k_tiles=4, group=1, u_max=8,
+                          return_pos=True, interpret=True)
+    np.testing.assert_array_equal(to_np(pos_t), np.asarray(pos_j))
+    np.testing.assert_allclose(to_np(d_t), np.asarray(d_j), rtol=1e-6)
+    unions = blocknn_cuda.group_unions(torch.tensor([[4, 4, 4, 4]]), 1, 8)
+    d_m, pos_m = blocknn_cuda.fused4_reference(qt, index.tiles, unions, 1)
+    assert np.isinf(to_np(d_m)).all() and (to_np(pos_m) == 4 * 8 + 7).all()
+
+
+def test_fused4_group_must_divide_query_tiles():
+    _, jq, ji = _query_and_index(n=4096, seed=8)
+    qt = torch.as_tensor(np.asarray(jq.tiles))[:6]
+    with pytest.raises(ValueError, match="divisible"):
+        blocknn_cuda.block_nn_fused4(qt, _same_index(ji), group=4)
+
+
 # ---- radius, normals ---------------------------------------------------------------
 
 
@@ -509,3 +774,55 @@ def test_cuda_fold6_matches_plain(cuda_device):
                         torch.as_tensor(payload, device=cuda_device))
     _, pl = blocknn_cuda.fold6_cuda(torch.as_tensor(query, device=cuda_device), ops)
     assert float(pl[0, 0]) == 9 and float(pl[1, 0]) == 18
+
+
+@pytest.mark.cuda
+def test_cuda_fold7_matches_plain(cuda_device):
+    jq, ji, table, cand = _fold_case(seed=18)
+    ti = interop.tile_index_from_numpy(ji, device=cuda_device)
+    q = torch.as_tensor(np.asarray(jq.tiles), device=cuda_device)
+    cand_t = torch.as_tensor(cand, device=cuda_device)
+    _, q_cent = tb._candidate_tiles(q, ti, 6)
+    ops = blocknn_cuda.fold7_prepare(cand_t, q_cent, ti, torch.as_tensor(table, device=cuda_device))
+    before = blocknn_cuda.LAUNCHES["fold7"]
+    d_k, pl_k = blocknn_cuda.fold7_cuda(q, ops)
+    d_p, pl_p = blocknn_cuda.fold7_reference(q, ops)
+    torch.cuda.synchronize()
+    assert blocknn_cuda.LAUNCHES["fold7"] == before + 1
+    assert torch.equal(d_k, d_p) and torch.equal(pl_k, pl_p)  # bit for bit
+
+
+@pytest.mark.cuda
+def test_cuda_select_matches_plain(cuda_device):
+    jq, ji, table, cand = _fold_case(seed=17)
+    ti = interop.tile_index_from_numpy(ji, device=cuda_device)
+    cand_t = torch.as_tensor(cand, device=cuda_device)
+    _, pos = tb.block_nn(torch.as_tensor(np.asarray(jq.tiles), device=cuda_device), ti,
+                         return_pos=True, cand_tiles=cand_t)
+    pos = pos.reshape(jq.n_tiles, jq.tile_size)
+    pl = torch.as_tensor(table, device=cuda_device)
+    out_k = blocknn_cuda.select_cuda(pos, cand_t.to(torch.int32), pl, ji.tile_size)
+    out_p = blocknn_cuda.select_reference(pos, cand_t, pl, ji.tile_size)
+    torch.cuda.synchronize()
+    assert torch.equal(out_k, out_p) and torch.equal(out_k, pl[pos.reshape(-1).long()])
+    dup = torch.tensor([[1, 1, 2, 3]], dtype=torch.int32, device=cuda_device)
+    p4 = torch.tensor([[9, 3, 17, 30]], dtype=torch.int32, device=cuda_device)
+    torch.testing.assert_close(blocknn_cuda.select_cuda(p4, dup, pl, ji.tile_size),
+                               blocknn_cuda.select_reference(p4, dup, pl, ji.tile_size),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_fused4_matches_plain(cuda_device):
+    rng = np.random.default_rng(20)
+    r = rng.uniform(-1, 1, (8000, 3)).astype(np.float32)
+    q = rng.uniform(-1, 1, (4000, 3)).astype(np.float32)
+    ti = tb.build_kd_index(torch.as_tensor(r, device=cuda_device), tile_size=128)
+    qt = tb.build_kd_index(torch.as_tensor(q, device=cuda_device), tile_size=32).tiles
+    cand, _ = tb._candidate_tiles(qt, ti, 12)
+    for u_max in (32, 8):  # 8: overflowing unions
+        unions = blocknn_cuda.group_unions(cand, 4, u_max)
+        d_k, pos_k = blocknn_cuda.fused4_cuda(qt, ti.tiles, unions.to(torch.int32), 4)
+        d_p, pos_p = blocknn_cuda.fused4_reference(qt, ti.tiles, unions, 4)
+        torch.cuda.synchronize()
+        assert torch.equal(d_k, d_p) and torch.equal(pos_k, pos_p)  # bit for bit

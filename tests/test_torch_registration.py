@@ -213,13 +213,14 @@ def test_unported_paths_raise():
     tc = torch_cloud(JCloud.create(synthetic_surface(300, seed=1)))
     with pytest.raises(NotImplementedError, match="step 6"):
         register(tc, tc, ICPConfig(objective="gicp"))
-    # block NN runs now; what it still lacks raises, whether auto (from
-    # 8192 target points) or nn_method="block" picked it
+    # block NN runs every payload mode now, whether auto (from 8192 target
+    # points) or nn_method="block" picked it: an identical pair stays put
     big = torch_cloud(JCloud.create(synthetic_surface(8192, seed=1)))
-    with pytest.raises(NotImplementedError, match="queue 2 #5"):
-        register(big, big, ICPConfig(payload_mode="select"))
-    with pytest.raises(NotImplementedError, match="queue 2 #4"):
-        register(tc, tc, ICPConfig(nn_method="block", payload_mode="vmem7"))
+    for a, cfg in ((big, ICPConfig(payload_mode="select")),
+                   (tc, ICPConfig(nn_method="block", payload_mode="vmem7"))):
+        res = register(a, a, cfg)
+        assert torch.allclose(res.transform.R, torch.eye(3), atol=1e-3)
+        assert float(res.transform.t.norm()) < 1e-3 and torch.isfinite(res.final_rmse)
     with pytest.raises(ValueError, match="block NN"):
         register(tc, tc, ICPConfig(feat_nn="intensity", feat_nn_weight=1.0))
 

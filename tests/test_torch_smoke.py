@@ -82,6 +82,28 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
         blocknn_cuda.LAUNCHES["fold6"] += 1
         return blocknn_cuda.fold6_reference(query, ops)
 
+    def fake_fold7(query, ops):
+        blocknn_cuda.LAUNCHES["fold7"] += 1
+        return blocknn_cuda.fold7_reference(query, ops)
+
+    def fake_select(pos, cand, table, s):
+        blocknn_cuda.LAUNCHES["select"] += 1
+        return blocknn_cuda.select_reference(pos, cand, table, s)
+
+    def fake_fused4(query, tiles, unions, group):
+        blocknn_cuda.LAUNCHES["fused4"] += 1
+        return blocknn_cuda.fused4_reference(query, tiles, unions, group)
+
+    real_fused4 = blocknn_cuda.block_nn_fused4
+
+    def fused4_wrapper(*a, **kw):  # the CPU wrapper runs the plain version: count it
+        blocknn_cuda.LAUNCHES["fused4"] += 1
+        return real_fused4(*a, **kw)
+
+    def select_wrapper(pos, cand, pl_tiles):
+        t, s, d = pl_tiles.shape
+        return fake_select(pos, cand, pl_tiles.reshape(t * s, d), s)
+
     def as_if_cuda(resolve):
         return lambda self, n, device: resolve(self, n, torch.device("cuda"))
 
@@ -101,6 +123,12 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
     monkeypatch.setattr(blocknn_cuda, "moments6",
                         lambda q, t, c, qc, r2: fake_moments6(q, t, c.to(torch.int32), qc, r2))
     monkeypatch.setattr(icp, "block_fold_fused_pre", fake_fold6)
+    monkeypatch.setattr(blocknn_cuda, "fold7_cuda", fake_fold7)
+    monkeypatch.setattr(blocknn_cuda, "select_cuda", fake_select)
+    monkeypatch.setattr(blocknn_cuda, "fused4_cuda", fake_fused4)
+    monkeypatch.setattr(icp, "block_fold7_pre", fake_fold7)
+    monkeypatch.setattr(icp, "payload_select_fused", select_wrapper)
+    monkeypatch.setattr(icp, "block_nn_fused4", fused4_wrapper)
     monkeypatch.setattr(icp, "nearest_neighbor", dispatch)
     for name in ("resolve_payload", "resolve_moments"):
         monkeypatch.setattr(icp.ICPConfig, name, as_if_cuda(getattr(icp.ICPConfig, name)))
@@ -120,16 +148,24 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
     assert json.loads(lines[-1]) == {
         "ok": True, "device": {"platform": "gpu", "kind": "Fake GPU", "count": 1}}
     ks = json.loads(lines[-2])["kernels"]
-    assert [k["name"] for k in ks] == ["nn", "moments6", "fold6"]
+    assert [k["name"] for k in ks] == ["nn", "moments6", "fold6", "fold7", "select", "fused4"]
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms"}
-    extras = {"moments6": {"cov_max_abs_err", "cov_err_over_tol"}}
+    extras = {"moments6": {"cov_max_abs_err", "cov_err_over_tol"},
+              "fused4": {"union_mean", "union_max"}}
     for k in ks:
         assert set(k) == keys | extras.get(k["name"], set())
         assert k["route"] == "cuda" and (ROOT / k["source"]).exists()
         assert k["bound_ms"] > 0 and k["bound_by"] in ("bytes", "operations")
-    nn, mom, fold = ks
+    nn, mom, fold, fold7, select, fused4 = ks
     assert 0.0 <= mom["cov_err_over_tol"] <= 1.0 and fold["max_abs_err"] == 0.0
+    for k in (fold7, select, fused4):  # bit equality with the plain versions
+        assert k["max_abs_err"] == 0.0 and k["launches"] >= 1
+    assert fold7["replaces"] == "icpx/kernels/blocknn_pallas.py:694"
+    assert select["replaces"] == "icpx/kernels/blocknn_pallas.py:358"
+    assert fused4["replaces"] == "icpx/kernels/blocknn_pallas.py:101"
+    assert select["library_ms"] > 0 and fold7["library_ms"] is None
+    assert 1 <= fused4["union_mean"] <= fused4["union_max"] <= 32
     assert nn["replaces"] == "icpx/kernels/knn_pallas.py:37"
     assert mom["replaces"] == "icpx/kernels/blocknn_pallas.py:890"
     assert fold["replaces"] == "icpx/kernels/blocknn_pallas.py:497"
@@ -137,6 +173,9 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
     assert mom["launches"] >= 2 and fold["launches"] >= 1
     assert mom["library_ms"] is None and fold["library_ms"] is None
     assert "Fake GPU, 700.00 W" in lines
-    for prefix in ("cat: ", "65k pair: ", "flagship 1M (kernels): ", "flagship 1M (plain): ",
-                   "16k block pair: ", "moments6 kernel vs plain", "fold6 kernel vs plain"):
+    prefixes = ["cat: ", "65k pair: ", "moments6 kernel vs plain", "fold6 kernel vs plain",
+                "fold7 kernel vs plain", "select kernel vs plain", "fused4 kernel vs plain"]
+    prefixes += [f"flagship 1M ({m}): " for m in chip_smoke._flag_configs()]
+    prefixes += [f"16k block pair ({m}): " for m in ("vmem", "vmem7", "select", "fused")]
+    for prefix in prefixes:
         assert any(line.startswith(prefix) for line in lines), prefix
