@@ -5,11 +5,12 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the port's six CUDA kernels from the sources in this checkout
+It builds the port's eight CUDA kernels from the sources in this checkout
 (one `nvcc` per source, started together), holds each against its plain
-PyTorch version at the shapes the main path gives it, then drives the
-main paths through `register()` and checks each result against its ground
-truth:
+PyTorch version at the shapes the main path gives it (the flagship's KD
+indexes built through the sort kernel must equal the plain builds bit for
+bit), then drives the main paths through `register()` and checks each
+result against its ground truth:
 
 * the brute-force path: the cat fixture pair and a 65,536-point synthetic
   pair (normals on the card);
@@ -18,20 +19,25 @@ truth:
   delivers correspondences: the fold6 kernel ("auto"), the plain torch
   path ("gather"), the fold7 kernel (payload_mode "vmem7"), the plain fold
   with the select kernel ("select"), the plain in-fold selection
-  ("infold") and the fused4 kernel (block_fused "on"); and a 16,384-point
-  pair on the card against the same pair on the CPU under "vmem",
-  "vmem7", "select" and block_fused "on".
+  ("infold") and the fused4 kernel (block_fused "on");
+* GICP at the same flagship, covariances estimated inside the
+  registration (3 reps, each held to the GT gate), then with covariances
+  taken through the union moments kernel;
+* a 16,384-point pair on the card against the same pair on the CPU under
+  "vmem", "vmem7", "select", block_fused "on" and GICP.
 
-Launch counters are set to 0 just before each path and read just after.
-Every phase prints one line (or a few); any failure raises, so the exit
-code is non-zero. The last two lines are a JSON object per kernel and the
-verdict ``{"ok": true, "device": {...}}``. Without a CUDA device it refuses
-to run.
+Every path's KD builds sort through the sort kernel. Launch counters are
+set to 0 just before each path and read just after. Every phase prints one
+line (or a few); any failure raises, so the exit code is non-zero. The SM
+clock is sampled before and after the kernel phases. The last two lines
+are a JSON object per kernel and the verdict ``{"ok": true, "device":
+{...}}``. Without a CUDA device it refuses to run.
 
     python3 chip_smoke.py --profile [--n 1048576]
 
 runs none of that: it profiles one flagship registration under each of
-those block paths (`torch.profiler`) and prints where the device time goes.
+those block paths and GICP (`torch.profiler`) and prints where the device
+time goes.
 """
 
 import argparse
@@ -158,18 +164,46 @@ def _flag_configs():
 
 # What each flagship path must launch: {kernel: "refine" (once a refine
 # iteration), "all" (once an iteration of both phases), "some" (at least
-# twice: the normals of both clouds)}; every kernel not named stays at 0.
+# twice: the normals of both clouds), "builds" (the level sorts of the
+# source's KD index at tiles of 64 and the target's at 128: 5 + 4 at 1M),
+# "gicp builds" (those and, where the covariances take the block method,
+# the two covariance indexes at 128: 17 at 1M), or
+# a number}; every kernel not named stays at 0. "gicp fused" takes the
+# covariances through the union moments kernel, once a cloud.
 _FLAG_LAUNCHES = {
-    "kernels": {"moments6": "some", "fold6": "refine"},
-    "plain": {},
-    "vmem7": {"moments6": "some", "fold7": "refine"},
-    "select": {"moments6": "some", "select": "refine"},
-    "infold": {"moments6": "some"},
-    "fused": {"moments6": "some", "fused4": "all"},
+    "kernels": {"moments6": "some", "fold6": "refine", "sort": "builds"},
+    "plain": {"sort": "builds"},
+    "vmem7": {"moments6": "some", "fold7": "refine", "sort": "builds"},
+    "select": {"moments6": "some", "select": "refine", "sort": "builds"},
+    "infold": {"moments6": "some", "sort": "builds"},
+    "fused": {"moments6": "some", "fused4": "all", "sort": "builds"},
+    "gicp": {"fold6": "refine", "sort": "gicp builds"},
+    "gicp fused": {"fold6": "refine", "sort": "gicp builds", "moments_fused": 2},
 }
 # The flagship path whose launches the kernels line reports for each kernel.
 _LAUNCHES_FROM = {"moments6": "kernels", "fold6": "kernels", "fold7": "vmem7",
-                  "select": "select", "fused4": "fused"}
+                  "select": "select", "fused4": "fused", "sort": "gicp",
+                  "moments_fused": "gicp fused"}
+
+
+def _check_launches(label, counts, res, shapes):
+    """Fail unless the flagship path `label` launched what _FLAG_LAUNCHES
+    says (`shapes`: the level sorts of a KD build by tile size); returns the
+    refine iterations."""
+    from icpx_torch.kernels.normals import _resolve_method
+
+    refine = _refine_iters(res)
+    builds = len(shapes[64]) + len(shapes[128])
+    cov_builds = 2 * len(shapes[128]) if _resolve_method("auto", shapes["n"]) == "block" else 0
+    want = {"refine": refine, "all": res.iters, "builds": builds,
+            "gicp builds": builds + cov_builds}
+    for name, n in counts.items():
+        rule = _FLAG_LAUNCHES[label].get(name)
+        ok = n >= 2 if rule == "some" else n == (rule if isinstance(rule, int) else want.get(rule, 0))
+        if not ok:
+            _fail(f"flagship ({label}): {name} launched {n} times "
+                  f"({refine} refine of {res.iters} iterations; {counts})")
+    return refine
 
 
 def _block_fixtures(dev):
@@ -532,16 +566,263 @@ def _phase_fused4(dev, query, tgt_index, fixtures, group=4, u_max=32):
                 bound_by=bound_by, library_ms=None, union_mean=float(sizes.mean()), union_max=int(sizes.max()))
 
 
+def _level_shapes(build):
+    """Run build() with the KD build's level sort recorded: (its result, the
+    (c, m) key shapes in launch order)."""
+    from icpx_torch.kernels import blocknn
+
+    shapes, real = [], blocknn.sort_segments
+
+    def recording(key, payloads=()):
+        shapes.append(tuple(key.shape))
+        return real(key, payloads)
+
+    blocknn.sort_segments = recording
+    try:
+        out = build()
+    finally:
+        blocknn.sort_segments = real
+    return out, shapes
+
+
+def _plain_build(build):
+    """build() with the KD build's level sorts on the sort kernel's plain
+    version (`torch.sort(stable=True)` + `take_along_dim`)."""
+    from icpx_torch.kernels import blocknn, sort_cuda
+
+    real = blocknn.sort_segments
+    blocknn.sort_segments = sort_cuda.sort_segments_reference
+    try:
+        return build()
+    finally:
+        blocknn.sort_segments = real
+
+
+def _phase_kd(dev, f_src, f_tgt):
+    """The flagship's KD indexes (the target's at tiles of 128, the
+    source's at 64) built through the sort kernel must equal the plain
+    builds bit for bit; returns {tile size: level shapes, "n": points}."""
+    from icpx_torch.kernels import sort_cuda
+    from icpx_torch.kernels.blocknn import build_kd_index
+
+    shapes = {"n": f_tgt.capacity}
+    for s, cloud in ((128, f_tgt), (64, f_src)):
+        def build():
+            return build_kd_index(cloud.xyz, cloud.mask, tile_size=s)
+
+        before = sort_cuda.LAUNCHES["sort"]
+        got, shapes[s] = _level_shapes(build)
+        if sort_cuda.LAUNCHES["sort"] - before != len(shapes[s]):
+            _fail(f"KD build (tiles of {s}): {len(shapes[s])} level sorts but "
+                  f"{sort_cuda.LAUNCHES['sort'] - before} kernel launches")
+        want = _plain_build(build)
+        torch.cuda.synchronize()
+        for f in ("tiles", "order", "box_lo", "box_hi", "centroids"):
+            a, b = getattr(got, f), getattr(want, f)
+            if not torch.equal(a.view(torch.int32) if a.is_floating_point() else a,
+                               b.view(torch.int32) if b.is_floating_point() else b):
+                _fail(f"KD build (tiles of {s}): {f} differs from the plain build")
+        ms_k = _event_ms(build, reps=3)
+        ms_p = _event_ms(lambda: _plain_build(build), reps=3)
+        print(f"KD index {tuple(got.tiles.shape)}: equal to the plain build bit for bit (tiles, "
+              f"order, boxes, centroids); level sorts {shapes[s]}; build {ms_k:.3f} ms through "
+              f"the kernel, {ms_p:.3f} ms plain (CUDA events, median of 3)")
+    return shapes
+
+
+def _sort_fixture(dev):
+    """Duplicate-heavy keys (stability), PAD_COORD keys in every other
+    segment (they sink to the tail in order) and signed zeros (equal keys
+    that keep their own bits), (c, m) = (8, 256)."""
+    from icpx_torch.cloud import PAD_COORD
+
+    rng = np.random.default_rng(5)
+    key = (rng.integers(-8, 8, size=(8, 256)) * 0.5).astype(np.float32)
+    key[rng.uniform(size=key.shape) < 0.1] = -0.0
+    key[::2, ::3] = PAD_COORD
+    return torch.as_tensor(key, device=dev)
+
+
+def _phase_sort(dev, shapes):
+    """Kernel #8 against its plain version (which is also the library call:
+    `torch.sort(stable=True)` + `take_along_dim`) on KD-build payloads
+    ((c, m, 3) f32 coordinates, (c, m) i32 indices), bit for bit, at every
+    level shape of the flagship's builds, at 16 x 65,536 (the largest
+    segment a build sorts), (3, 2), and on the fixture; times the tile-128
+    build's levels summed."""
+    from icpx_torch.kernels import sort_cuda
+
+    def operands(c, m, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        key = torch.randint(-m // 8 - 1, m // 8 + 1, (c, m), generator=g, device=dev).float() * 0.5
+        xyz = torch.randn((c, m, 3), generator=g, device=dev)
+        orig = torch.randperm(c * m, generator=g, device=dev).to(torch.int32).reshape(c, m)
+        return key, xyz, orig
+
+    def bits(x):
+        return x.view(torch.int32) if x.is_floating_point() else x
+
+    def compare(name, key, xyz, orig):
+        got = sort_cuda.sort_cuda(key, [xyz, orig])
+        want = sort_cuda.sort_segments_reference(key, [xyz, orig])
+        torch.cuda.synchronize()
+        if not all(torch.equal(bits(a), bits(b)) for a, b in zip(got, want)):
+            _fail(f"sort {name}: kernel and plain version differ")
+        return got[0]
+
+    from icpx_torch.cloud import PAD_COORD
+
+    key = _sort_fixture(dev)
+    c, m = key.shape
+    sk = compare("fixture", key, torch.randn((c, m, 3), device=dev),
+                 torch.arange(c * m, dtype=torch.int32, device=dev).reshape(c, m))
+    if not bool((sk[::2, -(m // 3):] == PAD_COORD).all()):
+        _fail("sort fixture: sentinel keys did not sink to the tail")
+    if not bool((torch.signbit(sk) & (sk == 0)).any()):
+        _fail("sort fixture: -0.0 keys lost their sign bit")
+    cases = sorted(set(shapes[128]) | set(shapes[64]) | {(16, 65536), (3, 2)})
+    timed = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    for i, (c, m) in enumerate(cases):
+        key, xyz, orig = operands(c, m, i)
+        compare(f"{c}x{m}", key, xyz, orig)
+        if (c, m) in shapes[128]:
+            ms = _event_ms(lambda: sort_cuda.sort_cuda(key, [xyz, orig]))
+            plain_ms = _event_ms(lambda: sort_cuda.sort_segments_reference(key, [xyz, orig]))
+            bound, _ = _bound(c * m * 2 * (4 + 12 + 4), 0.0)
+            timed = {"ms": timed["ms"] + ms, "plain_ms": timed["plain_ms"] + plain_ms,
+                     "bound_ms": timed["bound_ms"] + bound}
+            print(f"sort kernel vs plain {c}x{m}: bit-equal; kernel {ms:.3f} ms, plain = torch.sort "
+                  f"+ take_along_dim {plain_ms:.3f} ms, bound {bound:.4f} ms (bytes) (CUDA events, "
+                  "median of 5)")
+    print(f"sort kernel vs plain: bit-equal at {cases} and on the fixture (duplicates, "
+          f"sentinels, +-0); the tile-128 build's {len(shapes[128])} levels: kernel "
+          f"{timed['ms']:.3f} ms, plain {timed['plain_ms']:.3f} ms, bound {timed['bound_ms']:.4f} ms")
+    # key, coordinates and index read once and written once; a few
+    # compare-exchanges an element are far below the bytes' time
+    return dict(max_abs_err=0.0, ms=timed["ms"], plain_ms=timed["plain_ms"],
+                library_ms=timed["plain_ms"], bound_ms=timed["bound_ms"], bound_by="bytes")
+
+
+def _cov_radius(cloud, k):
+    """The covariance radius of `normals._block_radius_cov` for k neighbours."""
+    from icpx_torch.kernels.voxel import auto_cell_size
+
+    return auto_cell_size(cloud.xyz, cloud.mask, scale=3.0 * math.sqrt(max(k, 1) / 10.0))
+
+
+def _phase_moments_fused(dev, f_tgt, group=4, u_max=32, k_tiles=8):
+    """Kernel #7 against its plain version at the 1M covariance index (the
+    flagship target's KD index of 128-point tiles, each its own query tile,
+    GICP's radius for k = 15): counts equal on every row, means within
+    1e-5, covariances within `_cov_tol`. Each group's union must hold
+    every candidate tile of its query tiles, so its counts are at or above
+    the plain XLA-style fold's (`block_radius_moments`) on every row, up to
+    radius-border rows (its expansion score is centred on the group's
+    centroid, the fold's on the tile's, and rounds further from the
+    border): at a radius 1% larger they are above on every row. Returns
+    its JSON fields with the union sizes."""
+    from icpx_torch.kernels import blocknn_cuda
+    from icpx_torch.kernels.blocknn import _candidate_tiles, block_radius_moments, build_kd_index
+
+    idx = build_kd_index(f_tgt.xyz, f_tgt.mask, tile_size=128)
+    radius = _cov_radius(f_tgt, 15)
+    cand, _ = _candidate_tiles(idx.tiles, idx, k_tiles)
+    unions = blocknn_cuda.group_unions(cand, group, u_max)
+    u32 = unions.to(torch.int32)
+    q_cent = blocknn_cuda.group_centroids(idx.tiles, group)
+    gq = group * idx.tile_size
+    r2 = (radius * radius).reshape(1).to(torch.float32)
+    out_k = blocknn_cuda.moments_fused_cuda(idx.tiles, idx.tiles, u32, q_cent, r2, group)
+    out_p = blocknn_cuda.moments_fused_reference(idx.tiles, idx.tiles, unions, q_cent, r2[0], group)
+    torch.cuda.synchronize()
+    if not torch.equal(out_k[0], out_p[0]):
+        _fail(f"moments_fused: counts differ on {int((out_k[0] != out_p[0]).sum())} rows")
+    if not bool(torch.isfinite(out_k).all()):
+        _fail("moments_fused: moments not finite")
+    (cnt, mean_k, cov_k), (_, mean_p, cov_p) = (
+        blocknn_cuda.finish_union_moments(o, q_cent, gq) for o in (out_k, out_p))
+    valid = idx.order >= 0
+    mean_err = float((mean_k - mean_p)[valid].abs().max())
+    if mean_err > 1e-5:
+        _fail(f"moments_fused: means off by {mean_err:.3e}")
+    comps = [(0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2)]
+    p6 = torch.stack([cov_p[:, i, j] for i, j in comps])
+    k6 = torch.stack([cov_k[:, i, j] for i, j in comps])
+    q_rows = q_cent.repeat_interleave(gq, 0)
+    tol = 1e-4 * (p6[0] + p6[3] + p6[5]) + 1e-5 * ((mean_p - q_rows) ** 2).sum(1)
+    cov_err = (k6 - p6).abs()[:, valid]
+    over = float(torch.where(cov_err == 0, 0.0, cov_err / tol[valid]).max())
+    if over > 1.0:
+        _fail(f"moments_fused: a covariance is off by {over:.3g} x its tolerance")
+    held = (cand[:, :, None] == unions.repeat_interleave(group, 0)[:, None, :]).any(2)
+    if not bool(held.all()):
+        _fail(f"moments_fused: {int((~held).sum())} candidate tiles missing from their unions")
+    cnt_x, _, _ = block_radius_moments(idx.tiles, idx, radius, k_tiles=k_tiles)
+    below = int(((cnt < cnt_x) & valid).sum())
+    out_w = blocknn_cuda.moments_fused_cuda(idx.tiles, idx.tiles, u32, q_cent, r2 * 1.01 ** 2, group)
+    if bool(((out_w[0] < cnt_x) & valid).any()):
+        _fail(f"moments_fused: {int(((out_w[0] < cnt_x) & valid).sum())} rows count fewer "
+              "neighbours than block_radius_moments even at a radius 1% larger")
+    above = int(((cnt > cnt_x) & valid).sum())
+    sizes = ((unions[:, 1:] != unions[:, :1]).sum(1) + 1).to(torch.float32)
+    padded = 1.0 - float(sizes.sum()) / unions.numel()
+    ms = _event_ms(lambda: blocknn_cuda.moments_fused_cuda(idx.tiles, idx.tiles, u32, q_cent, r2, group))
+    plain_ms = _event_ms(lambda: blocknn_cuda.moments_fused_reference(
+        idx.tiles, idx.tiles, unions, q_cent, r2[0], group), reps=3)
+    n = idx.tiles.shape[0] * idx.tile_size
+    pairs = float(sizes.sum()) * idx.tile_size * gq  # the distinct union rows, as scored
+    inside = float(out_k[0].sum())  # pairs within the radius (slot 0 weighted): 20 more flops each
+    bytes_moved = n * 12 + idx.tiles.numel() * 4 + unions.numel() * 4 + q_cent.numel() * 4 + n * 40
+    bound_ms, bound_by = _bound(bytes_moved, pairs * 8.0 + inside * 20.0)
+    print(f"moments_fused kernel vs plain {tuple(idx.tiles.shape)} k={k_tiles} group={group} "
+          f"radius {float(radius):.4e}: counts equal on all {n} rows (mean {float(cnt[valid].mean()):.2f}), "
+          f"means within {mean_err:.3e}, covariances {over:.3g} x their tolerance; unions of "
+          f"{float(sizes.mean()):.2f} distinct tiles on average, {int(sizes.max())} at most, "
+          f"{100 * padded:.1f}% of the {u_max} slots padded; counts above block_radius_moments' "
+          f"on {above} rows, below on {below} (radius-border rows; none at a radius 1% larger); "
+          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}) "
+          "(CUDA events, median of 5; plain of 3)")
+    return dict(max_abs_err=max(mean_err, float(cov_err.max())), cov_err_over_tol=over, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                union_mean=float(sizes.mean()), union_max=int(sizes.max()), padded_share=padded,
+                rows_below_xla=below)
+
+
+def _gicp_config():
+    """The flagship config with the GICP objective; payload "auto" is fold6
+    on the card, its table 12 wide (xyz and the flattened covariance)."""
+    return dataclasses.replace(_flag_configs()["kernels"], objective="gicp")
+
+
+def _fused_covariances(cloud, k, fused=True):
+    """The cloud with GICP covariances estimated through the fused branch of
+    `_block_radius_cov` (the union moments kernel on the card), as
+    `register()` would estimate them were `use_fused_default()` true; with
+    `fused=False` through the default branch (the plain radius moments)."""
+    from icpx_torch.kernels.normals import _covariances_xyz
+
+    covs, _ = _covariances_xyz(cloud.xyz, cloud.mask, k=k, epsilon=1e-3, method="block", fused=fused)
+    return cloud.replace(covs=covs)
+
+
+def _sample_clocks(when: str) -> None:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,temperature.gpu", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(f"clocks {when} (sm, max sm, temperature): {smi}")
+
+
 def _counted(fn):
     """Run fn with every launch counter at 0; (result, {kernel: launches})."""
-    from icpx_torch.kernels import blocknn_cuda, nn_cuda
+    from icpx_torch.kernels import blocknn_cuda, nn_cuda, sort_cuda
 
     nn_cuda.LAUNCHES = 0
     for name in blocknn_cuda.LAUNCHES:
         blocknn_cuda.LAUNCHES[name] = 0
+    sort_cuda.LAUNCHES["sort"] = 0
     out = fn()
     torch.cuda.synchronize()
-    return out, dict(nn=nn_cuda.LAUNCHES, **blocknn_cuda.LAUNCHES)
+    return out, dict(nn=nn_cuda.LAUNCHES, **blocknn_cuda.LAUNCHES, **sort_cuda.LAUNCHES)
 
 
 def _refine_iters(res) -> int:
@@ -560,9 +841,9 @@ def main(dev=None, n_pair: int = N_PAIR, n_flag: int = N_FLAG, n_small: int = N_
     from icpx_torch.cloud import PointCloud
     from icpx_torch.geometry.transforms import make_rigid_perturbation
     from icpx_torch.io.loaders import load_cat_pair
-    from icpx_torch.kernels import blocknn_cuda, cuda_build, nn_cuda
+    from icpx_torch.kernels import blocknn_cuda, cuda_build, nn_cuda, sort_cuda
     from icpx_torch.kernels.blocknn import build_kd_index, fused_payload_table, trim_index
-    from icpx_torch.kernels.normals import estimate_normals
+    from icpx_torch.kernels.normals import estimate_covariances, estimate_normals
     from icpx_torch.kernels.voxel import auto_cell_size
     from icpx_torch.registration.icp import ICPConfig, register
 
@@ -581,17 +862,22 @@ def main(dev=None, n_pair: int = N_PAIR, n_flag: int = N_FLAG, n_small: int = N_
     cuda_build.compile_all()
     nn_cuda.build()
     blocknn_cuda.build()
-    print(f"build: {time.perf_counter() - t0:.2f} s -> "
-          f"{nn_cuda.library_path().name}, {blocknn_cuda.library_path().name}")
+    sort_cuda.build()
+    print(f"build: {time.perf_counter() - t0:.2f} s -> {nn_cuda.library_path().name}, "
+          f"{blocknn_cuda.library_path().name}, {sort_cuda.library_path().name}")
     for stem, log in cuda_build.BUILD_LOGS.items():
         for line in log.splitlines():
             if any(w in line for w in ("entry function", "registers", "spill", "smem")):
                 print(f"  ptxas {stem}: {line.strip()}")
 
     # 3. Kernels against their plain versions -----------------------------------
+    _sample_clocks("before the kernel phases")
     rng = np.random.default_rng(0)
     kernels = {"nn": _phase_nn(dev, n_pair, rng)}
     f_src, f_tgt, f_gt = _gt_pair(n_flag, 0, dev)
+    shapes = _phase_kd(dev, f_src, f_tgt)
+    kernels["sort"] = _phase_sort(dev, shapes)
+    kernels["moments_fused"] = _phase_moments_fused(dev, f_tgt)
     tgt_index = trim_index(build_kd_index(f_tgt.xyz, f_tgt.mask, tile_size=128),
                            f_tgt.capacity, multiple=64)
     flat = tgt_index.tiles.reshape(-1, 3)
@@ -607,6 +893,7 @@ def main(dev=None, n_pair: int = N_PAIR, n_flag: int = N_FLAG, n_small: int = N_
     kernels["select"] = _phase_select(dev, query, cand, tgt_index, table, fixtures)
     kernels["fused4"] = _phase_fused4(dev, query, tgt_index, fixtures)
     del tgt_index, flat, table, aux, query, cand, q_cent
+    _sample_clocks("after the kernel phases")
 
     cfg_cat = ICPConfig(objective="symmetric", max_iters=20, diff_threshold=1.0,
                         max_corr_dist=50.0, robust="huber")
@@ -683,14 +970,7 @@ def main(dev=None, n_pair: int = N_PAIR, n_flag: int = N_FLAG, n_small: int = N_
         rot, terr = (float(x) for x in res.transform.distance_to(f_gt))
         if not (math.isfinite(float(res.final_rmse)) and rot < 5e-3 and terr < 5e-3):
             _fail(f"flagship ({label}): GT not recovered (rot {rot:.3e}, t {terr:.3e})")
-        refine = _refine_iters(res)
-        want = {"refine": refine, "all": res.iters}
-        for name, n in counts.items():
-            rule = _FLAG_LAUNCHES[label].get(name)
-            ok = n >= 2 if rule == "some" else n == want.get(rule, 0)
-            if not ok:
-                _fail(f"flagship ({label}): {name} launched {n} times "
-                      f"({refine} refine of {res.iters} iterations; {counts})")
+        refine = _check_launches(label, counts, res, shapes)
         for name, path in _LAUNCHES_FROM.items():
             if path == label:
                 kernels[name]["launches"] = counts[name]
@@ -703,9 +983,58 @@ def main(dev=None, n_pair: int = N_PAIR, n_flag: int = N_FLAG, n_small: int = N_
               f"launches={counts}; wall {wall * 1e3:.2f} ms (median of 3, normals included) = "
               f"{n_flag / wall:.4g} points/s; peak {peak:.0f} MiB")
     print("flagship 1M walls: " + ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in walls.items()))
-    del f_src, f_tgt
 
-    # 7. A 16,384-point block pair: the kernels on the card, their plain
+    # 7. GICP at the 1M flagship: covariances (k = 15) estimated inside
+    #    register() through the plain radius moments, as by default; a warm
+    #    call, then 3 reps, each counted and held to the GT gate -----------------
+    cfg_gicp = _gicp_config()
+    t0 = time.perf_counter()
+    register(f_src, f_tgt, cfg_gicp)
+    torch.cuda.synchronize()
+    print(f"flagship 1M (gicp): first call {(time.perf_counter() - t0) * 1e3:.2f} ms")
+    for rep in range(3):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res, counts = _counted(lambda: register(f_src, f_tgt, cfg_gicp))
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        rot, terr = (float(x) for x in res.transform.distance_to(f_gt))
+        if not (math.isfinite(float(res.final_rmse)) and rot < 5e-3 and terr < 5e-3):
+            _fail(f"flagship (gicp) rep {rep + 1}: GT not recovered (rot {rot:.3e}, t {terr:.3e})")
+        refine = _check_launches("gicp", counts, res, shapes)
+        print(f"flagship 1M (gicp) rep {rep + 1}: wall {wall * 1e3:.2f} ms = {n_flag / wall:.4g} "
+              f"points/s (covariances included); iters={res.iters} (coarse {res.iters - refine}, "
+              f"refine {refine}) rmse={float(res.final_rmse):.3e} rot_err={rot:.3e} "
+              f"t_err={terr:.3e}; peak {peak:.0f} MiB; launches={counts}")
+    kernels["sort"]["launches"] = counts["sort"]
+
+    #    The same with the covariances through `_block_radius_cov`'s fused
+    #    branch (the union moments kernel), then given to register() ----------
+    k_cov = max(cfg_gicp.k_normals, 15)
+    res, counts = _counted(lambda: register(_fused_covariances(f_src, k_cov),
+                                            _fused_covariances(f_tgt, k_cov), cfg_gicp))
+    rot, terr = (float(x) for x in res.transform.distance_to(f_gt))
+    if not (math.isfinite(float(res.final_rmse)) and rot < 5e-3 and terr < 5e-3):
+        _fail(f"flagship (gicp fused): GT not recovered (rot {rot:.3e}, t {terr:.3e})")
+    refine = _check_launches("gicp fused", counts, res, shapes)
+    kernels["moments_fused"]["launches"] = counts["moments_fused"]
+    cov_f = _fused_covariances(f_tgt, k_cov).covs
+    cov_x = estimate_covariances(f_tgt, k=k_cov).covs
+    close = float(((cov_f - cov_x).abs().amax((1, 2)) <= 1e-3)[f_tgt.mask].float().mean())
+    if not (bool(torch.isfinite(cov_f).all()) and close >= 0.9):
+        _fail(f"gicp fused: covariances agree with the plain branch's on {close:.4f} of rows")
+    wall_cov = {f: _sync_time(lambda: _fused_covariances(f_tgt, k_cov, fused=f), reps=3)[0]
+                for f in (False, True)}
+    print(f"flagship 1M (gicp fused): covariances through the union moments kernel; "
+          f"iters={res.iters} (coarse {res.iters - refine}, refine {refine}) "
+          f"rmse={float(res.final_rmse):.3e} rot_err={rot:.3e} t_err={terr:.3e}; "
+          f"launches={counts}; the target's covariances within 1e-3 of the default branch's "
+          f"on {100 * close:.2f}% of rows; one cloud's covariances {wall_cov[False] * 1e3:.2f} ms "
+          f"through the default branch, {wall_cov[True] * 1e3:.2f} ms through the fused one "
+          "(median of 3)")
+    del f_src, f_tgt, cov_f, cov_x
+
+    # 8. A 16,384-point block pair: the kernels on the card, their plain
     #    versions on the CPU, under each kernel-served mode -------------------------
     #    The new modes run a fixed 3 refine iterations: on this pair their
     #    converged RMSE moves by ~1e-6 from one iteration to the next (the
@@ -717,11 +1046,14 @@ def main(dev=None, n_pair: int = N_PAIR, n_flag: int = N_FLAG, n_small: int = N_
     small = {"vmem": ("fold6", dict(payload_mode="vmem")),
              "vmem7": ("fold7", dict(payload_mode="vmem7", **fixed)),
              "select": ("select", dict(payload_mode="select", **fixed)),
-             "fused": ("fused4", dict(block_fused="on", **fixed))}
+             "fused": ("fused4", dict(block_fused="on", **fixed)),
+             "gicp": ("fold6", dict(payload_mode="vmem", objective="gicp"))}
     for label, (name, change) in small.items():
         cfg_small = dataclasses.replace(flag_cfgs["kernels"], moments_mode="vmem", **change)
         res, counts = _counted(lambda: register(src, tgt, cfg_small))
-        if counts["moments6"] < 2 or counts[name] < 1:
+        # GICP estimates covariances (kNN at this size), no normals
+        need = {name: 1, "sort": 1, **({} if label == "gicp" else {"moments6": 2})}
+        if any(counts[k] < n for k, n in need.items()):
             _fail(f"16k pair ({label}): the kernels were not launched ({counts})")
         res_cpu = register(src.to("cpu"), tgt.to("cpu"), cfg_small)
         d_rot, d_t = _transform_diff(res.transform, res_cpu.transform)
@@ -736,13 +1068,15 @@ def main(dev=None, n_pair: int = N_PAIR, n_flag: int = N_FLAG, n_small: int = N_
 
     cu = "icpx_torch/csrc/blocknn.cu"
     sources = {"nn": "icpx_torch/csrc/nn.cu", "moments6": cu, "fold6": cu, "fold7": cu,
-               "select": cu, "fused4": cu}
+               "select": cu, "fused4": cu, "moments_fused": cu, "sort": "icpx_torch/csrc/sort.cu"}
     replaces = {"nn": "icpx/kernels/knn_pallas.py:37",
                 "moments6": "icpx/kernels/blocknn_pallas.py:890",
                 "fold6": "icpx/kernels/blocknn_pallas.py:497",
                 "fold7": "icpx/kernels/blocknn_pallas.py:694",
                 "select": "icpx/kernels/blocknn_pallas.py:358",
-                "fused4": "icpx/kernels/blocknn_pallas.py:101"}
+                "fused4": "icpx/kernels/blocknn_pallas.py:101",
+                "moments_fused": "icpx/kernels/blocknn_pallas.py:219",
+                "sort": "icpx/kernels/sort_pallas.py:86"}
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name], "replaces": replaces[name],
@@ -777,7 +1111,7 @@ def profile_flagship(n: int = N_FLAG, top: int = 12) -> None:
     cuda_build.compile_all()
     src, tgt, gt = _gt_pair(n, 0, dev)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    for label, cfg in _flag_configs().items():
+    for label, cfg in {**_flag_configs(), "gicp": _gicp_config()}.items():
         wall, _ = _sync_time(lambda: register(src, tgt, cfg), reps=3, warmup=2)
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()

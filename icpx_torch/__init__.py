@@ -5,18 +5,20 @@ same relative path and keeps the same public names. It imports `torch` and
 numpy only; `icpx` (JAX) is the reference it is tested against, never a
 runtime dependency.
 
-Ported so far: single-pair registration (`registration.icp.register`) on
-the brute-force NN path (targets below `ICPConfig.block_auto_threshold`,
-or `nn_method="brute"`) and on the block-NN path (KD tile indexes,
-in-registration normals, coarse and frozen-candidate refine phases: the
-1M flagship). Its hand-written CUDA kernels: the exact 1-NN search
-(`kernels/nn_cuda.py` + `csrc/nn.cu`, replacing `knn_pallas._nn_kernel`),
-and the radius moments and frozen-candidate fold (`kernels/blocknn_cuda.py`
-+ `csrc/blocknn.cu`, replacing `blocknn_pallas._moments6_kernel` and
-`_fold6_kernel`). Entry points create tensors on the first CUDA device
-unless given `device="cpu"`. Paths that need later slices (GICP,
-feature-augmented NN, compressed PCD, ...) raise `NotImplementedError`
-naming their ROADMAP item.
+Ported so far: single-pair registration (`registration.icp.register`),
+symmetric, point-to-plane, point-to-point and GICP, on the brute-force NN
+path (targets below `ICPConfig.block_auto_threshold`, or
+`nn_method="brute"`) and on the block-NN path (KD tile indexes,
+in-registration normals or GICP covariances, coarse and frozen-candidate
+refine phases: the 1M flagship). Its hand-written CUDA kernels, one for
+each Pallas kernel of the reference: the exact 1-NN search
+(`kernels/nn_cuda.py` + `csrc/nn.cu`), the block path's radius moments,
+folds, payload selection, union fold and union moments
+(`kernels/blocknn_cuda.py` + `csrc/blocknn.cu`), and the KD build's
+segmented sort (`kernels/sort_cuda.py` + `csrc/sort.cu`). Entry points
+create tensors on the first CUDA device unless given `device="cpu"`. Paths
+that need later slices (feature-augmented NN, compressed PCD, ...) raise
+`NotImplementedError` naming their ROADMAP item.
 """
 
 import torch as _torch

@@ -4,8 +4,9 @@ Mirrors `icpx/cloud.py`. A cloud is an ``(N, 3)`` float32 tensor plus an
 ``(N,)`` validity mask; capacity is padded to a multiple of PAD_MULTIPLE
 with PAD_COORD sentinel rows, so shapes (and therefore the tensors the
 port hands to its kernels) are identical to the JAX package's. Every
-consumer respects the mask. Covariances and payload features wait for
-later slices (ROADMAP queue 1 steps 2 and 6).
+consumer respects the mask. GICP covariances ride along as (N, 3, 3), the
+identity on pad rows; payload features wait for a later slice (ROADMAP
+queue 1 step 2).
 """
 
 from __future__ import annotations
@@ -42,11 +43,14 @@ class PointCloud:
       xyz:     (N, 3) float32; rows with ``mask == False`` hold PAD_COORD.
       mask:    (N,) bool — True for real points.
       normals: optional (N, 3) float32 unit normals (zero rows where unknown).
+      covs:    optional (N, 3, 3) float32 regularised neighbourhood
+               covariances (GICP); pad rows hold the identity.
     """
 
     xyz: torch.Tensor
     mask: torch.Tensor
     normals: Optional[torch.Tensor] = None
+    covs: Optional[torch.Tensor] = None
 
     # ---- construction ------------------------------------------------------
 
@@ -59,8 +63,10 @@ class PointCloud:
         capacity: Optional[int] = None,
         pad_multiple: int = PAD_MULTIPLE,
         device=None,
+        covs=None,
     ) -> "PointCloud":
-        """Build a padded cloud from an (n, 3) array (numpy or tensor).
+        """Build a padded cloud from an (n, 3) array (numpy or tensor), with
+        optional (n, 3) normals and (n, 3, 3) covariances.
 
         It lands on `device`; when that is None, on the tensor's own device
         for a tensor, and on the first CUDA device otherwise (pass
@@ -90,7 +96,14 @@ class PointCloud:
             nrm_p = torch.cat(
                 [normals, torch.zeros((pad, 3), dtype=torch.float32, device=device)]
             )
-        return cls(xyz=xyz_p, mask=mask, normals=nrm_p)
+        cov_p = None
+        if covs is not None:
+            covs = torch.as_tensor(covs, dtype=torch.float32, device=device)
+            if tuple(covs.shape) != (n, 3, 3):
+                raise ValueError(f"covs must be (n, 3, 3)={n}, got {tuple(covs.shape)}")
+            eye = torch.eye(3, dtype=torch.float32, device=device).expand(pad, 3, 3)
+            cov_p = torch.cat([covs, eye])
+        return cls(xyz=xyz_p, mask=mask, normals=nrm_p, covs=cov_p)
 
     def replace(self, **changes) -> "PointCloud":
         return dataclasses.replace(self, **changes)
@@ -100,6 +113,7 @@ class PointCloud:
             xyz=self.xyz.to(device),
             mask=self.mask.to(device),
             normals=None if self.normals is None else self.normals.to(device),
+            covs=None if self.covs is None else self.covs.to(device),
         )
 
     # ---- properties --------------------------------------------------------

@@ -11,7 +11,10 @@
 //   select    replaces icpx/kernels/blocknn_pallas.py::_select_kernel
 //             (wrapper payload_select_fused, payload_mode="select");
 //   fused4    replaces icpx/kernels/blocknn_pallas.py::_vpu_kernel
-//             (wrapper block_nn_fused4, block_fused="on").
+//             (wrapper block_nn_fused4, block_fused="on");
+//   moments_fused  replaces icpx/kernels/blocknn_pallas.py::_moments_kernel
+//             (wrapper block_radius_moments_fused, the fused branch of
+//             normals._block_radius_cov).
 //
 // moments6 and fold6 (fold7 and fused4 alike, see theirs below) score each
 // query tile (one block) against its own k candidate tiles
@@ -315,6 +318,79 @@ __global__ void fused4_kernel(const float* __restrict__ query, const float* __re
   }
 }
 
+// Union radius moments (moments_fused): one block a group of gq queries (its
+// query tiles together) against the group's union of candidate tiles, laid
+// out as for fused4. Queries and union rows are centred on the group's
+// valid-query centroid q_cent (g, 3). A row counts when
+//   score = (((ax rx + ay ry) + az rz) + rr) + c <= 0,
+// a = -2 q_c, rr = (rx^2 + ry^2) + rz^2, c = |q_c|^2 - r^2, every step rounded:
+// the TPU kernel's d^2 - r^2 from the expansion, in a fixed order, so the
+// plain version reproduces every count. Sentinel rows drop out through
+// rr ~ 1e16. The TPU kernel sums every one of the u_max slots, and the
+// padded ones repeat slot 0's tile: slot 0's rows count (u_max - n_u + 1)
+// times. The kernel scores them once and adds them with that multiplicity.
+// out (10, g * gq): count, then the centred sums x, y, z, xx, yy, zz, xy, xz,
+// yz; the mean and covariance are finished in torch, as the reference
+// finishes them in XLA. Bound by FP32 issue (~8 instructions a scored pair,
+// 20 more inside the radius).
+__global__ void moments_fused_kernel(const float* __restrict__ query, const float* __restrict__ tiles,
+                                     const int* __restrict__ unions, const float* __restrict__ q_cent,
+                                     const float* __restrict__ r2_ptr, int gq, int s, int u_max,
+                                     float* __restrict__ out, int64_t n) {
+  extern __shared__ float4 rows[];  // n_u * s centred union rows, rows[u * s + lane]
+  const int grp = blockIdx.x;
+  const int* un = unions + (int64_t)grp * u_max;
+  int n_u = 1;
+  while (n_u < u_max && un[n_u] != un[0]) ++n_u;
+  const float cx = q_cent[3 * grp + 0];
+  const float cy = q_cent[3 * grp + 1];
+  const float cz = q_cent[3 * grp + 2];
+  const int rows_n = n_u * s;
+  for (int j = threadIdx.x; j < rows_n; j += blockDim.x) {
+    const int u = j / s;
+    const int64_t row = (int64_t)un[u] * s + (j - u * s);
+    const float x = __fsub_rn(tiles[3 * row + 0], cx);
+    const float y = __fsub_rn(tiles[3 * row + 1], cy);
+    const float z = __fsub_rn(tiles[3 * row + 2], cz);
+    rows[j] = make_float4(x, y, z, __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z)));
+  }
+  __syncthreads();
+  const float r2 = *r2_ptr;
+  const float mult0 = (float)(u_max - n_u + 1);
+  for (int qi = threadIdx.x; qi < gq; qi += blockDim.x) {
+    const int64_t q = (int64_t)grp * gq + qi;
+    const float qx = __fsub_rn(query[3 * q + 0], cx);
+    const float qy = __fsub_rn(query[3 * q + 1], cy);
+    const float qz = __fsub_rn(query[3 * q + 2], cz);
+    const float c = __fsub_rn(
+        __fadd_rn(__fadd_rn(__fmul_rn(qx, qx), __fmul_rn(qy, qy)), __fmul_rn(qz, qz)), r2);
+    const float ax = -2.f * qx, ay = -2.f * qy, az = -2.f * qz;  // exact
+    float m[10] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    for (int j = 0; j < rows_n; ++j) {
+      const float4 r = rows[j];
+      const float sc = __fadd_rn(
+          __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(ax, r.x), __fmul_rn(ay, r.y)), __fmul_rn(az, r.z)),
+                    r.w),
+          c);
+      if (sc <= 0.f) {
+        const float w = j < s ? mult0 : 1.f;
+        m[0] += w;
+        m[1] += w * r.x;
+        m[2] += w * r.y;
+        m[3] += w * r.z;
+        m[4] += w * (r.x * r.x);
+        m[5] += w * (r.y * r.y);
+        m[6] += w * (r.z * r.z);
+        m[7] += w * (r.x * r.y);
+        m[8] += w * (r.x * r.z);
+        m[9] += w * (r.y * r.z);
+      }
+    }
+#pragma unroll
+    for (int f = 0; f < 10; ++f) out[f * n + q] = m[f];
+  }
+}
+
 int threads_for(int sq) {
   const int t = ((sq + 31) / 32) * 32;
   return t < 32 ? 32 : (t > 256 ? 256 : t);
@@ -414,6 +490,27 @@ int icpx_fused4_forward(const void* query, const void* tiles, const void* unions
         static_cast<const float*>(query), static_cast<const float*>(tiles),
         static_cast<const int*>(unions), gq, s, u_max, static_cast<float*>(out_d),
         static_cast<int*>(out_pos));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// query (g * gq, 3), tiles (t, s, 3), q_cent (g, 3) and r2 (1,) f32; unions
+// (g, u_max) i32; out (10, g * gq) f32. Opts in to u_max * s * 16 bytes of
+// dynamic shared memory. Same launch contract as above.
+int icpx_moments_fused_forward(const void* query, const void* tiles, const void* unions,
+                               const void* q_cent, const void* r2, int g, int gq, int s, int u_max,
+                               void* out, int device, void* stream) {
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  if (g > 0 && gq > 0) {
+    const size_t smem = sizeof(float4) * (size_t)u_max * s;
+    const cudaError_t attr = cudaFuncSetAttribute(
+        moments_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    moments_fused_kernel<<<g, threads_for(gq), smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(query), static_cast<const float*>(tiles),
+        static_cast<const int*>(unions), static_cast<const float*>(q_cent),
+        static_cast<const float*>(r2), gq, s, u_max, static_cast<float*>(out), (int64_t)g * gq);
   }
   return static_cast<int>(cudaGetLastError());
 }

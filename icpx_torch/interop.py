@@ -22,19 +22,31 @@ from icpx_torch.registration.icp import ICPConfig, ICPResult
 _INDEX_FIELDS = ("tiles", "box_lo", "box_hi", "centroids", "order")
 
 
-def cloud_from_numpy(xyz, mask, normals=None, *, device=DEFAULT_DEVICE) -> PointCloud:
-    """A cloud from padded arrays, taken as they are (no re-padding)."""
+def cloud_from_numpy(xyz, mask, normals=None, covs=None, *, device=DEFAULT_DEVICE) -> PointCloud:
+    """A cloud from padded arrays (normals (N, 3) and GICP covariances
+    (N, 3, 3) optional), taken as they are (no re-padding)."""
     xyz = torch.tensor(np.asarray(xyz, dtype=np.float32), device=device)
     mask = torch.tensor(np.asarray(mask, dtype=bool), device=device)
     if xyz.ndim != 2 or xyz.shape[1] != 3 or tuple(mask.shape) != (xyz.shape[0],):
         raise ValueError(f"need xyz (N, 3) and mask (N,), got {tuple(xyz.shape)}, "
                          f"{tuple(mask.shape)}")
-    nrm = None
+    nrm = cov = None
     if normals is not None:
         nrm = torch.tensor(np.asarray(normals, dtype=np.float32), device=device)
         if nrm.shape != xyz.shape:
             raise ValueError(f"normals must be {tuple(xyz.shape)}, got {tuple(nrm.shape)}")
-    return PointCloud(xyz=xyz, mask=mask, normals=nrm)
+    if covs is not None:
+        cov = torch.tensor(np.asarray(covs, dtype=np.float32), device=device)
+        if tuple(cov.shape) != (xyz.shape[0], 3, 3):
+            raise ValueError(f"covs must be ({xyz.shape[0]}, 3, 3), got {tuple(cov.shape)}")
+    return PointCloud(xyz=xyz, mask=mask, normals=nrm, covs=cov)
+
+
+def cloud_to_numpy(cloud: PointCloud) -> Dict[str, np.ndarray]:
+    """Every field of a port cloud as host numpy (None where it has none):
+    xyz, mask, normals, covs, padded as they are."""
+    return {f: None if getattr(cloud, f) is None else getattr(cloud, f).detach().cpu().numpy()
+            for f in ("xyz", "mask", "normals", "covs")}
 
 
 def se3_from_numpy(R, t, *, device=DEFAULT_DEVICE) -> SE3:

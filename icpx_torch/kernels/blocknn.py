@@ -10,12 +10,16 @@ tile's candidates hold the NN's tile; a miss returns a genuine but larger
 distance.
 
 Everything here is plain PyTorch on every device, as it is XLA in the
-reference. The two hand-written kernels of this path (the frozen-candidate
-fold and the radius moments) live in `blocknn_cuda.py`. Differences from
-the reference, none of which changes a result:
+reference, except the KD build's median-level sorts, which go through the
+segmented sort kernel (`sort_cuda.sort_segments`) on a CUDA tensor. The
+block path's other hand-written kernels (the folds and the radius moments)
+live in `blocknn_cuda.py`. Differences from the reference, none of which
+changes a result:
 
-* sorts are `torch.sort(..., stable=True)` plus a row gather in place of
-  the multi-operand `lax.sort` (the same permutation);
+* the KD build's Morton sort is `torch.sort(..., stable=True)` plus a row
+  gather in place of the multi-operand `lax.sort` (the same permutation),
+  and its level sorts on the CPU are the sort kernel's plain version, the
+  same;
 * top-k ranking sorts one int64 key per entry (the score's fp32 bit
   pattern over the entry's index), so ties go to the lower index as in
   `lax.top_k`; `torch.topk` alone promises no tie order;
@@ -32,6 +36,7 @@ from typing import Optional, Tuple
 import torch
 
 from icpx_torch.cloud import PAD_COORD
+from icpx_torch.kernels.sort_cuda import sort_segments
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,23 +179,19 @@ def build_kd_index(xyz: torch.Tensor, mask: Optional[torch.Tensor] = None, *,
         pts = torch.cat([pts, torch.full((pad, 3), PAD_COORD, device=dev)])
         orig = torch.cat([orig, torch.full((pad,), -1, dtype=torch.int32, device=dev)])
 
-    def sort_segments(key: torch.Tensor, c: int):
-        """Reorder (pts, orig) within each of c segments by key, stably."""
-        perm = torch.sort(key.reshape(c, -1), dim=1, stable=True).indices
-        p = torch.take_along_dim(pts.reshape(c, -1, 3), perm[..., None], dim=1)
-        o = torch.take_along_dim(orig.reshape(c, -1), perm, dim=1)
-        return p.reshape(total, 3), o.reshape(total)
-
     c0 = q0
     while total // c0 > _KD_SEG and c0 < t2:
         c0 *= 2
 
     if c0 > 1:
+        # one segment, an int32 key: a plain stable torch.sort, as the
+        # reference runs lax.sort here outside any kernel
         valid = orig >= 0
         lo, hi = _bounds(pts, valid, 0)
         inv_extent = 1.0 / torch.clamp(hi - lo, min=1e-6)
         mkeys = torch.where(valid, morton_keys(pts, lo, inv_extent), 2**30)
-        pts, orig = sort_segments(mkeys, 1)
+        perm = torch.sort(mkeys, stable=True).indices
+        pts, orig = pts[perm], orig[perm]
 
     c = c0
     min4 = _FAN4_MIN if t2 >= _FAN4_DEEP else 16
@@ -202,7 +203,9 @@ def build_kd_index(xyz: torch.Tensor, mask: Optional[torch.Tensor] = None, *,
         lo, hi = _bounds(seg, v, 1)
         widest = torch.argmax(hi - lo, dim=1)  # (c,): first axis among ties
         vals = torch.take_along_dim(seg, widest[:, None, None], dim=2)[..., 0]
-        pts, orig = sort_segments(torch.where(v, vals, PAD_COORD), c)
+        # the level sort: the sort kernel on a CUDA tensor
+        _, pts, orig = sort_segments(torch.where(v, vals, PAD_COORD), (seg, orig.reshape(c, m)))
+        pts, orig = pts.reshape(total, 3), orig.reshape(total)
         c *= fan
 
     valid = orig >= 0

@@ -1,7 +1,7 @@
 """Block-NN kernels: radius moments, the frozen-candidate folds, payload
-selection and the fused union fold.
+selection, the fused union fold and the union radius moments.
 
-Five hand-written CUDA kernels (`csrc/blocknn.cu`, built by `cuda_build`),
+Six hand-written CUDA kernels (`csrc/blocknn.cu`, built by `cuda_build`),
 each beside its plain PyTorch version with the same contract:
 
 * `moments6` replaces the Pallas `blocknn_pallas._moments6_kernel`: for each
@@ -23,8 +23,11 @@ each beside its plain PyTorch version with the same contract:
   to payload rows (see `payload_select_fused`).
 * `fused4` replaces `blocknn_pallas._vpu_kernel` (`block_fused="on"`): 1-NN
   over per-group unions of candidate tiles (see `block_nn_fused4`).
+* `moments_fused` replaces `blocknn_pallas._moments_kernel`: radius moments
+  over the same per-group unions (see `block_radius_moments_fused`, the
+  fused branch of `normals._block_radius_cov`).
 
-Contracts kept from the TPU kernels (moments6 and fold6; the other three
+Contracts kept from the TPU kernels (moments6 and fold6; the other four
 state theirs in their sections below): moments count a row when d2 <= r^2 and
 the row is not a sentinel row (PAD_COORD); the fold takes the least d2, then
 the lowest lane (position in the tile), then the earliest candidate; a query
@@ -50,12 +53,12 @@ from typing import Optional, Tuple
 import torch
 
 from icpx_torch.kernels import cuda_build
-from icpx_torch.kernels.blocknn import _VALID_ABS, TileIndex, _candidate_tiles
+from icpx_torch.kernels.blocknn import _VALID_ABS, TileIndex, _candidate_tiles, _query_boxes
 
 # Kernel launches in this process, by kernel: each wrapper adds one where it
 # launches and nowhere else, so a caller can show that a run went through the
 # kernels (reset to 0, run, read).
-LAUNCHES = {"moments6": 0, "fold6": 0, "fold7": 0, "select": 0, "fused4": 0}
+LAUNCHES = {"moments6": 0, "fold6": 0, "fold7": 0, "select": 0, "fused4": 0, "moments_fused": 0}
 
 _MISS_D2 = 1.0e15  # a fold d2 at or beyond this is a miss
 _MAX_ROWS = 3072  # k * S candidate rows a block stages (48 KB of float4)
@@ -63,7 +66,7 @@ _MAX_SMEM = 232448  # dynamic shared memory one block may opt in to (227 KB)
 # Query tiles (fused4: groups) per step of the plain versions: bounds their
 # (chunk, Sq, k*S) temporaries (~200 MB each at the flagship's fold shapes;
 # fused4's (chunk, G*Sq, U*S) ~128 MB at U = 32).
-_PLAIN_CHUNK = {"moments6": 512, "fold6": 1024, "fold7": 1024, "fused4": 32}
+_PLAIN_CHUNK = {"moments6": 512, "fold6": 1024, "fold7": 1024, "fused4": 32, "moments_fused": 8}
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -85,6 +88,8 @@ def build() -> ctypes.CDLL:
     lib.icpx_select_forward.restype = i
     lib.icpx_fused4_forward.argtypes = [p, p, p, i, i, i, i, p, p, i, p]
     lib.icpx_fused4_forward.restype = i
+    lib.icpx_moments_fused_forward.argtypes = [p, p, p, p, p, i, i, i, i, p, i, p]
+    lib.icpx_moments_fused_forward.restype = i
     _lib = lib
     return lib
 
@@ -605,3 +610,157 @@ def block_nn_fused4(query_tiles: torch.Tensor, index: TileIndex, *, k_tiles: int
         return d, pos
     ridx = index.order[pos.to(torch.int64)]
     return torch.where(ridx >= 0, d, float("inf")), torch.clamp(ridx, min=0)
+
+
+def use_fused_default() -> bool:
+    """Whether the union kernels are the default: no, as in the reference
+    (`blocknn_pallas.use_fused_default`), whose TPU measurements found them
+    no faster than the plain folds. `block_fused="on"` and
+    `normals._block_radius_cov(..., fused=True)` opt in; no measurement on
+    the card has changed this yet."""
+    return False
+
+
+# ---- kernel #7: the union radius moments -------------------------------------------
+#
+# Contract (blocknn_pallas.py:199-330): the query tiles of a group share one
+# union of their candidate tiles (`group_unions`, as for fused4). Queries and
+# union rows are centred on the group's valid-query centroid; a row counts
+# when score = (((ax rx + ay ry) + az rz) + rr) + c <= 0 with a = -2 q_c,
+# rr = (rx^2 + ry^2) + rz^2 and c = |q_c|^2 - r^2, rounded step by step (the
+# TPU kernel's expansion d^2 - r^2; the same order in both versions, so the
+# same counts). The TPU kernel sums all u_max slots, and the padded slots
+# repeat slot 0's tile, so slot 0's rows count (u_max - n_u + 1) times, n_u
+# the slots before the first repeat: a row can count more neighbours than
+# the cloud holds within the radius. Both versions keep that multiplicity.
+# They return the count and the nine centred moment sums, (10, N) rows:
+# count, x, y, z, xx, yy, zz, xy, xz, yz; `block_radius_moments_fused`
+# finishes mean and covariance in torch, as the reference does in XLA.
+
+
+def _slot_weights(unions: torch.Tensor) -> torch.Tensor:
+    """(G, u_max) f32 multiplicity of each union slot: slot 0 once for itself
+    and once for every padded slot, the slots before the first repeat of
+    slot 0's id once, the rest 0."""
+    u_max = unions.shape[1]
+    fresh = torch.cumprod((unions[:, 1:] != unions[:, :1]).to(torch.int64), dim=1)
+    n_u = 1 + fresh.sum(1, keepdim=True)
+    return torch.cat([u_max - n_u + 1, fresh], dim=1).to(torch.float32)
+
+
+def group_centroids(query_tiles: torch.Tensor, group: int) -> torch.Tensor:
+    """(Tq // group, 3) centroid of each group's valid (non-sentinel)
+    queries, the point the union moments are centred on; the origin for a
+    group with none."""
+    tq, sq, _ = query_tiles.shape
+    return _query_boxes(query_tiles.reshape(tq // group, group * sq, 3))[2]
+
+
+def moments_fused_cuda(query_tiles: torch.Tensor, tiles: torch.Tensor, unions: torch.Tensor,
+                       q_cent: torch.Tensor, r2: torch.Tensor, group: int) -> torch.Tensor:
+    """Launch the union moments kernel: (10, Tq*Sq) f32 (see
+    `moments_fused_reference`)."""
+    dev = query_tiles.device
+    if not query_tiles.is_cuda:
+        raise ValueError("the block-NN kernels need CUDA tensors")
+    _check("query_tiles", query_tiles, torch.float32, 3, dev)
+    _check("tiles", tiles, torch.float32, 3, dev)
+    _check("unions", unions, torch.int32, 2, dev)
+    _check("q_cent", q_cent, torch.float32, 2, dev)
+    _check("r2", r2, torch.float32, 1, dev)
+    tq, sq, _ = query_tiles.shape
+    s = tiles.shape[1]
+    g, u_max = unions.shape
+    if g * group != tq or q_cent.shape != (g, 3) or query_tiles.shape[2] != 3 or tiles.shape[2] != 3:
+        raise ValueError(f"shapes do not fit: query {tuple(query_tiles.shape)}, tiles "
+                         f"{tuple(tiles.shape)}, unions {tuple(unions.shape)}, q_cent "
+                         f"{tuple(q_cent.shape)}, group {group}")
+    if u_max * s * 16 > _MAX_SMEM:
+        raise ValueError(f"a union of {u_max} x {s} rows needs {u_max * s * 16} bytes of "
+                         f"shared memory, over {_MAX_SMEM}")
+    if tiles.numel() >= 2**31 or query_tiles.numel() >= 2**31:
+        raise ValueError("too many rows for the kernels' int32 tile ids")
+    lib = build()
+    out = torch.empty((10, tq * sq), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.icpx_moments_fused_forward(
+        query_tiles.data_ptr(), tiles.data_ptr(), unions.data_ptr(), q_cent.data_ptr(),
+        r2.data_ptr(), g, group * sq, s, u_max, out.data_ptr(), dev.index, stream,
+    )
+    cuda_build.check(lib, rc, "moments_fused kernel")
+    LAUNCHES["moments_fused"] += 1
+    return out
+
+
+def moments_fused_reference(query_tiles: torch.Tensor, tiles: torch.Tensor, unions: torch.Tensor,
+                            q_cent: torch.Tensor, r2: torch.Tensor, group: int) -> torch.Tensor:
+    """The union moments kernel's plain version, any device, chunked over
+    groups: the same centring, score order and slot multiplicities (so the
+    same counts); only the order of the moment sums differs."""
+    tq, sq, _ = query_tiles.shape
+    s = tiles.shape[1]
+    g, u_max = unions.shape
+    q = query_tiles.reshape(g, group * sq, 3)
+    weight = _slot_weights(unions).repeat_interleave(s, dim=1)  # (G, U*S)
+    unions = unions.to(torch.int64)
+    chunk = _PLAIN_CHUNK["moments_fused"]
+    parts = []
+    for g0 in range(0, g, chunk):
+        qc = q_cent[g0:g0 + chunk]
+        x, y, z = (tiles[unions[g0:g0 + chunk]] - qc[:, None, None, :]).reshape(
+            -1, u_max * s, 3).unbind(-1)
+        rr = x * x + y * y + z * z
+        qx, qy, qz = (q[g0:g0 + chunk] - qc[:, None, :]).unbind(-1)
+        c = (qx * qx + qy * qy + qz * qz) - r2
+        score = ((-2.0 * qx)[..., None] * x[:, None, :] + (-2.0 * qy)[..., None] * y[:, None, :]) \
+            + (-2.0 * qz)[..., None] * z[:, None, :]
+        score = (score + rr[:, None, :]) + c[..., None]  # (c, GQ, U*S)
+        w = (score <= 0.0).to(torch.float32) * weight[g0:g0 + chunk, None, :]
+        feat = torch.stack([torch.ones_like(x), x, y, z, x * x, y * y, z * z,
+                            x * y, x * z, y * z], dim=2)  # (c, U*S, 10)
+        parts.append(torch.bmm(w, feat).reshape(-1, 10))  # counts: exact integer sums
+    if not parts:
+        return torch.empty((10, 0), dtype=torch.float32, device=query_tiles.device)
+    return torch.cat(parts).T.contiguous()
+
+
+def moments_fused(query_tiles, tiles, unions, q_cent, r2, group) -> torch.Tensor:
+    """The kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    if query_tiles.is_cuda:
+        return moments_fused_cuda(query_tiles.contiguous(), tiles.contiguous(),
+                                  unions.to(torch.int32).contiguous(), q_cent.contiguous(),
+                                  r2.reshape(1).contiguous(), group)
+    return moments_fused_reference(query_tiles, tiles, unions, q_cent, r2, group)
+
+
+def block_radius_moments_fused(query_tiles: torch.Tensor, index: TileIndex, radius, *,
+                               k_tiles: int = 8, group: int = 4, u_max: int = 16):
+    """Drop-in for `blocknn.block_radius_moments` over per-group candidate
+    unions: (count (N,), mean (N, 3), cov (N, 3, 3)) in query-tile order,
+    N = Tq*Sq. Candidates are ranked and merged in plain torch."""
+    tq, sq, _ = query_tiles.shape
+    if tq % group:
+        raise ValueError(f"tq={tq} not divisible by group={group}")
+    gq = group * sq
+    cand, _ = _candidate_tiles(query_tiles, index, k_tiles)
+    unions = group_unions(cand, group, u_max)
+    q_cent = group_centroids(query_tiles, group)
+    radius = torch.as_tensor(radius, dtype=torch.float32, device=query_tiles.device)
+    m = moments_fused(query_tiles, index.tiles, unions, q_cent, radius * radius, group)
+    return finish_union_moments(m, q_cent, gq)
+
+
+def finish_union_moments(m: torch.Tensor, q_cent: torch.Tensor, gq: int):
+    """(count, mean, cov) from the union moments' (10, N) sums centred on
+    each group's centroid q_cent (gq queries a group): the reference's XLA
+    epilogue; a row without neighbours gets its group centroid and zeros."""
+    cnt = m[0]
+    safe = torch.clamp(cnt, min=1.0)[:, None]
+    mean_c = m[1:4].T / safe
+    exx = torch.stack([
+        torch.stack([m[4], m[7], m[8]], dim=1),
+        torch.stack([m[7], m[5], m[9]], dim=1),
+        torch.stack([m[8], m[9], m[6]], dim=1),
+    ], dim=1) / safe[..., None]
+    cov = exx - mean_c[:, :, None] * mean_c[:, None, :]
+    return cnt, mean_c + torch.repeat_interleave(q_cent, gq, dim=0), cov

@@ -5,13 +5,16 @@ validation, so a JAX config converts field for field), `ICPResult`,
 `register`, the iteration core `_icp_scan`, and both branches of
 `_register_jit`: brute-force NN (`_register_brute`) and block NN
 (`_register_block`: KD tile indexes, in-registration normals, a coarse
-phase, frozen candidates and the refine phase). The JAX `lax.while_loop`
-becomes a Python `while` loop that syncs the stop flag to the host once per
-iteration; everything else stays on the clouds' device. The block path
-runs every `payload_mode` ("gather", "infold", "select", "vmem", "vmem7")
-and `block_fused` value of the reference. What the port lacks raises
-`NotImplementedError` naming its ROADMAP item: GICP, the feature-augmented
-metric and the refine-stride mid phase.
+phase, frozen candidates and the refine phase), for every objective of the
+reference: symmetric, point-to-plane, point-to-point and GICP (whose
+per-point auxiliary channel is the flattened (N, 9) covariance instead of
+the normal). The JAX `lax.while_loop` becomes a Python `while` loop that
+syncs the stop flag to the host once per iteration; everything else stays
+on the clouds' device. The block path runs every `payload_mode` ("gather",
+"infold", "select", "vmem", "vmem7") and `block_fused` value of the
+reference. What the port lacks raises `NotImplementedError` naming its
+ROADMAP item: the feature-augmented metric and the refine-stride mid
+phase.
 """
 
 from __future__ import annotations
@@ -49,7 +52,7 @@ from icpx_torch.kernels.blocknn_cuda import (
 )
 from icpx_torch.kernels.eigh3 import smallest_eigenvector_3x3, smallest_eigenvector_3x3_soa
 from icpx_torch.kernels.knn import nearest_neighbor
-from icpx_torch.kernels.normals import estimate_normals
+from icpx_torch.kernels.normals import estimate_covariances, estimate_normals
 from icpx_torch.kernels.voxel import auto_cell_size
 from icpx_torch.registration.step import (
     correspondence_weights,
@@ -208,8 +211,6 @@ class ICPResult:
 
 
 def _check_supported(config: ICPConfig, tgt_capacity: int) -> None:
-    if config.objective == "gicp":
-        raise NotImplementedError("GICP is not ported yet (ROADMAP queue 1 step 6)")
     block = config.resolve_nn(tgt_capacity) == "block"
     if config.feat_nn and config.feat_nn_weight > 0:
         if not block:
@@ -247,11 +248,12 @@ def register(
     """Register src onto tgt (returns transform with tgt ~= T(src)).
 
     Runs on the clouds' device. Estimates normals (k = config.k_normals)
-    for either cloud that lacks them when the objective needs them. Both
-    clouds are first shifted by the target centroid and the shift is
-    composed back into the returned transform; normals are estimated in
-    that centred frame, so their orientation viewpoint is the target
-    centroid, as in the JAX package.
+    for either cloud that lacks them when the objective needs them, and
+    for GICP covariances (k = max(k_normals, 15)) for either cloud that
+    lacks them. Both clouds are first shifted by the target centroid and
+    the shift is composed back into the returned transform; normals are
+    estimated in that centred frame, so their orientation viewpoint is the
+    target centroid, as in the JAX package.
     """
     dev = tgt.device
     _check_supported(config, tgt.capacity)
@@ -280,12 +282,38 @@ def register(
             normals_for.append("tgt")
         else:
             tgt = estimate_normals(tgt, k=config.k_normals)
+    if config.objective == "gicp":
+        k_cov = max(config.k_normals, 15)
+        if src.covs is None:
+            src = estimate_covariances(src, k=k_cov)
+        if tgt.covs is None:
+            tgt = estimate_covariances(tgt, k=k_cov)
 
     if block:
         res = _register_block(src, tgt, init_c, config, tuple(normals_for), src_w=src_weight)
     else:
         res = _register_brute(src, tgt, init_c, config, src_w=src_weight)
     return res.replace(transform=unshift @ res.transform @ shift)
+
+
+def gicp_cov_rot(T: SE3, aux: torch.Tensor) -> torch.Tensor:
+    """Rotate flattened (N, 9) GICP covariances into T's frame: R C R^T."""
+    C = aux.reshape(-1, 3, 3)
+    return torch.einsum("ij,njk,lk->nil", T.R, C, T.R).reshape(-1, 9)
+
+
+def _aux(cloud: PointCloud, config: ICPConfig) -> torch.Tensor:
+    """A cloud's per-point auxiliary channel: the flattened (N, 9)
+    covariances for GICP, else the normals (zeros where there are none)."""
+    if config.objective == "gicp":
+        if cloud.covs is None:
+            raise ValueError("gicp needs covariances (estimate_covariances first)")
+        return cloud.covs.reshape(cloud.capacity, 9)
+    return cloud.normals if cloud.normals is not None else torch.zeros_like(cloud.xyz)
+
+
+def _aux_rot(config: ICPConfig):
+    return gicp_cov_rot if config.objective == "gicp" else None
 
 
 def _register_brute(
@@ -296,8 +324,7 @@ def _register_brute(
     src_w: Optional[torch.Tensor] = None,
 ) -> ICPResult:
     """The brute-force branch of the reference's `_register_jit`."""
-    src_n = src.normals if src.normals is not None else torch.zeros_like(src.xyz)
-    tgt_n = tgt.normals if tgt.normals is not None else torch.zeros_like(tgt.xyz)
+    src_n, tgt_n = _aux(src, config), _aux(tgt, config)
 
     def nn_fn(p):
         d2, idx = nearest_neighbor(
@@ -309,7 +336,8 @@ def _register_brute(
             torch.sqrt(d2),
         )
 
-    return _icp_scan(config, src.xyz, src.mask, src_n, init, nn_fn, src_w=src_w)
+    return _icp_scan(config, src.xyz, src.mask, src_n, init, nn_fn, aux_rot=_aux_rot(config),
+                     src_w=src_w)
 
 
 def _index_normals(index, k_normals: int, k_tiles: int = 4, prec: str = "highest",
@@ -357,8 +385,9 @@ def _register_block(
     ("select") or a row gather of the fused `[xyz || normal]` table
     ("gather"), or the plain in-fold payload selection ("infold") in both
     phases. `block_fused="on"` freezes nothing and runs the fused4 kernel
-    in both phases. `iters` counts the coarse iterations too;
-    `diff_history` and `rmse_history` hold the refine phase's.
+    in both phases. The payload rows are `[xyz || aux]`: 6 wide with
+    normals, 12 with GICP covariances. `iters` counts the coarse iterations
+    too; `diff_history` and `rmse_history` hold the refine phase's.
     """
     dev = tgt.device
     q_tile = config.resolve_q_tile(src.capacity)
@@ -390,16 +419,16 @@ def _register_block(
         src_n_s = _index_normals(s_idx, config.k_normals, k_tiles=2,
                                  mode=config.resolve_moments(src.capacity, dev))
     else:
-        src_n = src.normals if src.normals is not None else torch.zeros_like(src.xyz)
-        src_n_s = torch.where(valid[:, None], src_n[safe], 0.0)
+        src_n_s = torch.where(valid[:, None], _aux(src, config)[safe], 0.0)
     if "tgt" in normals_for:
         tgt_n_sorted = _index_normals(tgt_index, config.k_normals, k_tiles=2,
                                       mode=config.resolve_moments(tgt.capacity, dev))
     else:
-        tgt_n = tgt.normals if tgt.normals is not None else torch.zeros_like(tgt.xyz)
-        tgt_n_sorted = tile_payload(tgt_index, tgt_n).reshape(-1, 3)
-    # one fused (N, 6) payload table in sorted tile order: one row gather
+        tgt_aux = _aux(tgt, config)
+        tgt_n_sorted = tile_payload(tgt_index, tgt_aux).reshape(-1, tgt_aux.shape[1])
+    # one fused (N, 3 + D) payload table in sorted tile order: one row gather
     # (or one kernel read) per iteration delivers coordinates and normals
+    # (or covariances)
     tgt_pl = torch.cat([tgt_index.tiles.reshape(-1, 3), tgt_n_sorted], dim=1)
 
     sq = q_tile
@@ -469,6 +498,8 @@ def _register_block(
 
     prev_rmse0 = None
     k_ref = config.block_k
+    dn = src_n_s.shape[1]  # 3 (normals) or 9 (GICP covariances)
+    aux_rot = _aux_rot(config)
     if coarse:
         # every stride-th row of 4 merged sibling tiles (the parent box)
         stride = config.coarse_stride
@@ -479,8 +510,8 @@ def _register_block(
 
         cfg_c = dataclasses.replace(config, max_iters=config.coarse_iters, diff_threshold=0.0)
         res_c = _icp_scan(
-            cfg_c, sub(src_xyz, 3), sub(src_mask), sub(src_n_s, 3), init,
-            make_nn(tq // 4, 4 * sq // stride, config.block_k),
+            cfg_c, sub(src_xyz, 3), sub(src_mask), sub(src_n_s, dn), init,
+            make_nn(tq // 4, 4 * sq // stride, config.block_k), aux_rot=aux_rot,
             src_w=None if src_w is None else sub(src_w),
         )
         init = res_c.transform
@@ -495,7 +526,7 @@ def _register_block(
                                                tgt_index, k_ref)
 
     res = _icp_scan(config, src_xyz, src_mask, src_n_s, init,
-                    make_nn(tq, sq, k_ref, cand=cand_ref, qcent=qcent_ref),
+                    make_nn(tq, sq, k_ref, cand=cand_ref, qcent=qcent_ref), aux_rot=aux_rot,
                     prev_rmse0=prev_rmse0, src_w=src_w)
     if coarse:
         res = res.replace(iters=res.iters + res_c.iters)
@@ -509,13 +540,17 @@ def _icp_scan(
     src_n: torch.Tensor,
     init: SE3,
     nn_fn,
+    aux_rot=None,
     prev_rmse0: Optional[torch.Tensor] = None,
     src_w: Optional[torch.Tensor] = None,
 ) -> ICPResult:
     """The ICP iteration core.
 
     `nn_fn(p) -> (q, n_q, dist)` gives matched target rows for the
-    transformed source. Loop bookkeeping follows the reference exactly:
+    transformed source; `src_n` / `n_q` are the objective's auxiliary
+    channel (normals (N, 3), or flattened covariances (N, 9) for GICP), and
+    `aux_rot(T, aux)` moves the source's into the current frame (default:
+    vector rotation). Loop bookkeeping follows the reference exactly:
     histories are NaN-filled to max_iters; a rejected step records
     diff = inf and keeps the previous rmse; the loop stops on rejection,
     on diff < diff_threshold, and on the optional rmse_change_tol and
@@ -534,10 +569,12 @@ def _icp_scan(
     failed = torch.zeros((), dtype=torch.bool, device=dev)
     stop_t = torch.zeros((), dtype=torch.bool, device=dev)
     it, stop = 0, False
+    if aux_rot is None:
+        aux_rot = lambda T, aux: T.rotate(aux)  # noqa: E731
 
     while it < config.max_iters and not stop:
         p = transform.apply(src_xyz)
-        n_p = transform.rotate(src_n)
+        n_p = aux_rot(transform, src_n)
         q, n_q, dist = nn_fn(p)
 
         w = correspondence_weights(config, p, n_p, q, n_q, dist, src_mask)

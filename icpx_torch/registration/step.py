@@ -13,12 +13,14 @@ import torch
 
 from icpx_torch.geometry.se3 import SE3
 from icpx_torch.registration.linearize import (
+    build_normal_equations_gicp,
     build_normal_equations_p2plane,
     build_normal_equations_symmetric,
     mad_scale,
     robust_weight,
 )
 from icpx_torch.registration.solve import (
+    reconstruct_about_point,
     reconstruct_p2plane_transform,
     reconstruct_symmetric_transform,
     solve_damped_6x6,
@@ -75,7 +77,8 @@ def _masked_quantile(x: torch.Tensor, w_valid: torch.Tensor, q: float) -> torch.
 
 
 def estimate_increment(config, p, q, n_p, n_q, w) -> SE3:
-    """One Gauss-Newton / closed-form update from weighted correspondences."""
+    """One Gauss-Newton / closed-form update from weighted correspondences;
+    n_p / n_q are normals (N, 3), or flattened covariances (N, 9) for GICP."""
     denom = torch.clamp(w.sum(), min=_EPS)
     p_bar = (p * w[:, None]).sum(0) / denom
     q_bar = (q * w[:, None]).sum(0) / denom
@@ -93,7 +96,9 @@ def estimate_increment(config, p, q, n_p, n_q, w) -> SE3:
         return SE3(R=R, t=q_bar - R @ p_bar)
 
     if config.objective == "gicp":
-        raise NotImplementedError("GICP is not ported yet (ROADMAP queue 1 step 6)")
+        ne = build_normal_equations_gicp(p, q, n_p.reshape(-1, 3, 3), n_q.reshape(-1, 3, 3), w, p_bar)
+        x = solve_damped_6x6(ne.JtJ, ne.Jtr, config.damping, config.degeneracy_clamp)
+        return reconstruct_about_point(x, p_bar)
 
     if config.objective == "symmetric":
         ne = build_normal_equations_symmetric(p, q, n_p, n_q, w, p_bar, q_bar)

@@ -32,6 +32,7 @@ from icpx.kernels.blocknn_pallas import (
     block_fold7_pre as j_fold7,
     block_fold_fused,
     block_nn_fused4 as j_fused4,
+    block_radius_moments_fused as j_moments_fused,
     block_radius_moments_fused6 as j_moments6,
     fold7_prepare as j_fold7_prepare,
     group_unions as j_group_unions,
@@ -280,14 +281,17 @@ def _cov_tol(mean, comps, q_cent, sq):
     return 1e-4 * (comps[0] + comps[3] + comps[5]) + 1e-5 * ((mean - q_rows) ** 2).sum(-1)
 
 
-def _check_moments(cnt_t, mean_t, comps_t, cnt_j, mean_j, comps_j, valid, ji):
+def _check_moments(cnt_t, mean_t, comps_t, cnt_j, mean_j, comps_j, valid, ji, centred=None):
+    """`centred`: (centres, rows a centre) the moments were centred on; by
+    default each query tile's centroid."""
     cnt_t, cnt_j = to_np(cnt_t)[valid], np.asarray(cnt_j)[valid]
     same = cnt_t == cnt_j
     assert same.mean() >= 0.999, f"counts agree on {same.mean():.5f} of rows"
     assert cnt_j.mean() > 5  # the radius holds real neighbourhoods
     np.testing.assert_allclose(to_np(mean_t)[valid][same], np.asarray(mean_j)[valid][same], atol=1e-5)
-    _, q_cent = jb._candidate_tiles(ji.tiles, ji, 2)
-    tol = _cov_tol(mean_j, comps_j, q_cent, ji.tile_size)[valid][same]
+    if centred is None:
+        centred = (jb._candidate_tiles(ji.tiles, ji, 2)[1], ji.tile_size)
+    tol = _cov_tol(mean_j, comps_j, *centred)[valid][same]
     for ct, cj in zip(comps_t, comps_j):
         ct, cj = to_np(ct)[valid][same], np.asarray(cj)[valid][same]
         np.testing.assert_allclose(ct, cj, atol=1e-4)
@@ -699,6 +703,112 @@ def test_fused4_group_must_divide_query_tiles():
         blocknn_cuda.block_nn_fused4(qt, _same_index(ji), group=4)
 
 
+# ---- the union radius moments (kernel #7) -------------------------------------------
+
+
+RADIUS_U = 0.15
+
+
+@pytest.fixture(scope="module")
+def union_moments_case():
+    """tests/test_blocknn.py::test_fused_moments_superset_of_jnp's case: 8,000
+    uniform points (the conftest rng's first draw), tiles of 128, radius
+    0.15, k_tiles 8, group 4, u_max 32; the Pallas kernel's output in
+    interpret mode and the port's plain version's."""
+    r = np.random.default_rng(0).uniform(-1, 1, (8000, 3)).astype(np.float32)
+    ji = jb.build_kd_index(jnp.asarray(r), tile_size=128)
+    want = j_moments_fused(ji.tiles, ji, jnp.float32(RADIUS_U), k_tiles=8, group=4, u_max=32,
+                           interpret=True)
+    ti = _same_index(ji)
+    before = dict(blocknn_cuda.LAUNCHES)
+    got = blocknn_cuda.block_radius_moments_fused(ti.tiles, ti, RADIUS_U, k_tiles=8, group=4,
+                                                  u_max=32)
+    assert blocknn_cuda.LAUNCHES == before  # CPU tensors: the plain version ran
+    return r, ji, ti, want, got
+
+
+def _comps(cov):
+    return [cov[:, i, j] for i, j in ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))]
+
+
+def test_moments_fused_plain_matches_pallas_interpret(union_moments_case):
+    """Counts equal on >= 99.9% of rows (the two sides round the expansion
+    score in their own orders: a radius-border row may flip), means and
+    covariances on equal-count rows within `_cov_tol` about the group
+    centroid."""
+    _, ji, ti, (cnt_j, mean_j, cov_j), (cnt_t, mean_t, cov_t) = union_moments_case
+    valid = np.asarray(ji.order) >= 0
+    q_cent = to_np(blocknn_cuda.group_centroids(ti.tiles, 4))
+    _check_moments(cnt_t, mean_t, _comps(cov_t), cnt_j, mean_j, _comps(np.asarray(cov_j)), valid, ji,
+                   centred=(q_cent, 4 * ji.tile_size))
+
+
+def test_moments_fused_counts_padded_slots_again(union_moments_case):
+    """A fault of the reference, kept: the TPU kernel sums every one of the
+    u_max union slots, and `group_unions` pads an underfull union with its
+    first id, so that tile's rows count once more for each padded slot. On
+    this case 458 of the 8,000 rows count more neighbours than the cloud
+    holds within the radius (float64 brute force), by up to 224; the port
+    gives the same rows the same counts, but for two rows where the
+    packages' fp32 scores put one neighbour on either side of the radius
+    (456 rows over). The plain XLA-style fold never exceeds the brute
+    count."""
+    r, ji, ti, (cnt_j, *_), (cnt_t, *_) = union_moments_case
+    valid = np.asarray(ji.order) >= 0
+    q = np.asarray(ji.tiles, np.float64).reshape(-1, 3)[valid]
+    pts = r.astype(np.float64)
+    brute = np.concatenate([(((q[i:i + 1000, None] - pts[None]) ** 2).sum(-1) <= RADIUS_U ** 2).sum(1)
+                            for i in range(0, len(q), 1000)])
+    cnt_t, cnt_j = to_np(cnt_t)[valid], np.asarray(cnt_j)[valid]
+    over_t, over_j = cnt_t > brute, cnt_j > brute
+    same = cnt_t == cnt_j  # all but 2 rows, each a radius-border flip of 1
+    assert (~same).sum() == 2 and (np.abs(cnt_t - cnt_j) <= 1).all()
+    np.testing.assert_array_equal(over_t[same], over_j[same])
+    assert int(over_j.sum()) == 458 and int(over_t.sum()) == 456  # the 2 flipped rows
+    assert int((cnt_j - brute).max()) == int((cnt_t - brute).max()) == 224
+    cnt_x, _, _ = tb.block_radius_moments(ti.tiles, ti, RADIUS_U, k_tiles=8)
+    assert (to_np(cnt_x)[valid] <= brute).all()
+    assert (cnt_t >= to_np(cnt_x)[valid]).all()  # the union holds every tile's candidates
+
+
+def test_moments_fused_slot_weights_equal_summing_every_slot():
+    """The plain version (and the kernel) score slot 0's tile once and weigh
+    it by 1 + the padded slots; summing every slot as the TPU kernel does
+    gives the same counts and, to fp32, the same sums, sentinel rows (in
+    tile 7) and padded queries included."""
+    unions = torch.tensor([[1, 2, 5, 1, 1, 1, 1, 1], [3, 0, 4, 6, 2, 7, 5, 1]])
+    np.testing.assert_array_equal(to_np(blocknn_cuda._slot_weights(unions)),
+                                  [[6, 1, 1, 0, 0, 0, 0, 0], [1] * 8])
+    rng = np.random.default_rng(21)
+    tiles = rng.uniform(-1, 1, (8, 16, 3)).astype(np.float32)
+    tiles[7, 10:] = PAD_COORD
+    query = rng.uniform(-1, 1, (8, 16, 3)).astype(np.float32)
+    query[5, 12:] = PAD_COORD
+    qt = torch.as_tensor(query)
+    q_cent = blocknn_cuda.group_centroids(qt, 4)
+    r2 = torch.tensor(0.6, dtype=torch.float32)
+    out = to_np(blocknn_cuda.moments_fused(qt, torch.as_tensor(tiles), unions, q_cent, r2, 4))
+    # the TPU kernel's loop, every slot, the same score order, in numpy fp32
+    qc = query.reshape(2, 64, 3) - to_np(q_cent)[:, None]
+    c = (qc[..., 0] * qc[..., 0] + qc[..., 1] * qc[..., 1]) + qc[..., 2] * qc[..., 2] - np.float32(0.6)
+    want = np.zeros((2, 64, 10), np.float64)
+    for u in range(8):
+        rc = tiles[to_np(unions)[:, u]] - to_np(q_cent)[:, None]  # (2, 16, 3)
+        x, y, z = rc[..., 0][:, None], rc[..., 1][:, None], rc[..., 2][:, None]
+        rr = (x * x + y * y) + z * z
+        score = (((-2 * qc[..., 0:1]) * x + (-2 * qc[..., 1:2]) * y) + (-2 * qc[..., 2:3]) * z + rr) + c[..., None]
+        w = (score <= 0).astype(np.float64)
+        feat = np.stack([np.ones_like(x), x, y, z, x * x, y * y, z * z, x * y, x * z, y * z], -1)
+        want += (w[..., None] * feat).sum(2)
+    want = want.reshape(-1, 10).T
+    np.testing.assert_array_equal(out[0], want[0])
+    counts = out[0].reshape(8, 16)
+    # a padded query sits on the sentinel rows (both at PAD_COORD): it counts
+    # tile 7's six, as the TPU kernel's score does; its row is dropped later
+    assert (counts[5, 12:] == 6).all() and (counts > 0).mean() > 0.9
+    np.testing.assert_allclose(out[1:], want[1:], rtol=1e-5, atol=1e-5)
+
+
 # ---- radius, normals ---------------------------------------------------------------
 
 
@@ -826,3 +936,20 @@ def test_cuda_fused4_matches_plain(cuda_device):
         d_p, pos_p = blocknn_cuda.fused4_reference(qt, ti.tiles, unions, 4)
         torch.cuda.synchronize()
         assert torch.equal(d_k, d_p) and torch.equal(pos_k, pos_p)  # bit for bit
+
+
+@pytest.mark.cuda
+def test_cuda_moments_fused_matches_plain(cuda_device):
+    r = np.random.default_rng(0).uniform(-1, 1, (8000, 3)).astype(np.float32)
+    ti = tb.build_kd_index(torch.as_tensor(r, device=cuda_device), tile_size=128)
+    cand, _ = tb._candidate_tiles(ti.tiles, ti, 8)
+    unions = blocknn_cuda.group_unions(cand, 4, 32)
+    q_cent = blocknn_cuda.group_centroids(ti.tiles, 4)
+    r2 = torch.tensor([RADIUS_U * RADIUS_U], dtype=torch.float32, device=cuda_device)
+    before = blocknn_cuda.LAUNCHES["moments_fused"]
+    out_k = blocknn_cuda.moments_fused_cuda(ti.tiles, ti.tiles, unions.to(torch.int32), q_cent, r2, 4)
+    out_p = blocknn_cuda.moments_fused_reference(ti.tiles, ti.tiles, unions, q_cent, r2[0], 4)
+    torch.cuda.synchronize()
+    assert blocknn_cuda.LAUNCHES["moments_fused"] == before + 1
+    assert torch.equal(out_k[0], out_p[0])  # the same score bits: the same counts
+    torch.testing.assert_close(out_k[1:], out_p[1:], rtol=1e-5, atol=1e-4)

@@ -211,8 +211,11 @@ def test_config_converts_field_for_field():
 
 def test_unported_paths_raise():
     tc = torch_cloud(JCloud.create(synthetic_surface(300, seed=1)))
-    with pytest.raises(NotImplementedError, match="step 6"):
-        register(tc, tc, ICPConfig(objective="gicp"))
+    # GICP runs now (covariances estimated inside register()): an
+    # identical pair stays put
+    res = register(tc, tc, ICPConfig(objective="gicp"))
+    assert torch.allclose(res.transform.R, torch.eye(3), atol=1e-3)
+    assert float(res.transform.t.norm()) < 1e-3 and torch.isfinite(res.final_rmse)
     # block NN runs every payload mode now, whether auto (from 8192 target
     # points) or nn_method="block" picked it: an identical pair stays put
     big = torch_cloud(JCloud.create(synthetic_surface(8192, seed=1)))

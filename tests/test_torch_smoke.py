@@ -14,7 +14,7 @@ import torch
 
 import chip_smoke
 import torch_parity  # noqa: F401  (pins torch's thread count per worker)
-from icpx_torch.kernels import blocknn_cuda, cuda_build, nn_cuda
+from icpx_torch.kernels import blocknn, blocknn_cuda, cuda_build, nn_cuda, normals, sort_cuda
 from icpx_torch.registration import icp
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -94,6 +94,14 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
         blocknn_cuda.LAUNCHES["fused4"] += 1
         return blocknn_cuda.fused4_reference(query, tiles, unions, group)
 
+    def fake_moments_fused(query, tiles, unions, q_cent, r2, group):
+        blocknn_cuda.LAUNCHES["moments_fused"] += 1
+        return blocknn_cuda.moments_fused_reference(query, tiles, unions, q_cent, r2.reshape(()), group)
+
+    def fake_sort(key, payloads):
+        sort_cuda.LAUNCHES["sort"] += 1
+        return sort_cuda.sort_segments_reference(key, payloads)
+
     real_fused4 = blocknn_cuda.block_nn_fused4
 
     def fused4_wrapper(*a, **kw):  # the CPU wrapper runs the plain version: count it
@@ -117,6 +125,11 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
     monkeypatch.setattr(nn_cuda, "nn_cuda", fake_kernel)
     monkeypatch.setattr(nn_cuda, "build", lambda: None)
     monkeypatch.setattr(blocknn_cuda, "build", lambda: None)
+    monkeypatch.setattr(sort_cuda, "build", lambda: None)
+    monkeypatch.setattr(sort_cuda, "sort_cuda", fake_sort)
+    monkeypatch.setattr(blocknn, "sort_segments", fake_sort)  # the KD builds' level sorts
+    monkeypatch.setattr(blocknn_cuda, "moments_fused_cuda", fake_moments_fused)
+    monkeypatch.setattr(blocknn_cuda, "moments_fused", fake_moments_fused)
     monkeypatch.setattr(cuda_build, "compile_all", lambda *a: None)
     monkeypatch.setattr(blocknn_cuda, "moments6_cuda", fake_moments6)
     monkeypatch.setattr(blocknn_cuda, "fold6_cuda", fake_fold6)
@@ -133,6 +146,9 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
     for name in ("resolve_payload", "resolve_moments"):
         monkeypatch.setattr(icp.ICPConfig, name, as_if_cuda(getattr(icp.ICPConfig, name)))
     monkeypatch.setattr(chip_smoke.subprocess, "run", fake_run)
+    # GICP covariances take the block method (radius moments off KD indexes)
+    # at this size, as at the card's 1M
+    monkeypatch.setattr(normals, "BLOCK_THRESHOLD", 8192)
     for name, value in (
         ("get_device_name", lambda i=0: "Fake GPU"),
         ("device_count", lambda: 1),
@@ -148,24 +164,33 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
     assert json.loads(lines[-1]) == {
         "ok": True, "device": {"platform": "gpu", "kind": "Fake GPU", "count": 1}}
     ks = json.loads(lines[-2])["kernels"]
-    assert [k["name"] for k in ks] == ["nn", "moments6", "fold6", "fold7", "select", "fused4"]
+    assert [k["name"] for k in ks] == ["nn", "moments6", "fold6", "fold7", "select", "fused4",
+                                       "moments_fused", "sort"]
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms"}
     extras = {"moments6": {"cov_max_abs_err", "cov_err_over_tol"},
-              "fused4": {"union_mean", "union_max"}}
+              "fused4": {"union_mean", "union_max"},
+              "moments_fused": {"cov_err_over_tol", "union_mean", "union_max", "padded_share",
+                                "rows_below_xla"}}
     for k in ks:
         assert set(k) == keys | extras.get(k["name"], set())
         assert k["route"] == "cuda" and (ROOT / k["source"]).exists()
         assert k["bound_ms"] > 0 and k["bound_by"] in ("bytes", "operations")
-    nn, mom, fold, fold7, select, fused4 = ks
+    nn, mom, fold, fold7, select, fused4, mfused, sort = ks
     assert 0.0 <= mom["cov_err_over_tol"] <= 1.0 and fold["max_abs_err"] == 0.0
-    for k in (fold7, select, fused4):  # bit equality with the plain versions
+    for k in (fold7, select, fused4, sort):  # bit equality with the plain versions
         assert k["max_abs_err"] == 0.0 and k["launches"] >= 1
     assert fold7["replaces"] == "icpx/kernels/blocknn_pallas.py:694"
     assert select["replaces"] == "icpx/kernels/blocknn_pallas.py:358"
     assert fused4["replaces"] == "icpx/kernels/blocknn_pallas.py:101"
     assert select["library_ms"] > 0 and fold7["library_ms"] is None
     assert 1 <= fused4["union_mean"] <= fused4["union_max"] <= 32
+    assert mfused["replaces"] == "icpx/kernels/blocknn_pallas.py:219"
+    assert sort["replaces"] == "icpx/kernels/sort_pallas.py:86"
+    assert sort["source"] == "icpx_torch/csrc/sort.cu" and sort["library_ms"] == sort["plain_ms"]
+    assert sort["launches"] == 20 and mfused["launches"] == 2  # the GICP paths (5 + 5 + 2 x 5 at 16k)
+    assert 0.0 <= mfused["cov_err_over_tol"] <= 1.0 and mfused["library_ms"] is None
+    assert 1 <= mfused["union_mean"] <= mfused["union_max"] <= 32 and 0 <= mfused["padded_share"] < 1
     assert nn["replaces"] == "icpx/kernels/knn_pallas.py:37"
     assert mom["replaces"] == "icpx/kernels/blocknn_pallas.py:890"
     assert fold["replaces"] == "icpx/kernels/blocknn_pallas.py:497"
@@ -174,8 +199,13 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
     assert mom["library_ms"] is None and fold["library_ms"] is None
     assert "Fake GPU, 700.00 W" in lines
     prefixes = ["cat: ", "65k pair: ", "moments6 kernel vs plain", "fold6 kernel vs plain",
-                "fold7 kernel vs plain", "select kernel vs plain", "fused4 kernel vs plain"]
+                "fold7 kernel vs plain", "select kernel vs plain", "fused4 kernel vs plain",
+                "KD index (128, 128, 3): equal", "KD index (256, 64, 3): equal",
+                "sort kernel vs plain: bit-equal", "moments_fused kernel vs plain",
+                "clocks before the kernel phases", "clocks after the kernel phases",
+                "flagship 1M (gicp fused): "]
     prefixes += [f"flagship 1M ({m}): " for m in chip_smoke._flag_configs()]
-    prefixes += [f"16k block pair ({m}): " for m in ("vmem", "vmem7", "select", "fused")]
+    prefixes += [f"flagship 1M (gicp) rep {r}: " for r in (1, 2, 3)]
+    prefixes += [f"16k block pair ({m}): " for m in ("vmem", "vmem7", "select", "fused", "gicp")]
     for prefix in prefixes:
         assert any(line.startswith(prefix) for line in lines), prefix

@@ -34,8 +34,9 @@ def clouds(xyz, normals=None, capacity=None):
 
 def torch_cloud(jc, device="cpu"):
     nrm = None if jc.normals is None else np.asarray(jc.normals)
+    cov = None if jc.covs is None else np.asarray(jc.covs)
     return interop.cloud_from_numpy(
-        np.asarray(jc.xyz), np.asarray(jc.mask), nrm, device=device
+        np.asarray(jc.xyz), np.asarray(jc.mask), nrm, cov, device=device
     )
 
 
