@@ -24,7 +24,7 @@ result against its ground truth:
   registration (3 reps, each held to the GT gate), then with covariances
   taken through the union moments kernel;
 * a 16,384-point pair on the card against the same pair on the CPU under
-  "vmem", "vmem7", "select", block_fused "on" and GICP.
+  "vmem", "vmem7", "select" and block_fused "on", symmetric and GICP.
 
 Every path's KD builds sort through the sort kernel. Launch counters are
 set to 0 just before each path and read just after. Every phase prints one
@@ -387,10 +387,11 @@ def _refine_operands(src, tgt_index, gt):
     return query, cand, q_cent
 
 
-def _phase_fold6(dev, query, cand, tgt_index, table, fixtures):
+def _phase_fold6(dev, query, cand, tgt_index, table, table12, fixtures):
     """Kernel #3 against its plain version at the shapes of one flagship
     refine iteration (16,384 x 64 queries, k = 6 frozen candidates, the
-    fused (T*S, 6) table), plus the fixtures; returns its JSON fields."""
+    fused (T*S, 6) table of the symmetric objective and GICP's (T*S, 12)
+    one), plus the fixtures; returns its JSON fields (times at D = 6)."""
     from icpx_torch.kernels import blocknn_cuda
 
     def compare(name, query, ops):
@@ -405,6 +406,8 @@ def _phase_fold6(dev, query, cand, tgt_index, table, fixtures):
 
     ops = blocknn_cuda.fold6_prepare(cand, tgt_index, table)
     d, _, err = compare(f"{tuple(query.shape)} k=6", query, ops)
+    _, _, err12 = compare(f"{tuple(query.shape)} k=6 D=12", query,
+                          blocknn_cuda.fold6_prepare(cand, tgt_index, table12))
     fq, f_index, f_cand, f_payload = fixtures
     f_ops = blocknn_cuda.fold6_prepare(f_cand, f_index, f_payload)
     fd, fpl, fx_err = compare("fixtures", fq, f_ops)
@@ -419,17 +422,19 @@ def _phase_fold6(dev, query, cand, tgt_index, table, fixtures):
     bytes_moved = n * 12 + tgt_index.tiles.numel() * 4 + tq * k * 4 + table.numel() * 4 + n * 28
     bound_ms, bound_by = _bound(bytes_moved, n * k * tgt_index.tile_size * 8.0)
     print(f"fold6 kernel vs plain {tuple(query.shape)} k=6: d2 and payload equal on all {n} rows "
-          f"({int(torch.isfinite(d).sum())} hits); fixtures ok (ties, misses, padded rows); "
+          f"({int(torch.isfinite(d).sum())} hits), with the 6- and the 12-wide table; fixtures ok "
+          "(ties, misses, padded rows); "
           f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}) "
           "(CUDA events, median of 5)")
-    return dict(max_abs_err=max(err, fx_err), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+    return dict(max_abs_err=max(err, err12, fx_err), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None)
 
 
-def _phase_fold7(dev, query, cand, q_cent, tgt_index, table, fixtures):
+def _phase_fold7(dev, query, cand, q_cent, tgt_index, table, table12, fixtures):
     """Kernel #4 against its plain version at the flagship's refine shapes
     (operands centred on the query tiles' own centroids, as the frozen
-    phase gives them), plus the fixtures; returns its JSON fields."""
+    phase gives them; the 6- and the 12-wide table), plus the fixtures;
+    returns its JSON fields (times at D = 6)."""
     from icpx_torch.kernels import blocknn_cuda
 
     def compare(name, query, ops):
@@ -444,6 +449,8 @@ def _phase_fold7(dev, query, cand, q_cent, tgt_index, table, fixtures):
 
     ops = blocknn_cuda.fold7_prepare(cand, q_cent, tgt_index, table)
     d, _, err = compare(f"{tuple(query.shape)} k=6", query, ops)
+    _, _, err12 = compare(f"{tuple(query.shape)} k=6 D=12", query,
+                          blocknn_cuda.fold7_prepare(cand, q_cent, tgt_index, table12))
     fq, f_index, f_cand, f_payload = fixtures
     f_ops = blocknn_cuda.fold7_prepare(f_cand, torch.zeros((2, 3), device=dev), f_index, f_payload)
     fd, fpl, fx_err = compare("fixtures", fq, f_ops)
@@ -460,19 +467,20 @@ def _phase_fold7(dev, query, cand, q_cent, tgt_index, table, fixtures):
     # a pair: 3 FMUL + 3 FADD (the fourth product is 1 x B3)
     bound_ms, bound_by = _bound(bytes_moved, n * k * s * 6.0)
     print(f"fold7 kernel vs plain {tuple(query.shape)} k=6: d2 and payload equal on all {n} rows "
-          f"({int(torch.isfinite(d).sum())} hits); fixtures ok (ties, misses, padded rows); "
-          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}) "
-          "(CUDA events, median of 5)")
-    return dict(max_abs_err=max(err, fx_err), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+          f"({int(torch.isfinite(d).sum())} hits), with the 6- and the 12-wide table; fixtures ok "
+          f"(ties, misses, padded rows); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{bound_ms:.3f} ms ({bound_by}) (CUDA events, median of 5)")
+    return dict(max_abs_err=max(err, err12, fx_err), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None)
 
 
-def _phase_select(dev, query, cand, tgt_index, table, fixtures):
+def _phase_select(dev, query, cand, tgt_index, table, table12, fixtures):
     """Kernel #5 against its plain version and against the row gather
     `table[pos]` (one PyTorch call for the same function on hits, the
     library yardstick) at the flagship's refine shapes, with the positions
-    the plain frozen-candidate fold gives, plus the fixtures (a candidate
-    tile listed four times quadruples its row)."""
+    the plain frozen-candidate fold gives (the 6- and the 12-wide table;
+    times at 6), plus the fixtures (a candidate tile listed four times
+    quadruples its row)."""
     from icpx_torch.kernels import blocknn_cuda
     from icpx_torch.kernels.blocknn import block_nn
 
@@ -481,13 +489,16 @@ def _phase_select(dev, query, cand, tgt_index, table, fixtures):
     pos = pos.reshape(tq, sq)
     cand32 = cand.to(torch.int32)
     s = tgt_index.tile_size
-    out_k = blocknn_cuda.select_cuda(pos, cand32, table, s)
-    out_p = blocknn_cuda.select_reference(pos, cand, table, s)
-    gathered = table[pos.reshape(-1).long()]
-    torch.cuda.synchronize()
-    if not (torch.equal(out_k, out_p) and torch.equal(out_k, gathered)):
-        _fail("select: kernel, plain version and row gather differ on "
-              f"{int(((out_k != out_p) | (out_k != gathered)).any(1).sum())} rows")
+    err = 0.0
+    for t in (table, table12):
+        out_k = blocknn_cuda.select_cuda(pos, cand32, t, s)
+        out_p = blocknn_cuda.select_reference(pos, cand, t, s)
+        gathered = t[pos.reshape(-1).long()]
+        torch.cuda.synchronize()
+        if not (torch.equal(out_k, out_p) and torch.equal(out_k, gathered)):
+            _fail(f"select (D={t.shape[1]}): kernel, plain version and row gather differ on "
+                  f"{int(((out_k != out_p) | (out_k != gathered)).any(1).sum())} rows")
+        err = max(err, _max_err(out_k, out_p))
     fq, f_index, f_cand, f_payload = fixtures
     f_pos = torch.tensor([[9, 3, 17, 30, 0, 0, 0, 0], [32, 33, 39, 9, 0, 0, 0, 0]],
                          dtype=torch.int32, device=dev)
@@ -497,7 +508,7 @@ def _phase_select(dev, query, cand, tgt_index, table, fixtures):
         [1, 1, 1, 1, 1, 1, 1, 1, 4, 4, 4, 0, 0, 0, 0, 0], dtype=torch.float32, device=dev)[:, None]
     if not (torch.equal(fx_k, fx_p) and torch.equal(fx_k, want)):
         _fail("select fixtures: hits, misses or a quadrupled candidate tile came out wrong")
-    err = max(_max_err(out_k, out_p), _max_err(fx_k, fx_p))
+    err = max(err, _max_err(fx_k, fx_p))
     ms = _event_ms(lambda: blocknn_cuda.select_cuda(pos, cand32, table, s))
     plain_ms = _event_ms(lambda: blocknn_cuda.select_reference(pos, cand, table, s))
     flat = pos.reshape(-1).long()
@@ -506,8 +517,8 @@ def _phase_select(dev, query, cand, tgt_index, table, fixtures):
     bytes_moved = n * 4 + tq * k * 4 + table.numel() * 4 + n * table.shape[1] * 4
     bound_ms, bound_by = _bound(bytes_moved, float(n * k))  # one compare a candidate slot
     print(f"select kernel vs plain {tuple(pos.shape)} k=6: payload equal on all {n} rows and "
-          f"equal to table[pos]; fixtures ok (misses, a tile listed 4 times); kernel {ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms, table[pos] {library_ms:.3f} ms, bound {bound_ms:.3f} ms "
+          "equal to table[pos], with the 6- and the 12-wide table; fixtures ok (misses, a tile "
+          f"listed 4 times); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, table[pos] {library_ms:.3f} ms, bound {bound_ms:.3f} ms "
           f"({bound_by}) (CUDA events, median of 5)")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=library_ms)
@@ -662,12 +673,19 @@ def _phase_sort(dev, shapes):
     def bits(x):
         return x.view(torch.int32) if x.is_floating_point() else x
 
+    err = 0.0
+
     def compare(name, key, xyz, orig):
+        nonlocal err
         got = sort_cuda.sort_cuda(key, [xyz, orig])
         want = sort_cuda.sort_segments_reference(key, [xyz, orig])
         torch.cuda.synchronize()
+        # the largest |difference| over the key and both payloads (the index
+        # as float64, exact); bit equality also tells -0.0 from +0.0
+        case_err = max(float((a.double() - b.double()).abs().max()) for a, b in zip(got, want))
+        err = max(err, case_err)
         if not all(torch.equal(bits(a), bits(b)) for a, b in zip(got, want)):
-            _fail(f"sort {name}: kernel and plain version differ")
+            _fail(f"sort {name}: kernel and plain version differ (max |diff| {case_err:.3e})")
         return got[0]
 
     from icpx_torch.cloud import PAD_COORD
@@ -699,7 +717,7 @@ def _phase_sort(dev, shapes):
           f"{timed['ms']:.3f} ms, plain {timed['plain_ms']:.3f} ms, bound {timed['bound_ms']:.4f} ms")
     # key, coordinates and index read once and written once; a few
     # compare-exchanges an element are far below the bytes' time
-    return dict(max_abs_err=0.0, ms=timed["ms"], plain_ms=timed["plain_ms"],
+    return dict(max_abs_err=err, ms=timed["ms"], plain_ms=timed["plain_ms"],
                 library_ms=timed["plain_ms"], bound_ms=timed["bound_ms"], bound_by="bytes")
 
 
@@ -710,6 +728,27 @@ def _cov_radius(cloud, k):
     return auto_cell_size(cloud.xyz, cloud.mask, scale=3.0 * math.sqrt(max(k, 1) / 10.0))
 
 
+def _score_margin(off_g: torch.Tensor, off_t: torch.Tensor) -> torch.Tensor:
+    """Per query row, the relative radius growth that covers the fp32
+    rounding of both radius tests on a border pair (d ~ r): the union
+    kernel's score (((ax rx + ay ry) + az rz) + rr) + c, 5 roundings deep on
+    every term, and the fold's 4-term product + qq, 7 deep, each off by at
+    most gamma_n (|q| + |r|)^2 (+ r'^2 <= 4 r^2 for the kernel's c at a
+    grown radius r'), plus 2 u d (|q| + |r|) from rounding the centred
+    coordinates; on the border |r| <= |q| + 1.01 r. `off_g` and `off_t` are
+    the row's offsets |q| from its group's and its tile's centroid, in
+    radii. Returns delta with (1 + delta)^2 (1 - u) - 1 = (E_union +
+    E_fold) / r^2 (float64)."""
+    u = 2.0 ** -24
+
+    def gamma(n):
+        return n * u / (1 - n * u)
+
+    b_g, b_t = 2 * off_g.double() + 1.01, 2 * off_t.double() + 1.01  # (|q| + |r|) / r
+    e = gamma(5) * (b_g ** 2 + 4) + gamma(7) * b_t ** 2 + 2.02 * u * (b_g + b_t)
+    return torch.sqrt((1 + e) / (1 - u)) - 1
+
+
 def _phase_moments_fused(dev, f_tgt, group=4, u_max=32, k_tiles=8):
     """Kernel #7 against its plain version at the 1M covariance index (the
     flagship target's KD index of 128-point tiles, each its own query tile,
@@ -717,10 +756,11 @@ def _phase_moments_fused(dev, f_tgt, group=4, u_max=32, k_tiles=8):
     1e-5, covariances within `_cov_tol`. Each group's union must hold
     every candidate tile of its query tiles, so its counts are at or above
     the plain XLA-style fold's (`block_radius_moments`) on every row, up to
-    radius-border rows (its expansion score is centred on the group's
-    centroid, the fold's on the tile's, and rounds further from the
-    border): at a radius 1% larger they are above on every row. Returns
-    its JSON fields with the union sizes."""
+    radius-border rows: both test an fp32 expansion score, centred on the
+    group's centroid here and on the tile's there. At a radius larger by
+    twice a row's `_score_margin` bound on that rounding (tried on a grid
+    of growths, 1e-6 doubling) the row must count at or above. Returns its
+    JSON fields with the union sizes."""
     from icpx_torch.kernels import blocknn_cuda
     from icpx_torch.kernels.blocknn import _candidate_tiles, block_radius_moments, build_kd_index
 
@@ -758,11 +798,27 @@ def _phase_moments_fused(dev, f_tgt, group=4, u_max=32, k_tiles=8):
     if not bool(held.all()):
         _fail(f"moments_fused: {int((~held).sum())} candidate tiles missing from their unions")
     cnt_x, _, _ = block_radius_moments(idx.tiles, idx, radius, k_tiles=k_tiles)
-    below = int(((cnt < cnt_x) & valid).sum())
-    out_w = blocknn_cuda.moments_fused_cuda(idx.tiles, idx.tiles, u32, q_cent, r2 * 1.01 ** 2, group)
-    if bool(((out_w[0] < cnt_x) & valid).any()):
-        _fail(f"moments_fused: {int(((out_w[0] < cnt_x) & valid).sum())} rows count fewer "
-              "neighbours than block_radius_moments even at a radius 1% larger")
+    q = idx.tiles.reshape(-1, 3)
+    _, t_cent = _candidate_tiles(idx.tiles, idx, k_tiles)  # the fold's centring points
+    off_g, off_t = ((q - c.repeat_interleave(len(q) // len(c), 0)).norm(dim=1) / radius
+                    for c in (q_cent, t_cent))
+    margin = 2 * _score_margin(off_g, off_t)  # per row: twice its bound
+    below0 = (cnt < cnt_x) & valid
+    need = torch.where(below0, math.inf, 0.0).double()  # growth each row below needed
+    growth = 1e-6
+    while growth <= 2 * float(margin[valid].max()):
+        c_g = blocknn_cuda.moments_fused_cuda(idx.tiles, idx.tiles, u32, q_cent,
+                                              r2 * (1.0 + growth) ** 2, group)[0]
+        below_g = (c_g < cnt_x) & valid
+        fault = below_g & (margin <= growth)
+        if bool(fault.any()):
+            _fail(f"moments_fused: {int(fault.sum())} rows count fewer neighbours than "
+                  f"block_radius_moments at a radius larger by {growth:.3e}, twice their "
+                  "rounding bound or more")
+        need = torch.where(below0 & ~below_g & (need > growth), growth, need)
+        growth *= 2
+    used = float((need / margin)[below0].max()) if bool(below0.any()) else 0.0
+    below = int(below0.sum())
     above = int(((cnt > cnt_x) & valid).sum())
     sizes = ((unions[:, 1:] != unions[:, :1]).sum(1) + 1).to(torch.float32)
     padded = 1.0 - float(sizes.sum()) / unions.numel()
@@ -779,13 +835,19 @@ def _phase_moments_fused(dev, f_tgt, group=4, u_max=32, k_tiles=8):
           f"means within {mean_err:.3e}, covariances {over:.3g} x their tolerance; unions of "
           f"{float(sizes.mean()):.2f} distinct tiles on average, {int(sizes.max())} at most, "
           f"{100 * padded:.1f}% of the {u_max} slots padded; counts above block_radius_moments' "
-          f"on {above} rows, below on {below} (radius-border rows; none at a radius 1% larger); "
+          f"on {above} rows, below on {below} (radius-border rows); per-row margin (twice the "
+          f"score rounding bound) {float(margin[valid].median()):.3e} of the radius at the median, "
+          f"{float(margin[valid].max()):.3e} at most (query offsets {float(off_g[valid].median()):.2f} "
+          f"r from the group's centroid at the median, {float(off_g[valid].max()):.2f} at most); "
+          f"the rows below: margins {float(margin[below0].min()) if below else 0.0:.3e} to "
+          f"{float(margin[below0].max()) if below else 0.0:.3e}, each at or above the fold's count "
+          f"from a growth of at most {used:.3g} x its margin (1e-6 doubling grid); "
           f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}) "
           "(CUDA events, median of 5; plain of 3)")
     return dict(max_abs_err=max(mean_err, float(cov_err.max())), cov_err_over_tol=over, ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                 union_mean=float(sizes.mean()), union_max=int(sizes.max()), padded_share=padded,
-                rows_below_xla=below)
+                rows_below_xla=below, margin_used=used)
 
 
 def _gicp_config():
@@ -887,12 +949,16 @@ def main(dev=None, n_pair: int = N_PAIR, n_flag: int = N_FLAG, n_small: int = N_
     aux = torch.as_tensor(np.random.default_rng(2).normal(size=(n_flag, 3)).astype(np.float32),
                           device=dev)
     table = fused_payload_table(tgt_index, aux)
+    # GICP's table: xyz and the flattened 3x3 covariance
+    aux12 = torch.as_tensor(np.random.default_rng(3).normal(size=(n_flag, 9)).astype(np.float32),
+                            device=dev)
+    table12 = fused_payload_table(tgt_index, aux12)
     query, cand, q_cent = _refine_operands(f_src, tgt_index, f_gt)
-    kernels["fold6"] = _phase_fold6(dev, query, cand, tgt_index, table, fixtures)
-    kernels["fold7"] = _phase_fold7(dev, query, cand, q_cent, tgt_index, table, fixtures)
-    kernels["select"] = _phase_select(dev, query, cand, tgt_index, table, fixtures)
+    kernels["fold6"] = _phase_fold6(dev, query, cand, tgt_index, table, table12, fixtures)
+    kernels["fold7"] = _phase_fold7(dev, query, cand, q_cent, tgt_index, table, table12, fixtures)
+    kernels["select"] = _phase_select(dev, query, cand, tgt_index, table, table12, fixtures)
     kernels["fused4"] = _phase_fused4(dev, query, tgt_index, fixtures)
-    del tgt_index, flat, table, aux, query, cand, q_cent
+    del tgt_index, flat, table, aux, table12, aux12, query, cand, q_cent
     _sample_clocks("after the kernel phases")
 
     cfg_cat = ICPConfig(objective="symmetric", max_iters=20, diff_threshold=1.0,
@@ -1047,12 +1113,15 @@ def main(dev=None, n_pair: int = N_PAIR, n_flag: int = N_FLAG, n_small: int = N_
              "vmem7": ("fold7", dict(payload_mode="vmem7", **fixed)),
              "select": ("select", dict(payload_mode="select", **fixed)),
              "fused": ("fused4", dict(block_fused="on", **fixed)),
-             "gicp": ("fold6", dict(payload_mode="vmem", objective="gicp"))}
+             "gicp": ("fold6", dict(payload_mode="vmem", objective="gicp")),
+             "gicp vmem7": ("fold7", dict(payload_mode="vmem7", objective="gicp", **fixed)),
+             "gicp select": ("select", dict(payload_mode="select", objective="gicp", **fixed)),
+             "gicp fused": ("fused4", dict(block_fused="on", objective="gicp", **fixed))}
     for label, (name, change) in small.items():
         cfg_small = dataclasses.replace(flag_cfgs["kernels"], moments_mode="vmem", **change)
         res, counts = _counted(lambda: register(src, tgt, cfg_small))
         # GICP estimates covariances (kNN at this size), no normals
-        need = {name: 1, "sort": 1, **({} if label == "gicp" else {"moments6": 2})}
+        need = {name: 1, "sort": 1, **({} if cfg_small.objective == "gicp" else {"moments6": 2})}
         if any(counts[k] < n for k, n in need.items()):
             _fail(f"16k pair ({label}): the kernels were not launched ({counts})")
         res_cpu = register(src.to("cpu"), tgt.to("cpu"), cfg_small)

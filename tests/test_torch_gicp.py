@@ -17,10 +17,14 @@ by one point).
 
 `register()`: on tests/test_additions.py::test_gicp_converges's pair
 (2,500 points, the brute path) the transform within 1e-5 and the same
-iteration count; on the 16,384-point block pair under "auto", "gather" and
-"vmem" (the plain fold6 on the CPU, a 12-wide payload) the transform
-within 1e-5 of the JAX package's, both within 5e-3 of the GT.
+iteration count; on the 16,384-point block pair under every payload mode
+("auto", "gather", "infold", and "vmem", "vmem7", "select": the plain
+fold6, fold7 and select on the CPU, a 12-wide payload) and block_fused
+"on" (the JAX fused4 in interpret mode) the transform within 1e-5 of the
+JAX package's, both within 5e-3 of the GT, iteration counts within 1.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -32,6 +36,7 @@ from icpx.cloud import PointCloud as JCloud
 from icpx.geometry.se3 import SE3 as JSE3
 from icpx.geometry.transforms import make_rigid_perturbation as j_perturb
 from icpx.io.loaders import synthetic_surface
+from icpx.kernels import blocknn_pallas
 from icpx.kernels.normals import estimate_covariances as j_estimate_covariances
 from icpx.registration import linearize as jlin
 from icpx.registration.icp import ICPConfig as JConfig
@@ -189,14 +194,16 @@ def test_gicp_register_brute_matches_jax():
 
 
 N = 16384
-MODES = ("gather", "vmem")
+MODES = ("gather", "vmem", "infold", "select", "vmem7", "fused")
 
 
 @pytest.fixture(scope="module")
 def block_pair():
     """The 16,384-point block pair of tests/test_torch_block_registration.py
-    and one JAX GICP registration under each payload mode (the Pallas fold6
-    in interpret mode); "auto" resolves to "gather" off the TPU."""
+    and one JAX GICP registration under each mode (the Pallas kernels in
+    interpret mode: the JAX fused4 wrapper does not switch to it off the
+    TPU, so it is given interpret=True); "auto" resolves to "gather" off
+    the TPU."""
     xyz = synthetic_surface(N, seed=3)
     src = JCloud.create(xyz, capacity=N)
     gt = j_perturb(angle=0.15, translation=(0.1, -0.05, 0.02))
@@ -206,16 +213,24 @@ def block_pair():
     src = j_estimate_covariances(src, k=15)
     tgt = j_estimate_covariances(tgt, k=15)
     runs = {}
-    for mode in MODES:
-        res = j_register(src, tgt, _cfg(mode))
-        jax.block_until_ready(res.transform.R)
-        runs[mode] = res
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(blocknn_pallas, "block_nn_fused4",
+                   functools.partial(blocknn_pallas.block_nn_fused4, interpret=True))
+        for mode in MODES:
+            res = j_register(src, tgt, _cfg(mode))
+            jax.block_until_ready(res.transform.R)
+            runs[mode] = res
     return src, tgt, gt, runs
 
 
 def _cfg(mode):
-    return JConfig(objective="gicp", max_iters=8, diff_threshold=0.0, rmse_change_tol=1e-6,
-                   payload_mode=mode)
+    """"fused" is `block_fused="on"`, at a fixed 3 refine iterations: its
+    converged rmse moves by ~3e-6 an iteration on this pair (near-tie
+    winners), above rmse_change_tol, so where the stop rule fires would
+    compare rounding. The others are payload modes."""
+    kw = dict(block_fused="on", max_iters=3, rmse_change_tol=0.0) if mode == "fused" else dict(
+        payload_mode=mode, max_iters=8, rmse_change_tol=1e-6)
+    return JConfig(objective="gicp", diff_threshold=0.0, **kw)
 
 
 @pytest.mark.parametrize("mode", ("auto",) + MODES)
@@ -224,7 +239,8 @@ def test_gicp_register_block_matches_jax(block_pair, mode):
     jres = runs["gather" if mode == "auto" else mode]
     cfg = torch_config(_cfg(mode))
     assert cfg.resolve_nn(N) == "block"
-    assert cfg.resolve_payload(N, torch.device("cpu")) == ("gather" if mode == "auto" else mode)
+    assert cfg.resolve_fused() == (mode == "fused")
+    assert cfg.resolve_payload(N, torch.device("cpu")) == ("gather" if mode in ("auto", "fused") else mode)
     before = dict(blocknn_cuda.LAUNCHES)
     res = register(torch_cloud(src), torch_cloud(tgt), cfg)
     assert blocknn_cuda.LAUNCHES == before  # the CPU runs the plain versions

@@ -3,6 +3,7 @@ on the CPU with the kernel's plain version standing in for the kernel."""
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -171,7 +172,7 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
     extras = {"moments6": {"cov_max_abs_err", "cov_err_over_tol"},
               "fused4": {"union_mean", "union_max"},
               "moments_fused": {"cov_err_over_tol", "union_mean", "union_max", "padded_share",
-                                "rows_below_xla"}}
+                                "rows_below_xla", "margin_used"}}
     for k in ks:
         assert set(k) == keys | extras.get(k["name"], set())
         assert k["route"] == "cuda" and (ROOT / k["source"]).exists()
@@ -191,6 +192,7 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
     assert sort["launches"] == 20 and mfused["launches"] == 2  # the GICP paths (5 + 5 + 2 x 5 at 16k)
     assert 0.0 <= mfused["cov_err_over_tol"] <= 1.0 and mfused["library_ms"] is None
     assert 1 <= mfused["union_mean"] <= mfused["union_max"] <= 32 and 0 <= mfused["padded_share"] < 1
+    assert 0.0 <= mfused["margin_used"] <= 1.0
     assert nn["replaces"] == "icpx/kernels/knn_pallas.py:37"
     assert mom["replaces"] == "icpx/kernels/blocknn_pallas.py:890"
     assert fold["replaces"] == "icpx/kernels/blocknn_pallas.py:497"
@@ -206,6 +208,26 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
                 "flagship 1M (gicp fused): "]
     prefixes += [f"flagship 1M ({m}): " for m in chip_smoke._flag_configs()]
     prefixes += [f"flagship 1M (gicp) rep {r}: " for r in (1, 2, 3)]
-    prefixes += [f"16k block pair ({m}): " for m in ("vmem", "vmem7", "select", "fused", "gicp")]
+    prefixes += [f"16k block pair ({m}): " for m in (
+        "vmem", "vmem7", "select", "fused", "gicp", "gicp vmem7", "gicp select", "gicp fused")]
     for prefix in prefixes:
         assert any(line.startswith(prefix) for line in lines), prefix
+
+
+@pytest.mark.parametrize("where", ("key", "xyz", "orig"))
+def test_sort_phase_reports_the_measured_difference(where, monkeypatch):
+    """The sort phase's max_abs_err is the largest |difference| it measured
+    between kernel and plain version, over the key and every payload: a
+    kernel off by 0.5 in one element fails the phase with that number."""
+    def off_by_half(key, payloads):
+        out = list(sort_cuda.sort_segments_reference(key, payloads))
+        i = ("key", "xyz", "orig").index(where)
+        out[i] = out[i].clone()
+        out[i].view(-1)[0] += 0.5 if out[i].is_floating_point() else 1
+        return tuple(out)
+
+    monkeypatch.setattr(sort_cuda, "sort_cuda", off_by_half)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    want = "5.000e-01" if where != "orig" else "1.000e+00"
+    with pytest.raises(RuntimeError, match="sort fixture: .*" + re.escape(f"max |diff| {want})")):
+        chip_smoke._phase_sort(torch.device("cpu"), {128: [(4, 256)], 64: [(8, 128)]})
