@@ -96,6 +96,35 @@ def _event_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def _graph_ms(fn, inner: int = 20, reps: int = 5) -> float:
+    """Device milliseconds per call: `inner` calls captured in one CUDA graph,
+    replayed between CUDA events (median of reps), so the host's launch
+    cost, which a single call's event time includes, drops out."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / inner)
+    del graph
+    return statistics.median(times)
+
+
 def _bound(bytes_moved: float, flops: float):
     """(bound ms, "bytes" or "operations")."""
     t_mem, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / FP32_FLOPS
@@ -235,14 +264,13 @@ def _block_fixtures(dev):
 
 
 def _phase_nn(dev, n_pair, rng):
-    """Kernel #1 against its plain version; returns its JSON fields."""
+    """Kernel #1 against its plain version: d2 and index bit-equal on every
+    case; times at n_pair^2 and at the cat shape 3,456^2; returns its JSON
+    fields (times at n_pair^2, the cat shape's under *_3456)."""
     from icpx_torch.cloud import PAD_COORD
     from icpx_torch.kernels import nn_cuda
-    from icpx_torch.kernels.knn import knn, nearest_neighbor_reference
+    from icpx_torch.kernels.knn import nearest_neighbor_reference
 
-    # d2: rtol 1e-5 plus atol 1e-6 |q|^2 per row (same formula, fp32 rounding
-    # and FMA contraction only); indices equal wherever the best and second
-    # best distances differ by more than 1e-4 relative.
     def uniform(n):
         return rng.uniform(-1.0, 1.0, size=(n, 3)).astype(np.float32)
 
@@ -251,14 +279,15 @@ def _phase_nn(dev, n_pair, rng):
         x[:n_real] = uniform(n_real)
         return x, np.arange(cap) < n_real
 
-    q_cat, m_cat = padded(3400, 3456)
+    q_cat, m_cat = padded(3400, 3456)  # the cat pair's 56 pad rows on both sides
     r_cat, _ = padded(3400, 3456)
     half = rng.uniform(size=70001) < 0.5
-    big = f"{n_pair}x{n_pair}"
+    big, cat = f"{n_pair}x{n_pair}", "3456x3456 (56 pad rows)"
     cases = {
         big: (uniform(n_pair), uniform(n_pair), np.ones(n_pair, bool), None),
-        "3456x3456 (56 masked)": (q_cat, r_cat, m_cat, None),
+        cat: (q_cat, r_cat, m_cat, None),
         "1000x70001 (half masked)": (uniform(1000), uniform(70001), half, None),
+        "300x700 (all masked)": (uniform(300), uniform(700), np.zeros(700, bool), None),
         "duplicates": _duplicate_fixture(),
     }
     max_abs_err = 0.0
@@ -268,46 +297,51 @@ def _phase_nn(dev, n_pair, rng):
         d_k, i_k = nn_cuda.nn_cuda(qc, rc, mc)
         d_p, i_p = nearest_neighbor_reference(qc, rc, ref_mask=mc)
         torch.cuda.synchronize()
-        qq = (qc.double() ** 2).sum(1)
         fin = torch.isfinite(d_p)
-        if not torch.equal(fin, torch.isfinite(d_k)):
-            _fail(f"{name}: kernel and plain disagree on which rows have a neighbour")
-        err = (d_k.double() - d_p.double()).abs()
-        tol = 1e-5 * d_p.double().abs() + 1e-6 * qq
-        if bool((err[fin] > tol[fin]).any()):
-            _fail(f"{name}: d2 off by up to {float(err[fin].max()):.3e}")
-        real = fin & (qq < 1e6)  # rows of real points (sentinel rows excluded)
-        if bool(real.any()):
-            max_abs_err = max(max_abs_err, float(err[real].max()))
-        if expect is not None:
-            if not np.array_equal(i_k.cpu().numpy(), expect):
-                _fail(f"{name}: tie rule broken (lowest index must win)")
-            sep = torch.ones_like(fin)
-        else:
-            d2, _ = knn(qc, rc, 2, ref_mask=mc)
-            sep = (d2[:, 1] - d2[:, 0]) > 1e-4 * d2[:, 1]
-        mism = int(((i_k != i_p) & sep & fin).sum())
-        if mism:
-            _fail(f"{name}: {mism} indices differ on well-separated rows")
-        line = (f"nn kernel vs plain {name}: max|dd2|={float(err[fin].max()) if bool(fin.any()) else 0.0:.3e}, "
-                f"index checked on {int((sep & fin).sum())}/{len(q)} rows")
-        if name == big:
+        err = _max_err(d_k, d_p) if torch.equal(fin, torch.isfinite(d_k)) else math.inf
+        max_abs_err = max(max_abs_err, err)
+        # the same direct-form d2 bits and the lowest index among ties
+        if not (torch.equal(d_k.view(torch.int32), d_p.view(torch.int32)) and torch.equal(i_k, i_p)):
+            _fail(f"nn {name}: kernel and plain version differ on "
+                  f"{int(((d_k != d_p) | (i_k != i_p)).sum())} rows (max |dd2| {err:.3e})")
+        if expect is not None and not np.array_equal(i_k.cpu().numpy(), expect):
+            _fail(f"nn {name}: tie rule broken (lowest index must win)")
+        if not bool(fin.any()) and not (bool((i_k == 0).all()) and bool(torch.isinf(d_k).all())):
+            _fail(f"nn {name}: a query with no valid reference must get (inf, 0)")
+        line = f"nn kernel vs plain {name}: d2 and index bit-equal on all {len(q)} rows"
+        if name in (big, cat):
+            nq, nr = len(q), len(r)
+            plan = nn_cuda.launch_plan(nq, nr, dev)
             ms = _event_ms(lambda: nn_cuda.nn_cuda(qc, rc, mc))
             plain_ms = _event_ms(lambda: nearest_neighbor_reference(qc, rc, ref_mask=mc))
 
             def library():  # one PyTorch call for the same function, chunked over queries
-                for q0 in range(0, len(q), 4096):
+                for q0 in range(0, nq, 4096):
                     torch.cdist(qc[q0:q0 + 4096], rc,
                                 compute_mode="donot_use_mm_for_euclid_dist").min(dim=1)
 
             library_ms = _event_ms(library)
-            nq, nr = len(q), len(r)
-            bound_ms, bound_by = _bound((nq + nr) * 12 + nr + nq * 8, nq * nr * 8.0)
-            fields = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                          bound_ms=bound_ms, bound_by=bound_by)
-            line += (f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, torch.cdist+min "
-                     f"{library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}) "
-                     "(CUDA events, median of 5)")
+            device_ms = _graph_ms(lambda: nn_cuda.nn_cuda(qc, rc, mc))
+            # beside cdist's ~5 s at 65,536^2 the host's launch cost is nothing
+            library_device_ms = library_ms if name == big else _graph_ms(library)
+            # every query against every valid reference, 8 operations a pair
+            bound_ms, bound_by = _bound((nq + nr) * 12 + nr + nq * 8, nq * int(m.sum()) * 8.0)
+            suffix = "" if name == big else "_3456"
+            fields.update({f"ms{suffix}": ms, f"plain_ms{suffix}": plain_ms,
+                           f"library_ms{suffix}": library_ms, f"bound_ms{suffix}": bound_ms,
+                           f"device_ms{suffix}": device_ms, f"splits{suffix}": plan["splits"]})
+            if name == cat:
+                fields["library_device_ms_3456"] = library_device_ms
+            if name == big:
+                fields.update(bound_by=bound_by, queries_per_thread=plan["queries_per_thread"],
+                              group=plan["group"])
+            line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, torch.cdist+min "
+                     f"{library_ms:.3f} ms (CUDA events around one call, median of 5); device "
+                     f"time (CUDA graph replay) kernel {device_ms:.4f} ms, torch.cdist+min "
+                     f"{library_device_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}); grid {plan['q_blocks']} query blocks x {plan['splits']} "
+                     f"splits of {plan['tiles_per_split']} tiles of {plan['tile_r']} rows, "
+                     f"Q={plan['queries_per_thread']} queries a thread, G={plan['group']}, "
+                     f"{plan['blocks_per_sm']} blocks an SM x {plan['sms']} SMs")
         print(line)
         del qc, rc, mc, d_k, d_p
     return dict(fields, max_abs_err=max_abs_err)
@@ -478,9 +512,11 @@ def _phase_select(dev, query, cand, tgt_index, table, table12, fixtures):
     """Kernel #5 against its plain version and against the row gather
     `table[pos]` (one PyTorch call for the same function on hits, the
     library yardstick) at the flagship's refine shapes, with the positions
-    the plain frozen-candidate fold gives (the 6- and the 12-wide table;
-    times at 6), plus the fixtures (a candidate tile listed four times
-    quadruples its row)."""
+    the plain frozen-candidate fold gives, at every chunk width: the 6-wide
+    table (float2), GICP's 12-wide one (float4), a 7-wide one and a 12-wide
+    view 4 bytes off 16-byte alignment (both scalar); times at D = 6 and
+    12; plus the fixtures (a candidate tile listed four times quadruples
+    its row)."""
     from icpx_torch.kernels import blocknn_cuda
     from icpx_torch.kernels.blocknn import block_nn
 
@@ -489,16 +525,24 @@ def _phase_select(dev, query, cand, tgt_index, table, table12, fixtures):
     pos = pos.reshape(tq, sq)
     cand32 = cand.to(torch.int32)
     s = tgt_index.tile_size
+    n_rows = table.shape[0]
+    shifted = torch.empty(n_rows * 12 + 1, dtype=torch.float32, device=dev)[1:].view(n_rows, 12)
+    shifted.copy_(table12)
+    tables = {"D=6": (table, 2), "D=12": (table12, 4), "D=7": (table12[:, :7].contiguous(), 1),
+              "D=12, 4 bytes off alignment": (shifted, 1)}
     err = 0.0
-    for t in (table, table12):
+    for label, (t, width) in tables.items():
+        if blocknn_cuda.select_width(t) != width:
+            _fail(f"select ({label}): chunks of {blocknn_cuda.select_width(t)} floats, want {width}")
         out_k = blocknn_cuda.select_cuda(pos, cand32, t, s)
         out_p = blocknn_cuda.select_reference(pos, cand, t, s)
         gathered = t[pos.reshape(-1).long()]
         torch.cuda.synchronize()
         if not (torch.equal(out_k, out_p) and torch.equal(out_k, gathered)):
-            _fail(f"select (D={t.shape[1]}): kernel, plain version and row gather differ on "
+            _fail(f"select ({label}): kernel, plain version and row gather differ on "
                   f"{int(((out_k != out_p) | (out_k != gathered)).any(1).sum())} rows")
         err = max(err, _max_err(out_k, out_p))
+    del shifted, tables
     fq, f_index, f_cand, f_payload = fixtures
     f_pos = torch.tensor([[9, 3, 17, 30, 0, 0, 0, 0], [32, 33, 39, 9, 0, 0, 0, 0]],
                          dtype=torch.int32, device=dev)
@@ -509,19 +553,30 @@ def _phase_select(dev, query, cand, tgt_index, table, table12, fixtures):
     if not (torch.equal(fx_k, fx_p) and torch.equal(fx_k, want)):
         _fail("select fixtures: hits, misses or a quadrupled candidate tile came out wrong")
     err = max(err, _max_err(fx_k, fx_p))
-    ms = _event_ms(lambda: blocknn_cuda.select_cuda(pos, cand32, table, s))
-    plain_ms = _event_ms(lambda: blocknn_cuda.select_reference(pos, cand, table, s))
     flat = pos.reshape(-1).long()
-    library_ms = _event_ms(lambda: table[flat])
     n, k = tq * sq, cand.shape[1]
-    bytes_moved = n * 4 + tq * k * 4 + table.numel() * 4 + n * table.shape[1] * 4
-    bound_ms, bound_by = _bound(bytes_moved, float(n * k))  # one compare a candidate slot
+    timed = {}
+    for suffix, t in (("", table), ("_d12", table12)):
+        d_pl = t.shape[1]
+        bytes_moved = n * 4 + tq * k * 4 + t.numel() * 4 + n * d_pl * 4
+        bound_ms, bound_by = _bound(bytes_moved, float(n * k))  # one compare a candidate slot
+        timed.update({f"ms{suffix}": _event_ms(lambda: blocknn_cuda.select_cuda(pos, cand32, t, s)),
+                      f"plain_ms{suffix}": _event_ms(lambda: blocknn_cuda.select_reference(pos, cand, t, s)),
+                      f"library_ms{suffix}": _event_ms(lambda: t[flat]),
+                      f"device_ms{suffix}": _graph_ms(lambda: blocknn_cuda.select_cuda(pos, cand32, t, s)),
+                      f"library_device_ms{suffix}": _graph_ms(lambda: t[flat]),
+                      f"bound_ms{suffix}": bound_ms})
     print(f"select kernel vs plain {tuple(pos.shape)} k=6: payload equal on all {n} rows and "
-          "equal to table[pos], with the 6- and the 12-wide table; fixtures ok (misses, a tile "
-          f"listed 4 times); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, table[pos] {library_ms:.3f} ms, bound {bound_ms:.3f} ms "
-          f"({bound_by}) (CUDA events, median of 5)")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=library_ms)
+          "equal to table[pos] with the 6-wide (float2), 12-wide (float4), 7-wide and misaligned "
+          "12-wide (scalar) tables; fixtures ok (misses, a tile listed 4 times); "
+          f"D=6: kernel {timed['ms']:.4f} ms, plain {timed['plain_ms']:.3f} ms, table[pos] "
+          f"{timed['library_ms']:.4f} ms (CUDA events around one call, median of 5), device time "
+          f"(CUDA graph replay) kernel {timed['device_ms']:.4f} ms, table[pos] "
+          f"{timed['library_device_ms']:.4f} ms, bound {timed['bound_ms']:.4f} ms ({bound_by}); "
+          f"D=12: kernel {timed['ms_d12']:.4f} ms, plain {timed['plain_ms_d12']:.3f} ms, table[pos] "
+          f"{timed['library_ms_d12']:.4f} ms, device time kernel {timed['device_ms_d12']:.4f} ms, "
+          f"table[pos] {timed['library_device_ms_d12']:.4f} ms, bound {timed['bound_ms_d12']:.4f} ms")
+    return dict(max_abs_err=err, bound_by=bound_by, **timed)
 
 
 def _phase_fused4(dev, query, tgt_index, fixtures, group=4, u_max=32):
@@ -927,8 +982,8 @@ def main(dev=None, n_pair: int = N_PAIR, n_flag: int = N_FLAG, n_small: int = N_
     sort_cuda.build()
     print(f"build: {time.perf_counter() - t0:.2f} s -> {nn_cuda.library_path().name}, "
           f"{blocknn_cuda.library_path().name}, {sort_cuda.library_path().name}")
-    for stem, log in cuda_build.BUILD_LOGS.items():
-        for line in log.splitlines():
+    for stem in cuda_build.STEMS:
+        for line in cuda_build.build_log(stem).splitlines():
             if any(w in line for w in ("entry function", "registers", "spill", "smem")):
                 print(f"  ptxas {stem}: {line.strip()}")
 

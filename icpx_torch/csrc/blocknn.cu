@@ -233,31 +233,63 @@ __global__ void fold7_kernel(const float* __restrict__ query, const uint2* __res
   }
 }
 
-// Payload selection (select): one thread a query. The query's position pos
-// (from the plain block_nn fold) counts once for every candidate slot of its
-// query tile that holds tile pos / s; the output is the payload row summed
-// that many times in fp32 (the row itself with distinct candidates, zeros
-// when pos lies in no candidate tile, twice the row for a tile listed
-// twice), as the TPU's one-hot product gives. Bound by bytes: a position
-// and a payload row read, a row written.
+// Payload selection (select). The query's position pos (from the plain
+// block_nn fold) counts once for every candidate slot of its query tile that
+// holds tile pos / s; the output is the payload row summed that many times
+// in fp32 from +0 (the row itself with distinct candidates, zeros when pos
+// lies in no candidate tile, twice the row for a tile listed twice), as the
+// TPU's one-hot product gives. Bound by bytes: a position and a payload row
+// read, a row written.
+//
+// One thread a chunk of W floats of an output row (W = 4, 2 or 1, chosen by
+// the wrapper from D and the table's alignment): a block is (D / W chunks)
+// x (rows), x fastest, so neighbouring threads write neighbouring addresses
+// and a warp's store is one contiguous span; indices are 32-bit (the wrapper
+// keeps Tq * Sq * D below 2^31), so no 64-bit division is left. The block
+// first stages the candidate ids of the query tiles its rows fall in
+// in shared memory.
+template <int W> struct Vec;
+template <> struct Vec<1> { using T = float; };
+template <> struct Vec<2> { using T = float2; };
+template <> struct Vec<4> { using T = float4; };
+
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float2 add_rn(float2 a, float2 b) {
+  return make_float2(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y));
+}
+__device__ __forceinline__ float4 add_rn(float4 a, float4 b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y), __fadd_rn(a.z, b.z),
+                     __fadd_rn(a.w, b.w));
+}
+
+template <int W>
 __global__ void select_kernel(const int* __restrict__ pos, const int* __restrict__ cand,
                               const float* __restrict__ payload, int sq, int s, int k, int d,
-                              int n_rows, int64_t n, float* __restrict__ out) {
-  const int64_t q = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= n) return;
-  const int64_t tile = q / sq;
-  const int p = pos[q];
+                              int n_rows, int n, float* __restrict__ out) {
+  using V = typename Vec<W>::T;
+  extern __shared__ int cand_s[];
+  const int row_lo = blockIdx.x * blockDim.y;
+  const int row_hi = min(n, row_lo + (int)blockDim.y) - 1;
+  const int tile_lo = row_lo / sq;
+  const int n_ids = (row_hi / sq - tile_lo + 1) * k;
+  for (int i = threadIdx.y * blockDim.x + threadIdx.x; i < n_ids; i += blockDim.x * blockDim.y)
+    cand_s[i] = cand[tile_lo * k + i];
+  __syncthreads();
+  const int row = row_lo + threadIdx.y;
+  if (row >= n) return;
+  const int p = pos[row];
   int hits = 0;
   if (p >= 0 && p < n_rows) {
-    const int t = p / s;
-    for (int c = 0; c < k; ++c) hits += cand[tile * k + c] == t;
+    const int tile = p / s;
+    const int* ids = cand_s + (row / sq - tile_lo) * k;
+    for (int j = 0; j < k; ++j) hits += ids[j] == tile;
   }
-  for (int f = 0; f < d; ++f) {
-    const float v = hits ? payload[(int64_t)p * d + f] : 0.f;
-    float acc = 0.f;
-    for (int h = 0; h < hits; ++h) acc = __fadd_rn(acc, v);
-    out[q * d + f] = acc;
+  V acc{};  // +0: a hit adds the row to it, as the plain version's sum does
+  if (hits) {
+    const V v = reinterpret_cast<const V*>(payload + (int64_t)p * d)[threadIdx.x];
+    for (int h = 0; h < hits; ++h) acc = add_rn(acc, v);
   }
+  reinterpret_cast<V*>(out + (int64_t)row * d)[threadIdx.x] = acc;
 }
 
 // Fused union fold (fused4): one block a group of query tiles, gq queries,
@@ -457,18 +489,36 @@ int icpx_fold7_forward(const void* query, const void* b, const void* cand, const
 }
 
 // pos (tq, sq) and cand (tq, k) i32; payload (n_rows, d) f32 with n_rows a
-// multiple of s; out (tq * sq, d) f32. Same launch contract as above.
+// multiple of s; out (tq * sq, d) f32; width 4, 2 or 1 floats a thread, with
+// d a multiple of it and payload and out aligned to 4 * width bytes. Same
+// launch contract as above.
 int icpx_select_forward(const void* pos, const void* cand, const void* payload, int tq, int sq,
-                        int s, int k, int d, int n_rows, void* out, int device, void* stream) {
+                        int s, int k, int d, int n_rows, int width, void* out, int device,
+                        void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  const int64_t n = (int64_t)tq * sq;
-  if (n > 0) {
-    const int threads = 256;
-    select_kernel<<<(unsigned)((n + threads - 1) / threads), threads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(pos), static_cast<const int*>(cand),
-        static_cast<const float*>(payload), sq, s, k, d, n_rows, n, static_cast<float*>(out));
+  if ((width != 1 && width != 2 && width != 4) || d % width || d / width > 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n = tq * sq;
+  if (n > 0 && d > 0) {
+    const int cpr = d / width;  // chunks a row: the block's x
+    const int rows = cpr >= 256 ? 1 : 256 / cpr;  // rows a block: its y
+    // the block's rows fall in at most (rows - 1) / sq + 2 query tiles
+    const size_t smem = sizeof(int) * (size_t)((rows - 1) / sq + 2) * k;
+    const dim3 block(cpr, rows);
+    const unsigned blocks = (unsigned)((n + rows - 1) / rows);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int* p = static_cast<const int*>(pos);
+    const int* c = static_cast<const int*>(cand);
+    const float* pl = static_cast<const float*>(payload);
+    float* o = static_cast<float*>(out);
+    if (width == 4) {
+      select_kernel<4><<<blocks, block, smem, st>>>(p, c, pl, sq, s, k, d, n_rows, n, o);
+    } else if (width == 2) {
+      select_kernel<2><<<blocks, block, smem, st>>>(p, c, pl, sq, s, k, d, n_rows, n, o);
+    } else {
+      select_kernel<1><<<blocks, block, smem, st>>>(p, c, pl, sq, s, k, d, n_rows, n, o);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

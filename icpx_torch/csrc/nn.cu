@@ -6,126 +6,311 @@
 //
 // Contract (the JAX package's off-TPU contract, icpx/kernels/knn.py:180-189):
 //   * masked reference rows never win;
-//   * ties go to the LOWEST reference index: refs are scanned in ascending
-//     order and a candidate replaces the running best only when strictly
-//     closer. (The TPU kernel's lane/chunk fold can return a higher index
-//     among exact ties, knn_pallas.py:66-84.)
-//   * a query with no valid reference gets d2 = +inf and index 0.
+//   * ties go to the LOWEST reference index;
+//   * a query with no valid reference gets d2 = +inf and index 0;
+//   * d2 is the direct form ((dx^2 + dy^2) + dz^2), every step rounded on
+//     its own, so the output is bit-equal to nearest_neighbor_reference in
+//     icpx_torch/kernels/nn_cuda.py.
 //
-// Cost model. At 65,536 x 65,536 one call scores 4.3e9 pairs. Each pair is
-// 3 FSUB + 1 FMUL + 2 FFMA, a compare and two selects, with no memory
-// traffic of its own: the kernel is bound by the FP32 issue rate. To stay
-// off the memory side of that bound, a block stages a tile of reference
-// points in shared memory as float4 (x, y, z, unused); every thread of a
-// warp reads the same element, which is a broadcast with no bank
-// conflicts, and each value read is reused by kQueriesPerThread queries
-// held in registers. Masked and out-of-range refs are staged as NaN: every
-// comparison with NaN is false, so they cost no extra instruction and can
-// never win.
+// Cost model. At 65,536 x 65,536 one call scores 4.3e9 pairs with no memory
+// traffic of its own: the kernel is bound by the FP32 issue rate, and the
+// number of instructions a pair is the lever. The direct form costs ~10 (3
+// FSUB, 1 FMUL, 2 FFMA, a compare, two selects). This kernel screens in the
+// expansion form instead and rescores rarely:
 //
-// The score is the direct form (q - r)^2, which has no cancellation; the
-// plain PyTorch version (nearest_neighbor_reference in
-// icpx_torch/kernels/nn_cuda.py) computes the same formula, so the two agree
-// to fp32 rounding (FMA contraction may differ in the last bit).
+// 1. Pack (nn_pack_kernel, once a call). References become contiguous
+//    float4 rows (x, y, z, rr), rr = (x^2 + y^2) + z^2; a masked row, and
+//    every padded row past nr, is (0, 0, 0, +inf). The same pass takes the
+//    largest rr over the valid rows.
+// 2. Screen (nn_search_kernel). With a = -2q the score
+//    s = fma(ax, rx, fma(ay, ry, fma(az, rz, rr))) is 3 FFMA; s + |q|^2 is
+//    the squared distance. Per group of kGroup references the scores fold
+//    with fminf (4 instructions a pair), and the group minimum gmin is
+//    compared with the query's threshold thr. A group that passes lowers
+//    thr to gmin + delta_q and sets its bit in the query's mask of the
+//    tile's groups; whether any query of the warp passed is one vote, so a
+//    group that passes nowhere costs ~0.3 instructions a pair more.
+// 3. Resolve, once a tile. Each query's marked groups are rescored in
+//    ascending order: the row scores first (independent, so they pipeline),
+//    then, for each row whose own score passes thr, the direct form
+//    (__fsub_rn / __fmul_rn / __fadd_rn: no FMA contraction) with a strict
+//    '<', skipping rows with rr = +inf; a new best lowers thr to its score +
+//    delta_q. Resolving at the tile's end, not inside the screen, makes a
+//    warp pay the largest count of marks over its lanes once a tile, not a
+//    divergent round each time any of its 128 queries passes.
 //
-// Later work (not here): tensor-core scoring with 3xTF32 splits, splitting
-// refs across blocks when Nq is small, TMA staging.
+// Why every least row is resolved. Let E bound |s + |q|^2 - d| over every
+// pair, s the fp32 screen score and d the fp32 direct form. With u = 2^-24,
+// Q = |q| and R = max |r| over the valid rows: rr is off by gamma_3 rr, the
+// FMA chain adds at most gamma_3 (rr + 2 Q R) (Cauchy-Schwarz on
+// sum |a_i r_i|), and the direct form is off by gamma_5 d <= gamma_5
+// (Q + R)^2, so E <= (2 gamma_3 + gamma_5) (Q + R)^2 ~ 11 u (Q + R)^2. The
+// kernel takes delta_q = 2 * 16 u (Q + R)^2 = 2^-19 (Q + R)^2 (the helper
+// screen_margin in nn_cuda.py; the 5 u of room covers the fp32 rounding of
+// Q, R, delta_q and of s + delta_q itself). thr is always +inf or
+// fl(s(x) + delta_q) for a row x already scored. A row r* whose direct d is
+// the least over all rows then has s(r*) <= d(r*) - |q|^2 + E <=
+// d(x) - |q|^2 + E <= s(x) + 2E <= thr, at the screen and at the resolve
+// alike: its group is marked, it is rescored, and among the least rows the
+// lowest index wins under the strict '<'. Queries at PAD_COORD (1e8) get a
+// delta_q far above the spread of their scores: every group resolves for
+// them, which is right and slow for those warps only.
+//
+// 4. Work per thread and blocks on the card. A thread holds kQ = 4 queries
+//    in registers, so one broadcast float4 read from shared memory feeds 4
+//    pairs; a block has 256 threads. The grid is (query blocks, reference
+//    splits): the wrapper chooses the splits from nq, nr, the SM count and
+//    the occupancy that icpx_nn_blocks_per_sm reports, so that one wave
+//    fills the card at 65,536 queries; at 3,456 there is one split a tile.
+// 5. Combine the splits. Each split's winner packs into one u64 key,
+//    bits(d) << 32 | index (d >= 0, so the bits order as the values do),
+//    folded with atomicMin into keys (nq,) that the wrapper filled with
+//    (bits(+inf) << 32 | 0). The u64 order is exactly "least d, then lowest
+//    index", so the result does not depend on the order of the atomics; a
+//    query with no valid reference keeps (+inf, 0). nn_finalize_kernel
+//    unpacks d and index.
+// 6. Staging. Tiles of kTileR packed rows move into shared memory with
+//    16-byte cp.async copies, double buffered: the next tile is in flight
+//    while the current one is scored.
+//
+// What holds it back (measured on an H100): the broadcast float4 loads
+// from shared memory, ~0.25 ms of the ~0.95 at 65,536^2 (the screen runs
+// at the FP32 issue rate with the operands in registers), and the resolves.
+//
+// Why not the tensor cores. The augmented depth is 4, half of an m16n8k8
+// TF32 product. Plain TF32 keeps a 10-bit mantissa, so delta_q would grow
+// ~8,000-fold and most groups would resolve; a 3xTF32 split costs two MMAs
+// per 128 pairs, no faster than 3 FFMA, and the minimum over the fragment
+// still costs one instruction a pair either way.
 
 #include <cuda_runtime.h>
+#include <math_constants.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kQueriesPerThread = 2;
-constexpr int kQueriesPerBlock = kThreads * kQueriesPerThread;
-constexpr int kTileR = 1024;  // 16 KB of float4 in shared memory
+constexpr int kThreads = 256;
+constexpr int kQ = 4;        // queries a thread
+constexpr int kGroup = 8;    // references screened per group
+constexpr int kTileR = 256;  // packed rows a stage: one 16-byte copy per thread
+constexpr float kDeltaScale = 1.9073486328125e-06f;  // 2^-19
+constexpr unsigned long long kInitKey = 0x7f80000000000000ull;  // (bits(+inf) << 32) | 0
+static_assert(kTileR == kThreads, "a stage is one 16-byte copy per thread");
+static_assert(kTileR / kGroup <= 32, "a tile's groups fit the 32-bit resolve mask");
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_one() { asm volatile("cp.async.wait_group 1;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
+
+__device__ __forceinline__ float screen(float ax, float ay, float az, float4 r) {
+  return __fmaf_rn(ax, r.x, __fmaf_rn(ay, r.y, __fmaf_rn(az, r.z, r.w)));
+}
+
+__device__ __forceinline__ float direct(float qx, float qy, float qz, float4 r) {
+  const float dx = __fsub_rn(qx, r.x);
+  const float dy = __fsub_rn(qy, r.y);
+  const float dz = __fsub_rn(qz, r.z);
+  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
+}
+
+// Packs ref (nr, 3) into rows (n_pad, 4) and folds max rr over the valid rows
+// into keys[nq] as kInitKey - bits(rr) (atomicMin of a decreasing map, so the
+// one torch.full that fills the keys also initialises it). A block packs one
+// tile, so every lane of every warp takes part in the warp's max, and one
+// lane a warp issues the atomic.
+__global__ void nn_pack_kernel(const float* __restrict__ ref, const uint8_t* __restrict__ mask,
+                               int nr, float4* __restrict__ packed,
+                               unsigned long long* __restrict__ rr_slot) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  float4 v = make_float4(0.f, 0.f, 0.f, CUDART_INF_F);
+  unsigned bits = 0;  // rr >= 0, so its bits order as its values do
+  if (j < nr && (mask == nullptr || mask[j] != 0)) {
+    v.x = ref[3 * (int64_t)j + 0];
+    v.y = ref[3 * (int64_t)j + 1];
+    v.z = ref[3 * (int64_t)j + 2];
+    v.w = __fadd_rn(__fadd_rn(__fmul_rn(v.x, v.x), __fmul_rn(v.y, v.y)), __fmul_rn(v.z, v.z));
+    bits = __float_as_uint(v.w);
+  }
+  packed[j] = v;
+  const unsigned warp_max = __reduce_max_sync(0xffffffffu, bits);
+  if ((threadIdx.x & 31) == 0 && warp_max != 0) atomicMin(rr_slot, kInitKey - warp_max);
+}
 
 __global__ void __launch_bounds__(kThreads)
-nn_kernel(const float* __restrict__ query, const float* __restrict__ ref,
-          const uint8_t* __restrict__ ref_mask, int nq, int nr,
-          float* __restrict__ out_d, int* __restrict__ out_i) {
-  __shared__ float4 tile[kTileR];
-  const float kNaN = __int_as_float(0x7fc00000);
-  const float kInf = __int_as_float(0x7f800000);
+nn_search_kernel(const float* __restrict__ query, const float4* __restrict__ packed, int nq,
+                 int n_tiles, int tiles_per_split, unsigned long long* __restrict__ keys) {
+  __shared__ __align__(16) float4 tile[2][kTileR];
 
-  float qx[kQueriesPerThread], qy[kQueriesPerThread], qz[kQueriesPerThread];
-  float best[kQueriesPerThread];
-  int best_i[kQueriesPerThread];
-  const int q_base = blockIdx.x * kQueriesPerBlock + threadIdx.x;
+  // The largest valid rr (0 when there is none: every screen score is then
+  // +inf and no group ever resolves a valid row).
+  const float rr_max = __uint_as_float(static_cast<unsigned>(kInitKey - keys[nq]));
+  const float big_r = sqrtf(rr_max);
+
+  float ax[kQ], ay[kQ], az[kQ], delta[kQ], thr[kQ], best_d[kQ];
+  int best_i[kQ];
+  unsigned pend[kQ];  // per query: the groups of this tile to resolve, one bit each
+  const int q_base = blockIdx.x * (kThreads * kQ) + threadIdx.x;
 #pragma unroll
-  for (int k = 0; k < kQueriesPerThread; ++k) {
-    // Queries of one thread are kThreads apart, so loads and stores of a
-    // warp touch neighbouring rows.
+  for (int k = 0; k < kQ; ++k) {
+    // a thread's queries are kThreads apart: a warp loads neighbouring rows
     const int qi = q_base + k * kThreads;
     const bool in = qi < nq;
-    qx[k] = in ? query[3 * (int64_t)qi + 0] : 0.f;
-    qy[k] = in ? query[3 * (int64_t)qi + 1] : 0.f;
-    qz[k] = in ? query[3 * (int64_t)qi + 2] : 0.f;
-    best[k] = kInf;
+    const float qx = in ? query[3 * (int64_t)qi + 0] : 0.f;
+    const float qy = in ? query[3 * (int64_t)qi + 1] : 0.f;
+    const float qz = in ? query[3 * (int64_t)qi + 2] : 0.f;
+    ax[k] = -2.f * qx;
+    ay[k] = -2.f * qy;
+    az[k] = -2.f * qz;
+    const float qn = sqrtf(__fadd_rn(__fadd_rn(__fmul_rn(qx, qx), __fmul_rn(qy, qy)),
+                                     __fmul_rn(qz, qz)));
+    const float sum = __fadd_rn(qn, big_r);
+    delta[k] = __fmul_rn(kDeltaScale, __fmul_rn(sum, sum));
+    thr[k] = CUDART_INF_F;
+    best_d[k] = CUDART_INF_F;
     best_i[k] = 0;
+    pend[k] = 0u;
   }
 
-  for (int base = 0; base < nr; base += kTileR) {
-    __syncthreads();  // the previous tile is no longer read
-    for (int j = threadIdx.x; j < kTileR; j += kThreads) {
-      const int r = base + j;
-      float4 v = make_float4(kNaN, kNaN, kNaN, 0.f);
-      if (r < nr && (ref_mask == nullptr || ref_mask[r] != 0)) {
-        v.x = ref[3 * (int64_t)r + 0];
-        v.y = ref[3 * (int64_t)r + 1];
-        v.z = ref[3 * (int64_t)r + 2];
-      }
-      tile[j] = v;
+  const int t0 = blockIdx.y * tiles_per_split;
+  const int t1 = min(n_tiles, t0 + tiles_per_split);
+  if (t0 < t1) {
+    cp_async16(&tile[0][threadIdx.x], packed + (int64_t)t0 * kTileR + threadIdx.x);
+    cp_async_commit();
+  }
+  for (int t = t0; t < t1; ++t) {
+    const int buf = (t - t0) & 1;
+    if (t + 1 < t1) {
+      cp_async16(&tile[buf ^ 1][threadIdx.x], packed + (int64_t)(t + 1) * kTileR + threadIdx.x);
+      cp_async_commit();
+      cp_async_wait_one();
+    } else {
+      cp_async_wait_all();
     }
-    __syncthreads();
-    const int count = min(kTileR, nr - base);
-#pragma unroll 8
-    for (int j = 0; j < count; ++j) {
-      const float4 r = tile[j];
+    __syncthreads();  // tile t is in shared memory for every thread
+    const float4* rows = tile[buf];
+    // Screen: a group whose least score passes lowers the threshold to that
+    // score + delta_q (valid for any scanned row) and is marked for resolving.
+    for (int gi = 0; gi < kTileR / kGroup; ++gi) {
+      float gmin[kQ];
 #pragma unroll
-      for (int k = 0; k < kQueriesPerThread; ++k) {
-        const float dx = qx[k] - r.x;
-        const float dy = qy[k] - r.y;
-        const float dz = qz[k] - r.z;
-        const float d = dx * dx + dy * dy + dz * dz;
-        if (d < best[k]) {  // strict: the lowest index keeps an exact tie
-          best[k] = d;
-          best_i[k] = base + j;
+      for (int k = 0; k < kQ; ++k) gmin[k] = CUDART_INF_F;
+#pragma unroll
+      for (int g = 0; g < kGroup; ++g) {
+        const float4 r = rows[gi * kGroup + g];  // a broadcast: every lane reads the same row
+#pragma unroll
+        for (int k = 0; k < kQ; ++k) gmin[k] = fminf(gmin[k], screen(ax[k], ay[k], az[k], r));
+      }
+      bool pass = false;
+#pragma unroll
+      for (int k = 0; k < kQ; ++k) pass |= gmin[k] <= thr[k];
+      if (__any_sync(0xffffffffu, pass)) {  // warp-uniform, and rare once near rows are known
+#pragma unroll
+        for (int k = 0; k < kQ; ++k) {
+          if (gmin[k] <= thr[k]) {
+            thr[k] = fminf(thr[k], __fadd_rn(gmin[k], delta[k]));
+            pend[k] |= 1u << gi;
+          }
         }
       }
     }
+    // Resolve each query's marked groups in ascending order: a warp pays the
+    // largest count over its lanes once a tile, not a round per marked group.
+#pragma unroll
+    for (int k = 0; k < kQ; ++k) {
+      const float qx = -0.5f * ax[k], qy = -0.5f * ay[k], qz = -0.5f * az[k];
+      while (pend[k]) {
+        const int g0 = (__ffs(pend[k]) - 1) * kGroup;
+        pend[k] &= pend[k] - 1;
+        float sr[kGroup];
+#pragma unroll
+        for (int g = 0; g < kGroup; ++g) sr[g] = screen(ax[k], ay[k], az[k], rows[g0 + g]);
+#pragma unroll
+        for (int j = 0; j < kGroup; ++j) {
+          const int g = g0 + j;
+          const float s = sr[j];
+          if (s > thr[k]) continue;  // cannot be a least row
+          const float4 r = rows[g];
+          if (r.w == CUDART_INF_F) continue;  // masked or padded
+          const float d = direct(qx, qy, qz, r);
+          if (d < best_d[k]) {  // strict: the lowest index keeps an exact tie
+            best_d[k] = d;
+            best_i[k] = t * kTileR + g;
+            thr[k] = fminf(thr[k], __fadd_rn(s, delta[k]));
+          }
+        }
+      }
+    }
+    __syncthreads();  // every thread is done with tile t before t + 2 lands in its buffer
   }
 
 #pragma unroll
-  for (int k = 0; k < kQueriesPerThread; ++k) {
+  for (int k = 0; k < kQ; ++k) {
     const int qi = q_base + k * kThreads;
-    if (qi < nq) {
-      out_d[qi] = best[k];
-      out_i[qi] = best_i[k];
+    if (qi < nq && best_d[k] != CUDART_INF_F) {
+      const unsigned long long key =
+          (static_cast<unsigned long long>(__float_as_uint(best_d[k])) << 32) |
+          static_cast<unsigned>(best_i[k]);
+      atomicMin(keys + qi, key);
     }
   }
+}
+
+__global__ void nn_finalize_kernel(const unsigned long long* __restrict__ keys, int nq,
+                                   float* __restrict__ out_d, int* __restrict__ out_i) {
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= nq) return;
+  const unsigned long long key = keys[q];
+  out_d[q] = __uint_as_float(static_cast<unsigned>(key >> 32));
+  out_i[q] = static_cast<int>(static_cast<unsigned>(key));
 }
 
 }  // namespace
 
 extern "C" {
 
-// query (nq, 3) f32, ref (nr, 3) f32, ref_mask (nr,) bool/uint8 or null,
-// outputs d2 (nq,) f32 and index (nq,) i32; all contiguous, on `device`.
-// Launches on `stream`, does not synchronise, and returns cudaGetLastError().
-int icpx_nn_forward(const void* query, const void* ref, const void* ref_mask,
-                    int nq, int nr, void* out_d, void* out_i, int device,
-                    void* stream) {
+// Resident search blocks an SM holds; a negative value is minus a CUDA error
+// code.
+int icpx_nn_blocks_per_sm(int device) {
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return -static_cast<int>(set);
+  int n = 0;
+  const cudaError_t rc =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, nn_search_kernel, kThreads, 0);
+  return rc == cudaSuccess ? n : -static_cast<int>(rc);
+}
+
+// query (nq, 3) f32, ref (nr, 3) f32, ref_mask (nr,) bool/uint8 or null;
+// packed (n_tiles * 256, 4) f32 scratch, 16-byte aligned; keys (nq + 1,) u64
+// filled with bits(+inf) << 32; outputs d2 (nq,) f32 and index (nq,) i32. All
+// contiguous, on `device`. The reference splits are tiles_per_split tiles of
+// 256 rows each. Launches the pack, search and finalize kernels on `stream`,
+// does not synchronise, and returns cudaGetLastError().
+int icpx_nn_forward(const void* query, const void* ref, const void* ref_mask, int nq, int nr,
+                    void* packed, void* keys, int tiles_per_split, void* out_d, void* out_i,
+                    int device, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  if (nq > 0) {
-    const int blocks = (nq + kQueriesPerBlock - 1) / kQueriesPerBlock;
-    nn_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(query), static_cast<const float*>(ref),
-        static_cast<const uint8_t*>(ref_mask), nq, nr,
-        static_cast<float*>(out_d), static_cast<int*>(out_i));
+  if (nq <= 0) return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* k = static_cast<unsigned long long*>(keys);
+  const int n_tiles = (nr + kTileR - 1) / kTileR;
+  if (n_tiles > 0) {
+    nn_pack_kernel<<<n_tiles, kTileR, 0, s>>>(
+        static_cast<const float*>(ref), static_cast<const uint8_t*>(ref_mask), nr,
+        static_cast<float4*>(packed), k + nq);
+    const int per_block = kThreads * kQ;
+    const dim3 grid((nq + per_block - 1) / per_block,
+                    (n_tiles + tiles_per_split - 1) / tiles_per_split);
+    nn_search_kernel<<<grid, kThreads, 0, s>>>(static_cast<const float*>(query),
+                                               static_cast<const float4*>(packed), nq, n_tiles,
+                                               tiles_per_split, k);
   }
+  nn_finalize_kernel<<<(nq + 255) / 256, 256, 0, s>>>(k, nq, static_cast<float*>(out_d),
+                                                      static_cast<int*>(out_i));
   return static_cast<int>(cudaGetLastError());
 }
 

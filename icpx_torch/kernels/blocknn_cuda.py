@@ -84,7 +84,7 @@ def build() -> ctypes.CDLL:
     lib.icpx_fold6_forward.restype = i
     lib.icpx_fold7_forward.argtypes = [p, p, p, p, p, i, i, i, i, i, p, p, i, p]
     lib.icpx_fold7_forward.restype = i
-    lib.icpx_select_forward.argtypes = [p, p, p, i, i, i, i, i, i, p, i, p]
+    lib.icpx_select_forward.argtypes = [p, p, p, i, i, i, i, i, i, i, p, i, p]
     lib.icpx_select_forward.restype = i
     lib.icpx_fused4_forward.argtypes = [p, p, p, i, i, i, i, p, p, i, p]
     lib.icpx_fused4_forward.restype = i
@@ -426,6 +426,18 @@ def block_fold7_pre(query_tiles: torch.Tensor, ops: Fold7Operands) -> Tuple[torc
 # candidate order in both versions.
 
 
+def select_width(payload_table: torch.Tensor) -> int:
+    """Floats a thread of the select kernel copies: 4 (float4) where D is a
+    multiple of 4 and the table is 16-byte aligned, 2 (float2) where D is
+    even and it is 8-byte aligned, else 1. The output, a fresh allocation
+    with the same row width, is then as aligned as the table."""
+    d_pl, ptr = payload_table.shape[-1], payload_table.data_ptr()
+    for width in (4, 2):
+        if d_pl % width == 0 and ptr % (4 * width) == 0:
+            return width
+    return 1
+
+
 def select_cuda(pos: torch.Tensor, cand: torch.Tensor, payload_table: torch.Tensor,
                 s: int) -> torch.Tensor:
     """Launch the select kernel: (Tq*Sq, D) payload rows."""
@@ -448,7 +460,7 @@ def select_cuda(pos: torch.Tensor, cand: torch.Tensor, payload_table: torch.Tens
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.icpx_select_forward(
         pos.data_ptr(), cand.data_ptr(), payload_table.data_ptr(), tq, sq, s, k, d_pl, n_rows,
-        out.data_ptr(), dev.index, stream,
+        select_width(payload_table), out.data_ptr(), dev.index, stream,
     )
     cuda_build.check(lib, rc, "select kernel")
     LAUNCHES["select"] += 1

@@ -17,7 +17,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Sequence
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -27,9 +27,6 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
-# nvcc's output (the ptxas register / shared-memory report) of each build
-# this process ran, by stem; absent when the library came from the cache.
-BUILD_LOGS: Dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -53,6 +50,13 @@ def library_path(stem: str) -> Path:
     return BUILD_DIR / f"libicpx_{stem}-{h.hexdigest()[:16]}.so"
 
 
+def build_log(stem: str) -> str:
+    """nvcc's output for the current library of `stem` (the ptxas register,
+    shared-memory and spill report), kept beside it; "" before a build."""
+    log = library_path(stem).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
 def compile_all(stems: Sequence[str] = STEMS) -> None:
     """Compile every library of `stems` whose cache misses, in parallel."""
     jobs = []
@@ -70,7 +74,7 @@ def compile_all(stems: Sequence[str] = STEMS) -> None:
     for stem, path, tmp, proc in jobs:
         out, _ = proc.communicate()
         if proc.returncode == 0:
-            BUILD_LOGS[stem] = out
+            path.with_suffix(".log").write_text(out)
             os.replace(tmp, path)  # atomic: a concurrent build never sees a partial file
         else:
             failed.append(f"nvcc {stem}.cu failed ({proc.returncode}):\n{out}")

@@ -2,33 +2,47 @@
 
 The kernel (`csrc/nn.cu`) replaces the Pallas
 `icpx/kernels/knn_pallas.py::_nn_kernel`. It is built at first use by
-`cuda_build` (plain `nvcc`, a C entry point, `ctypes`).
+`cuda_build` (plain `nvcc`, a C entry point, `ctypes`). It screens pairs in
+the expansion form and rescores the few groups that pass in the direct
+form; `screen_margin` is the proven margin of that screen and `plan` the
+split of the references across blocks (see the source note).
 
 Contract of both versions: ``(d2 (Nq,) f32, idx (Nq,) i32)`` with the exact
-fp32 squared distance to the nearest VALID reference row; masked rows never
-win; exact ties go to the lowest reference index; a query with no valid
-reference gets ``d2 = +inf`` and index 0. This is the JAX package's off-TPU
-contract (`icpx/kernels/knn.py:180-189`). The TPU kernel differs in two
-places: its lane/chunk fold can return a higher index among exact ties,
-and a query with no valid reference gets ~3e16 (the PAD_COORD sentinel
-distance) instead of inf.
+fp32 squared distance to the nearest VALID reference row, in the direct
+form ((dx^2 + dy^2) + dz^2); masked rows never win; exact ties go to the
+lowest reference index; a query with no valid reference gets ``d2 = +inf``
+and index 0. The kernel's output is bit-equal to the plain version's. This
+is the JAX package's off-TPU contract (`icpx/kernels/knn.py:180-189`). The
+TPU kernel differs in two places: its lane/chunk fold can return a higher
+index among exact ties, and a query with no valid reference gets ~3e16 (the
+PAD_COORD sentinel distance) instead of inf.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from icpx_torch.kernels import cuda_build
 
-# Launches of the CUDA kernel in this process: `nn_cuda` adds one per
-# launch and nothing else touches it, so a caller can show that a run went
-# through the kernel (reset it to 0, run, read it).
+# Calls of `nn_cuda` in this process: it adds one per call and nothing else
+# touches it, so a caller can show that a run went through the kernel (reset
+# it to 0, run, read it). One call launches three kernels (pack, search,
+# finalize) and counts once.
 LAUNCHES = 0
 
+# The search kernel's shape (constants of csrc/nn.cu, repeated for the plan)
+THREADS = 256  # threads of a search block
+QUERIES_PER_THREAD = 4
+GROUP = 8  # references screened per group
+TILE_R = 256  # packed reference rows a block stages at a time
+_INIT_KEY = 0x7F800000 << 32  # (bits(+inf) << 32) | index 0
+
 _lib: Optional[ctypes.CDLL] = None
+_OCCUPANCY: Dict[int, Tuple[int, int]] = {}  # by device index
 
 
 def library_path():
@@ -42,14 +56,58 @@ def build() -> ctypes.CDLL:
     if _lib is not None:
         return _lib
     lib = cuda_build.load("nn")
-    lib.icpx_nn_forward.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-    ]
-    lib.icpx_nn_forward.restype = ctypes.c_int
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.icpx_nn_forward.argtypes = [p, p, p, i, i, p, p, i, p, p, i, p]
+    lib.icpx_nn_forward.restype = i
+    lib.icpx_nn_blocks_per_sm.argtypes = [i]
+    lib.icpx_nn_blocks_per_sm.restype = i
     _lib = lib
     return lib
+
+
+def screen_margin(qq: torch.Tensor, rr_max: torch.Tensor) -> torch.Tensor:
+    """delta_q of the kernel's screen, in float32 as the kernel computes it:
+    2^-19 (|q| + R)^2 from |q|^2 and R^2 = the largest |r|^2 over the valid
+    rows. Twice a bound (16 u (|q| + R)^2, u = 2^-24) on |s + |q|^2 - d| for
+    every pair, s the fp32 screen score and d the fp32 direct form; the
+    source note of `csrc/nn.cu` gives the argument (the error is at most
+    ~11 u (|q| + R)^2, with the FMA chain or with every product rounded)."""
+    total = torch.sqrt(qq.to(torch.float32)) + torch.sqrt(rr_max.to(torch.float32))
+    return (2.0 ** -19) * (total * total)
+
+
+def plan(nq: int, nr: int, sms: int, blocks_per_sm: int) -> Tuple[int, int, int]:
+    """(query blocks, reference splits, tiles a split) of one search launch:
+    as many splits of the reference tiles as keep the grid within one wave
+    of resident blocks (sms x blocks_per_sm), at least one, at most one a
+    tile."""
+    q_blocks = max(1, math.ceil(nq / (THREADS * QUERIES_PER_THREAD)))
+    tiles = max(1, math.ceil(nr / TILE_R))
+    splits = min(tiles, max(1, (sms * blocks_per_sm) // q_blocks))
+    per_split = math.ceil(tiles / splits)
+    return q_blocks, math.ceil(tiles / per_split), per_split
+
+
+def _occupancy(device: torch.device) -> Tuple[int, int]:
+    """(SMs, resident search blocks an SM) of `device`, queried once."""
+    index = device.index or 0
+    if index not in _OCCUPANCY:
+        n = build().icpx_nn_blocks_per_sm(index)
+        if n <= 0:
+            cuda_build.check(build(), -n, "nn occupancy query")
+            raise RuntimeError("nn search kernel: no block fits on an SM")
+        _OCCUPANCY[index] = (torch.cuda.get_device_properties(device).multi_processor_count, n)
+    return _OCCUPANCY[index]
+
+
+def launch_plan(nq: int, nr: int, device: torch.device) -> Dict[str, int]:
+    """The plan `nn_cuda` launches with on `device`, with the figures it
+    comes from."""
+    sms, per_sm = _occupancy(device)
+    q_blocks, splits, per_split = plan(nq, nr, sms, per_sm)
+    return dict(q_blocks=q_blocks, splits=splits, tiles_per_split=per_split, sms=sms,
+                blocks_per_sm=per_sm, queries_per_thread=QUERIES_PER_THREAD, group=GROUP,
+                tile_r=TILE_R)
 
 
 def _check_points(name: str, x: torch.Tensor, device: torch.device) -> None:
@@ -68,7 +126,8 @@ def _check_points(name: str, x: torch.Tensor, device: torch.device) -> None:
 def nn_cuda(
     query: torch.Tensor, ref: torch.Tensor, ref_mask: Optional[torch.Tensor] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA 1-NN kernel on PyTorch's current stream."""
+    """Run the CUDA 1-NN kernels (pack, search, finalize) on PyTorch's current
+    stream; counts one call in `LAUNCHES`."""
     global LAUNCHES
     if not query.is_cuda:
         raise ValueError("nn_cuda needs CUDA tensors")
@@ -82,13 +141,21 @@ def nn_cuda(
         if ref_mask.device != query.device or not ref_mask.is_contiguous():
             raise ValueError("ref_mask must be contiguous and on the query's device")
     lib = build()
+    _, _, per_split = plan(nq, nr, *_occupancy(query.device))
+    tiles = max(1, math.ceil(nr / TILE_R))
+    packed = torch.empty((tiles * TILE_R, 4), dtype=torch.float32, device=query.device)
+    # one u64 key a query, (bits(d2) << 32) | index, folded by atomicMin
+    # across the reference splits; the pack kernel folds the largest valid
+    # |r|^2 into the extra slot as _INIT_KEY - bits(|r|^2)
+    keys = torch.full((nq + 1,), _INIT_KEY, dtype=torch.int64, device=query.device)
     d = torch.empty((nq,), dtype=torch.float32, device=query.device)
     idx = torch.empty((nq,), dtype=torch.int32, device=query.device)
     stream = torch.cuda.current_stream(query.device).cuda_stream
     rc = lib.icpx_nn_forward(
         query.data_ptr(), ref.data_ptr(),
         None if ref_mask is None else ref_mask.data_ptr(),
-        nq, nr, d.data_ptr(), idx.data_ptr(), query.device.index, stream,
+        nq, nr, packed.data_ptr(), keys.data_ptr(), per_split,
+        d.data_ptr(), idx.data_ptr(), query.device.index, stream,
     )
     cuda_build.check(lib, rc, "nn kernel")
     LAUNCHES += 1

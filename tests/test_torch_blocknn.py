@@ -545,6 +545,26 @@ def test_select_duplicate_candidates_and_misses():
         np.testing.assert_array_equal(np.asarray(got_j), want)
 
 
+def _table_view(rows, d, offset, device="cpu"):
+    """A contiguous (rows, d) float32 view that starts `offset` floats into
+    its storage (the storage itself is aligned to 16 bytes or more)."""
+    flat = torch.arange(rows * d + offset, dtype=torch.float32, device=device)
+    return flat[offset:].view(rows, d)
+
+
+@pytest.mark.parametrize("d,offset,width", [
+    (6, 0, 2),  # the symmetric table: float2 chunks
+    (12, 0, 4),  # GICP's table: float4 chunks
+    (7, 0, 1),  # an odd width: scalar
+    (12, 1, 1),  # 4-byte aligned only: scalar
+    (12, 2, 2),  # 8-byte aligned: float2
+])
+def test_select_width_follows_d_and_alignment(d, offset, width):
+    table = _table_view(64, d, offset)
+    assert table.is_contiguous() and table.data_ptr() % 16 == 4 * offset % 16
+    assert blocknn_cuda.select_width(table) == width
+
+
 # ---- bf16-scored frozen-candidate fold (kernel #4) --------------------------------------
 
 
@@ -920,6 +940,14 @@ def test_cuda_select_matches_plain(cuda_device):
     torch.testing.assert_close(blocknn_cuda.select_cuda(p4, dup, pl, ji.tile_size),
                                blocknn_cuda.select_reference(p4, dup, pl, ji.tile_size),
                                rtol=0, atol=0)
+    # every chunk width: D = 12 (float4), 7 (scalar), and a view 4 bytes off
+    # 16-byte alignment (scalar)
+    for d, offset, width in ((12, 0, 4), (7, 0, 1), (12, 1, 1)):
+        wide = _table_view(pl.shape[0], d, offset, cuda_device)
+        assert blocknn_cuda.select_width(wide) == width
+        for pp, c in ((pos, cand_t.to(torch.int32)), (p4, torch.cat([dup, dup[:, :2]], 1))):
+            got = blocknn_cuda.select_cuda(pp, c, wide, ji.tile_size)
+            assert torch.equal(got, blocknn_cuda.select_reference(pp, c, wide, ji.tile_size)), (d, offset)
 
 
 @pytest.mark.cuda

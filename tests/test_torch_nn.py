@@ -8,6 +8,12 @@ atol 1e-6 * max|q|^2 (the JAX side scores by the expansion
 indices must agree wherever the best and second-best JAX distances differ
 by more than 1e-4 relative (elsewhere rounding may legitimately pick
 either).
+
+The CUDA kernel's screen is held on the CPU: its margin (`screen_margin`)
+bounds the expansion error of every pair of six fixtures, and a numpy
+emulation of the kernel's algorithm (screen, resolve, split combine) equals
+the plain version bit for bit; the kernel itself is held bit for bit to the
+plain version by the card-only test and `chip_smoke.py`.
 """
 
 import jax.numpy as jnp
@@ -18,6 +24,7 @@ import torch
 from icpx.kernels.knn import _nearest_neighbor_jnp
 from icpx.kernels.knn import knn as j_knn
 from icpx.kernels.knn_pallas import nn_pallas
+from icpx_torch.cloud import PAD_COORD
 from icpx_torch.kernels import nn_cuda
 from icpx_torch.kernels.knn import knn, nearest_neighbor, nearest_neighbor_reference
 from torch_parity import to_np
@@ -167,6 +174,170 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# ---- the kernel's screen: margin, emulation, plan ------------------------------------
+
+
+def screen_fixture(name):
+    """(query, ref, ref_mask) float32 / bool numpy arrays, made from a seed."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+
+    def uniform(n, lo=-1.0, hi=1.0):
+        return rng.uniform(lo, hi, size=(n, 3)).astype(np.float32)
+
+    if name == "uniform":
+        return uniform(2000), uniform(5000), np.ones(5000, bool)
+    if name == "coords at 100":  # far from the origin: the expansion cancels
+        c = np.float32([100, -100, 100])
+        return uniform(500) + c, uniform(2000) + c, np.ones(2000, bool)
+    if name == "exact duplicates":  # small integers: many exact copies and exact ties
+        r = rng.integers(-3, 4, size=(700, 3)).astype(np.float32)
+        q = np.concatenate([r[:200], rng.integers(-6, 7, size=(200, 3)) * np.float32(0.5)])
+        return q.astype(np.float32), r, np.ones(len(r), bool)
+    if name == "ulp neighbours":  # second neighbours one ulp from the first
+        q = uniform(400)
+        r1 = q + rng.normal(scale=1e-3, size=q.shape).astype(np.float32)
+        r2, r3 = r1.copy(), r1.copy()
+        r2[:, 0] = np.nextafter(r1[:, 0], np.float32(np.inf))
+        r3[:, 1] = np.nextafter(r1[:, 1], np.float32(-np.inf))
+        r = np.concatenate([r1, r2, r3, uniform(1000)])[rng.permutation(2200)]
+        return q, r, np.ones(len(r), bool)
+    if name == "PAD_COORD queries":  # capacity rows at PAD_COORD on both sides
+        q, r = uniform(340), uniform(520)
+        q[300:] = PAD_COORD
+        r[500:] = PAD_COORD
+        return q, r, np.arange(520) < 500
+    if name == "half masked":
+        return uniform(1000), uniform(3001), rng.uniform(size=3001) < 0.5
+    if name == "all masked":
+        return uniform(300), uniform(700), np.zeros(700, bool)
+    raise KeyError(name)
+
+
+SCREEN_FIXTURES = ["uniform", "coords at 100", "exact duplicates", "ulp neighbours",
+                   "PAD_COORD queries", "half masked"]
+
+
+def _sqnorm(x):
+    """((x^2 + y^2) + z^2) in float32, every step rounded, as the kernel."""
+    return (x[:, 0] * x[:, 0] + x[:, 1] * x[:, 1]) + x[:, 2] * x[:, 2]
+
+
+@pytest.mark.parametrize("name", SCREEN_FIXTURES)
+def test_screen_margin_bounds_the_expansion(name):
+    """For every valid pair, the fp32 expansion score with every product
+    rounded (s = ax rx + (ay ry + (az rz + rr)), a = -2q) plus the exact
+    |q|^2 is within delta_q / 2 of the fp32 direct-form d2."""
+    q, r, mask = (torch.as_tensor(x) for x in screen_fixture(name))
+    r = r[mask]
+    rr = _sqnorm(r)
+    delta = nn_cuda.screen_margin(_sqnorm(q), rr.max())
+    a = -2.0 * q
+    worst = 0.0
+    for q0 in range(0, len(q), 250):
+        qs, a_s = q[q0:q0 + 250], a[q0:q0 + 250]
+        s = a_s[:, None, 0] * r[None, :, 0] + (
+            a_s[:, None, 1] * r[None, :, 1] + (a_s[:, None, 2] * r[None, :, 2] + rr[None]))
+        dx, dy, dz = (qs[:, None, i] - r[None, :, i] for i in range(3))
+        d2 = dx * dx + dy * dy + dz * dz
+        qq = (qs.double() ** 2).sum(1, keepdim=True)
+        err = (s.double() + qq - d2.double()).abs()
+        ratio = err / (delta[q0:q0 + 250, None].double() / 2)
+        worst = max(worst, float(ratio.max()))
+    assert worst <= 1.0, f"an expansion error reaches {worst:.3f} x delta_q / 2"
+
+
+def emulate_nn(q, r, mask, splits, tile=64, group=nn_cuda.GROUP):
+    """The kernel's algorithm in float32 numpy: pack; per split and tile,
+    screen by groups, and where a group's least score passes the query's
+    threshold, lower the threshold to that score + delta_q and mark the
+    group; at the tile's end rescore the marked groups in ascending order in
+    the direct form, row by row where the row's own score passes (strict
+    '<', rr = inf skipped), lowering the threshold to the new best's score
+    + delta_q; then fold the splits' (bits(d2) << 32 | index) keys with a
+    minimum. The screen's FMA is taken as the float64 sum of an exact
+    product, rounded once to float32 (a double rounding may move it by an
+    ulp, which the margin covers)."""
+    nq, nr = len(q), len(r)
+    tiles = max(1, -(-nr // tile))
+    n_pad = tiles * tile
+    rows = np.zeros((n_pad, 3), np.float32)
+    rr = np.full(n_pad, np.inf, np.float32)
+    valid = np.zeros(n_pad, bool)
+    valid[:nr] = mask
+    rows[valid] = r[mask]
+    rr[valid] = _sqnorm(rows[valid])
+    rr_max = rr[valid].max() if valid.any() else np.float32(0)
+    delta = nn_cuda.screen_margin(torch.as_tensor(_sqnorm(q)), torch.tensor(rr_max)).numpy()
+    a64 = (np.float32(-2.0) * q).astype(np.float64)
+
+    def fma(x, y, z):
+        return (x * y + z).astype(np.float32).astype(np.float64)
+
+    init = np.uint64(0x7F800000) << np.uint64(32)
+    keys = np.full(nq, init, np.uint64)
+    per_split = -(-tiles // splits)
+    for t0 in range(0, tiles, per_split):
+        best_d = np.full(nq, np.inf, np.float32)
+        best_i = np.zeros(nq, np.int64)
+        thr = np.full(nq, np.inf, np.float32)
+        for t in range(t0, min(tiles, t0 + per_split)):
+            gr, grr = rows[t * tile:(t + 1) * tile].astype(np.float64), rr[t * tile:(t + 1) * tile]
+            s = fma(a64[:, None, 0], gr[None, :, 0], fma(a64[:, None, 1], gr[None, :, 1], fma(
+                a64[:, None, 2], gr[None, :, 2], grr[None].astype(np.float64)))).astype(np.float32)
+            marked = np.zeros((nq, tile // group), bool)
+            for gi in range(tile // group):
+                gmin = s[:, gi * group:(gi + 1) * group].min(1)
+                passing = gmin <= thr
+                thr = np.where(passing, np.minimum(thr, gmin + delta), thr)
+                marked[:, gi] = passing
+            for gi in range(tile // group):
+                for j in range(gi * group, (gi + 1) * group):
+                    cand = np.flatnonzero(marked[:, gi])
+                    if grr[j] == np.inf or not cand.size:
+                        continue
+                    cand = cand[s[cand, j] <= thr[cand]]
+                    dx, dy, dz = (q[cand, i] - gr[j, i].astype(np.float32) for i in range(3))
+                    d = (dx * dx + dy * dy) + dz * dz
+                    better = d < best_d[cand]
+                    win = cand[better]
+                    best_d[win] = d[better]
+                    best_i[win] = t * tile + j
+                    thr[win] = np.minimum(thr[win], s[win, j] + delta[win])
+        found = best_d != np.inf
+        key = (best_d.view(np.uint32).astype(np.uint64) << np.uint64(32)) | best_i.astype(np.uint64)
+        keys = np.where(found, np.minimum(keys, key), keys)
+    d2 = (keys >> np.uint64(32)).astype(np.uint32).view(np.float32)
+    return d2, (keys & np.uint64(0xFFFFFFFF)).astype(np.int32)
+
+
+@pytest.mark.parametrize("splits", [1, 3, 7])
+@pytest.mark.parametrize("name", SCREEN_FIXTURES + ["all masked"])
+def test_emulated_screen_equals_reference_bit_for_bit(name, splits):
+    """Screen, resolve and the packed-key split combine give the plain
+    version's d2 and index bit for bit (ragged last tiles everywhere: no
+    fixture's reference count is a multiple of the tile)."""
+    q, r, mask = screen_fixture(name)
+    d_e, i_e = emulate_nn(q, r, mask, splits)
+    d_p, i_p = _plain(q, r, mask)
+    np.testing.assert_array_equal(d_e.view(np.int32), to_np(d_p).view(np.int32))
+    np.testing.assert_array_equal(i_e, to_np(i_p))
+    if name == "all masked":
+        assert np.isinf(d_e).all() and (i_e == 0).all()
+
+
+@pytest.mark.parametrize("nq,nr,sms,per_sm,want", [
+    (65536, 65536, 132, 4, (64, 8, 32)),  # the 65k pair: one wave of 512 blocks
+    (3456, 3456, 132, 4, (4, 14, 1)),  # the cat pair: a split a tile
+    (10**6, 1000, 132, 4, (977, 1, 4)),  # more query blocks than a wave
+    (5, 0, 132, 4, (1, 1, 1)),  # no reference rows
+])
+def test_plan_fills_one_wave(nq, nr, sms, per_sm, want):
+    q_blocks, splits, per_split = nn_cuda.plan(nq, nr, sms, per_sm)
+    assert (q_blocks, splits, per_split) == want
+    tiles = max(1, -(-nr // nn_cuda.TILE_R))
+    assert (splits - 1) * per_split < tiles <= splits * per_split
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "nq,nr,masked_frac", [(3456, 3456, 0.0), (1000, 70001, 0.5), (4099, 5000, 1.0)]
@@ -177,15 +348,14 @@ def test_cuda_kernel_matches_plain(cuda_device, nq, nr, masked_frac):
     d_k, i_k = nn_cuda.nn_cuda(qc, rc, mc)
     d_p, i_p = nearest_neighbor_reference(qc, rc, ref_mask=mc)
     torch.cuda.synchronize()
-    fin = torch.isfinite(d_p)
-    assert torch.equal(fin, torch.isfinite(d_k))
-    scale = float((q.astype(np.float64) ** 2).sum(1).max())
-    np.testing.assert_allclose(to_np(d_k[fin]), to_np(d_p[fin]), rtol=1e-5, atol=1e-6 * scale)
-    if masked_frac < 1.0:
-        sep = _separated(q, r, mask)
-        np.testing.assert_array_equal(to_np(i_k)[sep], to_np(i_p)[sep])
-    else:
-        assert (i_k == 0).all()
+    assert torch.equal(d_k, d_p) and torch.equal(i_k, i_p)  # bit for bit
+    if masked_frac == 1.0:
+        assert (i_k == 0).all() and torch.isinf(d_k).all()
+    for name in SCREEN_FIXTURES:
+        q, r, mask = (torch.as_tensor(x, device=cuda_device) for x in screen_fixture(name))
+        d_k, i_k = nn_cuda.nn_cuda(q, r, mask)
+        d_p, i_p = nearest_neighbor_reference(q, r, ref_mask=mask)
+        assert torch.equal(d_k, d_p) and torch.equal(i_k, i_p), name
     qd, rd, expect = duplicate_fixture()
     _, i_d = nn_cuda.nn_cuda(torch.as_tensor(qd, device=cuda_device),
                              torch.as_tensor(rd, device=cuda_device))

@@ -125,6 +125,9 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
 
     monkeypatch.setattr(nn_cuda, "nn_cuda", fake_kernel)
     monkeypatch.setattr(nn_cuda, "build", lambda: None)
+    monkeypatch.setattr(nn_cuda, "launch_plan", lambda nq, nr, device: dict(
+        zip(("q_blocks", "splits", "tiles_per_split"), nn_cuda.plan(nq, nr, 132, 4)),
+        sms=132, blocks_per_sm=4, queries_per_thread=4, group=8, tile_r=256))
     monkeypatch.setattr(blocknn_cuda, "build", lambda: None)
     monkeypatch.setattr(sort_cuda, "build", lambda: None)
     monkeypatch.setattr(sort_cuda, "sort_cuda", fake_sort)
@@ -147,6 +150,7 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
     for name in ("resolve_payload", "resolve_moments"):
         monkeypatch.setattr(icp.ICPConfig, name, as_if_cuda(getattr(icp.ICPConfig, name)))
     monkeypatch.setattr(chip_smoke.subprocess, "run", fake_run)
+    monkeypatch.setattr(chip_smoke, "_graph_ms", lambda fn, **kw: chip_smoke._event_ms(fn))
     # GICP covariances take the block method (radius moments off KD indexes)
     # at this size, as at the card's 1M
     monkeypatch.setattr(normals, "BLOCK_THRESHOLD", 8192)
@@ -169,7 +173,13 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
                                        "moments_fused", "sort"]
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms"}
-    extras = {"moments6": {"cov_max_abs_err", "cov_err_over_tol"},
+    device = {"device_ms", "library_device_ms"}
+    extras = {"nn": {"ms_3456", "plain_ms_3456", "library_ms_3456", "bound_ms_3456", "splits",
+                     "splits_3456", "queries_per_thread", "group", "device_ms", "device_ms_3456",
+                     "library_device_ms_3456"},
+              "moments6": {"cov_max_abs_err", "cov_err_over_tol"},
+              "select": {"ms_d12", "plain_ms_d12", "library_ms_d12", "bound_ms_d12", "device_ms_d12",
+                         "library_device_ms_d12"} | device,
               "fused4": {"union_mean", "union_max"},
               "moments_fused": {"cov_err_over_tol", "union_mean", "union_max", "padded_share",
                                 "rows_below_xla", "margin_used"}}
@@ -197,10 +207,12 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
     assert mom["replaces"] == "icpx/kernels/blocknn_pallas.py:890"
     assert fold["replaces"] == "icpx/kernels/blocknn_pallas.py:497"
     assert nn["launches"] >= 2 and nn["max_abs_err"] == 0.0 and nn["library_ms"] > 0
+    assert nn["splits_3456"] == 14 and nn["bound_ms_3456"] > 0 and nn["library_ms_3456"] > 0
     assert mom["launches"] >= 2 and fold["launches"] >= 1
     assert mom["library_ms"] is None and fold["library_ms"] is None
     assert "Fake GPU, 700.00 W" in lines
-    prefixes = ["cat: ", "65k pair: ", "moments6 kernel vs plain", "fold6 kernel vs plain",
+    prefixes = ["cat: ", "65k pair: ", "nn kernel vs plain 3456x3456 (56 pad rows): d2 and index "
+                "bit-equal", "nn kernel vs plain 300x700 (all masked)", "moments6 kernel vs plain", "fold6 kernel vs plain",
                 "fold7 kernel vs plain", "select kernel vs plain", "fused4 kernel vs plain",
                 "KD index (128, 128, 3): equal", "KD index (256, 64, 3): equal",
                 "sort kernel vs plain: bit-equal", "moments_fused kernel vs plain",
