@@ -263,13 +263,12 @@ def _block_fixtures(dev):
     return torch.as_tensor(query, device=dev), index, cand, payload
 
 
-def _phase_nn(dev, n_pair, rng):
-    """Kernel #1 against its plain version: d2 and index bit-equal on every
-    case; times at n_pair^2 and at the cat shape 3,456^2; returns its JSON
-    fields (times at n_pair^2, the cat shape's under *_3456)."""
+def _nn_cases(n_pair, rng):
+    """`_phase_nn`'s inputs, numpy: (big, cat, cases), cases a dict name ->
+    (query, ref, ref_mask, expected index or None), big and cat the names
+    of the two timed shapes, n_pair^2 uniform and the cat pair's 3,456^2
+    with its 56 pad rows on both sides."""
     from icpx_torch.cloud import PAD_COORD
-    from icpx_torch.kernels import nn_cuda
-    from icpx_torch.kernels.knn import nearest_neighbor_reference
 
     def uniform(n):
         return rng.uniform(-1.0, 1.0, size=(n, 3)).astype(np.float32)
@@ -279,17 +278,27 @@ def _phase_nn(dev, n_pair, rng):
         x[:n_real] = uniform(n_real)
         return x, np.arange(cap) < n_real
 
-    q_cat, m_cat = padded(3400, 3456)  # the cat pair's 56 pad rows on both sides
+    q_cat, m_cat = padded(3400, 3456)
     r_cat, _ = padded(3400, 3456)
     half = rng.uniform(size=70001) < 0.5
     big, cat = f"{n_pair}x{n_pair}", "3456x3456 (56 pad rows)"
-    cases = {
+    return big, cat, {
         big: (uniform(n_pair), uniform(n_pair), np.ones(n_pair, bool), None),
         cat: (q_cat, r_cat, m_cat, None),
         "1000x70001 (half masked)": (uniform(1000), uniform(70001), half, None),
         "300x700 (all masked)": (uniform(300), uniform(700), np.zeros(700, bool), None),
         "duplicates": _duplicate_fixture(),
     }
+
+
+def _phase_nn(dev, n_pair, rng):
+    """Kernel #1 against its plain version: d2 and index bit-equal on every
+    case; times at n_pair^2 and at the cat shape 3,456^2; returns its JSON
+    fields (times at n_pair^2, the cat shape's under *_3456)."""
+    from icpx_torch.kernels import nn_cuda
+    from icpx_torch.kernels.knn import nearest_neighbor_reference
+
+    big, cat, cases = _nn_cases(n_pair, rng)
     max_abs_err = 0.0
     fields = {}
     for name, (q, r, m, expect) in cases.items():
@@ -333,8 +342,7 @@ def _phase_nn(dev, n_pair, rng):
             if name == cat:
                 fields["library_device_ms_3456"] = library_device_ms
             if name == big:
-                fields.update(bound_by=bound_by, queries_per_thread=plan["queries_per_thread"],
-                              group=plan["group"])
+                fields["bound_by"] = bound_by
             line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, torch.cdist+min "
                      f"{library_ms:.3f} ms (CUDA events around one call, median of 5); device "
                      f"time (CUDA graph replay) kernel {device_ms:.4f} ms, torch.cdist+min "

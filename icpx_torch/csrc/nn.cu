@@ -20,8 +20,9 @@
 //
 // 1. Pack (nn_pack_kernel, once a call). References become contiguous
 //    float4 rows (x, y, z, rr), rr = (x^2 + y^2) + z^2; a masked row, and
-//    every padded row past nr, is (0, 0, 0, +inf). The same pass takes the
-//    largest rr over the valid rows.
+//    every padded row past nr, is (0, 0, 0, +inf). The same pass writes
+//    each tile's largest rr over its valid rows (every search block takes
+//    the largest of those) and initialises the keys and tickets of step 5.
 // 2. Screen (nn_search_kernel). With a = -2q the score
 //    s = fma(ax, rx, fma(ay, ry, fma(az, rz, rr))) is 3 FFMA; s + |q|^2 is
 //    the squared distance. Per group of kGroup references the scores fold
@@ -62,13 +63,18 @@
 //    splits): the wrapper chooses the splits from nq, nr, the SM count and
 //    the occupancy that icpx_nn_blocks_per_sm reports, so that one wave
 //    fills the card at 65,536 queries; at 3,456 there is one split a tile.
+//    icpx_nn_shape hands these constants to the wrapper, which sizes the
+//    scratch and the split plan from them; icpx_nn_forward refuses a
+//    scratch smaller than its own layout needs.
 // 5. Combine the splits. Each split's winner packs into one u64 key,
 //    bits(d) << 32 | index (d >= 0, so the bits order as the values do),
-//    folded with atomicMin into keys (nq,) that the wrapper filled with
+//    folded with atomicMin into keys (nq,) that the pack kernel filled with
 //    (bits(+inf) << 32 | 0). The u64 order is exactly "least d, then lowest
 //    index", so the result does not depend on the order of the atomics; a
-//    query with no valid reference keeps (+inf, 0). nn_finalize_kernel
-//    unpacks d and index.
+//    query with no valid reference keeps (+inf, 0). The last split block of
+//    a query block to finish (a ticket counter a query block, zeroed by the
+//    pack kernel) unpacks d and index for that block's queries, so a call
+//    is two launches, pack and search.
 // 6. Staging. Tiles of kTileR packed rows move into shared memory with
 //    16-byte cp.async copies, double buffered: the next tile is in flight
 //    while the current one is scored.
@@ -117,17 +123,54 @@ __device__ __forceinline__ float direct(float qx, float qy, float qz, float4 r) 
   return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
 }
 
-// Packs ref (nr, 3) into rows (n_pad, 4) and folds max rr over the valid rows
-// into keys[nq] as kInitKey - bits(rr) (atomicMin of a decreasing map, so the
-// one torch.full that fills the keys also initialises it). A block packs one
-// tile, so every lane of every warp takes part in the warp's max, and one
-// lane a warp issues the atomic.
-__global__ void nn_pack_kernel(const float* __restrict__ ref, const uint8_t* __restrict__ mask,
-                               int nr, float4* __restrict__ packed,
-                               unsigned long long* __restrict__ rr_slot) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+// The scratch of one call, in this order: the packed rows (n_tiles * kTileR
+// float4), keys (nq u64), each tile's largest valid rr (n_tiles u32) and a
+// ticket a query block (q_blocks u32).
+struct Scratch {
+  float4* packed;
+  unsigned long long* keys;
+  unsigned* tile_max;
+  unsigned* tickets;
+};
+
+__host__ __device__ inline int query_blocks(int nq) {
+  return (nq + kThreads * kQ - 1) / (kThreads * kQ);
+}
+
+int64_t scratch_layout(int nq, int nr, char* base, Scratch* out) {
+  const int64_t n_tiles = ((int64_t)nr + kTileR - 1) / kTileR;
+  const int64_t packed = n_tiles * kTileR * 16, keys = 8 * (int64_t)nq, tile_max = 4 * n_tiles;
+  if (out != nullptr) {
+    out->packed = reinterpret_cast<float4*>(base);
+    out->keys = reinterpret_cast<unsigned long long*>(base + packed);
+    out->tile_max = reinterpret_cast<unsigned*>(base + packed + keys);
+    out->tickets = reinterpret_cast<unsigned*>(base + packed + keys + tile_max);
+  }
+  return packed + keys + tile_max + 4 * (int64_t)query_blocks(nq);
+}
+
+// Block b < n_tiles packs tile b of ref (nr, 3) into kTileR rows and writes
+// the tile's largest valid rr (as bits: rr >= 0, so the bits order as the
+// values do; 0 where the tile has no valid row). Every block also fills its
+// share of the keys with kInitKey and of the tickets with 0; with no tile
+// at all (nr = 0) it writes the outputs (+inf, 0) itself.
+__global__ void __launch_bounds__(kTileR)
+nn_pack_kernel(const float* __restrict__ ref, const uint8_t* __restrict__ mask, int nq, int nr,
+               int n_tiles, Scratch sc, float* __restrict__ out_d, int* __restrict__ out_i) {
+  __shared__ unsigned warp_max[kTileR / 32];
+  const int j = blockIdx.x * kTileR + threadIdx.x;
+  if (j < nq) {
+    if (n_tiles > 0) {
+      sc.keys[j] = kInitKey;
+    } else {
+      out_d[j] = CUDART_INF_F;
+      out_i[j] = 0;
+    }
+  }
+  if (j < query_blocks(nq)) sc.tickets[j] = 0u;
+  if (blockIdx.x >= n_tiles) return;  // uniform over the block
   float4 v = make_float4(0.f, 0.f, 0.f, CUDART_INF_F);
-  unsigned bits = 0;  // rr >= 0, so its bits order as its values do
+  unsigned bits = 0;
   if (j < nr && (mask == nullptr || mask[j] != 0)) {
     v.x = ref[3 * (int64_t)j + 0];
     v.y = ref[3 * (int64_t)j + 1];
@@ -135,20 +178,35 @@ __global__ void nn_pack_kernel(const float* __restrict__ ref, const uint8_t* __r
     v.w = __fadd_rn(__fadd_rn(__fmul_rn(v.x, v.x), __fmul_rn(v.y, v.y)), __fmul_rn(v.z, v.z));
     bits = __float_as_uint(v.w);
   }
-  packed[j] = v;
-  const unsigned warp_max = __reduce_max_sync(0xffffffffu, bits);
-  if ((threadIdx.x & 31) == 0 && warp_max != 0) atomicMin(rr_slot, kInitKey - warp_max);
+  sc.packed[j] = v;
+  const unsigned m = __reduce_max_sync(0xffffffffu, bits);
+  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    const unsigned w = __reduce_max_sync(
+        0xffffffffu, threadIdx.x < kTileR / 32 ? warp_max[threadIdx.x] : 0u);
+    if (threadIdx.x == 0) sc.tile_max[blockIdx.x] = w;
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
-nn_search_kernel(const float* __restrict__ query, const float4* __restrict__ packed, int nq,
-                 int n_tiles, int tiles_per_split, unsigned long long* __restrict__ keys) {
+nn_search_kernel(const float* __restrict__ query, int nq, int n_tiles, int tiles_per_split,
+                 Scratch sc, float* __restrict__ out_d, int* __restrict__ out_i) {
   __shared__ __align__(16) float4 tile[2][kTileR];
+  __shared__ unsigned warp_max[kThreads / 32];
+  __shared__ bool last;
 
-  // The largest valid rr (0 when there is none: every screen score is then
-  // +inf and no group ever resolves a valid row).
-  const float rr_max = __uint_as_float(static_cast<unsigned>(kInitKey - keys[nq]));
-  const float big_r = sqrtf(rr_max);
+  // The largest valid rr over every tile (0 when there is none: every
+  // screen score is then +inf and no group ever resolves a valid row).
+  unsigned m = 0;
+  for (int t = threadIdx.x; t < n_tiles; t += kThreads) m = max(m, sc.tile_max[t]);
+  m = __reduce_max_sync(0xffffffffu, m);
+  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < kThreads / 32; ++w) m = max(m, warp_max[w]);
+  const float big_r = sqrtf(__uint_as_float(m));
+  const float4* __restrict__ packed = sc.packed;
 
   float ax[kQ], ay[kQ], az[kQ], delta[kQ], thr[kQ], best_d[kQ];
   int best_i[kQ];
@@ -254,23 +312,43 @@ nn_search_kernel(const float* __restrict__ query, const float4* __restrict__ pac
       const unsigned long long key =
           (static_cast<unsigned long long>(__float_as_uint(best_d[k])) << 32) |
           static_cast<unsigned>(best_i[k]);
-      atomicMin(keys + qi, key);
+      atomicMin(sc.keys + qi, key);
     }
   }
-}
-
-__global__ void nn_finalize_kernel(const unsigned long long* __restrict__ keys, int nq,
-                                   float* __restrict__ out_d, int* __restrict__ out_i) {
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= nq) return;
-  const unsigned long long key = keys[q];
-  out_d[q] = __uint_as_float(static_cast<unsigned>(key >> 32));
-  out_i[q] = static_cast<int>(static_cast<unsigned>(key));
+  // The last split block of this query block to get here unpacks the keys:
+  // every block's atomics are visible device-wide before it takes its ticket.
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(sc.tickets + blockIdx.x, 1u) == gridDim.y - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+#pragma unroll
+  for (int k = 0; k < kQ; ++k) {
+    const int qi = q_base + k * kThreads;
+    if (qi < nq) {
+      const unsigned long long key = __ldcg(sc.keys + qi);  // from L2, where the atomics landed
+      out_d[qi] = __uint_as_float(static_cast<unsigned>(key >> 32));
+      out_i[qi] = static_cast<int>(static_cast<unsigned>(key));
+    }
+  }
 }
 
 }  // namespace
 
 extern "C" {
+
+// The search kernel's shape: threads a block, queries a thread, references
+// a screened group, packed rows a tile. The wrapper plans from these.
+void icpx_nn_shape(int* threads, int* queries_per_thread, int* group, int* tile_r) {
+  *threads = kThreads;
+  *queries_per_thread = kQ;
+  *group = kGroup;
+  *tile_r = kTileR;
+}
+
+// Bytes of scratch icpx_nn_forward needs for nq queries and nr references.
+long long icpx_nn_scratch_bytes(int nq, int nr) { return scratch_layout(nq, nr, nullptr, nullptr); }
 
 // Resident search blocks an SM holds; a negative value is minus a CUDA error
 // code.
@@ -284,33 +362,35 @@ int icpx_nn_blocks_per_sm(int device) {
 }
 
 // query (nq, 3) f32, ref (nr, 3) f32, ref_mask (nr,) bool/uint8 or null;
-// packed (n_tiles * 256, 4) f32 scratch, 16-byte aligned; keys (nq + 1,) u64
-// filled with bits(+inf) << 32; outputs d2 (nq,) f32 and index (nq,) i32. All
-// contiguous, on `device`. The reference splits are tiles_per_split tiles of
-// 256 rows each. Launches the pack, search and finalize kernels on `stream`,
-// does not synchronise, and returns cudaGetLastError().
+// scratch of scratch_bytes (at least icpx_nn_scratch_bytes(nq, nr)), 16-byte
+// aligned; outputs d2 (nq,) f32 and index (nq,) i32. All contiguous, on
+// `device`. The reference splits are tiles_per_split tiles of kTileR rows
+// each. Launches the pack and search kernels on `stream`, does not
+// synchronise, and returns cudaGetLastError() (cudaErrorInvalidValue for a
+// short scratch or a split of no tiles).
 int icpx_nn_forward(const void* query, const void* ref, const void* ref_mask, int nq, int nr,
-                    void* packed, void* keys, int tiles_per_split, void* out_d, void* out_i,
-                    int device, void* stream) {
+                    void* scratch, long long scratch_bytes, int tiles_per_split, void* out_d,
+                    void* out_i, int device, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   if (nq <= 0) return static_cast<int>(cudaGetLastError());
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto* k = static_cast<unsigned long long*>(keys);
-  const int n_tiles = (nr + kTileR - 1) / kTileR;
-  if (n_tiles > 0) {
-    nn_pack_kernel<<<n_tiles, kTileR, 0, s>>>(
-        static_cast<const float*>(ref), static_cast<const uint8_t*>(ref_mask), nr,
-        static_cast<float4*>(packed), k + nq);
-    const int per_block = kThreads * kQ;
-    const dim3 grid((nq + per_block - 1) / per_block,
-                    (n_tiles + tiles_per_split - 1) / tiles_per_split);
-    nn_search_kernel<<<grid, kThreads, 0, s>>>(static_cast<const float*>(query),
-                                               static_cast<const float4*>(packed), nq, n_tiles,
-                                               tiles_per_split, k);
+  Scratch sc;
+  if (tiles_per_split < 1 || scratch_bytes < scratch_layout(nq, nr, static_cast<char*>(scratch), &sc)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  nn_finalize_kernel<<<(nq + 255) / 256, 256, 0, s>>>(k, nq, static_cast<float*>(out_d),
-                                                      static_cast<int*>(out_i));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int n_tiles = (nr + kTileR - 1) / kTileR;
+  const int q_tiles = (nq + kTileR - 1) / kTileR;
+  const int pack_blocks = n_tiles > q_tiles ? n_tiles : q_tiles;
+  nn_pack_kernel<<<pack_blocks, kTileR, 0, s>>>(
+      static_cast<const float*>(ref), static_cast<const uint8_t*>(ref_mask), nq, nr, n_tiles, sc,
+      static_cast<float*>(out_d), static_cast<int*>(out_i));
+  if (n_tiles > 0) {
+    const dim3 grid(query_blocks(nq), (n_tiles + tiles_per_split - 1) / tiles_per_split);
+    nn_search_kernel<<<grid, kThreads, 0, s>>>(static_cast<const float*>(query), nq, n_tiles,
+                                               tiles_per_split, sc, static_cast<float*>(out_d),
+                                               static_cast<int*>(out_i));
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

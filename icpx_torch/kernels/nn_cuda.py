@@ -21,8 +21,9 @@ PAD_COORD sentinel distance) instead of inf.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -30,18 +31,22 @@ from icpx_torch.kernels import cuda_build
 
 # Calls of `nn_cuda` in this process: it adds one per call and nothing else
 # touches it, so a caller can show that a run went through the kernel (reset
-# it to 0, run, read it). One call launches three kernels (pack, search,
-# finalize) and counts once.
+# it to 0, run, read it). One call launches two kernels (pack, search) and
+# counts once.
 LAUNCHES = 0
 
-# The search kernel's shape (constants of csrc/nn.cu, repeated for the plan)
-THREADS = 256  # threads of a search block
-QUERIES_PER_THREAD = 4
-GROUP = 8  # references screened per group
-TILE_R = 256  # packed reference rows a block stages at a time
-_INIT_KEY = 0x7F800000 << 32  # (bits(+inf) << 32) | index 0
+
+class KernelShape(NamedTuple):
+    """The search kernel's constants, as the built library reports them."""
+
+    threads: int  # threads of a search block
+    queries_per_thread: int
+    group: int  # references screened per group
+    tile_r: int  # packed reference rows a block stages at a time
+
 
 _lib: Optional[ctypes.CDLL] = None
+_shape: Optional[KernelShape] = None
 _OCCUPANCY: Dict[int, Tuple[int, int]] = {}  # by device index
 
 
@@ -51,18 +56,32 @@ def library_path():
 
 
 def build() -> ctypes.CDLL:
-    """Compile (if the cache misses) and load the kernel library."""
-    global _lib
+    """Compile (if the cache misses) and load the kernel library, and read
+    its search shape."""
+    global _lib, _shape
     if _lib is not None:
         return _lib
     lib = cuda_build.load("nn")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.icpx_nn_forward.argtypes = [p, p, p, i, i, p, p, i, p, p, i, p]
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.icpx_nn_forward.argtypes = [p, p, p, i, i, p, ll, i, p, p, i, p]
     lib.icpx_nn_forward.restype = i
+    lib.icpx_nn_scratch_bytes.argtypes = [i, i]
+    lib.icpx_nn_scratch_bytes.restype = ll
     lib.icpx_nn_blocks_per_sm.argtypes = [i]
     lib.icpx_nn_blocks_per_sm.restype = i
+    lib.icpx_nn_shape.argtypes = [ctypes.POINTER(i)] * 4
+    lib.icpx_nn_shape.restype = None
+    vals = [i() for _ in range(4)]
+    lib.icpx_nn_shape(*map(ctypes.byref, vals))
+    _shape = KernelShape(*(v.value for v in vals))
     _lib = lib
     return lib
+
+
+def kernel_shape() -> KernelShape:
+    """The built search kernel's shape."""
+    build()
+    return _shape
 
 
 def screen_margin(qq: torch.Tensor, rr_max: torch.Tensor) -> torch.Tensor:
@@ -76,38 +95,47 @@ def screen_margin(qq: torch.Tensor, rr_max: torch.Tensor) -> torch.Tensor:
     return (2.0 ** -19) * (total * total)
 
 
-def plan(nq: int, nr: int, sms: int, blocks_per_sm: int) -> Tuple[int, int, int]:
-    """(query blocks, reference splits, tiles a split) of one search launch:
-    as many splits of the reference tiles as keep the grid within one wave
-    of resident blocks (sms x blocks_per_sm), at least one, at most one a
-    tile."""
-    q_blocks = max(1, math.ceil(nq / (THREADS * QUERIES_PER_THREAD)))
-    tiles = max(1, math.ceil(nr / TILE_R))
+def plan(nq: int, nr: int, sms: int, blocks_per_sm: int,
+         shape: KernelShape) -> Tuple[int, int, int]:
+    """(query blocks, reference splits, tiles a split) of one search launch
+    of a kernel of `shape`: as many splits of the reference tiles as keep
+    the grid within one wave of resident blocks (sms x blocks_per_sm), at
+    least one, at most one a tile."""
+    q_blocks = max(1, math.ceil(nq / (shape.threads * shape.queries_per_thread)))
+    tiles = max(1, math.ceil(nr / shape.tile_r))
     splits = min(tiles, max(1, (sms * blocks_per_sm) // q_blocks))
     per_split = math.ceil(tiles / splits)
     return q_blocks, math.ceil(tiles / per_split), per_split
 
 
-def _occupancy(device: torch.device) -> Tuple[int, int]:
-    """(SMs, resident search blocks an SM) of `device`, queried once."""
-    index = device.index or 0
+def _occupancy(index: int) -> Tuple[int, int]:
+    """(SMs, resident search blocks an SM) of CUDA device `index`, queried
+    once."""
     if index not in _OCCUPANCY:
         n = build().icpx_nn_blocks_per_sm(index)
         if n <= 0:
             cuda_build.check(build(), -n, "nn occupancy query")
             raise RuntimeError("nn search kernel: no block fits on an SM")
-        _OCCUPANCY[index] = (torch.cuda.get_device_properties(device).multi_processor_count, n)
+        _OCCUPANCY[index] = (torch.cuda.get_device_properties(index).multi_processor_count, n)
     return _OCCUPANCY[index]
 
 
+@functools.lru_cache(maxsize=64)
+def _launch_args(index: int, nq: int, nr: int) -> Tuple[int, int]:
+    """(tiles a split, scratch bytes) of a call on device `index`."""
+    _, _, per_split = plan(nq, nr, *_occupancy(index), kernel_shape())
+    return per_split, build().icpx_nn_scratch_bytes(nq, nr)
+
+
 def launch_plan(nq: int, nr: int, device: torch.device) -> Dict[str, int]:
-    """The plan `nn_cuda` launches with on `device`, with the figures it
-    comes from."""
-    sms, per_sm = _occupancy(device)
-    q_blocks, splits, per_split = plan(nq, nr, sms, per_sm)
-    return dict(q_blocks=q_blocks, splits=splits, tiles_per_split=per_split, sms=sms,
-                blocks_per_sm=per_sm, queries_per_thread=QUERIES_PER_THREAD, group=GROUP,
-                tile_r=TILE_R)
+    """The plan `nn_cuda` launches with on `device`, with the figures and
+    the kernel shape it comes from."""
+    index = torch.device(device).index or 0
+    sms, per_sm = _occupancy(index)
+    shape = kernel_shape()
+    q_blocks, splits, per_split = plan(nq, nr, sms, per_sm, shape)
+    return dict(shape._asdict(), q_blocks=q_blocks, splits=splits, tiles_per_split=per_split,
+                sms=sms, blocks_per_sm=per_sm)
 
 
 def _check_points(name: str, x: torch.Tensor, device: torch.device) -> None:
@@ -126,8 +154,8 @@ def _check_points(name: str, x: torch.Tensor, device: torch.device) -> None:
 def nn_cuda(
     query: torch.Tensor, ref: torch.Tensor, ref_mask: Optional[torch.Tensor] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Run the CUDA 1-NN kernels (pack, search, finalize) on PyTorch's current
-    stream; counts one call in `LAUNCHES`."""
+    """Run the CUDA 1-NN kernels (pack, search) on PyTorch's current stream;
+    counts one call in `LAUNCHES`."""
     global LAUNCHES
     if not query.is_cuda:
         raise ValueError("nn_cuda needs CUDA tensors")
@@ -141,21 +169,16 @@ def nn_cuda(
         if ref_mask.device != query.device or not ref_mask.is_contiguous():
             raise ValueError("ref_mask must be contiguous and on the query's device")
     lib = build()
-    _, _, per_split = plan(nq, nr, *_occupancy(query.device))
-    tiles = max(1, math.ceil(nr / TILE_R))
-    packed = torch.empty((tiles * TILE_R, 4), dtype=torch.float32, device=query.device)
-    # one u64 key a query, (bits(d2) << 32) | index, folded by atomicMin
-    # across the reference splits; the pack kernel folds the largest valid
-    # |r|^2 into the extra slot as _INIT_KEY - bits(|r|^2)
-    keys = torch.full((nq + 1,), _INIT_KEY, dtype=torch.int64, device=query.device)
-    d = torch.empty((nq,), dtype=torch.float32, device=query.device)
-    idx = torch.empty((nq,), dtype=torch.int32, device=query.device)
-    stream = torch.cuda.current_stream(query.device).cuda_stream
+    dev = query.device
+    per_split, n_scratch = _launch_args(dev.index or 0, nq, nr)
+    scratch = torch.empty((n_scratch,), dtype=torch.uint8, device=dev)
+    d = torch.empty((nq,), dtype=torch.float32, device=dev)
+    idx = torch.empty((nq,), dtype=torch.int32, device=dev)
     rc = lib.icpx_nn_forward(
         query.data_ptr(), ref.data_ptr(),
         None if ref_mask is None else ref_mask.data_ptr(),
-        nq, nr, packed.data_ptr(), keys.data_ptr(), per_split,
-        d.data_ptr(), idx.data_ptr(), query.device.index, stream,
+        nq, nr, scratch.data_ptr(), n_scratch, per_split,
+        d.data_ptr(), idx.data_ptr(), dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
     cuda_build.check(lib, rc, "nn kernel")
     LAUNCHES += 1

@@ -1,0 +1,171 @@
+#!/usr/bin/env python3
+"""A/B of two checkouts of the port on one card: the cat pair's wall and `nn`.
+
+    python3 scripts/torch_cat_ab.py PARENT CHANGE [--pairs 12] [--out FILE]
+
+starts one worker process per checkout (`--worker ROOT`), each importing
+`icpx_torch` from its ROOT and building its kernels, then asks them for
+readings in turn, in ABBA order (parent, change, change, parent, ...), so
+that a drift of the card or the host falls on both sides alike. A reading
+is the wall of one cat-pair registration (chip_smoke's golden config;
+median of 5 after 2 warm calls, host clock around torch.cuda.synchronize()
+fences) and the event time of one `nn` call at the cat shape (3,456 x
+3,456, 56 pad rows on both sides; median of 5). After the readings each
+worker holds `nn` to its plain version bit for bit at the cat shape and at
+65,536 x 65,536 and times it there: device time per call from a CUDA graph
+of 20 calls, and the event time around one call. Prints each side's
+median, min and max of every reading, and one JSON line with all of it
+(also written to FILE). The timers and the `nn` inputs are chip_smoke.py's,
+from the checkout that holds this script.
+"""
+
+import argparse
+import importlib.util
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+N_BIG = 65536
+
+
+def _load_smoke():
+    """This checkout's chip_smoke.py under its own module name (ROOT, first
+    on sys.path in a worker, may hold another chip_smoke.py)."""
+    spec = importlib.util.spec_from_file_location("ab_chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def worker(root: str) -> None:
+    """Answers "reading" and "summary" lines on stdin with one JSON line
+    each on stdout; everything else it prints goes to stderr."""
+    proto, sys.stdout = sys.stdout, sys.stderr
+    sys.path.insert(0, root)
+    import icpx_torch
+
+    if not icpx_torch.__file__.startswith(os.path.join(root, "icpx_torch")):
+        raise SystemExit(f"imported {icpx_torch.__file__}, not the package under {root}")
+    from icpx_torch.cloud import PointCloud
+    from icpx_torch.io.loaders import load_cat_pair
+    from icpx_torch.kernels import cuda_build, nn_cuda
+    from icpx_torch.kernels.knn import nearest_neighbor_reference
+    from icpx_torch.registration.icp import ICPConfig, register
+
+    smoke = _load_smoke()
+    cuda_build.compile_all()
+    dev = torch.device("cuda", 0)
+    src, tgt = load_cat_pair(device=dev)
+    tgt_np = tgt.to_numpy()
+    tgt = PointCloud.create(tgt_np[np.random.default_rng(0).permutation(len(tgt_np))], device=dev)
+    cfg = ICPConfig(objective="symmetric", max_iters=20, diff_threshold=1.0,
+                    max_corr_dist=50.0, robust="huber")
+    big, cat, cases = smoke._nn_cases(N_BIG, np.random.default_rng(0))
+    shapes = {label: tuple(torch.as_tensor(x, device=dev) for x in cases[name][:3])
+              for label, name in (("nn_65536", big), ("nn_3456", cat))}
+    qc, rc, mc = shapes["nn_3456"]
+
+    def reading():
+        wall = smoke._sync_time(lambda: register(src, tgt, cfg), reps=5, warmup=2)[0]
+        return {"cat_wall_ms": 1e3 * wall,
+                "nn_3456_event_ms": smoke._event_ms(lambda: nn_cuda.nn_cuda(qc, rc, mc))}
+
+    def summary():
+        out = {}
+        for label, (q, r, m) in shapes.items():
+            d_k, i_k = nn_cuda.nn_cuda(q, r, m)
+            d_p, i_p = nearest_neighbor_reference(q, r, ref_mask=m)
+            equal = torch.equal(d_k.view(torch.int32), d_p.view(torch.int32)) and torch.equal(i_k, i_p)
+            out[label] = {"bit_equal": bool(equal),
+                          "device_ms": smoke._graph_ms(lambda: nn_cuda.nn_cuda(q, r, m)),
+                          "event_ms": smoke._event_ms(lambda: nn_cuda.nn_cuda(q, r, m))}
+        return out
+
+    print(json.dumps({"ready": root}), file=proto, flush=True)
+    for line in sys.stdin:
+        answer = {"reading": reading, "summary": summary}[line.strip()]()
+        print(json.dumps(answer), file=proto, flush=True)
+
+
+def _ask(proc, what=None):
+    if what is not None:
+        proc.stdin.write(what + "\n")
+        proc.stdin.flush()
+    line = proc.stdout.readline()
+    if not line:
+        raise SystemExit(f"a worker ended (exit code {proc.wait()})")
+    return json.loads(line)
+
+
+def main(parent: str, change: str, pairs: int, out_path) -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    roots = {"parent": os.path.abspath(parent), "change": os.path.abspath(change)}
+    procs = {side: subprocess.Popen([sys.executable, os.path.abspath(__file__), "--worker", root],
+                                    stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+             for side, root in roots.items()}
+    readings = {side: [] for side in roots}
+    try:
+        for proc in procs.values():
+            _ask(proc)  # ready: imported, built, fixtures on the card
+        for i in range(pairs):
+            for side in (("parent", "change") if i % 2 == 0 else ("change", "parent")):
+                readings[side].append(_ask(procs[side], "reading"))
+        summary = {side: _ask(proc, "summary") for side, proc in procs.items()}
+    finally:
+        for proc in procs.values():
+            proc.stdin.close()
+        for proc in procs.values():
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+    result = {"card": card, "roots": roots, "pairs": pairs, "summary": summary, "readings": {}}
+    print(card)
+    for side in roots:
+        stats = {}
+        for key in readings[side][0]:
+            v = [r[key] for r in readings[side]]
+            stats[key] = {"median": statistics.median(v), "min": min(v), "max": max(v), "all": v}
+            print(f"{side} {key}: median {stats[key]['median']:.4f}, min {min(v):.4f}, "
+                  f"max {max(v):.4f} ({pairs} readings)")
+        result["readings"][side] = stats
+        for label, row in summary[side].items():
+            print(f"{side} {label}: bit-equal {row['bit_equal']}, device {row['device_ms']:.4f} ms, "
+                  f"event {row['event_ms']:.4f} ms")
+    diffs = [c["cat_wall_ms"] - p["cat_wall_ms"]
+             for c, p in zip(readings["change"], readings["parent"])]
+    result["cat_wall_diff_ms"] = {"median": statistics.median(diffs), "min": min(diffs),
+                                  "max": max(diffs), "change_higher": sum(d > 0 for d in diffs)}
+    print(f"cat wall, change - parent by pair: median {result['cat_wall_diff_ms']['median']:.4f} ms, "
+          f"change higher in {result['cat_wall_diff_ms']['change_higher']} of {pairs}")
+    line = json.dumps(result)
+    if out_path:
+        os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
+        with open(out_path, "w") as f:
+            f.write(line + "\n")
+    print(line)
+
+
+if __name__ == "__main__":
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("roots", nargs="*", help="PARENT CHANGE")
+    ap.add_argument("--worker", metavar="ROOT")
+    ap.add_argument("--pairs", type=int, default=12)
+    ap.add_argument("--out")
+    args = ap.parse_args()
+    if args.worker:
+        worker(os.path.abspath(args.worker))
+    elif len(args.roots) == 2:
+        main(*args.roots, args.pairs, args.out)
+    else:
+        ap.error("give PARENT and CHANGE, or --worker ROOT")

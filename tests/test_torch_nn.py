@@ -246,7 +246,7 @@ def test_screen_margin_bounds_the_expansion(name):
     assert worst <= 1.0, f"an expansion error reaches {worst:.3f} x delta_q / 2"
 
 
-def emulate_nn(q, r, mask, splits, tile=64, group=nn_cuda.GROUP):
+def emulate_nn(q, r, mask, splits, tile=64, group=8):
     """The kernel's algorithm in float32 numpy: pack; per split and tile,
     screen by groups, and where a group's least score passes the query's
     threshold, lower the threshold to that score + delta_q and mark the
@@ -325,6 +325,10 @@ def test_emulated_screen_equals_reference_bit_for_bit(name, splits):
         assert np.isinf(d_e).all() and (i_e == 0).all()
 
 
+# the constants of csrc/nn.cu, which the wrapper reads from the built library
+CSRC_SHAPE = nn_cuda.KernelShape(threads=256, queries_per_thread=4, group=8, tile_r=256)
+
+
 @pytest.mark.parametrize("nq,nr,sms,per_sm,want", [
     (65536, 65536, 132, 4, (64, 8, 32)),  # the 65k pair: one wave of 512 blocks
     (3456, 3456, 132, 4, (4, 14, 1)),  # the cat pair: a split a tile
@@ -332,9 +336,9 @@ def test_emulated_screen_equals_reference_bit_for_bit(name, splits):
     (5, 0, 132, 4, (1, 1, 1)),  # no reference rows
 ])
 def test_plan_fills_one_wave(nq, nr, sms, per_sm, want):
-    q_blocks, splits, per_split = nn_cuda.plan(nq, nr, sms, per_sm)
+    q_blocks, splits, per_split = nn_cuda.plan(nq, nr, sms, per_sm, CSRC_SHAPE)
     assert (q_blocks, splits, per_split) == want
-    tiles = max(1, -(-nr // nn_cuda.TILE_R))
+    tiles = max(1, -(-nr // CSRC_SHAPE.tile_r))
     assert (splits - 1) * per_split < tiles <= splits * per_split
 
 
@@ -360,3 +364,20 @@ def test_cuda_kernel_matches_plain(cuda_device, nq, nr, masked_frac):
     _, i_d = nn_cuda.nn_cuda(torch.as_tensor(qd, device=cuda_device),
                              torch.as_tensor(rd, device=cuda_device))
     np.testing.assert_array_equal(to_np(i_d), expect)
+
+
+@pytest.mark.cuda
+def test_cuda_library_shape_and_scratch_check(cuda_device):
+    """The built library reports the shape the plan tests above assume, and
+    refuses a scratch smaller than its own layout."""
+    assert nn_cuda.kernel_shape() == CSRC_SHAPE
+    lib = nn_cuda.build()
+    q = torch.zeros((10, 3), device=cuda_device)
+    need = lib.icpx_nn_scratch_bytes(10, 10)
+    scratch = torch.empty((need,), dtype=torch.uint8, device=cuda_device)
+    d = torch.empty((10,), device=cuda_device)
+    i = torch.empty((10,), dtype=torch.int32, device=cuda_device)
+    rc = lib.icpx_nn_forward(q.data_ptr(), q.data_ptr(), None, 10, 10, scratch.data_ptr(),
+                             need - 1, 1, d.data_ptr(), i.data_ptr(), q.device.index,
+                             torch.cuda.current_stream(cuda_device).cuda_stream)
+    assert rc != 0

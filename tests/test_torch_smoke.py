@@ -125,9 +125,10 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
 
     monkeypatch.setattr(nn_cuda, "nn_cuda", fake_kernel)
     monkeypatch.setattr(nn_cuda, "build", lambda: None)
+    shape = nn_cuda.KernelShape(threads=256, queries_per_thread=4, group=8, tile_r=256)
     monkeypatch.setattr(nn_cuda, "launch_plan", lambda nq, nr, device: dict(
-        zip(("q_blocks", "splits", "tiles_per_split"), nn_cuda.plan(nq, nr, 132, 4)),
-        sms=132, blocks_per_sm=4, queries_per_thread=4, group=8, tile_r=256))
+        zip(("q_blocks", "splits", "tiles_per_split"), nn_cuda.plan(nq, nr, 132, 4, shape)),
+        sms=132, blocks_per_sm=4, **shape._asdict()))
     monkeypatch.setattr(blocknn_cuda, "build", lambda: None)
     monkeypatch.setattr(sort_cuda, "build", lambda: None)
     monkeypatch.setattr(sort_cuda, "sort_cuda", fake_sort)
@@ -175,8 +176,7 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
             "plain_ms", "bound_ms", "bound_by", "library_ms"}
     device = {"device_ms", "library_device_ms"}
     extras = {"nn": {"ms_3456", "plain_ms_3456", "library_ms_3456", "bound_ms_3456", "splits",
-                     "splits_3456", "queries_per_thread", "group", "device_ms", "device_ms_3456",
-                     "library_device_ms_3456"},
+                     "splits_3456", "device_ms", "device_ms_3456", "library_device_ms_3456"},
               "moments6": {"cov_max_abs_err", "cov_err_over_tol"},
               "select": {"ms_d12", "plain_ms_d12", "library_ms_d12", "bound_ms_d12", "device_ms_d12",
                          "library_device_ms_d12"} | device,
