@@ -399,7 +399,9 @@ def _phase_moments6(dev, index, radius, fixtures):
     mean_err, cov_err, over = (max(a, b) for a, b in zip((mean_err, cov_err, over), fx_errs))
     if float(fx[0, 8:].max()) != 0.0 or float(fx[0, 6:8].max()) != 0.0:
         _fail("moments6 fixtures: sentinel rows or padded query rows were counted")
-    ms = _event_ms(lambda: blocknn_cuda.moments6_cuda(*args[:2], cand.to(torch.int32), q_cent, r2.reshape(1)))
+    cand32 = cand.to(torch.int32)
+    ms = _event_ms(lambda: blocknn_cuda.moments6_cuda(*args[:2], cand32, q_cent, r2.reshape(1)))
+    device_ms = _graph_ms(lambda: blocknn_cuda.moments6_cuda(*args[:2], cand32, q_cent, r2.reshape(1)))
     plain_ms = _event_ms(lambda: blocknn_cuda.moments6_reference(*args))
     tq, sq, _ = index.tiles.shape
     n = tq * sq
@@ -411,10 +413,12 @@ def _phase_moments6(dev, index, radius, fixtures):
           f"{n} rows (mean {float(out[0].mean()):.2f}), means within {mean_err:.3e}, "
           f"covariances within {cov_err:.3e} = {over:.3g} x their tolerance "
           f"(median trace {float((out[4] + out[7] + out[9]).median()):.3e}); fixtures ok; "
-          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}) "
-          "(CUDA events, median of 5)")
+          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (CUDA events around one call, median of "
+          f"5), device time (CUDA graph replay) kernel {device_ms:.4f} ms, bound {bound_ms:.3f} ms "
+          f"({bound_by})")
     return dict(max_abs_err=max(mean_err, cov_err), cov_max_abs_err=cov_err, cov_err_over_tol=over,
-                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                device_ms=device_ms)
 
 
 def _refine_operands(src, tgt_index, gt):
@@ -458,6 +462,7 @@ def _phase_fold6(dev, query, cand, tgt_index, table, table12, fixtures):
     if not (bool(torch.isinf(fd[8:14]).all()) and float(fpl[8, 0]) == 32.0):
         _fail("fold6 fixtures: a tile of all-sentinel candidates must miss onto its first sentinel row")
     ms = _event_ms(lambda: blocknn_cuda.fold6_cuda(query, ops))
+    device_ms = _graph_ms(lambda: blocknn_cuda.fold6_cuda(query, ops))
     plain_ms = _event_ms(lambda: blocknn_cuda.fold6_reference(query, ops))
     tq, sq, _ = query.shape
     n, k = tq * sq, cand.shape[1]
@@ -466,10 +471,11 @@ def _phase_fold6(dev, query, cand, tgt_index, table, table12, fixtures):
     print(f"fold6 kernel vs plain {tuple(query.shape)} k=6: d2 and payload equal on all {n} rows "
           f"({int(torch.isfinite(d).sum())} hits), with the 6- and the 12-wide table; fixtures ok "
           "(ties, misses, padded rows); "
-          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}) "
-          "(CUDA events, median of 5)")
+          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (CUDA events around one call, median of "
+          f"5), device time (CUDA graph replay) kernel {device_ms:.4f} ms, bound {bound_ms:.3f} ms "
+          f"({bound_by})")
     return dict(max_abs_err=max(err, err12, fx_err), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None)
+                bound_by=bound_by, library_ms=None, device_ms=device_ms)
 
 
 def _phase_fold7(dev, query, cand, q_cent, tgt_index, table, table12, fixtures):
@@ -501,6 +507,7 @@ def _phase_fold7(dev, query, cand, q_cent, tgt_index, table, table12, fixtures):
     if not (bool(torch.isinf(fd[8:14]).all()) and float(fpl[8, 0]) == 32.0):
         _fail("fold7 fixtures: a tile of all-sentinel candidates must miss onto its first sentinel row")
     ms = _event_ms(lambda: blocknn_cuda.fold7_cuda(query, ops))
+    device_ms = _graph_ms(lambda: blocknn_cuda.fold7_cuda(query, ops))
     plain_ms = _event_ms(lambda: blocknn_cuda.fold7_reference(query, ops))
     tq, sq, _ = query.shape
     n, k = tq * sq, cand.shape[1]
@@ -510,10 +517,11 @@ def _phase_fold7(dev, query, cand, q_cent, tgt_index, table, table12, fixtures):
     bound_ms, bound_by = _bound(bytes_moved, n * k * s * 6.0)
     print(f"fold7 kernel vs plain {tuple(query.shape)} k=6: d2 and payload equal on all {n} rows "
           f"({int(torch.isfinite(d).sum())} hits), with the 6- and the 12-wide table; fixtures ok "
-          f"(ties, misses, padded rows); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-          f"{bound_ms:.3f} ms ({bound_by}) (CUDA events, median of 5)")
+          f"(ties, misses, padded rows); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (CUDA events "
+          f"around one call, median of 5), device time (CUDA graph replay) kernel {device_ms:.4f} "
+          f"ms, bound {bound_ms:.3f} ms ({bound_by})")
     return dict(max_abs_err=max(err, err12, fx_err), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None)
+                bound_by=bound_by, library_ms=None, device_ms=device_ms)
 
 
 def _phase_select(dev, query, cand, tgt_index, table, table12, fixtures):
@@ -595,7 +603,7 @@ def _phase_fused4(dev, query, tgt_index, fixtures, group=4, u_max=32):
     from icpx_torch.kernels.blocknn import _candidate_tiles
 
     def compare(name, query, tiles, unions, group):
-        d_k, pos_k = blocknn_cuda.fused4_cuda(query, tiles, unions.to(torch.int32), group)
+        d_k, pos_k = blocknn_cuda.fused4_cuda(query, tiles, unions, group)
         d_p, pos_p = blocknn_cuda.fused4_reference(query, tiles, unions, group)
         torch.cuda.synchronize()
         if not (torch.equal(d_k, d_p) and torch.equal(pos_k, pos_p)):
@@ -622,11 +630,13 @@ def _phase_fused4(dev, query, tgt_index, fixtures, group=4, u_max=32):
     _, fpos2, _ = compare("fixtures, one lane tied twice", fq, tiles2, f_unions, 1)
     if int(fpos2[0]) != 3:
         _fail(f"fused4 fixtures: lane tie rule broken (got {int(fpos2[0])}, want 3)")
-    unions32 = unions.to(torch.int32)
-    ms = _event_ms(lambda: blocknn_cuda.fused4_cuda(query, tgt_index.tiles, unions32, group))
+    ms = _event_ms(lambda: blocknn_cuda.fused4_cuda(query, tgt_index.tiles, unions, group))
+    device_ms = _graph_ms(lambda: blocknn_cuda.fused4_cuda(query, tgt_index.tiles, unions, group))
     plain_ms = _event_ms(lambda: blocknn_cuda.fused4_reference(query, tgt_index.tiles, unions, group))
     tq, sq, _ = query.shape
     n, s = tq * sq, tgt_index.tile_size
+    shape = blocknn_cuda.fused4_shape()
+    plan = blocknn_cuda.fused4_plan(group * sq, s, int(sizes.max()), shape)
     pairs = float(sizes.sum()) * s * group * sq  # the union slots in use, as scored
     bytes_moved = n * 12 + tgt_index.tiles.numel() * 4 + unions.numel() * 4 + n * 8
     # a pair: 4 FMUL (the x2 included) + 2 FADD + 1 FSUB
@@ -634,10 +644,14 @@ def _phase_fused4(dev, query, tgt_index, fixtures, group=4, u_max=32):
     print(f"fused4 kernel vs plain {tuple(query.shape)} k=6 group={group}: d2 and pos equal on "
           f"all {n} rows ({int(torch.isfinite(d).sum())} hits); unions of {float(sizes.mean()):.2f} "
           f"tiles on average, {int(sizes.max())} at most (of {u_max}); fixtures ok (ties, "
-          f"padded union, misses); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-          f"{bound_ms:.3f} ms ({bound_by}) (CUDA events, median of 5)")
+          f"padded union, misses); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (CUDA events around "
+          f"one call, median of 5), device time (CUDA graph replay) kernel {device_ms:.4f} ms, "
+          f"bound {bound_ms:.3f} ms ({bound_by}); {pairs:.4g} pairs, {shape.queries_per_thread} "
+          f"queries a thread, {shape.lane_threads} threads a quad's lanes, chunks of "
+          f"{shape.chunk_rows} rows ({plan['lanes_per_chunk']} lanes at the largest union)")
     return dict(max_abs_err=max(err, fx_err), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None, union_mean=float(sizes.mean()), union_max=int(sizes.max()))
+                bound_by=bound_by, library_ms=None, device_ms=device_ms,
+                union_mean=float(sizes.mean()), union_max=int(sizes.max()))
 
 
 def _level_shapes(build):
@@ -717,6 +731,16 @@ def _sort_fixture(dev):
     return torch.as_tensor(key, device=dev)
 
 
+def _sort_operands(dev, c, m, seed):
+    """A KD level sort's operands at (c, m): duplicate-heavy keys, a (c, m,
+    3) f32 coordinate payload and a (c, m) i32 index payload."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    key = torch.randint(-m // 8 - 1, m // 8 + 1, (c, m), generator=g, device=dev).float() * 0.5
+    xyz = torch.randn((c, m, 3), generator=g, device=dev)
+    orig = torch.randperm(c * m, generator=g, device=dev).to(torch.int32).reshape(c, m)
+    return key, xyz, orig
+
+
 def _phase_sort(dev, shapes):
     """Kernel #8 against its plain version (which is also the library call:
     `torch.sort(stable=True)` + `take_along_dim`) on KD-build payloads
@@ -725,13 +749,6 @@ def _phase_sort(dev, shapes):
     segment a build sorts), (3, 2), and on the fixture; times the tile-128
     build's levels summed."""
     from icpx_torch.kernels import sort_cuda
-
-    def operands(c, m, seed):
-        g = torch.Generator(device=dev).manual_seed(seed)
-        key = torch.randint(-m // 8 - 1, m // 8 + 1, (c, m), generator=g, device=dev).float() * 0.5
-        xyz = torch.randn((c, m, 3), generator=g, device=dev)
-        orig = torch.randperm(c * m, generator=g, device=dev).to(torch.int32).reshape(c, m)
-        return key, xyz, orig
 
     def bits(x):
         return x.view(torch.int32) if x.is_floating_point() else x
@@ -762,26 +779,34 @@ def _phase_sort(dev, shapes):
     if not bool((torch.signbit(sk) & (sk == 0)).any()):
         _fail("sort fixture: -0.0 keys lost their sign bit")
     cases = sorted(set(shapes[128]) | set(shapes[64]) | {(16, 65536), (3, 2)})
-    timed = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    timed = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "device_ms": 0.0, "library_device_ms": 0.0}
+    k_shape = sort_cuda.kernel_shape()
     for i, (c, m) in enumerate(cases):
-        key, xyz, orig = operands(c, m, i)
+        key, xyz, orig = _sort_operands(dev, c, m, i)
         compare(f"{c}x{m}", key, xyz, orig)
         if (c, m) in shapes[128]:
             ms = _event_ms(lambda: sort_cuda.sort_cuda(key, [xyz, orig]))
             plain_ms = _event_ms(lambda: sort_cuda.sort_segments_reference(key, [xyz, orig]))
+            device_ms = _graph_ms(lambda: sort_cuda.sort_cuda(key, [xyz, orig]))
+            plain_device_ms = _graph_ms(lambda: sort_cuda.sort_segments_reference(key, [xyz, orig]))
             bound, _ = _bound(c * m * 2 * (4 + 12 + 4), 0.0)
-            timed = {"ms": timed["ms"] + ms, "plain_ms": timed["plain_ms"] + plain_ms,
-                     "bound_ms": timed["bound_ms"] + bound}
-            print(f"sort kernel vs plain {c}x{m}: bit-equal; kernel {ms:.3f} ms, plain = torch.sort "
-                  f"+ take_along_dim {plain_ms:.3f} ms, bound {bound:.4f} ms (bytes) (CUDA events, "
-                  "median of 5)")
+            for name, t in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound),
+                            ("device_ms", device_ms), ("library_device_ms", plain_device_ms)):
+                timed[name] += t
+            plan = sort_cuda.plan(c, m, k_shape)
+            print(f"sort kernel vs plain {c}x{m}: bit-equal; kernel {ms:.4f} ms, plain = torch.sort "
+                  f"+ take_along_dim {plain_ms:.4f} ms (CUDA events around one call, median of 5); "
+                  f"device time (CUDA graph replay) kernel {device_ms:.4f} ms, plain "
+                  f"{plain_device_ms:.4f} ms; bound {bound:.4f} ms (bytes); {plan['path']} path, "
+                  f"{plan['blocks']} blocks of {k_shape.block_elems} keys")
     print(f"sort kernel vs plain: bit-equal at {cases} and on the fixture (duplicates, "
           f"sentinels, +-0); the tile-128 build's {len(shapes[128])} levels: kernel "
-          f"{timed['ms']:.3f} ms, plain {timed['plain_ms']:.3f} ms, bound {timed['bound_ms']:.4f} ms")
+          f"{timed['ms']:.4f} ms, plain {timed['plain_ms']:.4f} ms (events), device time kernel "
+          f"{timed['device_ms']:.4f} ms, plain {timed['library_device_ms']:.4f} ms, bound "
+          f"{timed['bound_ms']:.4f} ms")
     # key, coordinates and index read once and written once; a few
     # compare-exchanges an element are far below the bytes' time
-    return dict(max_abs_err=err, ms=timed["ms"], plain_ms=timed["plain_ms"],
-                library_ms=timed["plain_ms"], bound_ms=timed["bound_ms"], bound_by="bytes")
+    return dict(max_abs_err=err, library_ms=timed["plain_ms"], bound_by="bytes", **timed)
 
 
 def _cov_radius(cloud, k):
@@ -831,11 +856,10 @@ def _phase_moments_fused(dev, f_tgt, group=4, u_max=32, k_tiles=8):
     radius = _cov_radius(f_tgt, 15)
     cand, _ = _candidate_tiles(idx.tiles, idx, k_tiles)
     unions = blocknn_cuda.group_unions(cand, group, u_max)
-    u32 = unions.to(torch.int32)
     q_cent = blocknn_cuda.group_centroids(idx.tiles, group)
     gq = group * idx.tile_size
     r2 = (radius * radius).reshape(1).to(torch.float32)
-    out_k = blocknn_cuda.moments_fused_cuda(idx.tiles, idx.tiles, u32, q_cent, r2, group)
+    out_k = blocknn_cuda.moments_fused_cuda(idx.tiles, idx.tiles, unions, q_cent, r2, group)
     out_p = blocknn_cuda.moments_fused_reference(idx.tiles, idx.tiles, unions, q_cent, r2[0], group)
     torch.cuda.synchronize()
     if not torch.equal(out_k[0], out_p[0]):
@@ -870,7 +894,7 @@ def _phase_moments_fused(dev, f_tgt, group=4, u_max=32, k_tiles=8):
     need = torch.where(below0, math.inf, 0.0).double()  # growth each row below needed
     growth = 1e-6
     while growth <= 2 * float(margin[valid].max()):
-        c_g = blocknn_cuda.moments_fused_cuda(idx.tiles, idx.tiles, u32, q_cent,
+        c_g = blocknn_cuda.moments_fused_cuda(idx.tiles, idx.tiles, unions, q_cent,
                                               r2 * (1.0 + growth) ** 2, group)[0]
         below_g = (c_g < cnt_x) & valid
         fault = below_g & (margin <= growth)
@@ -885,7 +909,9 @@ def _phase_moments_fused(dev, f_tgt, group=4, u_max=32, k_tiles=8):
     above = int(((cnt > cnt_x) & valid).sum())
     sizes = ((unions[:, 1:] != unions[:, :1]).sum(1) + 1).to(torch.float32)
     padded = 1.0 - float(sizes.sum()) / unions.numel()
-    ms = _event_ms(lambda: blocknn_cuda.moments_fused_cuda(idx.tiles, idx.tiles, u32, q_cent, r2, group))
+    ms = _event_ms(lambda: blocknn_cuda.moments_fused_cuda(idx.tiles, idx.tiles, unions, q_cent, r2, group))
+    device_ms = _graph_ms(lambda: blocknn_cuda.moments_fused_cuda(idx.tiles, idx.tiles, unions, q_cent,
+                                                                  r2, group))
     plain_ms = _event_ms(lambda: blocknn_cuda.moments_fused_reference(
         idx.tiles, idx.tiles, unions, q_cent, r2[0], group), reps=3)
     n = idx.tiles.shape[0] * idx.tile_size
@@ -905,10 +931,12 @@ def _phase_moments_fused(dev, f_tgt, group=4, u_max=32, k_tiles=8):
           f"the rows below: margins {float(margin[below0].min()) if below else 0.0:.3e} to "
           f"{float(margin[below0].max()) if below else 0.0:.3e}, each at or above the fold's count "
           f"from a growth of at most {used:.3g} x its margin (1e-6 doubling grid); "
-          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}) "
-          "(CUDA events, median of 5; plain of 3)")
+          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (CUDA events around one call, median of "
+          f"5; plain of 3), device time (CUDA graph replay) kernel {device_ms:.4f} ms, bound "
+          f"{bound_ms:.3f} ms ({bound_by})")
     return dict(max_abs_err=max(mean_err, float(cov_err.max())), cov_err_over_tol=over, ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                device_ms=device_ms,
                 union_mean=float(sizes.mean()), union_max=int(sizes.max()), padded_share=padded,
                 rows_below_xla=below, margin_used=used)
 

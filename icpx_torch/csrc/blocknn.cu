@@ -292,63 +292,215 @@ __global__ void select_kernel(const int* __restrict__ pos, const int* __restrict
   reinterpret_cast<V*>(out + (int64_t)row * d)[threadIdx.x] = acc;
 }
 
-// Fused union fold (fused4): one block a group of query tiles, gq queries,
-// against the group's union of candidate tiles (unions (g, u_max), sorted
-// unique ids; the tail repeats slot 0's id as padding and is skipped: its
-// rows tie slot 0's in every lane and a strict '<' keeps the earlier slot,
-// so skipping changes nothing). The union's rows are staged lane-major as
-// (x, y, z, rr) float4, up to u_max * s * 16 bytes of dynamic shared memory.
-// Score rr - 2 (qx rx + qy ry + qz rz), uncentred, rounded step by step.
-// Per lane the earliest slot keeps a tie; across lanes the largest
+// Fused union fold (fused4): one block a group of query tiles, up to
+// kF4Queries of its gq queries, against the group's union of candidate tiles
+// (unions (g, u_max), sorted unique ids; the tail repeats slot 0's id as
+// padding and is skipped: its rows tie slot 0's in every lane and a strict
+// '<' keeps the earlier slot, so skipping changes nothing). Score
+// rr - 2 (qx rx + qy ry + qz rz), uncentred, rounded step by step; doubling a
+// rounded dot is exact, so the last step is one FFMA, fma(-2, dot, rr), bit for
+// bit. Per lane the earliest slot keeps a tie; across lanes the largest
 // u * s + lane among the lanes whose minimum equals smin wins, which is the
-// TPU kernel's epilogue. Bound by FP32 issue (~11 instructions a pair).
-__global__ void fused4_kernel(const float* __restrict__ query, const float* __restrict__ tiles,
-                              const int* __restrict__ unions, int gq, int s, int u_max,
-                              float* __restrict__ out_d, int* __restrict__ out_pos) {
-  extern __shared__ float4 rows[];  // n_u * s union rows, rows[lane * n_u + u]
-  const int* un = unions + (int64_t)blockIdx.x * u_max;
-  int n_u = 1;
-  while (n_u < u_max && un[n_u] != un[0]) ++n_u;
-  const int rows_n = n_u * s;
-  for (int j = threadIdx.x; j < rows_n; j += blockDim.x) {
-    const int u = j / s, lane = j - u * s;
-    const int64_t row = (int64_t)un[u] * s + lane;
-    const float x = tiles[3 * row + 0], y = tiles[3 * row + 1], z = tiles[3 * row + 2];
-    const float rr = __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z));
-    rows[lane * n_u + u] = make_float4(x, y, z, rr);
-  }
-  __syncthreads();
-  for (int qi = threadIdx.x; qi < gq; qi += blockDim.x) {
-    const int64_t q = (int64_t)blockIdx.x * gq + qi;
-    const float qx = query[3 * q + 0], qy = query[3 * q + 1], qz = query[3 * q + 2];
-    const float qq = __fadd_rn(__fadd_rn(__fmul_rn(qx, qx), __fmul_rn(qy, qy)), __fmul_rn(qz, qz));
-    float best = __int_as_float(0x7f800000);
-    int best_key = 0;
-    for (int lane = 0; lane < s; ++lane) {
-      const float4* lr = rows + lane * n_u;
-      float m = __int_as_float(0x7f800000);
-      int mu = 0;
-      for (int u = 0; u < n_u; ++u) {
-        const float4 r = lr[u];
-        const float dot = __fadd_rn(__fadd_rn(__fmul_rn(qx, r.x), __fmul_rn(qy, r.y)),
-                                    __fmul_rn(qz, r.z));
-        const float sc = __fsub_rn(r.w, __fmul_rn(2.f, dot));
-        if (sc < m) {
-          m = sc;
-          mu = u;
-        }
-      }
-      const int key = mu * s + lane;
-      if (m < best || (m == best && key > best_key)) {
-        best = m;
-        best_key = key;
-      }
-    }
-    const float dd = fmaxf(__fadd_rn(best, qq), 0.f);
-    out_d[q] = dd < kMissD2 ? dd : __int_as_float(0x7f800000);
-    out_pos[q] = un[best_key / s] * s + best_key % s;
+// TPU kernel's epilogue.
+//
+// Bound by FP32 issue: 3 FMUL + 2 FADD + 1 FFMA a pair, and a compare and two
+// selects to keep each lane's minimum and its earliest slot. What held the
+// first version back: one query a thread (a broadcast float4 from shared
+// memory for every pair), ~11 instructions a pair, shared memory sized by
+// u_max (64 KB at u_max 32, 3 blocks an SM) and staging by scalar loads. Now:
+//   * A thread holds kF4Q = 4 queries, so one float4 read feeds 4 pairs, and
+//     kF4LaneThreads = 4 neighbouring threads split the lanes of the same 4
+//     queries (thread j scans lanes j, j + 4, ...). Each keeps, per query,
+//     (least score, largest key among its lanes at that score); two
+//     shuffles combine the four under the same order (smaller score, then
+//     larger key). Keys are unique, so the order is total, the combine
+//     associative, and the result does not depend on how lanes were split.
+//   * The union streams through shared memory in chunks of kF4ChunkRows
+//     rows: every slot of a run of lanes, so each lane is whole in one chunk
+//     and its earliest-slot rule needs no state across chunks. A slot's run
+//     of raw 12-byte rows lands by 16-byte cp.async, double buffered (the
+//     next chunk is in flight while the current one is scanned), and is
+//     packed once as (x, y, z, rr). 20 KB a block, whatever u_max.
+// What holds it back (H100 80GB HBM3 at 700 W, the 1M refine shape): 0.64
+// ms, 2.3e12 pairs/s. The compare and two selects that keep each lane's
+// minimum and its earliest slot run on the half-rate ALU pipe, 3 of the 9
+// instructions a pair; the kernel reaches ~60% of what that allows. No
+// cheaper exact screen is used: the nn kernel's margin admits most lanes'
+// minima at this density, and its resolve would run in nearly every warp.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_one() { asm volatile("cp.async.wait_group 1;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
+
+constexpr int kF4Threads = 256;
+constexpr int kF4Q = 4;            // queries a thread
+constexpr int kF4LaneThreads = 4;  // threads that split the lanes of the same queries
+constexpr int kF4ChunkRows = 512;  // union rows a chunk stages
+constexpr int kF4Queries = kF4Threads / kF4LaneThreads * kF4Q;  // queries a block
+constexpr int kF4MaxUnion = kF4ChunkRows / kF4LaneThreads;     // a chunk holds >= 4 lanes
+
+// Lanes a chunk of a union of n_u slots holds: as many as fit in
+// kF4ChunkRows rows, a multiple of kF4LaneThreads, no more than s needs.
+__host__ __device__ inline int fused4_chunk_lanes(int n_u, int s) {
+  const int fit = kF4ChunkRows / n_u / kF4LaneThreads * kF4LaneThreads;
+  const int need = (s + kF4LaneThreads - 1) / kF4LaneThreads * kF4LaneThreads;
+  return fit < need ? fit : need;
+}
+
+// The better of two (least score, key) states: the smaller score, then the
+// larger key.
+__device__ __forceinline__ void f4_take(float& best, int& key, float b, int k) {
+  if (b < best || (b == best && k > key)) {
+    best = b;
+    key = k;
   }
 }
+
+__global__ void __launch_bounds__(kF4Threads)
+fused4_kernel(const float* __restrict__ query, const float* __restrict__ tiles,
+              const int* __restrict__ unions, int gq, int s, int u_max,
+              float* __restrict__ out_d, int* __restrict__ out_pos) {
+  __shared__ __align__(16) float raw[2][kF4ChunkRows * 3];  // staged rows, as read
+  __shared__ __align__(16) float4 rows[kF4ChunkRows];      // rows[u * lc + lane]
+  __shared__ int first_repeat;
+  const int* un = unions + (int64_t)blockIdx.x * u_max;
+  // n_u: the slots before the first repeat of slot 0's id, found by the
+  // first warp's ballots rather than one dependent load a slot
+  if (threadIdx.x < 32) {
+    const int id0 = un[0];
+    int n = u_max;
+    for (int i0 = 0; i0 < u_max && n == u_max; i0 += 32) {
+      const int i = i0 + threadIdx.x;
+      const unsigned rep = __ballot_sync(0xffffffffu, i > 0 && i < u_max && un[i] == id0);
+      if (rep) n = i0 + __ffs(rep) - 1;
+    }
+    if (threadIdx.x == 0) first_repeat = n;
+  }
+  __syncthreads();
+  const int n_u = first_repeat;
+  const int lc = fused4_chunk_lanes(n_u, s);
+  const int chunks = (s + lc - 1) / lc;
+
+  const int quad = threadIdx.x / kF4LaneThreads, jl = threadIdx.x % kF4LaneThreads;
+  const int q_first = blockIdx.y * kF4Queries + quad * kF4Q;  // this thread's queries
+  const float* qg = query + 3 * ((int64_t)blockIdx.x * gq);
+  float qx[kF4Q], qy[kF4Q], qz[kF4Q], best[kF4Q];
+  int key[kF4Q];
+#pragma unroll
+  for (int k = 0; k < kF4Q; ++k) {
+    const bool in = q_first + k < gq;
+    qx[k] = in ? qg[3 * (q_first + k) + 0] : 0.f;
+    qy[k] = in ? qg[3 * (q_first + k) + 1] : 0.f;
+    qz[k] = in ? qg[3 * (q_first + k) + 2] : 0.f;
+    best[k] = __int_as_float(0x7f800000);
+    key[k] = 0;
+  }
+
+  // chunk c: lanes [c * lc, c * lc + nl) of every slot, 3 words a row, in
+  // 16-byte pieces where a slot's run starts on 16 bytes (s and lc are
+  // multiples of 4 lanes), else word by word
+  const bool by16 = s % 4 == 0 && (reinterpret_cast<uintptr_t>(tiles) & 15) == 0;
+  auto stage = [&](int c, int b) {
+    const int l0 = c * lc, nl = min(lc, s - l0);
+    const int per = by16 ? nl * 3 / 4 : nl * 3;  // copies a slot
+    for (int i = threadIdx.x; i < n_u * per; i += kF4Threads) {
+      const int u = i / per, w = i - u * per;
+      const float* src = tiles + 3 * ((int64_t)un[u] * s + l0);
+      if (by16) {
+        cp_async16(&raw[b][u * lc * 3 + 4 * w], src + 4 * w);
+      } else {
+        cp_async4(&raw[b][u * lc * 3 + w], src + w);
+      }
+    }
+    cp_async_commit();
+  };
+  stage(0, 0);
+  for (int c = 0; c < chunks; ++c) {
+    if (c + 1 < chunks) {
+      stage(c + 1, (c + 1) & 1);
+      cp_async_wait_one();
+    } else {
+      cp_async_wait_all();
+    }
+    __syncthreads();  // chunk c has landed; every thread is done with chunk c - 1's rows
+    const int l0 = c * lc, nl = min(lc, s - l0);
+    const float* rb = raw[c & 1];
+    for (int i = threadIdx.x; i < n_u * nl; i += kF4Threads) {
+      const int u = i / nl, lane = i - u * nl;
+      const float* r = rb + 3 * (u * lc + lane);
+      const float x = r[0], y = r[1], z = r[2];
+      const float rr = __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z));
+      rows[u * lc + lane] = make_float4(x, y, z, rr);
+    }
+    __syncthreads();
+    for (int lane = jl; lane < nl; lane += kF4LaneThreads) {
+      float m[kF4Q];
+      int mu[kF4Q];
+#pragma unroll
+      for (int k = 0; k < kF4Q; ++k) {
+        m[k] = __int_as_float(0x7f800000);
+        mu[k] = 0;
+      }
+#pragma unroll 4
+      for (int u = 0; u < n_u; ++u) {
+        const float4 r = rows[u * lc + lane];
+#pragma unroll
+        for (int k = 0; k < kF4Q; ++k) {
+          const float dot = __fadd_rn(__fadd_rn(__fmul_rn(qx[k], r.x), __fmul_rn(qy[k], r.y)),
+                                      __fmul_rn(qz[k], r.z));
+          const float sc = __fmaf_rn(-2.f, dot, r.w);
+          if (sc < m[k]) {  // strict: the earliest slot keeps a tie
+            m[k] = sc;
+            mu[k] = u;
+          }
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kF4Q; ++k) f4_take(best[k], key[k], m[k], mu[k] * s + l0 + lane);
+    }
+  }
+
+  // the four lane threads of a quad are neighbours in one warp
+#pragma unroll
+  for (int off = 1; off < kF4LaneThreads; off <<= 1) {
+#pragma unroll
+    for (int k = 0; k < kF4Q; ++k) {
+      const float b = __shfl_xor_sync(0xffffffffu, best[k], off);
+      const int kk = __shfl_xor_sync(0xffffffffu, key[k], off);
+      f4_take(best[k], key[k], b, kk);
+    }
+  }
+  // lane thread jl writes query jl of the quad: neighbouring threads,
+  // neighbouring queries
+  float b = best[0], x = qx[0], y = qy[0], z = qz[0];
+  int kb = key[0];
+#pragma unroll
+  for (int k = 1; k < kF4Q; ++k) {
+    if (jl == k) {
+      b = best[k];
+      kb = key[k];
+      x = qx[k];
+      y = qy[k];
+      z = qz[k];
+    }
+  }
+  const int qi = q_first + jl;
+  if (qi < gq) {
+    const int64_t q = (int64_t)blockIdx.x * gq + qi;
+    const float qq = __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z));
+    const float dd = fmaxf(__fadd_rn(b, qq), 0.f);
+    out_d[q] = dd < kMissD2 ? dd : __int_as_float(0x7f800000);
+    out_pos[q] = un[kb / s] * s + kb % s;
+  }
+}
+static_assert(kF4Q == kF4LaneThreads, "lane thread j writes query j of its quad");
 
 // Union radius moments (moments_fused): one block a group of gq queries (its
 // query tiles together) against the group's union of candidate tiles, laid
@@ -523,20 +675,27 @@ int icpx_select_forward(const void* pos, const void* cand, const void* payload, 
   return static_cast<int>(cudaGetLastError());
 }
 
-// query (g * gq, 3) and tiles (t, s, 3) f32; unions (g, u_max) i32; outputs d2
-// (g * gq,) f32 and flat sorted positions (g * gq,) i32. Opts in to
-// u_max * s * 16 bytes of dynamic shared memory. Same launch contract as
-// above.
+// fused4's shape: threads a block, queries a thread, threads that split a
+// quad's lanes, union rows a chunk. The wrapper plans and checks from these.
+void icpx_fused4_shape(int* threads, int* queries_per_thread, int* lane_threads, int* chunk_rows) {
+  *threads = kF4Threads;
+  *queries_per_thread = kF4Q;
+  *lane_threads = kF4LaneThreads;
+  *chunk_rows = kF4ChunkRows;
+}
+
+// query (g * gq, 3) and tiles (t, s, 3) f32; unions (g, u_max) i32 with
+// u_max <= kF4MaxUnion; outputs d2 (g * gq,) f32 and flat sorted positions
+// (g * gq,) i32. A grid of (g, ceil(gq / kF4Queries)) blocks. Same launch
+// contract as above.
 int icpx_fused4_forward(const void* query, const void* tiles, const void* unions, int g, int gq,
                         int s, int u_max, void* out_d, void* out_pos, int device, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
+  if (u_max < 1 || u_max > kF4MaxUnion || s < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (g > 0 && gq > 0) {
-    const size_t smem = sizeof(float4) * (size_t)u_max * s;
-    const cudaError_t attr = cudaFuncSetAttribute(
-        fused4_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (attr != cudaSuccess) return static_cast<int>(attr);
-    fused4_kernel<<<g, threads_for(gq), smem, static_cast<cudaStream_t>(stream)>>>(
+    const dim3 grid(g, (gq + kF4Queries - 1) / kF4Queries);
+    fused4_kernel<<<grid, kF4Threads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(query), static_cast<const float*>(tiles),
         static_cast<const int*>(unions), gq, s, u_max, static_cast<float*>(out_d),
         static_cast<int*>(out_pos));

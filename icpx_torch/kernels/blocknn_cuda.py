@@ -48,7 +48,8 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Optional, Tuple
+import math
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -62,18 +63,30 @@ LAUNCHES = {"moments6": 0, "fold6": 0, "fold7": 0, "select": 0, "fused4": 0, "mo
 
 _MISS_D2 = 1.0e15  # a fold d2 at or beyond this is a miss
 _MAX_ROWS = 3072  # k * S candidate rows a block stages (48 KB of float4)
-_MAX_SMEM = 232448  # dynamic shared memory one block may opt in to (227 KB)
+_MAX_SMEM = 232448  # dynamic shared memory one block may opt in to (227 KB; moments_fused)
 # Query tiles (fused4: groups) per step of the plain versions: bounds their
 # (chunk, Sq, k*S) temporaries (~200 MB each at the flagship's fold shapes;
 # fused4's (chunk, G*Sq, U*S) ~128 MB at U = 32).
 _PLAIN_CHUNK = {"moments6": 512, "fold6": 1024, "fold7": 1024, "fused4": 32, "moments_fused": 8}
 
+
+class Fused4Shape(NamedTuple):
+    """The fused4 kernel's constants, as the built library reports them."""
+
+    threads: int  # threads of a block
+    queries_per_thread: int
+    lane_threads: int  # neighbouring threads that split the lanes of the same queries
+    chunk_rows: int  # union rows a block stages at a time
+
+
 _lib: Optional[ctypes.CDLL] = None
+_fused4_shape: Optional[Fused4Shape] = None
 
 
 def build() -> ctypes.CDLL:
-    """Compile (if the cache misses) and load the kernel library."""
-    global _lib
+    """Compile (if the cache misses) and load the kernel library, and read
+    fused4's shape."""
+    global _lib, _fused4_shape
     if _lib is not None:
         return _lib
     lib = cuda_build.load("blocknn")
@@ -90,8 +103,19 @@ def build() -> ctypes.CDLL:
     lib.icpx_fused4_forward.restype = i
     lib.icpx_moments_fused_forward.argtypes = [p, p, p, p, p, i, i, i, i, p, i, p]
     lib.icpx_moments_fused_forward.restype = i
+    lib.icpx_fused4_shape.argtypes = [ctypes.POINTER(i)] * 4
+    lib.icpx_fused4_shape.restype = None
+    vals = [i() for _ in range(4)]
+    lib.icpx_fused4_shape(*map(ctypes.byref, vals))
+    _fused4_shape = Fused4Shape(*(v.value for v in vals))
     _lib = lib
     return lib
+
+
+def fused4_shape() -> Fused4Shape:
+    """The built fused4 kernel's shape."""
+    build()
+    return _fused4_shape
 
 
 def library_path():
@@ -440,27 +464,31 @@ def select_width(payload_table: torch.Tensor) -> int:
 
 def select_cuda(pos: torch.Tensor, cand: torch.Tensor, payload_table: torch.Tensor,
                 s: int) -> torch.Tensor:
-    """Launch the select kernel: (Tq*Sq, D) payload rows."""
+    """Launch the select kernel: (Tq*Sq, D) payload rows from pos (Tq, Sq)
+    and cand (Tq, k), contiguous int32, and the contiguous float32
+    (n_rows, D) table, all on one CUDA device. It runs once a refine
+    iteration, so the checks are one test each, and the error names them
+    all."""
     dev = pos.device
-    if not pos.is_cuda:
-        raise ValueError("the block-NN kernels need CUDA tensors")
-    _check("pos", pos, torch.int32, 2, dev)
-    _check("cand", cand, torch.int32, 2, dev)
-    _check("payload", payload_table, torch.float32, 2, dev)
     tq, sq = pos.shape
-    k = cand.shape[1]
     n_rows, d_pl = payload_table.shape
-    if cand.shape[0] != tq or n_rows % s:
-        raise ValueError(f"shapes do not fit: pos {tuple(pos.shape)}, cand {tuple(cand.shape)}, "
-                         f"payload {tuple(payload_table.shape)}, S = {s}")
-    if payload_table.numel() >= 2**31 or pos.numel() * d_pl >= 2**31:
-        raise ValueError("too many rows for the kernels' int32 positions")
+    if not (pos.is_cuda and pos.dtype == torch.int32 and cand.dtype == torch.int32
+            and payload_table.dtype == torch.float32 and cand.device == dev
+            and payload_table.device == dev and pos.is_contiguous() and cand.is_contiguous()
+            and payload_table.is_contiguous() and cand.ndim == 2 and cand.shape[0] == tq
+            and n_rows % s == 0 and payload_table.numel() < 2**31 and tq * sq * d_pl < 2**31):
+        raise ValueError(
+            "select needs contiguous int32 pos (Tq, Sq) and cand (Tq, k) and a float32 "
+            f"(n_rows, D) table (n_rows a multiple of S = {s}, fewer than 2^31 floats in and "
+            f"out) on one CUDA device; got pos {pos.dtype} {tuple(pos.shape)} on {pos.device}, "
+            f"cand {cand.dtype} {tuple(cand.shape)} on {cand.device}, table "
+            f"{payload_table.dtype} {tuple(payload_table.shape)} on {payload_table.device}")
     lib = build()
     out = torch.empty((tq * sq, d_pl), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.icpx_select_forward(
-        pos.data_ptr(), cand.data_ptr(), payload_table.data_ptr(), tq, sq, s, k, d_pl, n_rows,
-        select_width(payload_table), out.data_ptr(), dev.index, stream,
+        pos.data_ptr(), cand.data_ptr(), payload_table.data_ptr(), tq, sq, s, cand.shape[1], d_pl,
+        n_rows, select_width(payload_table), out.data_ptr(), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     cuda_build.check(lib, rc, "select kernel")
     LAUNCHES["select"] += 1
@@ -487,12 +515,19 @@ def payload_select_fused(pos: torch.Tensor, cand_tiles: torch.Tensor,
     """Payload rows (Tq*Sq, D) for the flat positions (Tq, Sq) that
     `block_nn(..., return_pos=True, cand_tiles=cand_tiles)` returned, from
     (T, S, D) payload tiles: the kernel on a CUDA tensor, the plain version
-    on a CPU tensor."""
+    on a CPU tensor. A caller that selects every iteration of a phase
+    passes the candidates as contiguous int32, converted once (the
+    registration does): nothing is then converted here."""
     t, s, d_pl = payload_tiles.shape
     table = payload_tiles.reshape(t * s, d_pl)
     if pos.is_cuda:
-        return select_cuda(pos.to(torch.int32).contiguous(), cand_tiles.to(torch.int32).contiguous(),
-                           table.to(torch.float32).contiguous(), s)
+        if pos.dtype != torch.int32:
+            pos = pos.to(torch.int32)
+        if cand_tiles.dtype != torch.int32:
+            cand_tiles = cand_tiles.to(torch.int32)
+        if table.dtype != torch.float32:
+            table = table.to(torch.float32)
+        return select_cuda(pos.contiguous(), cand_tiles.contiguous(), table.contiguous(), s)
     return select_reference(pos, cand_tiles, table, s)
 
 
@@ -509,11 +544,12 @@ def payload_select_fused(pos: torch.Tensor, cand_tiles: torch.Tensor,
 
 
 def group_unions(cand_tiles: torch.Tensor, group: int, u_max: int) -> torch.Tensor:
-    """(Tq, K) candidate tile ids -> (Tq // group, u_max) per-group unions,
-    as `blocknn_pallas.group_unions`: the sorted unique ids, unfilled slots
-    padded with the group's smallest id; on overflow the largest id takes
-    the last slot (the reference's scatter with duplicate slots keeps the
-    last write; here it is chosen directly, with no scatter)."""
+    """(Tq, K) candidate tile ids -> (Tq // group, u_max) int32 per-group
+    unions, as `blocknn_pallas.group_unions`: the sorted unique ids,
+    unfilled slots padded with the group's smallest id; on overflow the
+    largest id takes the last slot (the reference's scatter with duplicate
+    slots keeps the last write; here it is chosen directly, with no
+    scatter). int32 here, once, is what the union kernels take."""
     tq, k = cand_tiles.shape
     g = tq // group
     ids = torch.sort(cand_tiles[:g * group].reshape(g, group * k), dim=1).values
@@ -528,7 +564,21 @@ def group_unions(cand_tiles: torch.Tensor, group: int, u_max: int) -> torch.Tens
     slot = torch.arange(u_max, device=ids.device)
     out = torch.where(slot < n_unique, uniq, ids[:, :1])
     out[:, -1] = torch.where(n_unique[:, 0] >= u_max, ids[:, -1], out[:, -1])
-    return out
+    return out.to(torch.int32)
+
+
+def fused4_plan(gq: int, s: int, n_u: int, shape: Fused4Shape) -> Dict[str, int]:
+    """How a fused4 kernel of `shape` covers a group of gq queries against a
+    union of n_u slots of s lanes: query blocks a group, lanes a staged
+    chunk holds (every slot of them, at most chunk_rows rows, a multiple of
+    lane_threads, no more than s needs), chunks, and the longest union it
+    takes (a chunk must hold lane_threads lanes)."""
+    per_block = shape.threads // shape.lane_threads * shape.queries_per_thread
+    lt = shape.lane_threads
+    lanes = min(shape.chunk_rows // n_u // lt * lt, -(-s // lt) * lt)
+    return dict(query_blocks=max(1, math.ceil(gq / per_block)), lanes_per_chunk=lanes,
+                chunks=math.ceil(s / lanes) if lanes else 0,
+                max_union=shape.chunk_rows // lt)
 
 
 def fused4_cuda(query_tiles: torch.Tensor, tiles: torch.Tensor, unions: torch.Tensor,
@@ -547,12 +597,12 @@ def fused4_cuda(query_tiles: torch.Tensor, tiles: torch.Tensor, unions: torch.Te
     if g * group != tq or query_tiles.shape[2] != 3 or tiles.shape[2] != 3:
         raise ValueError(f"shapes do not fit: query {tuple(query_tiles.shape)}, "
                          f"tiles {tuple(tiles.shape)}, unions {tuple(unions.shape)}, group {group}")
-    if u_max * s * 16 > _MAX_SMEM:
-        raise ValueError(f"a union of {u_max} x {s} rows needs {u_max * s * 16} bytes of "
-                         f"shared memory, over {_MAX_SMEM}")
+    lib = build()
+    max_union = fused4_plan(group * sq, s, 1, _fused4_shape)["max_union"]
+    if u_max > max_union:
+        raise ValueError(f"unions of {u_max} slots exceed the kernel's {max_union}")
     if tiles.numel() >= 2**31 or query_tiles.numel() >= 2**31:
         raise ValueError("too many rows for the kernels' int32 tile ids")
-    lib = build()
     d = torch.empty((tq * sq,), dtype=torch.float32, device=dev)
     pos = torch.empty((tq * sq,), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -614,8 +664,7 @@ def block_nn_fused4(query_tiles: torch.Tensor, index: TileIndex, *, k_tiles: int
     cand, _ = _candidate_tiles(query_tiles, index, k_tiles)
     unions = group_unions(cand, group, u_max)
     if query_tiles.is_cuda:
-        d, pos = fused4_cuda(query_tiles.contiguous(), index.tiles.contiguous(),
-                             unions.to(torch.int32).contiguous(), group)
+        d, pos = fused4_cuda(query_tiles.contiguous(), index.tiles.contiguous(), unions, group)
     else:
         d, pos = fused4_reference(query_tiles, index.tiles, unions, group)
     if return_pos:

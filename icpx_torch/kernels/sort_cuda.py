@@ -13,12 +13,17 @@ its plain PyTorch version with the same contract:
 
 `sort_segments` launches the kernel on a CUDA tensor (or raises) and runs the
 plain version on a CPU tensor. `LAUNCHES["sort"]` counts kernel launches.
+`plan` says how a call runs (whole segments in a block, a segment a
+cluster pair of blocks, or the chunked path) from the kernel's shape, which
+`kernel_shape` reads from the built library.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+import functools
+import math
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -28,28 +33,64 @@ from icpx_torch.kernels import cuda_build
 # the kernel (one call sorts every segment), and nowhere else.
 LAUNCHES = {"sort": 0}
 
-_MAX_PAYLOADS = 4  # kMaxPayloads in csrc/sort.cu
-_SMEM_ELEMS = 16384  # segments longer than this sort through a scratch array
 _WORD_TYPES = (torch.float32, torch.int32)
 
+
+class KernelShape(NamedTuple):
+    """The sort kernel's constants, as the built library reports them."""
+
+    max_payloads: int
+    block_elems: int  # packed keys one block sorts in registers
+    threads: int  # threads of a block
+
+
 _lib: Optional[ctypes.CDLL] = None
+_shape: Optional[KernelShape] = None
 
 
 def build() -> ctypes.CDLL:
-    """Compile (if the cache misses) and load the kernel library."""
-    global _lib
+    """Compile (if the cache misses) and load the kernel library, and read
+    its shape."""
+    global _lib, _shape
     if _lib is not None:
         return _lib
     lib = cuda_build.load("sort")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.icpx_sort_forward.argtypes = [p, i, i, p, p, p, i, p, p, i, p]
     lib.icpx_sort_forward.restype = i
+    lib.icpx_sort_shape.argtypes = [ctypes.POINTER(i)] * 3
+    lib.icpx_sort_shape.restype = None
+    vals = [i() for _ in range(3)]
+    lib.icpx_sort_shape(*map(ctypes.byref, vals))
+    _shape = KernelShape(*(v.value for v in vals))
     _lib = lib
     return lib
 
 
+def kernel_shape() -> KernelShape:
+    """The built sort kernel's shape."""
+    build()
+    return _shape
+
+
 def library_path():
     return cuda_build.library_path("sort")
+
+
+def plan(c: int, m: int, shape: KernelShape) -> Dict[str, int]:
+    """How one call of a kernel of `shape` sorts (c, m): "block" (whole
+    segments, block_elems // m to a block), "pair" (a segment of
+    2 * block_elems a cluster of two blocks) or "chunked" (longer segments:
+    block passes over chunks and device-memory passes, through a (c, m)
+    int64 scratch array); its blocks a block pass and its launches."""
+    blocks = -(-c * m // shape.block_elems)
+    if m <= shape.block_elems:
+        return dict(path="block", blocks=blocks, launches=1, work=0)
+    if m == 2 * shape.block_elems:
+        return dict(path="pair", blocks=blocks, launches=1, work=0)
+    merges = (m // shape.block_elems).bit_length() - 1  # merge sizes above a block
+    global_passes = merges * (merges + 1) // 2  # partner distances >= block_elems
+    return dict(path="chunked", blocks=blocks, launches=1 + merges + global_passes, work=c * m)
 
 
 def _check_shapes(key: torch.Tensor, payloads: Sequence[torch.Tensor]) -> Tuple[int, int]:
@@ -64,6 +105,38 @@ def _check_shapes(key: torch.Tensor, payloads: Sequence[torch.Tensor]) -> Tuple[
     return c, m
 
 
+class _Call(NamedTuple):
+    """What a call of one (device, c, m, payload shapes) reuses: the layout
+    of its one output allocation (f32 words: the scratch, 2 words an
+    element, where the chunked path needs it, then the key, then each
+    payload) and the ctypes argument arrays."""
+
+    words: int
+    work_words: int
+    views: Tuple[Tuple[Tuple[int, ...], Tuple[int, ...], int], ...]  # (shape, stride, offset)
+    ins: ctypes.Array
+    outs: ctypes.Array
+    widths: ctypes.Array
+
+
+@functools.lru_cache(maxsize=64)
+def _call_plan(index: int, c: int, m: int, shapes: Tuple[Tuple[int, ...], ...]) -> _Call:
+    k_shape = kernel_shape()
+    if len(shapes) > k_shape.max_payloads:
+        raise ValueError(f"at most {k_shape.max_payloads} payloads, got {len(shapes)}")
+    total = c * m
+    widths = [math.prod(sh[2:]) for sh in shapes]
+    work_words = 2 * plan(c, m, k_shape)["work"]
+    views, at = [], work_words
+    for sh in ((c, m), *shapes):
+        views.append((sh, torch.empty(sh, device="meta").stride(), at))
+        at += math.prod(sh)
+    n = k_shape.max_payloads
+    return _Call(words=at, work_words=work_words, views=tuple(views),
+                 ins=(ctypes.c_void_p * n)(), outs=(ctypes.c_void_p * n)(),
+                 widths=(ctypes.c_int * n)(*widths))
+
+
 def sort_cuda(key: torch.Tensor, payloads: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
     """Launch the sort kernel: (sorted key, *payloads reordered)."""
     c, m = _check_shapes(key, payloads)
@@ -72,27 +145,28 @@ def sort_cuda(key: torch.Tensor, payloads: Sequence[torch.Tensor]) -> Tuple[torc
         raise ValueError("the sort kernel needs CUDA tensors")
     if key.dtype != torch.float32 or not key.is_contiguous():
         raise ValueError("key must be contiguous float32")
-    if len(payloads) > _MAX_PAYLOADS:
-        raise ValueError(f"at most {_MAX_PAYLOADS} payloads, got {len(payloads)}")
     for p in payloads:
         if p.dtype not in _WORD_TYPES or p.device != dev or not p.is_contiguous():
             raise ValueError(f"payloads must be contiguous float32 or int32 on {dev}, "
                              f"got {p.dtype} on {p.device}")
-    if c * m >= 2**31:
-        raise ValueError("too many elements for the kernel's int32 segment count")
+    total = c * m
+    if total >= 2**31:
+        raise ValueError("too many elements for the kernel's int32 indices")
     lib = build()
-    out_key = torch.empty_like(key)
-    outs = [torch.empty_like(p) for p in payloads]
-    work = torch.empty((c, m), dtype=torch.int64, device=dev) if m > _SMEM_ELEMS else None
-    n = len(payloads)
-    ins = (ctypes.c_void_p * _MAX_PAYLOADS)(*[p.data_ptr() for p in payloads])
-    ptrs = (ctypes.c_void_p * _MAX_PAYLOADS)(*[o.data_ptr() for o in outs])
-    widths = (ctypes.c_int * _MAX_PAYLOADS)(*[p[0, 0].numel() if p.numel() else 1 for p in payloads])
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    call = _call_plan(dev.index or 0, c, m, tuple(tuple(p.shape) for p in payloads))
+    buf = torch.empty((call.words,), dtype=torch.float32, device=dev)
+    out_key = buf.as_strided(*call.views[0])
+    outs = []
+    for a, p in enumerate(payloads):
+        o = buf.as_strided(*call.views[a + 1])
+        outs.append(o if p.dtype == torch.float32 else o.view(p.dtype))
+        call.ins[a] = p.data_ptr()
+        call.outs[a] = o.data_ptr()
     rc = lib.icpx_sort_forward(
-        key.data_ptr(), c, m, ctypes.cast(ins, ctypes.c_void_p), ctypes.cast(ptrs, ctypes.c_void_p),
-        ctypes.cast(widths, ctypes.c_void_p), n, out_key.data_ptr(),
-        None if work is None else work.data_ptr(), dev.index, stream,
+        key.data_ptr(), c, m, ctypes.addressof(call.ins), ctypes.addressof(call.outs),
+        ctypes.addressof(call.widths), len(payloads), out_key.data_ptr(),
+        buf.data_ptr() if call.work_words else None, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     cuda_build.check(lib, rc, "sort kernel")
     LAUNCHES["sort"] += 1

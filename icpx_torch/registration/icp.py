@@ -472,6 +472,9 @@ def _register_block(
 
             return nn_fn_vmem
 
+        # the frozen candidates as the select kernel takes them, once a phase
+        cand32 = cand.to(torch.int32).contiguous() if select and cand is not None else None
+
         def nn_fn(p):
             ptiles = p.reshape(n_tiles, tile_rows, 3)
             if fused:
@@ -488,7 +491,7 @@ def _register_block(
                 d2, pos = block_nn(ptiles, tgt_index, k_tiles=k_tiles, return_pos=True,
                                    cand_tiles=cand, score_prec=score_prec)
                 if select and cand is not None:
-                    pl = payload_select_fused(pos.reshape(n_tiles, tile_rows), cand, tgt_pl_tiles)
+                    pl = payload_select_fused(pos.reshape(n_tiles, tile_rows), cand32, tgt_pl_tiles)
                     return pl[:, :3], pl[:, 3:], torch.sqrt(d2)
             # pad/miss rows: d2 = inf and finite PAD_COORD rows, zero weight downstream
             pl = tgt_pl[pos.long()]

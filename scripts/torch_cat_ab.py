@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""A/B of two checkouts of the port on one card: the cat pair's wall and `nn`.
+"""A/B of two checkouts of the port on one card: the cat pair's wall, `nn`,
+and the `fused4` and `sort` kernels.
 
     python3 scripts/torch_cat_ab.py PARENT CHANGE [--pairs 12] [--out FILE]
 
@@ -9,14 +10,17 @@ readings in turn, in ABBA order (parent, change, change, parent, ...), so
 that a drift of the card or the host falls on both sides alike. A reading
 is the wall of one cat-pair registration (chip_smoke's golden config;
 median of 5 after 2 warm calls, host clock around torch.cuda.synchronize()
-fences) and the event time of one `nn` call at the cat shape (3,456 x
-3,456, 56 pad rows on both sides; median of 5). After the readings each
-worker holds `nn` to its plain version bit for bit at the cat shape and at
-65,536 x 65,536 and times it there: device time per call from a CUDA graph
-of 20 calls, and the event time around one call. Prints each side's
-median, min and max of every reading, and one JSON line with all of it
-(also written to FILE). The timers and the `nn` inputs are chip_smoke.py's,
-from the checkout that holds this script.
+fences), the event time of one `nn` call at the cat shape (3,456 x 3,456,
+56 pad rows on both sides; median of 5), and the device time (a CUDA graph
+of 20 calls) and the event time of one `fused4` call at the 1M flagship's
+refine shape and of the tile-128 KD build's four level sorts (summed).
+After the readings each worker holds `nn` to its plain version bit for bit
+at the cat shape and at 65,536 x 65,536, and `fused4` and every level sort
+likewise, and times `nn` there. Prints each side's median, min and max of
+every reading, and one JSON line with all of it (also written to FILE).
+The timers and the inputs are chip_smoke.py's, from the checkout that holds
+this script: `fused4` on `_refine_operands` of the `_gt_pair` flagship (k =
+6, groups of 4, unions of 32), the sorts on `_sort_operands`.
 """
 
 import argparse
@@ -54,7 +58,8 @@ def worker(root: str) -> None:
         raise SystemExit(f"imported {icpx_torch.__file__}, not the package under {root}")
     from icpx_torch.cloud import PointCloud
     from icpx_torch.io.loaders import load_cat_pair
-    from icpx_torch.kernels import cuda_build, nn_cuda
+    from icpx_torch.kernels import blocknn_cuda, cuda_build, nn_cuda, sort_cuda
+    from icpx_torch.kernels.blocknn import build_kd_index, trim_index
     from icpx_torch.kernels.knn import nearest_neighbor_reference
     from icpx_torch.registration.icp import ICPConfig, register
 
@@ -70,11 +75,32 @@ def worker(root: str) -> None:
     shapes = {label: tuple(torch.as_tensor(x, device=dev) for x in cases[name][:3])
               for label, name in (("nn_65536", big), ("nn_3456", cat))}
     qc, rc, mc = shapes["nn_3456"]
+    # fused4 at the flagship's refine shape, the level sorts of its tile-128 build
+    f_src, f_tgt, f_gt = smoke._gt_pair(smoke.N_FLAG, 0, dev)
+    tgt_index = trim_index(build_kd_index(f_tgt.xyz, f_tgt.mask, tile_size=128),
+                           f_tgt.capacity, multiple=64)
+    query, cand, _ = smoke._refine_operands(f_src, tgt_index, f_gt)
+    unions = blocknn_cuda.group_unions(cand, 4, 32).to(torch.int32)  # an older checkout's are int64
+    del f_src, f_tgt, cand
+    levels = [smoke._sort_operands(dev, c, m, i)
+              for i, (c, m) in enumerate(((64, 16384), (256, 4096), (1024, 1024), (4096, 256)))]
+
+    def fused4():
+        return blocknn_cuda.fused4_cuda(query, tgt_index.tiles, unions, 4)
+
+    def sorts():
+        return [sort_cuda.sort_cuda(key, [xyz, orig]) for key, xyz, orig in levels]
 
     def reading():
         wall = smoke._sync_time(lambda: register(src, tgt, cfg), reps=5, warmup=2)[0]
         return {"cat_wall_ms": 1e3 * wall,
-                "nn_3456_event_ms": smoke._event_ms(lambda: nn_cuda.nn_cuda(qc, rc, mc))}
+                "nn_3456_event_ms": smoke._event_ms(lambda: nn_cuda.nn_cuda(qc, rc, mc)),
+                "fused4_device_ms": smoke._graph_ms(fused4),
+                "fused4_event_ms": smoke._event_ms(fused4),
+                "sort4_device_ms": sum(smoke._graph_ms(lambda: sort_cuda.sort_cuda(k, [x, o]))
+                                       for k, x, o in levels),
+                "sort4_event_ms": sum(smoke._event_ms(lambda: sort_cuda.sort_cuda(k, [x, o]))
+                                      for k, x, o in levels)}
 
     def summary():
         out = {}
@@ -85,6 +111,15 @@ def worker(root: str) -> None:
             out[label] = {"bit_equal": bool(equal),
                           "device_ms": smoke._graph_ms(lambda: nn_cuda.nn_cuda(q, r, m)),
                           "event_ms": smoke._event_ms(lambda: nn_cuda.nn_cuda(q, r, m))}
+        d_k, p_k = fused4()
+        d_p, p_p = blocknn_cuda.fused4_reference(query, tgt_index.tiles, unions, 4)
+        out["fused4"] = {"bit_equal": bool(torch.equal(d_k, d_p) and torch.equal(p_k, p_p))}
+        equal = True
+        for key, xyz, orig in levels:
+            got = sort_cuda.sort_cuda(key, [xyz, orig])
+            want = sort_cuda.sort_segments_reference(key, [xyz, orig])
+            equal &= all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(got, want))
+        out["sort4"] = {"bit_equal": bool(equal)}
         return out
 
     print(json.dumps({"ready": root}), file=proto, flush=True)
@@ -140,8 +175,9 @@ def main(parent: str, change: str, pairs: int, out_path) -> None:
                   f"max {max(v):.4f} ({pairs} readings)")
         result["readings"][side] = stats
         for label, row in summary[side].items():
-            print(f"{side} {label}: bit-equal {row['bit_equal']}, device {row['device_ms']:.4f} ms, "
-                  f"event {row['event_ms']:.4f} ms")
+            times = (f", device {row['device_ms']:.4f} ms, event {row['event_ms']:.4f} ms"
+                     if "device_ms" in row else "")
+            print(f"{side} {label}: bit-equal {row['bit_equal']}{times}")
     diffs = [c["cat_wall_ms"] - p["cat_wall_ms"]
              for c, p in zip(readings["change"], readings["parent"])]
     result["cat_wall_diff_ms"] = {"median": statistics.median(diffs), "min": min(diffs),

@@ -723,6 +723,154 @@ def test_fused4_group_must_divide_query_tiles():
         blocknn_cuda.block_nn_fused4(qt, _same_index(ji), group=4)
 
 
+# The constants of csrc/blocknn.cu's fused4 kernel, which the wrapper reads
+# from the built library; and one with short chunks, so that a union's
+# lanes span several chunks.
+F4_SHAPE = blocknn_cuda.Fused4Shape(threads=256, queries_per_thread=4, lane_threads=4,
+                                    chunk_rows=512)
+F4_SHORT = blocknn_cuda.Fused4Shape(threads=256, queries_per_thread=4, lane_threads=4,
+                                    chunk_rows=32)
+
+
+def _take(best, key, b, k):
+    """The kernel's combine, vectorised: the smaller score, then the larger key."""
+    better = (b < best) | ((b == best) & (k > key))
+    return np.where(better, b, best), np.where(better, k, key)
+
+
+def emulate_fused4(query_tiles, tiles, unions, group, shape):
+    """csrc/blocknn.cu's fused4 in numpy, step for step: the union's slots
+    before the first repeat of slot 0's id, streamed in chunks of whole
+    lanes (`fused4_plan`); lane thread j of each quad scans lanes j, j +
+    lane_threads, ... of a chunk, keeping each lane's least score (the
+    earliest slot on a tie) and folding it into its (least score, largest
+    key) state; the quad's threads then combine by shuffles at offsets 1,
+    2, ...; the score is fma(-2, dot, rr), i.e. rr - 2 dot rounded once."""
+    tq, sq, _ = query_tiles.shape
+    s = tiles.shape[1]
+    g, u_max = unions.shape
+    gq = group * sq
+    q = query_tiles.reshape(g, gq, 3)
+    lt = shape.lane_threads
+    d_out = np.empty(g * gq, np.float32)
+    pos_out = np.empty(g * gq, np.int64)
+    for gi in range(g):
+        un = unions[gi]
+        n_u = 1
+        while n_u < u_max and un[n_u] != un[0]:
+            n_u += 1
+        lc = blocknn_cuda.fused4_plan(gq, s, n_u, shape)["lanes_per_chunk"]
+        r = tiles[un[:n_u]]  # (n_u, S, 3)
+        rr = (r[..., 0] * r[..., 0] + r[..., 1] * r[..., 1]) + r[..., 2] * r[..., 2]
+        qx, qy, qz = (q[gi, :, i][:, None] for i in range(3))
+        best = np.full((lt, gq), np.inf, np.float32)
+        key = np.zeros((lt, gq), np.int64)
+        for l0 in range(0, s, lc):
+            for j in range(lt):
+                for lane in range(l0 + j, min(l0 + lc, s), lt):
+                    rx, ry, rz = r[:, lane, 0], r[:, lane, 1], r[:, lane, 2]
+                    dot = (qx * rx + qy * ry) + qz * rz  # (gq, n_u), each step rounded
+                    sc = rr[:, lane] - np.float32(2.0) * dot
+                    mu = sc.argmin(1)  # the first minimum: the earliest slot
+                    best[j], key[j] = _take(best[j], key[j], sc.min(1), mu * s + lane)
+        off = 1
+        while off < lt:
+            best, key = _take(best, key, best[np.arange(lt) ^ off], key[np.arange(lt) ^ off])
+            off *= 2
+        assert (best == best[0]).all() and (key == key[0]).all()  # every thread agrees
+        qq = (qx[:, 0] * qx[:, 0] + qy[:, 0] * qy[:, 0]) + qz[:, 0] * qz[:, 0]
+        dd = np.maximum(best[0] + qq, np.float32(0.0))
+        d_out[gi * gq:(gi + 1) * gq] = np.where(dd < 1e15, dd, np.inf)
+        pos_out[gi * gq:(gi + 1) * gq] = un[key[0] // s].astype(np.int64) * s + key[0] % s
+    return d_out, pos_out
+
+
+def _fused4_tie_case(name):
+    """Integer coordinates (every score exact) in tiles of 32 lanes, tile 4
+    all sentinel. "lanes and slots": the query's point p sits at tile 0
+    lane 3, tile 1 lane 1, tile 2 lane 3 again (a later slot of the same
+    lane) and tile 3 lane 6, so lane 3 keeps slot 0 and the largest key is
+    tile 3's lane 6 (slot 3); the unions are padded (4 of 8 slots). "all
+    sentinel": one group's union is tile 4 alone, padded: every score ties,
+    the earliest slot in each lane, then the last lane. Returns (query
+    tiles (4, 8, 3), tiles (5, 32, 3), unions (2, 8), group 2, wanted
+    position of query 0 or None)."""
+    rng = np.random.default_rng(33)
+    tiles = rng.integers(-20, 21, size=(5, 32, 3)).astype(np.float32)
+    tiles[4] = PAD_COORD
+    query = rng.integers(-20, 21, size=(4, 8, 3)).astype(np.float32)
+    query[3, 5:] = PAD_COORD  # padded query rows
+    p = np.float32([50, 50, 50])
+    tiles[0, 3] = tiles[1, 1] = tiles[2, 3] = tiles[3, 6] = p
+    query[0, 0] = p + np.float32([0, 0, 1])
+    cand = torch.tensor([[0, 1], [2, 3], [3, 1], [0, 2]])
+    want = 3 * 32 + 6
+    if name == "all sentinel":
+        cand = torch.tensor([[0, 1], [2, 3], [4, 4], [4, 4]])
+    unions = blocknn_cuda.group_unions(cand, 2, 8)
+    return query, tiles, unions, 2, want
+
+
+@pytest.mark.parametrize("shape", [F4_SHAPE, F4_SHORT], ids=["kernel", "short chunks"])
+@pytest.mark.parametrize("name", ["lanes and slots", "all sentinel", "random"])
+def test_emulated_fused4_lane_split_equals_reference(name, shape):
+    """The kernel's lane split, chunking and combine give the plain
+    version's d2 and position bit for bit on the tie fixtures (the same
+    row in several lanes and slots, padded unions, an all-sentinel union)
+    and on a random case, with the kernel's chunks and with chunks of 32
+    rows (several a union)."""
+    if name == "random":
+        rng = np.random.default_rng(34)
+        tiles = rng.uniform(-1, 1, (40, 32, 3)).astype(np.float32)
+        query = rng.uniform(-1, 1, (16, 8, 3)).astype(np.float32)
+        cand = torch.as_tensor(rng.integers(0, 40, (16, 6)))
+        group, want = 4, None
+        # short chunks hold 4 lanes of at most 8 slots: overflowing unions there
+        unions = blocknn_cuda.group_unions(cand, group, 32 if shape == F4_SHAPE else 8)
+    else:
+        query, tiles, unions, group, want = _fused4_tie_case(name)
+    assert unions.dtype == torch.int32  # made int32 once, where the unions are made
+    d_e, pos_e = emulate_fused4(query, tiles, to_np(unions), group, shape)
+    d_p, pos_p = blocknn_cuda.fused4_reference(torch.as_tensor(query), torch.as_tensor(tiles),
+                                               unions, group)
+    np.testing.assert_array_equal(d_e.view(np.int32), to_np(d_p).view(np.int32))
+    np.testing.assert_array_equal(pos_e, to_np(pos_p))
+    if want is not None:
+        assert int(pos_p[0]) == want and float(d_p[0]) == 1.0
+    if name == "all sentinel":  # the second group: every lane ties, the last lane wins
+        real = slice(16, 29)  # its rows but the padded ones (PAD_COORD against PAD_COORD: d 0)
+        assert np.isinf(d_e[real]).all() and (pos_e[real] == 4 * 32 + 31).all()
+
+
+@pytest.mark.parametrize("gq,s,n_u,want", [
+    (256, 128, 11, (1, 44, 3)),  # the flagship's refine: groups of 4 tiles of 64
+    (256, 128, 23, (1, 20, 7)),  # its largest union
+    (256, 128, 1, (1, 128, 1)),  # one slot: the whole union in one chunk
+    (512, 128, 128, (2, 4, 32)),  # the longest union: 4 lanes a chunk
+    (8, 8, 4, (1, 8, 1)),  # chip_smoke's fixtures
+])
+def test_fused4_plan_of_the_kernel_shape(gq, s, n_u, want):
+    plan = blocknn_cuda.fused4_plan(gq, s, n_u, F4_SHAPE)
+    assert (plan["query_blocks"], plan["lanes_per_chunk"], plan["chunks"]) == want
+    assert plan["max_union"] == 128 and n_u * plan["lanes_per_chunk"] <= F4_SHAPE.chunk_rows
+
+
+def test_select_takes_candidates_converted_once():
+    """The registration converts the frozen candidates to int32 once a
+    phase; the selected rows are the same as from the int64 list."""
+    jq, ji, table, cand = _fold_case(seed=17)
+    ti = _same_index(ji)
+    cand64 = torch.as_tensor(cand).to(torch.int64)
+    _, pos = tb.block_nn(torch.as_tensor(np.asarray(jq.tiles)), ti, return_pos=True,
+                         cand_tiles=cand64)
+    pos = pos.reshape(jq.n_tiles, jq.tile_size)
+    pl_tiles = torch.as_tensor(table.reshape(ji.n_tiles, ji.tile_size, 6))
+    once = blocknn_cuda.payload_select_fused(pos, cand64.to(torch.int32).contiguous(), pl_tiles)
+    every = blocknn_cuda.payload_select_fused(pos, cand64, pl_tiles)
+    assert torch.equal(once, every)
+    np.testing.assert_array_equal(to_np(once), table[to_np(pos).reshape(-1)])
+
+
 # ---- the union radius moments (kernel #7) -------------------------------------------
 
 
@@ -952,18 +1100,34 @@ def test_cuda_select_matches_plain(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_fused4_matches_plain(cuda_device):
+    """Query tiles of 32 (k 12) and the flagship's 64 (k 6), groups of 4,
+    unions of 32 slots and of 8 (overflowing), and the tie fixtures."""
     rng = np.random.default_rng(20)
     r = rng.uniform(-1, 1, (8000, 3)).astype(np.float32)
-    q = rng.uniform(-1, 1, (4000, 3)).astype(np.float32)
+    q = rng.uniform(-1, 1, (8000, 3)).astype(np.float32)
     ti = tb.build_kd_index(torch.as_tensor(r, device=cuda_device), tile_size=128)
-    qt = tb.build_kd_index(torch.as_tensor(q, device=cuda_device), tile_size=32).tiles
-    cand, _ = tb._candidate_tiles(qt, ti, 12)
-    for u_max in (32, 8):  # 8: overflowing unions
-        unions = blocknn_cuda.group_unions(cand, 4, u_max)
-        d_k, pos_k = blocknn_cuda.fused4_cuda(qt, ti.tiles, unions.to(torch.int32), 4)
-        d_p, pos_p = blocknn_cuda.fused4_reference(qt, ti.tiles, unions, 4)
-        torch.cuda.synchronize()
-        assert torch.equal(d_k, d_p) and torch.equal(pos_k, pos_p)  # bit for bit
+    for sq, k in ((32, 12), (64, 6)):
+        qt = tb.build_kd_index(torch.as_tensor(q, device=cuda_device), tile_size=sq).tiles
+        cand, _ = tb._candidate_tiles(qt, ti, k)
+        for u_max in (32, 8):  # 8: overflowing unions
+            unions = blocknn_cuda.group_unions(cand, 4, u_max)
+            d_k, pos_k = blocknn_cuda.fused4_cuda(qt, ti.tiles, unions, 4)
+            d_p, pos_p = blocknn_cuda.fused4_reference(qt, ti.tiles, unions, 4)
+            torch.cuda.synchronize()
+            assert torch.equal(d_k, d_p) and torch.equal(pos_k, pos_p)  # bit for bit
+    for name in ("lanes and slots", "all sentinel"):
+        query, tiles, unions, group, _ = _fused4_tie_case(name)
+        args = (torch.as_tensor(query, device=cuda_device), torch.as_tensor(tiles, device=cuda_device),
+                unions.to(cuda_device), group)
+        d_k, pos_k = blocknn_cuda.fused4_cuda(*args)
+        d_p, pos_p = blocknn_cuda.fused4_reference(*args)
+        assert torch.equal(d_k, d_p) and torch.equal(pos_k, pos_p), name
+
+
+@pytest.mark.cuda
+def test_cuda_fused4_library_shape(cuda_device):
+    """The built library reports the shape the plan tests above assume."""
+    assert blocknn_cuda.fused4_shape() == F4_SHAPE
 
 
 @pytest.mark.cuda

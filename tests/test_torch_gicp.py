@@ -119,7 +119,16 @@ def _cov_agreement(jc, tc, k, method):
 
 
 def test_brute_covariances_match_jax():
-    jc, tc = clouds(synthetic_surface(3000, seed=5))
+    """The coordinates are whole multiples of 2^-10 (|x| <= 1), so every
+    squared distance of the kNN's expansion ||q||^2 + ||r||^2 - 2 q.r is
+    exact in fp32, whatever order or fusion the matrix product takes.
+    Both packages then rank the same neighbours (ties to the lower index),
+    and the result no longer depends on which CPU kernel path each one's
+    BLAS picks: with the surface's raw coordinates, a run now and then had
+    one package's distances round differently, and 5% of the rows took
+    another 15th neighbour (errors up to ~7e-4)."""
+    xyz = synthetic_surface(3000, seed=5)
+    jc, tc = clouds((np.round(xyz * 1024.0) / 1024.0).astype(np.float32))
     id_j, id_t, err, dots, valid = _cov_agreement(jc, tc, 15, "brute")
     assert not id_j.any() and not id_t.any()  # k = 15 neighbours everywhere
     assert (err <= 1e-4).mean() >= 0.999 and err.max() < 1e-2, float(np.sort(err)[-5:].min())
@@ -146,7 +155,7 @@ def test_block_covariances_through_the_fused_moments():
     from icpx.kernels.normals import _block_radius_cov as j_cov
     from icpx_torch.kernels.normals import _block_radius_cov
 
-    x = synthetic_surface(33000, seed=8)
+    x = synthetic_surface(12000, seed=8)
     jc, tc = clouds(x)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(blocknn_pallas, "use_fused_default", lambda: True)

@@ -67,7 +67,10 @@ class _Event:
 def test_rehearsal_on_cpu(monkeypatch, capsys):
     """Every phase at a small size on the CPU: the plain versions stand in
     for the kernels and count launches as the kernels would, and "auto"
-    resolves to the kernels as it does on a CUDA device."""
+    resolves to the kernels as it does on a CUDA device. The flagship is
+    8,192 points, the block path's threshold (BLOCK_THRESHOLD is lowered to
+    it, so GICP's covariances take the block method as at 1M), and every
+    timed call runs once."""
     def fake_kernel(q, r, m=None):
         nn_cuda.LAUNCHES += 1
         return nn_cuda.nearest_neighbor_reference(q, r, ref_mask=m)
@@ -131,6 +134,9 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
         sms=132, blocks_per_sm=4, **shape._asdict()))
     monkeypatch.setattr(blocknn_cuda, "build", lambda: None)
     monkeypatch.setattr(sort_cuda, "build", lambda: None)
+    # the shapes the built libraries report (pinned in test_torch_sort.py, test_torch_blocknn.py)
+    monkeypatch.setattr(sort_cuda, "kernel_shape", lambda: sort_cuda.KernelShape(4, 8192, 512))
+    monkeypatch.setattr(blocknn_cuda, "fused4_shape", lambda: blocknn_cuda.Fused4Shape(256, 4, 4, 512))
     monkeypatch.setattr(sort_cuda, "sort_cuda", fake_sort)
     monkeypatch.setattr(blocknn, "sort_segments", fake_sort)  # the KD builds' level sorts
     monkeypatch.setattr(blocknn_cuda, "moments_fused_cuda", fake_moments_fused)
@@ -151,7 +157,15 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
     for name in ("resolve_payload", "resolve_moments"):
         monkeypatch.setattr(icp.ICPConfig, name, as_if_cuda(getattr(icp.ICPConfig, name)))
     monkeypatch.setattr(chip_smoke.subprocess, "run", fake_run)
-    monkeypatch.setattr(chip_smoke, "_graph_ms", lambda fn, **kw: chip_smoke._event_ms(fn))
+    # every timed call once: the plain versions stand in for the kernels here,
+    # so the card's repetitions would only repeat them
+    def once(fn, *a, **kw):
+        out = fn()
+        return 1e-3, out
+
+    monkeypatch.setattr(chip_smoke, "_sync_time", once)
+    monkeypatch.setattr(chip_smoke, "_event_ms", lambda fn, *a, **kw: once(fn)[0])
+    monkeypatch.setattr(chip_smoke, "_graph_ms", lambda fn, *a, **kw: once(fn)[0])
     # GICP covariances take the block method (radius moments off KD indexes)
     # at this size, as at the card's 1M
     monkeypatch.setattr(normals, "BLOCK_THRESHOLD", 8192)
@@ -165,7 +179,7 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
     ):
         monkeypatch.setattr(torch.cuda, name, value)
 
-    chip_smoke.main(dev=torch.device("cpu"), n_pair=2048, n_flag=16384, n_small=8192)
+    chip_smoke.main(dev=torch.device("cpu"), n_pair=2048, n_flag=8192, n_small=8192)
     lines = capsys.readouterr().out.strip().splitlines()
     assert json.loads(lines[-1]) == {
         "ok": True, "device": {"platform": "gpu", "kind": "Fake GPU", "count": 1}}
@@ -177,14 +191,18 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
     device = {"device_ms", "library_device_ms"}
     extras = {"nn": {"ms_3456", "plain_ms_3456", "library_ms_3456", "bound_ms_3456", "splits",
                      "splits_3456", "device_ms", "device_ms_3456", "library_device_ms_3456"},
-              "moments6": {"cov_max_abs_err", "cov_err_over_tol"},
+              "moments6": {"cov_max_abs_err", "cov_err_over_tol", "device_ms"},
+              "fold6": {"device_ms"},
+              "fold7": {"device_ms"},
               "select": {"ms_d12", "plain_ms_d12", "library_ms_d12", "bound_ms_d12", "device_ms_d12",
                          "library_device_ms_d12"} | device,
-              "fused4": {"union_mean", "union_max"},
+              "fused4": {"union_mean", "union_max", "device_ms"},
               "moments_fused": {"cov_err_over_tol", "union_mean", "union_max", "padded_share",
-                                "rows_below_xla", "margin_used"}}
+                                "rows_below_xla", "margin_used", "device_ms"},
+              "sort": device}
     for k in ks:
         assert set(k) == keys | extras.get(k["name"], set())
+        assert k["device_ms"] > 0  # every row of the kernel table has a device time
         assert k["route"] == "cuda" and (ROOT / k["source"]).exists()
         assert k["bound_ms"] > 0 and k["bound_by"] in ("bytes", "operations")
     nn, mom, fold, fold7, select, fused4, mfused, sort = ks
@@ -199,7 +217,9 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
     assert mfused["replaces"] == "icpx/kernels/blocknn_pallas.py:219"
     assert sort["replaces"] == "icpx/kernels/sort_pallas.py:86"
     assert sort["source"] == "icpx_torch/csrc/sort.cu" and sort["library_ms"] == sort["plain_ms"]
-    assert sort["launches"] == 20 and mfused["launches"] == 2  # the GICP paths (5 + 5 + 2 x 5 at 16k)
+    # the GICP path at 8k: the source's build (tiles of 64: 5 levels), the
+    # target's (128: 4) and each cloud's covariance build (128: 4)
+    assert sort["launches"] == 17 and mfused["launches"] == 2
     assert 0.0 <= mfused["cov_err_over_tol"] <= 1.0 and mfused["library_ms"] is None
     assert 1 <= mfused["union_mean"] <= mfused["union_max"] <= 32 and 0 <= mfused["padded_share"] < 1
     assert 0.0 <= mfused["margin_used"] <= 1.0
@@ -214,7 +234,7 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
     prefixes = ["cat: ", "65k pair: ", "nn kernel vs plain 3456x3456 (56 pad rows): d2 and index "
                 "bit-equal", "nn kernel vs plain 300x700 (all masked)", "moments6 kernel vs plain", "fold6 kernel vs plain",
                 "fold7 kernel vs plain", "select kernel vs plain", "fused4 kernel vs plain",
-                "KD index (128, 128, 3): equal", "KD index (256, 64, 3): equal",
+                "KD index (64, 128, 3): equal", "KD index (128, 64, 3): equal",
                 "sort kernel vs plain: bit-equal", "moments_fused kernel vs plain",
                 "clocks before the kernel phases", "clocks after the kernel phases",
                 "flagship 1M (gicp fused): "]

@@ -48,7 +48,7 @@ def _assert_bits_equal(got, want):
         np.testing.assert_array_equal(g.view(np.uint32), w.view(np.uint32))  # -0.0 != +0.0 here
 
 
-@pytest.mark.parametrize("c,m", [(4, 1024), (2, 4096)])
+@pytest.mark.parametrize("c,m", [(4, 1024), (2, 2048)])
 def test_plain_sort_matches_pallas_interpret(c, m):
     key, a, b, o = _keys(c, m, seed=m)
     want = j_sort_segments(jnp.asarray(key), (jnp.asarray(a), jnp.asarray(b), jnp.asarray(o)),
@@ -109,6 +109,139 @@ def test_kd_index_through_the_sort_matches_jax(s, monkeypatch):
     assert all(c * m_ == 16384 for c, m_ in calls)
 
 
+# the constants of csrc/sort.cu, which the wrapper reads from the built library
+SORT_SHAPE = sort_cuda.KernelShape(max_payloads=4, block_elems=8192, threads=512)
+
+
+@pytest.mark.parametrize("c,m,want", [
+    (64, 16384, ("pair", 128, 1, 0)),  # the first KD level at 1M: a cluster pair a segment
+    (256, 4096, ("block", 128, 1, 0)),
+    (1024, 1024, ("block", 128, 1, 0)),
+    (4096, 256, ("block", 128, 1, 0)),
+    (8192, 128, ("block", 128, 1, 0)),  # the source's last level (tiles of 64)
+    (16, 65536, ("chunked", 128, 10, 1 << 20)),  # 4 block passes, 6 device-memory stages
+    (3, 2, ("block", 1, 1, 0)),
+])
+def test_sort_plan_of_the_kernel_shape(c, m, want):
+    plan = sort_cuda.plan(c, m, SORT_SHAPE)
+    assert (plan["path"], plan["blocks"], plan["launches"], plan["work"]) == want
+
+
+def _pack(key):
+    """csrc/sort.cu's pack: the float bits made unsigned-ordered (-0 as +0),
+    high word; the segment-local position, low word."""
+    c, m = key.shape
+    b = np.where(key == 0, np.float32(0), key).view(np.uint32).astype(np.uint64)
+    b = np.where(b & 0x80000000, ~b & 0xFFFFFFFF, b | 0x80000000)
+    return ((b << np.uint64(32)) | np.arange(m, dtype=np.uint64)[None, :]).reshape(-1)
+
+
+def _cas(a, b, asc):
+    lo, hi = np.minimum(a, b), np.maximum(a, b)
+    return np.where(asc, lo, hi), np.where(asc, hi, lo)
+
+
+def _block_pass(v, base, m, k_lo, k_hi, j_cap, e_n, t_n):
+    """The kernel's stages on blocks v (blocks, t_n, e_n) in layout A
+    (v[b, t, e] is element base[b] + t * e_n + e), 32-lane warps; two blocks
+    with j_cap = e_n * t_n are a cluster pair."""
+    t = np.arange(t_n)[None, :, None]
+    a0 = base[:, None, None] + t * e_n  # each thread's element 0
+    k = k_lo
+    while k <= k_hi:
+        whole = k >= m
+        j = min(k >> 1, j_cap)
+        if j >= e_n * t_n:  # the pair: rank 0 keeps the min, rank 1 the max
+            v = np.stack([np.minimum(v[0], v[1]), np.maximum(v[0], v[1])])
+            j >>= 1
+        if j >= t_n:  # to layout B: vb[b, t, e] is element e * t_n + t
+            vb = v.reshape(len(v), e_n, t_n).transpose(0, 2, 1).copy()
+            h = e_n >> 1
+            while h >= 1:
+                if t_n * h <= j:
+                    for e in range(e_n):
+                        if not e & h:
+                            low = base[:, None] + np.arange(t_n)[None, :] + e * t_n
+                            vb[:, :, e], vb[:, :, e + h] = _cas(vb[:, :, e], vb[:, :, e + h],
+                                                                whole | ((low & k) == 0))
+                h >>= 1
+            v = vb.transpose(0, 2, 1).reshape(len(v), t_n, e_n).copy()
+            j = t_n >> 1
+        while j >= e_n:  # shuffles: element e of thread t ^ (j / e_n), same warp
+            lanes = j // e_n
+            assert lanes < 32
+            other = v[:, np.arange(t_n) ^ lanes, :]
+            keep_min = ((t & lanes) == 0) == (whole | ((a0 & k) == 0))
+            v = np.where(keep_min, np.minimum(v, other), np.maximum(v, other))
+            j >>= 1
+        h = e_n >> 1
+        while h >= 1:
+            if h <= j:
+                for e in range(e_n):
+                    if not e & h:
+                        v[..., e], v[..., e + h] = _cas(v[..., e], v[..., e + h],
+                                                        whole | (((a0[..., 0] + e) & k) == 0))
+            h >>= 1
+        k <<= 1
+    return v
+
+
+def emulate_sort(key, e_n, t_n):
+    """csrc/sort.cu's passes over the packed keys of a (c, m) key, for a
+    block of t_n threads of e_n keys (t_n / 32 = e_n): whole segments in a
+    block, a cluster pair at m = 2 blocks, else the chunked path. Returns
+    the sorted packed keys (c * m,)."""
+    c, m = key.shape
+    n_b = e_n * t_n
+    total = c * m
+    x = _pack(key)
+    blocks = -(-total // n_b)
+    x = np.concatenate([x, np.full(blocks * n_b - total, ~np.uint64(0), np.uint64)])
+    base = np.arange(blocks) * n_b
+    if m <= 2 * n_b:
+        step = 2 if m == 2 * n_b else 1
+        for b in range(0, blocks, step):
+            sl = slice(b * n_b, (b + step) * n_b)
+            v = _block_pass(x[sl].reshape(step, t_n, e_n), base[b:b + step], m, 2, m, n_b, e_n, t_n)
+            x[sl] = v.reshape(-1)
+        return x[:total]
+    x = _block_pass(x.reshape(blocks, t_n, e_n), base, m, 2, n_b, n_b // 2, e_n, t_n).reshape(-1)
+    idx = np.arange(total)
+    k = 2 * n_b
+    while k <= m:
+        j = k >> 1
+        while j >= n_b:  # the device-memory stage: a thread a pair
+            low = idx[(idx & j) == 0]
+            x[low], x[low + j] = _cas(x[low], x[low + j], ((low & (m - 1)) & k) == 0)
+            j >>= 1
+        x = _block_pass(x.reshape(blocks, t_n, e_n), base, m, k, k, n_b // 2, e_n, t_n).reshape(-1)
+        k <<= 1
+    return x
+
+
+@pytest.mark.parametrize("e_n,t_n,c,m", [
+    (16, 512, 2, 16384),  # the kernel's shape: a cluster pair
+    (16, 512, 3, 4096),  # whole segments, a ragged last block
+    (16, 512, 2, 65536),  # the chunked path
+    (4, 128, 3, 256),  # a block of 512: short segments, several a block
+    (4, 128, 2, 1024),  # a cluster pair
+    (4, 128, 1, 4096),  # the chunked path, three merge sizes past a block
+    (4, 128, 5, 2), (4, 128, 3, 1),
+])
+def test_emulated_sort_network_equals_stable_sort(e_n, t_n, c, m):
+    """The kernel's stage schedule and its three layouts (in-thread,
+    shuffles, the transposed block) sort the packed keys of duplicate-heavy
+    keys with signed zeros and sentinel tails into the stable order, on
+    every path, at the kernel's shape and at one scaled down to blocks of
+    512."""
+    key = _keys(c, m, seed=m + c)[0]
+    got = emulate_sort(key, e_n, t_n).reshape(c, m)
+    stable = np.argsort(np.where(key == 0, np.float32(0), key), axis=1, kind="stable")
+    want = np.take_along_axis(_pack(key).reshape(c, m), stable, axis=1)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal((got & 0xFFFFFFFF).astype(np.int64), stable)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -117,8 +250,11 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c,m", [(3, 2), (64, 128), (4, 16384), (2, 65536)])
+@pytest.mark.parametrize("c,m", [(3, 2), (64, 128), (4, 16384), (2, 65536), (64, 16384),
+                                 (256, 4096), (1024, 1024), (4096, 256), (8192, 128),
+                                 (16, 65536)])
 def test_cuda_sort_matches_plain(cuda_device, c, m):
+    """Every level shape of the 1M flagship's KD builds among them."""
     key, a, _, o = _keys(c, m, seed=7)
     args = [torch.as_tensor(x, device=cuda_device) for x in (key, a, o)]
     xyz = torch.randn((c, m, 3), device=cuda_device)
@@ -130,3 +266,9 @@ def test_cuda_sort_matches_plain(cuda_device, c, m):
     for g, w in zip(got, want):
         assert torch.equal(g.view(torch.int32) if g.dtype == torch.float32 else g,
                            w.view(torch.int32) if w.dtype == torch.float32 else w)
+
+
+@pytest.mark.cuda
+def test_cuda_sort_library_shape(cuda_device):
+    """The built library reports the shape the plan tests above assume."""
+    assert sort_cuda.kernel_shape() == SORT_SHAPE
