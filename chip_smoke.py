@@ -847,17 +847,39 @@ def _phase_moments_fused(dev, f_tgt, group=4, u_max=32, k_tiles=8):
     radius-border rows: both test an fp32 expansion score, centred on the
     group's centroid here and on the tile's there. At a radius larger by
     twice a row's `_score_margin` bound on that rounding (tried on a grid
-    of growths, 1e-6 doubling) the row must count at or above. Returns its
+    of growths, 1e-6 doubling) the row must count at or above. On the
+    8,000-point fixture of the CPU tests, counts must also be equal at u_max
+    8 (overflowing unions) and at the kernel's largest union. Returns its
     JSON fields with the union sizes."""
     from icpx_torch.kernels import blocknn_cuda
     from icpx_torch.kernels.blocknn import _candidate_tiles, block_radius_moments, build_kd_index
 
-    idx = build_kd_index(f_tgt.xyz, f_tgt.mask, tile_size=128)
+    # the kernel's shape lives in the built library; a rehearsal off the card
+    # (main(dev=cpu), the plain version standing in) has none
+    shape = blocknn_cuda.moments_fused_shape() if dev.type == "cuda" else None
+    tile = 128  # both indexes' tile size
+    gq = group * tile
+    largest = blocknn_cuda.fused4_plan(gq, tile, 1, shape)["max_union"] if shape else u_max
+    r = torch.as_tensor(np.random.default_rng(0).uniform(-1, 1, (8000, 3)).astype(np.float32), device=dev)
+    small = build_kd_index(r, tile_size=tile)
+    s_cand, _ = _candidate_tiles(small.tiles, small, k_tiles)
+    s_cent = blocknn_cuda.group_centroids(small.tiles, group)
+    s_r2 = torch.tensor([0.15 ** 2], dtype=torch.float32, device=dev)
+    for um in (8, largest):
+        s_unions = blocknn_cuda.group_unions(s_cand, group, um)
+        c_k = blocknn_cuda.moments_fused_cuda(small.tiles, small.tiles, s_unions, s_cent, s_r2, group)[0]
+        c_p = blocknn_cuda.moments_fused_reference(small.tiles, small.tiles, s_unions, s_cent,
+                                                   s_r2[0], group)[0]
+        if not torch.equal(c_k, c_p):
+            _fail(f"moments_fused 8,000-point fixture, u_max {um}: counts differ on "
+                  f"{int((c_k != c_p).sum())} rows")
+    del r, small, s_cand, s_cent
+
+    idx = build_kd_index(f_tgt.xyz, f_tgt.mask, tile_size=tile)
     radius = _cov_radius(f_tgt, 15)
     cand, _ = _candidate_tiles(idx.tiles, idx, k_tiles)
     unions = blocknn_cuda.group_unions(cand, group, u_max)
     q_cent = blocknn_cuda.group_centroids(idx.tiles, group)
-    gq = group * idx.tile_size
     r2 = (radius * radius).reshape(1).to(torch.float32)
     out_k = blocknn_cuda.moments_fused_cuda(idx.tiles, idx.tiles, unions, q_cent, r2, group)
     out_p = blocknn_cuda.moments_fused_reference(idx.tiles, idx.tiles, unions, q_cent, r2[0], group)
@@ -909,6 +931,14 @@ def _phase_moments_fused(dev, f_tgt, group=4, u_max=32, k_tiles=8):
     above = int(((cnt > cnt_x) & valid).sum())
     sizes = ((unions[:, 1:] != unions[:, :1]).sum(1) + 1).to(torch.float32)
     padded = 1.0 - float(sizes.sum()) / unions.numel()
+    if shape:
+        plan = blocknn_cuda.fused4_plan(gq, idx.tile_size, int(sizes.max()), shape)
+        shape_text = (f"{shape.threads} threads, {shape.queries_per_thread} queries a thread, "
+                      f"{shape.lane_threads} threads a quad's lanes, chunks of {shape.chunk_rows} "
+                      f"rows ({plan['lanes_per_chunk']} lanes at the largest union), unions of up "
+                      f"to {largest} slots")
+    else:
+        shape_text = "no kernel shape (no CUDA device)"
     ms = _event_ms(lambda: blocknn_cuda.moments_fused_cuda(idx.tiles, idx.tiles, unions, q_cent, r2, group))
     device_ms = _graph_ms(lambda: blocknn_cuda.moments_fused_cuda(idx.tiles, idx.tiles, unions, q_cent,
                                                                   r2, group))
@@ -933,7 +963,8 @@ def _phase_moments_fused(dev, f_tgt, group=4, u_max=32, k_tiles=8):
           f"from a growth of at most {used:.3g} x its margin (1e-6 doubling grid); "
           f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (CUDA events around one call, median of "
           f"5; plain of 3), device time (CUDA graph replay) kernel {device_ms:.4f} ms, bound "
-          f"{bound_ms:.3f} ms ({bound_by})")
+          f"{bound_ms:.3f} ms ({bound_by}); 8,000-point fixture: counts equal at u_max 8 and "
+          f"{largest}; {shape_text}")
     return dict(max_abs_err=max(mean_err, float(cov_err.max())), cov_err_over_tol=over, ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                 device_ms=device_ms,

@@ -41,8 +41,13 @@
 // radius test and the fold's winner agree exactly with them. The TPU kernels
 // score by the expansion ||r||^2 - 2 q.r (+ ||q||^2), which cancels at fp32.
 //
-// Later work (not here): more queries a thread, TMA staging, several query
-// tiles a block at small Sq.
+// Later work (not here): moments6, fold6 and fold7 still run one query a
+// thread over k x S rows staged whole; fused4 and moments_fused (queries in
+// registers, lanes split across threads, the union streamed by cp.async)
+// are the pattern for them. TMA staging; several query tiles a block at
+// small Sq; the union moments' 0/1 weight product on the tensor cores, as
+// the TPU ran it on its MXU (TF32 operands lose the second moments'
+// accuracy, and split bf16 operands are a design of their own).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -346,12 +351,56 @@ constexpr int kF4ChunkRows = 512;  // union rows a chunk stages
 constexpr int kF4Queries = kF4Threads / kF4LaneThreads * kF4Q;  // queries a block
 constexpr int kF4MaxUnion = kF4ChunkRows / kF4LaneThreads;     // a chunk holds >= 4 lanes
 
-// Lanes a chunk of a union of n_u slots holds: as many as fit in
-// kF4ChunkRows rows, a multiple of kF4LaneThreads, no more than s needs.
-__host__ __device__ inline int fused4_chunk_lanes(int n_u, int s) {
-  const int fit = kF4ChunkRows / n_u / kF4LaneThreads * kF4LaneThreads;
-  const int need = (s + kF4LaneThreads - 1) / kF4LaneThreads * kF4LaneThreads;
+// The union kernels' common steps (fused4, moments_fused).
+//
+// Lanes a chunk of a union of n_u slots holds: as many as fit in kChunkRows
+// rows, a multiple of kLaneThreads, no more than s needs.
+template <int kChunkRows, int kLaneThreads>
+__device__ __forceinline__ int chunk_lanes(int n_u, int s) {
+  const int fit = kChunkRows / n_u / kLaneThreads * kLaneThreads;
+  const int need = (s + kLaneThreads - 1) / kLaneThreads * kLaneThreads;
   return fit < need ? fit : need;
+}
+
+// n_u, the slots of a union before the first repeat of slot 0's id (the
+// padding), from the first warp's ballots rather than one dependent load a
+// slot. Every thread of the block calls it; it synchronises the block.
+__device__ __forceinline__ int union_slots(const int* un, int u_max, int* shared_n) {
+  if (threadIdx.x < 32) {
+    const int id0 = un[0];
+    int n = u_max;
+    for (int i0 = 0; i0 < u_max && n == u_max; i0 += 32) {
+      const int i = i0 + threadIdx.x;
+      const unsigned rep = __ballot_sync(0xffffffffu, i > 0 && i < u_max && un[i] == id0);
+      if (rep) n = i0 + __ffs(rep) - 1;
+    }
+    if (threadIdx.x == 0) *shared_n = n;
+  }
+  __syncthreads();
+  return *shared_n;
+}
+
+// Start staging chunk c of a union (lanes [c * lc, c * lc + nl) of each of
+// its n_u slots, 3 words a row, as read) into raw[u * lc * 3 ...], and
+// commit it as one cp.async group: in 16-byte pieces where a slot's run
+// starts on 16 bytes (by16: s and lc are multiples of 4 lanes and tiles is
+// 16-byte aligned), else word by word.
+template <int kThreads>
+__device__ __forceinline__ void stage_chunk(float* raw, const float* __restrict__ tiles,
+                                            const int* un, int n_u, int s, int lc, int c,
+                                            bool by16) {
+  const int l0 = c * lc, nl = min(lc, s - l0);
+  const int per = by16 ? nl * 3 / 4 : nl * 3;  // copies a slot
+  for (int i = threadIdx.x; i < n_u * per; i += kThreads) {
+    const int u = i / per, w = i - u * per;
+    const float* src = tiles + 3 * ((int64_t)un[u] * s + l0);
+    if (by16) {
+      cp_async16(&raw[u * lc * 3 + 4 * w], src + 4 * w);
+    } else {
+      cp_async4(&raw[u * lc * 3 + w], src + w);
+    }
+  }
+  cp_async_commit();
 }
 
 // The better of two (least score, key) states: the smaller score, then the
@@ -371,21 +420,8 @@ fused4_kernel(const float* __restrict__ query, const float* __restrict__ tiles,
   __shared__ __align__(16) float4 rows[kF4ChunkRows];      // rows[u * lc + lane]
   __shared__ int first_repeat;
   const int* un = unions + (int64_t)blockIdx.x * u_max;
-  // n_u: the slots before the first repeat of slot 0's id, found by the
-  // first warp's ballots rather than one dependent load a slot
-  if (threadIdx.x < 32) {
-    const int id0 = un[0];
-    int n = u_max;
-    for (int i0 = 0; i0 < u_max && n == u_max; i0 += 32) {
-      const int i = i0 + threadIdx.x;
-      const unsigned rep = __ballot_sync(0xffffffffu, i > 0 && i < u_max && un[i] == id0);
-      if (rep) n = i0 + __ffs(rep) - 1;
-    }
-    if (threadIdx.x == 0) first_repeat = n;
-  }
-  __syncthreads();
-  const int n_u = first_repeat;
-  const int lc = fused4_chunk_lanes(n_u, s);
+  const int n_u = union_slots(un, u_max, &first_repeat);
+  const int lc = chunk_lanes<kF4ChunkRows, kF4LaneThreads>(n_u, s);
   const int chunks = (s + lc - 1) / lc;
 
   const int quad = threadIdx.x / kF4LaneThreads, jl = threadIdx.x % kF4LaneThreads;
@@ -403,28 +439,11 @@ fused4_kernel(const float* __restrict__ query, const float* __restrict__ tiles,
     key[k] = 0;
   }
 
-  // chunk c: lanes [c * lc, c * lc + nl) of every slot, 3 words a row, in
-  // 16-byte pieces where a slot's run starts on 16 bytes (s and lc are
-  // multiples of 4 lanes), else word by word
   const bool by16 = s % 4 == 0 && (reinterpret_cast<uintptr_t>(tiles) & 15) == 0;
-  auto stage = [&](int c, int b) {
-    const int l0 = c * lc, nl = min(lc, s - l0);
-    const int per = by16 ? nl * 3 / 4 : nl * 3;  // copies a slot
-    for (int i = threadIdx.x; i < n_u * per; i += kF4Threads) {
-      const int u = i / per, w = i - u * per;
-      const float* src = tiles + 3 * ((int64_t)un[u] * s + l0);
-      if (by16) {
-        cp_async16(&raw[b][u * lc * 3 + 4 * w], src + 4 * w);
-      } else {
-        cp_async4(&raw[b][u * lc * 3 + w], src + w);
-      }
-    }
-    cp_async_commit();
-  };
-  stage(0, 0);
+  stage_chunk<kF4Threads>(raw[0], tiles, un, n_u, s, lc, 0, by16);
   for (int c = 0; c < chunks; ++c) {
     if (c + 1 < chunks) {
-      stage(c + 1, (c + 1) & 1);
+      stage_chunk<kF4Threads>(raw[(c + 1) & 1], tiles, un, n_u, s, lc, c + 1, by16);
       cp_async_wait_one();
     } else {
       cp_async_wait_all();
@@ -502,76 +521,197 @@ fused4_kernel(const float* __restrict__ query, const float* __restrict__ tiles,
 }
 static_assert(kF4Q == kF4LaneThreads, "lane thread j writes query j of its quad");
 
-// Union radius moments (moments_fused): one block a group of gq queries (its
-// query tiles together) against the group's union of candidate tiles, laid
-// out as for fused4. Queries and union rows are centred on the group's
-// valid-query centroid q_cent (g, 3). A row counts when
+// Union radius moments (moments_fused): the radius moments of each query
+// of a group of gq queries (its query tiles together) over the group's union
+// of candidate tiles (unions (g, u_max), laid out as for fused4). Queries
+// and union rows are centred on the group's valid-query centroid q_cent
+// (g, 3). A row counts when
 //   score = (((ax rx + ay ry) + az rz) + rr) + c <= 0,
 // a = -2 q_c, rr = (rx^2 + ry^2) + rz^2, c = |q_c|^2 - r^2, every step rounded:
 // the TPU kernel's d^2 - r^2 from the expansion, in a fixed order, so the
-// plain version reproduces every count. Sentinel rows drop out through
-// rr ~ 1e16. The TPU kernel sums every one of the u_max slots, and the
-// padded ones repeat slot 0's tile: slot 0's rows count (u_max - n_u + 1)
-// times. The kernel scores them once and adds them with that multiplicity.
-// out (10, g * gq): count, then the centred sums x, y, z, xx, yy, zz, xy, xz,
-// yz; the mean and covariance are finished in torch, as the reference
-// finishes them in XLA. Bound by FP32 issue (~8 instructions a scored pair,
-// 20 more inside the radius).
-__global__ void moments_fused_kernel(const float* __restrict__ query, const float* __restrict__ tiles,
-                                     const int* __restrict__ unions, const float* __restrict__ q_cent,
-                                     const float* __restrict__ r2_ptr, int gq, int s, int u_max,
-                                     float* __restrict__ out, int64_t n) {
-  extern __shared__ float4 rows[];  // n_u * s centred union rows, rows[u * s + lane]
+// plain version reproduces every count. The kernel tests the equivalent
+// s1 <= -c with s1 = ((ax rx + ay ry) + az rz) + rr, one FADD less: rounding
+// to nearest is monotone and, without flush-to-zero (nvcc's default; no
+// --use_fast_math), a nonzero sum of two floats never rounds to 0, so
+// round(s1 + c) <= 0 exactly when s1 + c <= 0. Sentinel rows drop out
+// through rr ~ 1e16. The TPU kernel sums every one of the u_max slots, and
+// the padded ones repeat slot 0's tile: slot 0's rows count (u_max - n_u + 1)
+// times. The kernel scores them once, apart from the other slots, and adds
+// them with that weight. out (10, g * gq): count, then the centred sums x, y,
+// z, xx, yy, zz, xy, xz, yz; the mean and covariance are finished in torch,
+// as the reference finishes them in XLA.
+//
+// Bound by FP32 issue: 3 FMUL + 3 FADD and a compare a scored pair (2.07e9
+// pairs at the 1M covariance index, ~67 MB moved). On fused4's design:
+//   * A thread holds kMFQ = 4 queries (a, -c and 10 sums each), so one
+//     float4 read feeds 4 pairs; kMFLaneThreads = 4 neighbouring threads
+//     split the lanes of the same 4 queries (thread j scans lanes j, j + 4,
+//     ...), and two shuffle rounds reduce the quad's partial sums, each
+//     thread keeping one query: counts are sums of small integers, exact in
+//     any order; the other sums change only in rounding.
+//   * The union streams through shared memory in chunks of kMFChunkRows rows
+//     (every slot of a run of lanes), by 16-byte cp.async, double buffered,
+//     centred and packed once a chunk as (x, y, z, rr) lane by lane, so a
+//     thread's rows of one lane are contiguous (loads at constant offsets,
+//     the next row read ahead): 24 KB a block, whatever u_max.
+//   * In each lane, slot 0 is scored first with its weight, then slots 1 ..
+//     n_u - 1 with weight 1, so no select is left in the loop. A row's four
+//     compares branch once; inside, the row's six products are formed once
+//     and each query adds its weight (0 for a miss) times the features by
+//     FMA, so the fast path keeps one combined predicate and no per-query
+//     branch. The warp takes that branch in 5.0% of its row steps at the 1M
+//     index (scripts/torch_mf_variants.py's counters); ~0.5% of the pairs
+//     count.
+//   * 3 blocks an SM (80 registers; 40 bytes of spill stores, reloaded once
+//     every 4 rows in the loop): uncapped, 124 registers and 2 blocks ran
+//     8% slower.
+// What holds it back (H100 80GB HBM3 at 700 W, the 1M covariance index):
+// 0.762-0.769 ms device (the one-query-a-thread version: 1.243), 2.7e12
+// pairs/s; variants are timed by scripts/torch_mf_variants.py. A row step is ~34 instructions for 4 pairs (12 FMUL, 12 FADD, 4
+// FSETP, the branch and its BSSY/BSYNC, an address and the LDS), issued
+// ~68% of the time; the rounded score and its compare (28) are the floor
+// of this form. A screen by a 3-FFMA score with a proven rounding margin
+// reached 0.734 ms, and only without the register cap: too little to carry
+// the proof.
+constexpr int kMFThreads = 256;
+constexpr int kMFQ = 4;            // queries a thread
+constexpr int kMFLaneThreads = 4;  // threads that split the lanes of the same queries
+constexpr int kMFChunkRows = 512;  // union rows a chunk stages
+constexpr int kMFQueries = kMFThreads / kMFLaneThreads * kMFQ;  // queries a block
+constexpr int kMFMaxUnion = kMFChunkRows / kMFLaneThreads;     // a chunk holds >= 4 lanes
+static_assert(kMFQ == kMFLaneThreads, "lane thread j keeps query j of its quad");
+static_assert(kMFQ == 4, "the epilogue's two shuffle rounds split 4 queries");
+
+// One union row r = (x, y, z, rr), centred, against the thread's queries:
+// each query whose s1 <= -c adds w (kWeighted) or 1 times the row's ten
+// features to its sums. The four compares branch once; inside, each query
+// adds its weight (0 for a miss) times the features by FMA, so no per-query
+// branch is left.
+template <bool kWeighted>
+__device__ __forceinline__ void mf_row(const float4 r, const float (&ax)[kMFQ],
+                                       const float (&ay)[kMFQ], const float (&az)[kMFQ],
+                                       const float (&nc)[kMFQ], float (&m)[kMFQ][10], float w) {
+  float s1[kMFQ];
+#pragma unroll
+  for (int k = 0; k < kMFQ; ++k)
+    s1[k] = __fadd_rn(
+        __fadd_rn(__fadd_rn(__fmul_rn(ax[k], r.x), __fmul_rn(ay[k], r.y)), __fmul_rn(az[k], r.z)),
+        r.w);
+  if ((s1[0] <= nc[0]) | (s1[1] <= nc[1]) | (s1[2] <= nc[2]) | (s1[3] <= nc[3])) {
+    const float f[9] = {r.x, r.y, r.z, r.x * r.x, r.y * r.y, r.z * r.z,
+                        r.x * r.y, r.x * r.z, r.y * r.z};
+#pragma unroll
+    for (int k = 0; k < kMFQ; ++k) {
+      const float h = s1[k] <= nc[k] ? (kWeighted ? w : 1.f) : 0.f;
+      m[k][0] += h;
+#pragma unroll
+      for (int i = 0; i < 9; ++i) m[k][i + 1] = fmaf(h, f[i], m[k][i + 1]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kMFThreads, 3)
+moments_fused_kernel(const float* __restrict__ query, const float* __restrict__ tiles,
+                     const int* __restrict__ unions, const float* __restrict__ q_cent,
+                     const float* __restrict__ r2_ptr, int gq, int s, int u_max,
+                     float* __restrict__ out, int64_t n) {
+  __shared__ __align__(16) float raw[2][kMFChunkRows * 3];  // staged rows, as read
+  // rows[lane * stride + u], centred: a thread's rows of one lane are
+  // contiguous, and the odd stride puts the four lanes a quad reads at once
+  // in distinct banks; one float4 more for the prefetch past the last row
+  __shared__ __align__(16) float4 rows[kMFChunkRows * 3 / 2 + 1];
+  __shared__ int first_repeat;
   const int grp = blockIdx.x;
   const int* un = unions + (int64_t)grp * u_max;
-  int n_u = 1;
-  while (n_u < u_max && un[n_u] != un[0]) ++n_u;
+  const int n_u = union_slots(un, u_max, &first_repeat);
+  const int lc = chunk_lanes<kMFChunkRows, kMFLaneThreads>(n_u, s);
+  const int chunks = (s + lc - 1) / lc;
+  const int stride = n_u | 1;  // lc * stride <= 3/2 kMFChunkRows, reached at n_u = 2
+  const bool by16 = s % 4 == 0 && (reinterpret_cast<uintptr_t>(tiles) & 15) == 0;
+  stage_chunk<kMFThreads>(raw[0], tiles, un, n_u, s, lc, 0, by16);
+
   const float cx = q_cent[3 * grp + 0];
   const float cy = q_cent[3 * grp + 1];
   const float cz = q_cent[3 * grp + 2];
-  const int rows_n = n_u * s;
-  for (int j = threadIdx.x; j < rows_n; j += blockDim.x) {
-    const int u = j / s;
-    const int64_t row = (int64_t)un[u] * s + (j - u * s);
-    const float x = __fsub_rn(tiles[3 * row + 0], cx);
-    const float y = __fsub_rn(tiles[3 * row + 1], cy);
-    const float z = __fsub_rn(tiles[3 * row + 2], cz);
-    rows[j] = make_float4(x, y, z, __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z)));
-  }
-  __syncthreads();
   const float r2 = *r2_ptr;
   const float mult0 = (float)(u_max - n_u + 1);
-  for (int qi = threadIdx.x; qi < gq; qi += blockDim.x) {
-    const int64_t q = (int64_t)grp * gq + qi;
-    const float qx = __fsub_rn(query[3 * q + 0], cx);
-    const float qy = __fsub_rn(query[3 * q + 1], cy);
-    const float qz = __fsub_rn(query[3 * q + 2], cz);
+  const int quad = threadIdx.x / kMFLaneThreads, jl = threadIdx.x % kMFLaneThreads;
+  const int q_first = blockIdx.y * kMFQueries + quad * kMFQ;  // this thread's queries
+  const float* qg = query + 3 * ((int64_t)grp * gq);
+  float ax[kMFQ], ay[kMFQ], az[kMFQ], nc[kMFQ], m[kMFQ][10];
+#pragma unroll
+  for (int k = 0; k < kMFQ; ++k) {
+    const bool in = q_first + k < gq;
+    const float qx = in ? __fsub_rn(qg[3 * (q_first + k) + 0], cx) : 0.f;
+    const float qy = in ? __fsub_rn(qg[3 * (q_first + k) + 1], cy) : 0.f;
+    const float qz = in ? __fsub_rn(qg[3 * (q_first + k) + 2], cz) : 0.f;
     const float c = __fsub_rn(
         __fadd_rn(__fadd_rn(__fmul_rn(qx, qx), __fmul_rn(qy, qy)), __fmul_rn(qz, qz)), r2);
-    const float ax = -2.f * qx, ay = -2.f * qy, az = -2.f * qz;  // exact
-    float m[10] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int j = 0; j < rows_n; ++j) {
-      const float4 r = rows[j];
-      const float sc = __fadd_rn(
-          __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(ax, r.x), __fmul_rn(ay, r.y)), __fmul_rn(az, r.z)),
-                    r.w),
-          c);
-      if (sc <= 0.f) {
-        const float w = j < s ? mult0 : 1.f;
-        m[0] += w;
-        m[1] += w * r.x;
-        m[2] += w * r.y;
-        m[3] += w * r.z;
-        m[4] += w * (r.x * r.x);
-        m[5] += w * (r.y * r.y);
-        m[6] += w * (r.z * r.z);
-        m[7] += w * (r.x * r.y);
-        m[8] += w * (r.x * r.z);
-        m[9] += w * (r.y * r.z);
+    ax[k] = -2.f * qx;  // exact
+    ay[k] = -2.f * qy;
+    az[k] = -2.f * qz;
+    nc[k] = in ? -c : -__int_as_float(0x7f800000);  // a query past gq counts nothing
+#pragma unroll
+    for (int f = 0; f < 10; ++f) m[k][f] = 0.f;
+  }
+
+  for (int c = 0; c < chunks; ++c) {
+    if (c + 1 < chunks) {
+      stage_chunk<kMFThreads>(raw[(c + 1) & 1], tiles, un, n_u, s, lc, c + 1, by16);
+      cp_async_wait_one();
+    } else {
+      cp_async_wait_all();
+    }
+    __syncthreads();  // chunk c has landed; every thread is done with chunk c - 1's rows
+    const int l0 = c * lc, nl = min(lc, s - l0);
+    const float* rb = raw[c & 1];
+    for (int i = threadIdx.x; i < n_u * nl; i += kMFThreads) {
+      const int u = i / nl, lane = i - u * nl;
+      const float* r = rb + 3 * (u * lc + lane);
+      const float x = __fsub_rn(r[0], cx), y = __fsub_rn(r[1], cy), z = __fsub_rn(r[2], cz);
+      const float rr = __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z));
+      rows[lane * stride + u] = make_float4(x, y, z, rr);
+    }
+    __syncthreads();
+    for (int lane = jl; lane < nl; lane += kMFLaneThreads) {
+      const float4* rl = rows + lane * stride;
+      float4 r = rl[1];  // prefetched a row ahead
+      mf_row<true>(rl[0], ax, ay, az, nc, m, mult0);  // slot 0, weighted
+#pragma unroll 4
+      for (int u = 1; u < n_u; ++u) {
+        const float4 next = rl[u + 1];
+        mf_row<false>(r, ax, ay, az, nc, m, 1.f);
+        r = next;
       }
     }
+  }
+
+  // Reduce the quad's partial sums, each thread keeping one query: threads
+  // jl and jl ^ 2 swap halves (jl & 2 keeps queries 2, 3), then jl and jl ^ 1
+  // (jl & 1 keeps the odd one), so lane thread jl ends with query jl, summed
+  // as (P[jl] + P[jl ^ 2]) + (P[jl ^ 1] + P[jl ^ 3]) over the partials P.
+  const bool hi = jl & 2, odd = jl & 1;
+  float h[2][10], res[10];
 #pragma unroll
-    for (int f = 0; f < 10; ++f) out[f * n + q] = m[f];
+  for (int k = 0; k < 2; ++k) {
+#pragma unroll
+    for (int f = 0; f < 10; ++f) {
+      const float send = hi ? m[k][f] : m[k + 2][f];
+      const float keep = hi ? m[k + 2][f] : m[k][f];
+      h[k][f] = keep + __shfl_xor_sync(0xffffffffu, send, 2);
+    }
+  }
+#pragma unroll
+  for (int f = 0; f < 10; ++f) {
+    const float send = odd ? h[0][f] : h[1][f];
+    const float keep = odd ? h[1][f] : h[0][f];
+    res[f] = keep + __shfl_xor_sync(0xffffffffu, send, 1);
+  }
+  const int qi = q_first + jl;
+  if (qi < gq) {
+    const int64_t q = (int64_t)grp * gq + qi;
+#pragma unroll
+    for (int f = 0; f < 10; ++f) out[f * n + q] = res[f];
   }
 }
 
@@ -703,20 +843,29 @@ int icpx_fused4_forward(const void* query, const void* tiles, const void* unions
   return static_cast<int>(cudaGetLastError());
 }
 
+// moments_fused's shape: threads a block, queries a thread, threads that
+// split a quad's lanes, union rows a chunk. The wrapper plans and checks
+// from these.
+void icpx_moments_fused_shape(int* threads, int* queries_per_thread, int* lane_threads,
+                              int* chunk_rows) {
+  *threads = kMFThreads;
+  *queries_per_thread = kMFQ;
+  *lane_threads = kMFLaneThreads;
+  *chunk_rows = kMFChunkRows;
+}
+
 // query (g * gq, 3), tiles (t, s, 3), q_cent (g, 3) and r2 (1,) f32; unions
-// (g, u_max) i32; out (10, g * gq) f32. Opts in to u_max * s * 16 bytes of
-// dynamic shared memory. Same launch contract as above.
+// (g, u_max) i32 with u_max <= kMFMaxUnion; out (10, g * gq) f32. A grid of
+// (g, ceil(gq / kMFQueries)) blocks. Same launch contract as above.
 int icpx_moments_fused_forward(const void* query, const void* tiles, const void* unions,
                                const void* q_cent, const void* r2, int g, int gq, int s, int u_max,
                                void* out, int device, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
+  if (u_max < 1 || u_max > kMFMaxUnion || s < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (g > 0 && gq > 0) {
-    const size_t smem = sizeof(float4) * (size_t)u_max * s;
-    const cudaError_t attr = cudaFuncSetAttribute(
-        moments_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (attr != cudaSuccess) return static_cast<int>(attr);
-    moments_fused_kernel<<<g, threads_for(gq), smem, static_cast<cudaStream_t>(stream)>>>(
+    const dim3 grid(g, (gq + kMFQueries - 1) / kMFQueries);
+    moments_fused_kernel<<<grid, kMFThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(query), static_cast<const float*>(tiles),
         static_cast<const int*>(unions), static_cast<const float*>(q_cent),
         static_cast<const float*>(r2), gq, s, u_max, static_cast<float*>(out), (int64_t)g * gq);

@@ -63,7 +63,6 @@ LAUNCHES = {"moments6": 0, "fold6": 0, "fold7": 0, "select": 0, "fused4": 0, "mo
 
 _MISS_D2 = 1.0e15  # a fold d2 at or beyond this is a miss
 _MAX_ROWS = 3072  # k * S candidate rows a block stages (48 KB of float4)
-_MAX_SMEM = 232448  # dynamic shared memory one block may opt in to (227 KB; moments_fused)
 # Query tiles (fused4: groups) per step of the plain versions: bounds their
 # (chunk, Sq, k*S) temporaries (~200 MB each at the flagship's fold shapes;
 # fused4's (chunk, G*Sq, U*S) ~128 MB at U = 32).
@@ -71,7 +70,8 @@ _PLAIN_CHUNK = {"moments6": 512, "fold6": 1024, "fold7": 1024, "fused4": 32, "mo
 
 
 class Fused4Shape(NamedTuple):
-    """The fused4 kernel's constants, as the built library reports them."""
+    """A union kernel's constants (fused4's; moments_fused has the same
+    four, with values of its own), as the built library reports them."""
 
     threads: int  # threads of a block
     queries_per_thread: int
@@ -81,12 +81,22 @@ class Fused4Shape(NamedTuple):
 
 _lib: Optional[ctypes.CDLL] = None
 _fused4_shape: Optional[Fused4Shape] = None
+_moments_fused_shape: Optional[Fused4Shape] = None
+
+
+def _read_shape(lib: ctypes.CDLL, name: str) -> Fused4Shape:
+    fn = getattr(lib, name)
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 4
+    fn.restype = None
+    vals = [ctypes.c_int() for _ in range(4)]
+    fn(*map(ctypes.byref, vals))
+    return Fused4Shape(*(v.value for v in vals))
 
 
 def build() -> ctypes.CDLL:
     """Compile (if the cache misses) and load the kernel library, and read
-    fused4's shape."""
-    global _lib, _fused4_shape
+    the union kernels' shapes."""
+    global _lib, _fused4_shape, _moments_fused_shape
     if _lib is not None:
         return _lib
     lib = cuda_build.load("blocknn")
@@ -103,11 +113,8 @@ def build() -> ctypes.CDLL:
     lib.icpx_fused4_forward.restype = i
     lib.icpx_moments_fused_forward.argtypes = [p, p, p, p, p, i, i, i, i, p, i, p]
     lib.icpx_moments_fused_forward.restype = i
-    lib.icpx_fused4_shape.argtypes = [ctypes.POINTER(i)] * 4
-    lib.icpx_fused4_shape.restype = None
-    vals = [i() for _ in range(4)]
-    lib.icpx_fused4_shape(*map(ctypes.byref, vals))
-    _fused4_shape = Fused4Shape(*(v.value for v in vals))
+    _fused4_shape = _read_shape(lib, "icpx_fused4_shape")
+    _moments_fused_shape = _read_shape(lib, "icpx_moments_fused_shape")
     _lib = lib
     return lib
 
@@ -116,6 +123,12 @@ def fused4_shape() -> Fused4Shape:
     """The built fused4 kernel's shape."""
     build()
     return _fused4_shape
+
+
+def moments_fused_shape() -> Fused4Shape:
+    """The built moments_fused kernel's shape."""
+    build()
+    return _moments_fused_shape
 
 
 def library_path():
@@ -568,7 +581,8 @@ def group_unions(cand_tiles: torch.Tensor, group: int, u_max: int) -> torch.Tens
 
 
 def fused4_plan(gq: int, s: int, n_u: int, shape: Fused4Shape) -> Dict[str, int]:
-    """How a fused4 kernel of `shape` covers a group of gq queries against a
+    """How a union kernel of `shape` (fused4, or moments_fused, which stages
+    and splits a union the same way) covers a group of gq queries against a
     union of n_u slots of s lanes: query blocks a group, lanes a staged
     chunk holds (every slot of them, at most chunk_rows rows, a multiple of
     lane_threads, no more than s needs), chunks, and the longest union it
@@ -736,12 +750,12 @@ def moments_fused_cuda(query_tiles: torch.Tensor, tiles: torch.Tensor, unions: t
         raise ValueError(f"shapes do not fit: query {tuple(query_tiles.shape)}, tiles "
                          f"{tuple(tiles.shape)}, unions {tuple(unions.shape)}, q_cent "
                          f"{tuple(q_cent.shape)}, group {group}")
-    if u_max * s * 16 > _MAX_SMEM:
-        raise ValueError(f"a union of {u_max} x {s} rows needs {u_max * s * 16} bytes of "
-                         f"shared memory, over {_MAX_SMEM}")
+    lib = build()
+    max_union = fused4_plan(group * sq, s, 1, _moments_fused_shape)["max_union"]
+    if u_max > max_union:
+        raise ValueError(f"unions of {u_max} slots exceed the kernel's {max_union}")
     if tiles.numel() >= 2**31 or query_tiles.numel() >= 2**31:
         raise ValueError("too many rows for the kernels' int32 tile ids")
-    lib = build()
     out = torch.empty((10, tq * sq), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.icpx_moments_fused_forward(

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """A/B of two checkouts of the port on one card: the cat pair's wall, `nn`,
-and the `fused4` and `sort` kernels.
+and the `fused4`, `sort` and `moments_fused` kernels.
 
     python3 scripts/torch_cat_ab.py PARENT CHANGE [--pairs 12] [--out FILE]
 
@@ -13,14 +13,18 @@ median of 5 after 2 warm calls, host clock around torch.cuda.synchronize()
 fences), the event time of one `nn` call at the cat shape (3,456 x 3,456,
 56 pad rows on both sides; median of 5), and the device time (a CUDA graph
 of 20 calls) and the event time of one `fused4` call at the 1M flagship's
-refine shape and of the tile-128 KD build's four level sorts (summed).
-After the readings each worker holds `nn` to its plain version bit for bit
-at the cat shape and at 65,536 x 65,536, and `fused4` and every level sort
-likewise, and times `nn` there. Prints each side's median, min and max of
-every reading, and one JSON line with all of it (also written to FILE).
-The timers and the inputs are chip_smoke.py's, from the checkout that holds
-this script: `fused4` on `_refine_operands` of the `_gt_pair` flagship (k =
-6, groups of 4, unions of 32), the sorts on `_sort_operands`.
+refine shape, of the tile-128 KD build's four level sorts (summed) and of
+one `moments_fused` call at the 1M covariance index. After the readings
+each worker holds `nn` to its plain version bit for bit at the cat shape
+and at 65,536 x 65,536, and `fused4` and every level sort likewise, and
+`moments_fused`'s counts; and times `nn` there. Prints each side's median,
+min and max of every reading, and one JSON line with all of it (also
+written to FILE). The timers and the inputs are chip_smoke.py's, from the
+checkout that holds this script: `fused4` on `_refine_operands` of the
+`_gt_pair` flagship (k = 6, groups of 4, unions of 32), the sorts on
+`_sort_operands`, `moments_fused` on the flagship target's KD index of
+128-point tiles, each its own query tile (`_cov_radius(target, 15)`, k 8,
+groups of 4, unions of 32), as `_phase_moments_fused` has it.
 """
 
 import argparse
@@ -59,7 +63,7 @@ def worker(root: str) -> None:
     from icpx_torch.cloud import PointCloud
     from icpx_torch.io.loaders import load_cat_pair
     from icpx_torch.kernels import blocknn_cuda, cuda_build, nn_cuda, sort_cuda
-    from icpx_torch.kernels.blocknn import build_kd_index, trim_index
+    from icpx_torch.kernels.blocknn import _candidate_tiles, build_kd_index, trim_index
     from icpx_torch.kernels.knn import nearest_neighbor_reference
     from icpx_torch.registration.icp import ICPConfig, register
 
@@ -81,6 +85,13 @@ def worker(root: str) -> None:
                            f_tgt.capacity, multiple=64)
     query, cand, _ = smoke._refine_operands(f_src, tgt_index, f_gt)
     unions = blocknn_cuda.group_unions(cand, 4, 32).to(torch.int32)  # an older checkout's are int64
+    # moments_fused at the 1M covariance index
+    cov_idx = build_kd_index(f_tgt.xyz, f_tgt.mask, tile_size=128)
+    cov_radius = smoke._cov_radius(f_tgt, 15)
+    cov_r2 = (cov_radius * cov_radius).reshape(1).to(torch.float32)
+    cov_unions = blocknn_cuda.group_unions(_candidate_tiles(cov_idx.tiles, cov_idx, 8)[0], 4, 32)
+    cov_cent = blocknn_cuda.group_centroids(cov_idx.tiles, 4)
+    cov_args = (cov_idx.tiles, cov_idx.tiles, cov_unions.to(torch.int32), cov_cent)
     del f_src, f_tgt, cand
     levels = [smoke._sort_operands(dev, c, m, i)
               for i, (c, m) in enumerate(((64, 16384), (256, 4096), (1024, 1024), (4096, 256)))]
@@ -88,8 +99,8 @@ def worker(root: str) -> None:
     def fused4():
         return blocknn_cuda.fused4_cuda(query, tgt_index.tiles, unions, 4)
 
-    def sorts():
-        return [sort_cuda.sort_cuda(key, [xyz, orig]) for key, xyz, orig in levels]
+    def moments():
+        return blocknn_cuda.moments_fused_cuda(*cov_args, cov_r2, 4)
 
     def reading():
         wall = smoke._sync_time(lambda: register(src, tgt, cfg), reps=5, warmup=2)[0]
@@ -100,7 +111,9 @@ def worker(root: str) -> None:
                 "sort4_device_ms": sum(smoke._graph_ms(lambda: sort_cuda.sort_cuda(k, [x, o]))
                                        for k, x, o in levels),
                 "sort4_event_ms": sum(smoke._event_ms(lambda: sort_cuda.sort_cuda(k, [x, o]))
-                                      for k, x, o in levels)}
+                                      for k, x, o in levels),
+                "moments_fused_device_ms": smoke._graph_ms(moments),
+                "moments_fused_event_ms": smoke._event_ms(moments)}
 
     def summary():
         out = {}
@@ -120,6 +133,8 @@ def worker(root: str) -> None:
             want = sort_cuda.sort_segments_reference(key, [xyz, orig])
             equal &= all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(got, want))
         out["sort4"] = {"bit_equal": bool(equal)}
+        want = blocknn_cuda.moments_fused_reference(*cov_args, cov_r2[0], 4)
+        out["moments_fused"] = {"bit_equal": bool(torch.equal(moments()[0], want[0]))}  # the counts
         return out
 
     print(json.dumps({"ready": root}), file=proto, flush=True)

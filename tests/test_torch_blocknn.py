@@ -939,19 +939,27 @@ def test_moments_fused_counts_padded_slots_again(union_moments_case):
     assert (cnt_t >= to_np(cnt_x)[valid]).all()  # the union holds every tile's candidates
 
 
-def test_moments_fused_slot_weights_equal_summing_every_slot():
-    """The plain version (and the kernel) score slot 0's tile once and weigh
-    it by 1 + the padded slots; summing every slot as the TPU kernel does
-    gives the same counts and, to fp32, the same sums, sentinel rows (in
-    tile 7) and padded queries included."""
+def _slot_weights_fixture():
+    """Query tiles (8, 16, 3) in 2 groups of 4, tiles (8, 16, 3) with sentinel
+    rows in tile 7 and padded queries in tile 5, and one padded union (3 of
+    8 slots) beside a full one."""
     unions = torch.tensor([[1, 2, 5, 1, 1, 1, 1, 1], [3, 0, 4, 6, 2, 7, 5, 1]])
-    np.testing.assert_array_equal(to_np(blocknn_cuda._slot_weights(unions)),
-                                  [[6, 1, 1, 0, 0, 0, 0, 0], [1] * 8])
     rng = np.random.default_rng(21)
     tiles = rng.uniform(-1, 1, (8, 16, 3)).astype(np.float32)
     tiles[7, 10:] = PAD_COORD
     query = rng.uniform(-1, 1, (8, 16, 3)).astype(np.float32)
     query[5, 12:] = PAD_COORD
+    return query, tiles, unions
+
+
+def test_moments_fused_slot_weights_equal_summing_every_slot():
+    """The plain version (and the kernel) score slot 0's tile once and weigh
+    it by 1 + the padded slots; summing every slot as the TPU kernel does
+    gives the same counts and, to fp32, the same sums, sentinel rows (in
+    tile 7) and padded queries included."""
+    query, tiles, unions = _slot_weights_fixture()
+    np.testing.assert_array_equal(to_np(blocknn_cuda._slot_weights(unions)),
+                                  [[6, 1, 1, 0, 0, 0, 0, 0], [1] * 8])
     qt = torch.as_tensor(query)
     q_cent = blocknn_cuda.group_centroids(qt, 4)
     r2 = torch.tensor(0.6, dtype=torch.float32)
@@ -975,6 +983,161 @@ def test_moments_fused_slot_weights_equal_summing_every_slot():
     # tile 7's six, as the TPU kernel's score does; its row is dropped later
     assert (counts[5, 12:] == 6).all() and (counts > 0).mean() > 0.9
     np.testing.assert_allclose(out[1:], want[1:], rtol=1e-5, atol=1e-5)
+
+
+# The constants of csrc/blocknn.cu's moments_fused kernel, which the wrapper
+# reads from the built library; and one with chunks of 32 rows (unions of
+# up to 8 slots), so that a union's lanes span several chunks.
+MF_SHAPE = blocknn_cuda.Fused4Shape(threads=256, queries_per_thread=4, lane_threads=4,
+                                    chunk_rows=512)
+MF_SHORT = blocknn_cuda.Fused4Shape(threads=256, queries_per_thread=4, lane_threads=4,
+                                    chunk_rows=32)
+
+
+def emulate_moments_fused(query_tiles, tiles, unions, q_cent, r2, group, shape):
+    """csrc/blocknn.cu's moments_fused in numpy fp32, step for step: the
+    union's slots before the first repeat of slot 0's id, centred on the
+    group's q_cent and streamed in chunks of whole lanes (`fused4_plan`);
+    lane thread j of each quad scans lanes j, j + lane_threads, ... of a
+    chunk, in each lane slot 0 first, weighted u_max - n_u + 1, then slots
+    1 .. n_u - 1; a row counts for a query when s1 <= -c, s1 = ((ax rx +
+    ay ry) + az rz) + rr; each thread sums its hits' features in that order;
+    thread k of the quad then holds query k as (P[k] + P[k ^ 2]) + (P[k ^ 1]
+    + P[k ^ 3]). The kernel forms a weighted slot-0 term by one FMA; here
+    w * f is rounded first (sums within tolerance, counts exact)."""
+    tq, sq, _ = query_tiles.shape
+    s = tiles.shape[1]
+    g, u_max = unions.shape
+    gq = group * sq
+    lt = shape.lane_threads
+    assert lt == shape.queries_per_thread == 4  # the kernel's two shuffle rounds
+    q = query_tiles.reshape(g, gq, 3)
+    out = np.empty((10, g * gq), np.float32)
+    r2 = np.float32(r2)
+    for gi in range(g):
+        un = unions[gi]
+        n_u = 1
+        while n_u < u_max and un[n_u] != un[0]:
+            n_u += 1
+        lc = blocknn_cuda.fused4_plan(gq, s, n_u, shape)["lanes_per_chunk"]
+        r = tiles[un[:n_u]] - q_cent[gi]  # (n_u, S, 3), centred once a chunk in the kernel
+        x, y, z = r[..., 0], r[..., 1], r[..., 2]
+        rr = (x * x + y * y) + z * z
+        feat = np.stack([np.ones_like(x), x, y, z, x * x, y * y, z * z, x * y, x * z, y * z], -1)
+        qc = q[gi] - q_cent[gi]
+        qx, qy, qz = qc[:, 0:1], qc[:, 1:2], qc[:, 2:3]
+        nc = -(((qx * qx + qy * qy) + qz * qz) - r2)
+        mult0 = np.float32(u_max - n_u + 1)
+        part = np.zeros((lt, gq, 10), np.float32)
+        for l0 in range(0, s, lc):
+            for j in range(lt):
+                lanes = np.arange(l0 + j, min(l0 + lc, s), lt)
+                us = np.tile(np.arange(n_u), len(lanes))  # per lane: slot 0, then 1 .. n_u - 1
+                ls = np.repeat(lanes, n_u)
+                s1 = (((np.float32(-2) * qx) * x[us, ls] + (np.float32(-2) * qy) * y[us, ls])
+                      + (np.float32(-2) * qz) * z[us, ls]) + rr[us, ls]  # (gq, rows)
+                w = np.where(us == 0, mult0, np.float32(1))[:, None] * feat[us, ls]
+                terms = np.where((s1 <= nc)[..., None], w[None], np.float32(0))
+                part[j] = np.add.accumulate(np.concatenate([part[j][:, None], terms], 1), 1)[:, -1]
+        k = np.arange(gq) % lt  # query i is query k of its quad: thread k keeps it
+        i = np.arange(gq)
+        out[:, gi * gq:(gi + 1) * gq] = ((part[k, i] + part[k ^ 2, i])
+                                         + (part[k ^ 1, i] + part[k ^ 3, i])).T
+    return out
+
+
+def _check_emulated_moments(out_e, out_p, q_cent, gq, valid):
+    """Counts bit-equal on every row; on the valid rows means within 1e-5
+    and covariances within `_cov_tol` about the group centroid."""
+    np.testing.assert_array_equal(out_e[0], to_np(out_p[0]))
+    (_, mean_e, cov_e), (_, mean_p, cov_p) = (
+        blocknn_cuda.finish_union_moments(torch.as_tensor(o), torch.as_tensor(q_cent), gq)
+        for o in (out_e, out_p))
+    np.testing.assert_allclose(to_np(mean_e)[valid], to_np(mean_p)[valid], rtol=0, atol=1e-5)
+    tol = _cov_tol(to_np(mean_p), _comps(to_np(cov_p)), q_cent, gq)[valid]
+    for ce, cp in zip(_comps(to_np(cov_e)), _comps(to_np(cov_p))):
+        err = np.abs(ce[valid].astype(np.float64) - cp[valid])
+        assert (err <= tol).all(), float(np.max(err - tol))
+
+
+@pytest.mark.parametrize("u_max,shape", [
+    (32, MF_SHAPE), (8, MF_SHAPE), (128, MF_SHAPE), (32, MF_SHAPE._replace(chunk_rows=128)),
+], ids=["u_max 32", "u_max 8", "largest union", "short chunks"])
+def test_emulated_moments_fused_equals_reference(union_moments_case, u_max, shape):
+    """The kernel's chunks, lane split, peeled slot 0, s1 <= -c compare and
+    shuffle combine give the plain version's counts bit for bit, and its
+    moments within tolerance, on `union_moments_case`'s 8,000 points at
+    u_max 32, at 8 (overflowing unions) and at the kernel's largest union
+    (every union padded, slot 0 weighted ~100 times); and with chunks of
+    128 rows (a union of 15 slots in 16 chunks of 8 lanes)."""
+    _, ji, ti, *_ = union_moments_case
+    assert u_max <= blocknn_cuda.fused4_plan(512, 128, 1, shape)["max_union"]
+    cand, _ = tb._candidate_tiles(ti.tiles, ti, 8)
+    unions = blocknn_cuda.group_unions(cand, 4, u_max)
+    q_cent = blocknn_cuda.group_centroids(ti.tiles, 4)
+    r2 = torch.tensor(RADIUS_U * RADIUS_U, dtype=torch.float32)
+    out_p = blocknn_cuda.moments_fused_reference(ti.tiles, ti.tiles, unions, q_cent, r2, 4)
+    out_e = emulate_moments_fused(to_np(ti.tiles), to_np(ti.tiles), to_np(unions), to_np(q_cent),
+                                  float(r2), 4, shape)
+    assert float(out_p[0].max()) > u_max - 32  # slot 0's weight shows in the counts
+    _check_emulated_moments(out_e, out_p, to_np(q_cent), 4 * ti.tile_size, np.asarray(ji.order) >= 0)
+
+
+@pytest.mark.parametrize("shape", [MF_SHAPE, MF_SHORT], ids=["kernel", "short chunks"])
+def test_emulated_moments_fused_slot_weights_fixture(shape):
+    """The same on the slot-weights fixture: a padded union (slot 0 weighted
+    6), sentinel rows in tile 7 and padded queries, which count tile 7's six
+    sentinel rows as the plain version does (their rows are dropped later);
+    with short chunks each union spans 4 chunks of 4 lanes."""
+    query, tiles, unions = _slot_weights_fixture()
+    q_cent = blocknn_cuda.group_centroids(torch.as_tensor(query), 4)
+    r2 = torch.tensor(0.6, dtype=torch.float32)
+    out_p = blocknn_cuda.moments_fused_reference(torch.as_tensor(query), torch.as_tensor(tiles),
+                                                 unions, q_cent, r2, 4)
+    out_e = emulate_moments_fused(query, tiles, to_np(unions), to_np(q_cent), 0.6, 4, shape)
+    valid = (np.abs(query) < 1e6).all(-1).reshape(-1)
+    assert (~valid).sum() == 4 and (out_e[0][~valid] == 6).all()
+    _check_emulated_moments(out_e, out_p, to_np(q_cent), 64, valid)
+
+
+def test_moments_fused_compare_without_the_last_add():
+    """The kernel tests s1 <= -c where the plain version tests
+    round(s1 + c) <= 0: the same verdict for every pair of fp32 values
+    (rounding to nearest is monotone, and a nonzero sum never rounds to 0
+    without flush-to-zero), here at radius-border values: exact zeros of
+    both signs, exact cancellations, neighbours of a cancellation a few ulps
+    apart, subnormals and sums that cancel to one ulp of a large value."""
+    rng = np.random.default_rng(40)
+    c = np.concatenate([rng.uniform(-1, 1, 2000), rng.uniform(-1e3, 1e3, 2000),
+                        [0.0, -0.0, 1e-45, -1e-45, 1e-38, -1e-38, 3e16, -3e16]]).astype(np.float32)
+    s1 = [-c, -c + np.float32(0), c, np.zeros_like(c), -np.zeros_like(c)]
+    for steps in (1, 2, 3):  # a few ulps either side of the cancellation
+        s1 += [np.nextafter(-c, np.float32(np.inf)), np.nextafter(-c, np.float32(-np.inf))]
+        for _ in range(steps - 1):
+            s1[-2], s1[-1] = (np.nextafter(s1[-2], np.float32(np.inf)),
+                              np.nextafter(s1[-1], np.float32(-np.inf)))
+    s1 += [(-c + rng.uniform(-1e-6, 1e-6, c.shape).astype(np.float32)).astype(np.float32)]
+    s1 = np.concatenate(s1).astype(np.float32)
+    cc = np.tile(c, len(s1) // len(c))
+    assert s1.dtype == cc.dtype == np.float32
+    with np.errstate(over="ignore"):
+        rounded = (s1 + cc) <= np.float32(0)  # fp32 add, rounded to nearest
+    assert ((s1 + cc) == 0).sum() > 4000 and rounded.any() and not rounded.all()
+    np.testing.assert_array_equal(s1 <= -cc, rounded)
+
+
+@pytest.mark.parametrize("gq,s,n_u,want", [
+    (512, 128, 15, (2, 32, 4)),  # the 1M covariance index: unions of 15.4 tiles on average
+    (512, 128, 30, (2, 16, 8)),  # its largest union
+    (512, 128, 32, (2, 16, 8)),  # a full union of u_max 32
+    (512, 128, 1, (2, 128, 1)),  # one slot: the whole union in one chunk
+    (512, 128, 128, (2, 4, 32)),  # the longest union: 4 lanes a chunk
+    (64, 16, 3, (1, 16, 1)),  # the slot-weights fixture
+])
+def test_moments_fused_plan_of_the_kernel_shape(gq, s, n_u, want):
+    plan = blocknn_cuda.fused4_plan(gq, s, n_u, MF_SHAPE)
+    assert (plan["query_blocks"], plan["lanes_per_chunk"], plan["chunks"]) == want
+    assert plan["max_union"] == 128 and n_u * plan["lanes_per_chunk"] <= MF_SHAPE.chunk_rows
 
 
 # ---- radius, normals ---------------------------------------------------------------
@@ -1132,16 +1295,35 @@ def test_cuda_fused4_library_shape(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_moments_fused_matches_plain(cuda_device):
+    """Unions of 32, 8 (overflowing) and the kernel's largest, 128; the
+    slot-weights fixture; and a union above the largest refused."""
     r = np.random.default_rng(0).uniform(-1, 1, (8000, 3)).astype(np.float32)
     ti = tb.build_kd_index(torch.as_tensor(r, device=cuda_device), tile_size=128)
     cand, _ = tb._candidate_tiles(ti.tiles, ti, 8)
-    unions = blocknn_cuda.group_unions(cand, 4, 32)
     q_cent = blocknn_cuda.group_centroids(ti.tiles, 4)
     r2 = torch.tensor([RADIUS_U * RADIUS_U], dtype=torch.float32, device=cuda_device)
-    before = blocknn_cuda.LAUNCHES["moments_fused"]
-    out_k = blocknn_cuda.moments_fused_cuda(ti.tiles, ti.tiles, unions.to(torch.int32), q_cent, r2, 4)
-    out_p = blocknn_cuda.moments_fused_reference(ti.tiles, ti.tiles, unions, q_cent, r2[0], 4)
-    torch.cuda.synchronize()
-    assert blocknn_cuda.LAUNCHES["moments_fused"] == before + 1
-    assert torch.equal(out_k[0], out_p[0])  # the same score bits: the same counts
-    torch.testing.assert_close(out_k[1:], out_p[1:], rtol=1e-5, atol=1e-4)
+    for u_max in (32, 8, 128):
+        unions = blocknn_cuda.group_unions(cand, 4, u_max)
+        before = blocknn_cuda.LAUNCHES["moments_fused"]
+        out_k = blocknn_cuda.moments_fused_cuda(ti.tiles, ti.tiles, unions.to(torch.int32), q_cent, r2, 4)
+        out_p = blocknn_cuda.moments_fused_reference(ti.tiles, ti.tiles, unions, q_cent, r2[0], 4)
+        torch.cuda.synchronize()
+        assert blocknn_cuda.LAUNCHES["moments_fused"] == before + 1
+        assert torch.equal(out_k[0], out_p[0]), u_max  # the same verdicts: the same counts
+        torch.testing.assert_close(out_k[1:], out_p[1:], rtol=1e-5, atol=1e-4)
+    query, tiles, unions = _slot_weights_fixture()
+    qt = torch.as_tensor(query, device=cuda_device)
+    fq_cent = blocknn_cuda.group_centroids(qt, 4)
+    args = (qt, torch.as_tensor(tiles, device=cuda_device), unions.to(cuda_device, torch.int32), fq_cent,
+            torch.tensor([0.6], device=cuda_device), 4)
+    assert torch.equal(blocknn_cuda.moments_fused_cuda(*args)[0],
+                       blocknn_cuda.moments_fused_reference(*args[:4], args[4][0], 4)[0])
+    wide = blocknn_cuda.group_unions(cand, 4, 129).to(torch.int32)
+    with pytest.raises(ValueError, match="exceed the kernel's 128"):
+        blocknn_cuda.moments_fused_cuda(ti.tiles, ti.tiles, wide, q_cent, r2, 4)
+
+
+@pytest.mark.cuda
+def test_cuda_moments_fused_library_shape(cuda_device):
+    """The built library reports the shape the plan tests above assume."""
+    assert blocknn_cuda.moments_fused_shape() == MF_SHAPE
