@@ -433,27 +433,77 @@ def _refine_operands(src, tgt_index, gt):
     return query, cand, q_cent
 
 
+def _fold6_fixtures(dev):
+    """fold6's screen fixtures, made with numpy from a seed, each (query
+    tiles, index, cand, payload): "near ties" (each query's near row and two
+    copies one ulp off in x or y, in other lanes and tiles), "mixed
+    sentinel" (a third of the rows at PAD_COORD), "pad queries" (a quarter
+    of the query rows at PAD_COORD), "far queries" (2e5 units from their
+    candidates: a wide margin, the direct scan), and "rows beyond R" (tile
+    boxes that miss the rows: the kernel's radius check sends those tiles to
+    the direct scan)."""
+    from icpx_torch.cloud import PAD_COORD
+    from icpx_torch.kernels.blocknn import TileIndex, _finish_index
+
+    out = {}
+    for name in ("near ties", "mixed sentinel", "pad queries", "far queries", "rows beyond R"):
+        rng = np.random.default_rng(sum(map(ord, name)))
+        n_tiles, s, tq, sq, k = 24, 128, 8, 64, 6
+        tiles = rng.uniform(-1, 1, (n_tiles, s, 3)).astype(np.float32)
+        query = rng.uniform(-1, 1, (tq, sq, 3)).astype(np.float32)
+        cand = rng.integers(0, n_tiles, (tq, k))
+        if name == "near ties":
+            flat = tiles.reshape(-1, 3)
+            for qi, q in enumerate(query.reshape(-1, 3)):
+                r1 = (q + rng.normal(scale=1e-3, size=3)).astype(np.float32)
+                r2, r3 = r1.copy(), r1.copy()
+                r2[0] = np.nextafter(r1[0], np.float32(np.inf))
+                r3[1] = np.nextafter(r1[1], np.float32(-np.inf))
+                for r, c in zip((r1, r2, r3), rng.permutation(k)[:3]):
+                    flat[cand[qi // sq, c] * s + rng.integers(s)] = r
+        elif name == "mixed sentinel":
+            tiles[rng.uniform(size=(n_tiles, s)) < 0.33] = PAD_COORD
+        elif name == "pad queries":
+            query[rng.uniform(size=(tq, sq)) < 0.25] = PAD_COORD
+        elif name == "far queries":
+            query += np.float32(2e5)
+        valid = (np.abs(tiles) < 1e6).all(2)
+        order = np.where(valid, np.arange(n_tiles * s).reshape(n_tiles, s), -1).reshape(-1)
+        index = _finish_index(torch.as_tensor(tiles, device=dev),
+                              torch.as_tensor(order, dtype=torch.int32, device=dev))
+        if name == "rows beyond R":
+            mid = index.tiles.mean(1)
+            index = TileIndex(tiles=index.tiles, box_lo=mid, box_hi=mid, centroids=mid,
+                              order=index.order)
+        payload = torch.as_tensor(rng.normal(size=(n_tiles * s, 6)).astype(np.float32), device=dev)
+        out[name] = (torch.as_tensor(query, device=dev), index,
+                     torch.as_tensor(cand, device=dev), payload)
+    return out
+
+
 def _phase_fold6(dev, query, cand, tgt_index, table, table12, fixtures):
     """Kernel #3 against its plain version at the shapes of one flagship
     refine iteration (16,384 x 64 queries, k = 6 frozen candidates, the
     fused (T*S, 6) table of the symmetric objective and GICP's (T*S, 12)
-    one), plus the fixtures; returns its JSON fields (times at D = 6)."""
+    one), bit for bit on every row, plus the tie and miss fixtures and the
+    screen's (`_fold6_fixtures`); times at D = 6 and D = 12 (the latter's
+    under *_d12); returns its JSON fields."""
     from icpx_torch.kernels import blocknn_cuda
 
     def compare(name, query, ops):
         d_k, pl_k = blocknn_cuda.fold6_cuda(query, ops)
         d_p, pl_p = blocknn_cuda.fold6_reference(query, ops)
         torch.cuda.synchronize()
-        # the same d2 bits and scan order: the same winner on every row
-        if not (torch.equal(d_k, d_p) and torch.equal(pl_k, pl_p)):
+        # the same d2 bits and the same winner on every row
+        if not (torch.equal(d_k.view(torch.int32), d_p.view(torch.int32)) and torch.equal(pl_k, pl_p)):
             _fail(f"fold6 {name}: kernel and plain differ on "
                   f"{int(((d_k != d_p) | (pl_k != pl_p).any(1)).sum())} rows")
         return d_k, pl_k, _max_err(d_k, d_p)
 
     ops = blocknn_cuda.fold6_prepare(cand, tgt_index, table)
+    ops12 = blocknn_cuda.fold6_prepare(cand, tgt_index, table12)
     d, _, err = compare(f"{tuple(query.shape)} k=6", query, ops)
-    _, _, err12 = compare(f"{tuple(query.shape)} k=6 D=12", query,
-                          blocknn_cuda.fold6_prepare(cand, tgt_index, table12))
+    _, _, err12 = compare(f"{tuple(query.shape)} k=6 D=12", query, ops12)
     fq, f_index, f_cand, f_payload = fixtures
     f_ops = blocknn_cuda.fold6_prepare(f_cand, f_index, f_payload)
     fd, fpl, fx_err = compare("fixtures", fq, f_ops)
@@ -461,21 +511,43 @@ def _phase_fold6(dev, query, cand, tgt_index, table, table12, fixtures):
         _fail("fold6 fixtures: tie rule broken (least d2, lowest lane, earliest candidate)")
     if not (bool(torch.isinf(fd[8:14]).all()) and float(fpl[8, 0]) == 32.0):
         _fail("fold6 fixtures: a tile of all-sentinel candidates must miss onto its first sentinel row")
-    ms = _event_ms(lambda: blocknn_cuda.fold6_cuda(query, ops))
-    device_ms = _graph_ms(lambda: blocknn_cuda.fold6_cuda(query, ops))
-    plain_ms = _event_ms(lambda: blocknn_cuda.fold6_reference(query, ops))
+    for name, (x_query, x_index, x_cand, x_payload) in _fold6_fixtures(dev).items():
+        _, _, e = compare(f"fixture {name}", x_query, blocknn_cuda.fold6_prepare(x_cand, x_index, x_payload))
+        fx_err = max(fx_err, e)
     tq, sq, _ = query.shape
-    n, k = tq * sq, cand.shape[1]
-    bytes_moved = n * 12 + tgt_index.tiles.numel() * 4 + tq * k * 4 + table.numel() * 4 + n * 28
-    bound_ms, bound_by = _bound(bytes_moved, n * k * tgt_index.tile_size * 8.0)
-    print(f"fold6 kernel vs plain {tuple(query.shape)} k=6: d2 and payload equal on all {n} rows "
+    n, k, s = tq * sq, cand.shape[1], tgt_index.tile_size
+    timed = {}
+    for suffix, o in (("", ops), ("_d12", ops12)):
+        d_pl = o.payload.shape[1]
+        bytes_moved = (n * 12 + tgt_index.tiles.numel() * 4 + tq * k * 4 + tq * 16 + o.payload.numel() * 4
+                       + n * (4 + 4 * d_pl))
+        bound_ms, bound_by = _bound(bytes_moved, n * k * s * 8.0)  # the direct form's 8 a pair
+        timed.update({f"ms{suffix}": _event_ms(lambda: blocknn_cuda.fold6_cuda(query, o)),
+                      f"device_ms{suffix}": _graph_ms(lambda: blocknn_cuda.fold6_cuda(query, o)),
+                      f"plain_ms{suffix}": _event_ms(lambda: blocknn_cuda.fold6_reference(query, o)),
+                      f"bound_ms{suffix}": bound_ms})
+    prepare_ms = _event_ms(lambda: blocknn_cuda.fold6_prepare(cand, tgt_index, table))
+    # the kernel's shape lives in the built library; a rehearsal off the card has none
+    if dev.type == "cuda":
+        shape = blocknn_cuda.fold6_shape()
+        plan = blocknn_cuda.fold6_plan(tq, sq, s, k, shape)
+        shape_text = (f"{shape.threads} threads, {shape.queries_per_thread} queries a thread, groups "
+                      f"of {shape.group} rows, stages of {shape.stage_rows} rows; plan: "
+                      f"{plan['tiles_per_block']} query tiles a block, {plan['stages']} stages of "
+                      f"{plan['lanes_per_stage']} lanes, grid {plan['blocks']}")
+    else:
+        shape_text = "no kernel shape (no CUDA device)"
+    print(f"fold6 kernel vs plain {tuple(query.shape)} k=6: d2 and payload bit-equal on all {n} rows "
           f"({int(torch.isfinite(d).sum())} hits), with the 6- and the 12-wide table; fixtures ok "
-          "(ties, misses, padded rows); "
-          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (CUDA events around one call, median of "
-          f"5), device time (CUDA graph replay) kernel {device_ms:.4f} ms, bound {bound_ms:.3f} ms "
-          f"({bound_by})")
-    return dict(max_abs_err=max(err, err12, fx_err), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None, device_ms=device_ms)
+          "(ties, misses, padded rows; near ties, mixed sentinel, pad queries, far queries, rows "
+          f"beyond R); D=6: kernel {timed['ms']:.4f} ms, plain {timed['plain_ms']:.3f} ms (CUDA "
+          f"events around one call, median of 5), device time (CUDA graph replay) kernel "
+          f"{timed['device_ms']:.4f} ms, bound {timed['bound_ms']:.4f} ms ({bound_by}); D=12: kernel "
+          f"{timed['ms_d12']:.4f} ms, plain {timed['plain_ms_d12']:.3f} ms, device time kernel "
+          f"{timed['device_ms_d12']:.4f} ms, bound {timed['bound_ms_d12']:.4f} ms; fold6_prepare "
+          f"{prepare_ms:.4f} ms (events, once a phase); {shape_text}")
+    return dict(max_abs_err=max(err, err12, fx_err), bound_by=bound_by, library_ms=None,
+                prepare_ms=prepare_ms, **timed)
 
 
 def _phase_fold7(dev, query, cand, q_cent, tgt_index, table, table12, fixtures):

@@ -16,22 +16,24 @@
 //             (wrapper block_radius_moments_fused, the fused branch of
 //             normals._block_radius_cov).
 //
-// moments6 and fold6 (fold7 and fused4 alike, see theirs below) score each
-// query tile (one block) against its own k candidate tiles
-// of the index, (T, S, 3) rows, listed in cand (Tq, k). The block stages the
-// k x S candidate rows in shared memory as float4; every thread of a warp
-// then reads the same row (a broadcast, no bank conflicts) while each thread
-// keeps one query and its running state in registers. Candidate tiles are
-// contiguous rows of the index, so staging reads are coalesced. The TPU
+// moments6 and fold7 score each query tile (one block) against its own k
+// candidate tiles of the index, (T, S, 3) rows, listed in cand (Tq, k). The
+// block stages the k x S candidate rows in shared memory as float4; every
+// thread of a warp then reads the same row (a broadcast, no bank conflicts)
+// while each thread keeps one query and its running state in registers.
+// Candidate tiles are contiguous rows of the index, so staging reads are
+// coalesced. fold6, fused4 and moments_fused (see theirs below) hold 4
+// queries a thread, split the rows across 4 neighbouring threads and stream
+// the rows through shared memory by cp.async; fold6 also screens. The TPU
 // kernels' shapes (S-minor transposes, (Tq, k, 3, S) and (Tq, k, 8, S) prep
 // copies, the 3-term bf16 one-hot payload selection) exist for the MXU and
 // the 128-lane VMEM layout and are dropped: nothing is copied ahead of a
-// launch, and the fold copies the winning payload row straight from device
+// launch, and the folds copy the winning payload row straight from device
 // memory, exactly.
 //
 // Cost model. Per scored pair: 3 FSUB + 3 FMUL + 2 FADD, a compare and a
 // select (plus, for moments, 16 operations on pairs inside the radius), with
-// no memory traffic of its own: both kernels are bound by the FP32 issue
+// no memory traffic of its own: the kernels are bound by the FP32 issue
 // rate, not by bytes (the flagship moments launch scores 1M x 256 pairs and
 // moves ~70 MB; the fold scores 1M x 768 pairs and moves ~190 MB).
 //
@@ -39,15 +41,15 @@
 // __fadd_rn forbid FMA contraction), so the plain PyTorch versions in
 // icpx_torch/kernels/blocknn_cuda.py reproduce every d2 bit for bit: the
 // radius test and the fold's winner agree exactly with them. The TPU kernels
-// score by the expansion ||r||^2 - 2 q.r (+ ||q||^2), which cancels at fp32.
+// score by the expansion ||r||^2 - 2 q.r (+ ||q||^2), which cancels at fp32;
+// fold6 screens by a centred expansion against a proven margin and keeps the
+// direct form's bits for the winner.
 //
-// Later work (not here): moments6, fold6 and fold7 still run one query a
-// thread over k x S rows staged whole; fused4 and moments_fused (queries in
-// registers, lanes split across threads, the union streamed by cp.async)
-// are the pattern for them. TMA staging; several query tiles a block at
-// small Sq; the union moments' 0/1 weight product on the tensor cores, as
-// the TPU ran it on its MXU (TF32 operands lose the second moments'
-// accuracy, and split bf16 operands are a design of their own).
+// Later work (not here): moments6 and fold7 still run one query a thread over
+// k x S rows staged whole; fold6, fused4 and moments_fused are the pattern
+// for them. TMA staging; the union moments' 0/1 weight product on the tensor
+// cores, as the TPU ran it on its MXU (TF32 operands lose the second
+// moments' accuracy, and split bf16 operands are a design of their own).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -133,48 +135,6 @@ __global__ void moments6_kernel(const float* __restrict__ query, const float* __
   }
 }
 
-// Frozen-candidate fold: for each query the nearest of its tile's k x S
-// candidate rows, its d2 (+inf from kMissD2 on), and that row's payload
-// (T * S, d) copied exactly. Rows are staged lane-major, candidate-minor
-// (rows[lane * k + c]) and scanned in that order with a strict '<', which is
-// the TPU kernel's tie rule: least d2, then lowest lane, then earliest
-// candidate. Sentinel rows keep their coordinates: a query whose candidates
-// are all sentinel lands on the first sentinel row (d2 ~1e16, so +inf) and
-// gets that row's payload.
-__global__ void fold6_kernel(const float* __restrict__ query, const float* __restrict__ tiles,
-                             const int* __restrict__ cand, const float* __restrict__ payload,
-                             int sq, int s, int k, int d, float* __restrict__ out_d,
-                             float* __restrict__ out_pl) {
-  extern __shared__ float4 rows[];  // s * k candidate rows
-  const int tile = blockIdx.x;
-  const int rows_n = k * s;
-  for (int j = threadIdx.x; j < rows_n; j += blockDim.x) {
-    const int c = j / s, lane = j - c * s;
-    const int64_t row = (int64_t)cand[(int64_t)tile * k + c] * s + lane;
-    rows[lane * k + c] = make_float4(tiles[3 * row + 0], tiles[3 * row + 1], tiles[3 * row + 2], 0.f);
-  }
-  __syncthreads();
-  for (int qi = threadIdx.x; qi < sq; qi += blockDim.x) {
-    const int64_t q = (int64_t)tile * sq + qi;
-    const float qx = query[3 * q + 0], qy = query[3 * q + 1], qz = query[3 * q + 2];
-    float best = __int_as_float(0x7f800000);
-    int best_j = 0;
-#pragma unroll 6
-    for (int j = 0; j < rows_n; ++j) {
-      const float4 r = rows[j];
-      const float d2 = sqdist_rn(qx, qy, qz, r.x, r.y, r.z);
-      if (d2 < best) {  // strict: the first row in scan order keeps a tie
-        best = d2;
-        best_j = j;
-      }
-    }
-    const int lane = best_j / k, c = best_j - lane * k;
-    const int64_t pos = (int64_t)cand[(int64_t)tile * k + c] * s + lane;
-    out_d[q] = best < kMissD2 ? best : __int_as_float(0x7f800000);
-    for (int f = 0; f < d; ++f) out_pl[q * d + f] = payload[pos * d + f];
-  }
-}
-
 // Two bf16 values packed in 32 bits (element 0 in the low half) to fp32,
 // exactly.
 __device__ __forceinline__ float bf16_lo(unsigned v) { return __uint_as_float(v << 16); }
@@ -190,10 +150,13 @@ __device__ __forceinline__ float bf16_round(float x) {
 // as (x, y, z, 1). A bf16 x bf16 product is exact in fp32, and the four are
 // summed in the fixed order ((p0 + p1) + p2) + p3 that the plain version
 // uses. qq comes from the unrounded centred query: d2 = max(smin + qq, 0).
-// Rows are staged and scanned as in fold6 (lane-major, candidate-minor,
-// strict '<'): the lowest lane, then the earliest candidate. The TPU ran this
-// score on its matrix unit; here it is 4 FMUL + 3 FADD on the FP32 pipes
-// (wgmma is later work), so the kernel is bound by FP32 issue, like fold6.
+// Rows are staged lane-major, candidate-minor (rows[lane * k + c]) and
+// scanned in that order with a strict '<': the lowest lane, then the
+// earliest candidate. The TPU ran this score on its matrix unit; here it is
+// 4 FMUL + 3 FADD on the FP32 pipes (wgmma is later work), so the kernel is
+// bound by FP32 issue. Later work: the products of bf16 values are exact in
+// fp32, so the sum equals fadd(fma(az, rz, fma(ay, ry, ax * rx)), r.w) bit for
+// bit, 4 FP instructions a pair instead of 7.
 __global__ void fold7_kernel(const float* __restrict__ query, const uint2* __restrict__ b,
                              const int* __restrict__ cand, const float* __restrict__ q_cent,
                              const float* __restrict__ payload, int sq, int s, int k, int d,
@@ -384,16 +347,17 @@ __device__ __forceinline__ int union_slots(const int* un, int u_max, int* shared
 // its n_u slots, 3 words a row, as read) into raw[u * lc * 3 ...], and
 // commit it as one cp.async group: in 16-byte pieces where a slot's run
 // starts on 16 bytes (by16: s and lc are multiples of 4 lanes and tiles is
-// 16-byte aligned), else word by word.
+// 16-byte aligned), else word by word. Slot u's tile id is un[u * stride]
+// (fold6 stages one candidate of several query tiles: a column of cand).
 template <int kThreads>
 __device__ __forceinline__ void stage_chunk(float* raw, const float* __restrict__ tiles,
                                             const int* un, int n_u, int s, int lc, int c,
-                                            bool by16) {
+                                            bool by16, int stride = 1) {
   const int l0 = c * lc, nl = min(lc, s - l0);
   const int per = by16 ? nl * 3 / 4 : nl * 3;  // copies a slot
   for (int i = threadIdx.x; i < n_u * per; i += kThreads) {
     const int u = i / per, w = i - u * per;
-    const float* src = tiles + 3 * ((int64_t)un[u] * s + l0);
+    const float* src = tiles + 3 * ((int64_t)un[u * stride] * s + l0);
     if (by16) {
       cp_async16(&raw[u * lc * 3 + 4 * w], src + 4 * w);
     } else {
@@ -715,6 +679,397 @@ moments_fused_kernel(const float* __restrict__ query, const float* __restrict__ 
   }
 }
 
+// Frozen-candidate fold (fold6): for each query of query tile t, the row of
+// its k candidate tiles cand[t] with the least d2, then the least
+// j = lane * k + c (the TPU kernel's "lowest lane, then earliest candidate"),
+// d2 the uncentred direct form ((qx-rx)^2 + (qy-ry)^2) + (qz-rz)^2 with every
+// step rounded; outputs that d2 (+inf from kMissD2 on) and that row's payload
+// (T * S, d) copied exactly. Sentinel rows keep their coordinates: a query
+// whose candidates are all sentinel lands on the sentinel row the direct scan
+// picks (the first, as the plain version's first minimum).
+//
+// Bound by FP32 issue: the direct form costs ~12 instructions a pair (3 FSUB,
+// 3 FMUL, 2 FADD, a compare, two selects, a broadcast LDS.128), and the one
+// query a thread version ran at ~77% of the card's issue rate (0.373 ms at
+// the 1M refine shape, 8.05e8 pairs). The lever is the instruction count, so
+// the kernel screens in a centred expansion form and rescores a few rows:
+//
+// 1. Work. A thread holds kF6Q = 4 queries of one query tile, so one
+//    broadcast float4 read from shared memory feeds 4 pairs, and scans all
+//    of the tile's candidate rows. A 128-thread block holds tiles_per_block
+//    query tiles (8 at Sq = 64) or, above 512 queries a tile, a part of one
+//    (blockIdx.y); the wrapper's plan (fold6_plan) picks both, and the C
+//    entry refuses a plan that does not fit.
+// 2. Staging. A stage is one candidate slot c (a run of lanes of it where S
+//    exceeds kF6StageRows) of each of the block's tiles: contiguous 12-byte
+//    rows, brought in by 16-byte cp.async (stage_chunk, its ids a column of
+//    cand) into one raw buffer: stage st + 1 is issued once st is packed and
+//    lands while st is screened (two buffers ran 1-4% slower).
+//    Each stage is packed once, centred on the query tile's centre c_t, as
+//    (x - cx, y - cy, z - cz, rr), rr = (x^2 + y^2) + z^2 of the centred row;
+//    a sentinel row (|coord| >= kValidAbs) and the padding up to a whole
+//    group are (0, 0, 0, +inf). Packing checks every valid row against the
+//    tile's R (rr <= R^2); a tile with a row beyond it takes the direct scan
+//    (step 5), so c and R, made at the block's start from the candidates'
+//    tile boxes (f6_centre), decide the speed and never the result. 32.5 KB
+//    of dynamic shared memory a block.
+// 3. Screen. With a = -2 (q - c) the score s = fma(ax, rx, fma(ay, ry,
+//    fma(az, rz, rr))) is 3 FFMA; s + |q - c|^2 is the squared distance.
+//    Each thread folds its rows in groups of kF6Group with fminf (4
+//    instructions a pair) and keeps, per query, the two least group minima
+//    m1 <= m2 with their groups g1, g2, and the least minimum m3 of the other
+//    groups. A group minimum below m3 is rare once the near rows are known:
+//    one vote a group decides whether the warp updates at all.
+// 4. Exact rows. After the last stage, with thr = fl(m1 + delta_q): every
+//    row that can be a least row lies in a group whose minimum is <= thr
+//    (below). If m3 > thr, those are g1 and, where m2 <= thr, g2: their 8 or
+//    16 rows are rescored in the raw direct form from device memory (L2;
+//    16-byte loads, in flight together) and the least key
+//    bits(d2) << 32 | j kept. d2 >= 0, so the key order is exactly "least
+//    d2, then least j". At the 1M refine shape 99.27% of the queries need
+//    one group, 0.72% two, 0.009% the direct scan.
+// 5. The direct scan, the plain version's, for a query with a coordinate at
+//    or beyond kF6FarAbs (the PAD_COORD pad rows; Q would explode), with no
+//    valid candidate row (m1 = +inf), with a third group within thr, in a
+//    tile with a row beyond its R, or whose best d2 is at least kF6DirectD2:
+//    the warp's 32 lanes share the query's k x S rows from device memory and
+//    fold their keys by shuffles. For the others no sentinel row can tie or
+//    beat the best: a sentinel row has a coordinate |r_i| >= 1e6 while
+//    |q_i| < 5e5, so fl(q_i - r_i)^2 >= 2.5e11 and, rounding being
+//    monotone, its d2 >= 2.5e11 > kF6DirectD2 > the best; leaving sentinel
+//    rows out of the screen is exact.
+// 6. Epilogue. The winners' payload rows go through shared memory, and the
+//    block copies its contiguous run of output rows float by float.
+//
+// Why every least row is rescored. Write u = 2^-24, Q = |q - c| and R the
+// tile's radius: |rc| <= R (1 + 3u) for every valid row, by the check of
+// step 2 (rr = fl(|rc|^2) <= fl(R^2)). qc = fl(q - c) and rc = fl(r - c) are
+// exact subtractions rounded once, |qc - (q - c)| <= u Q and
+// |rc - (r - c)| <= u |r - c|. Let E bound |s + Q^2 - d| over every valid
+// pair, s the fp32 screen and d the fp32 direct form of the raw coordinates:
+//   * rr is off by gamma_3 |rc|^2, and the FMA chain adds gamma_3 (rr +
+//     2 |qc||rc|) (Cauchy-Schwarz): |s - (|rc|^2 - 2 qc.rc)| <= 2 gamma_3
+//     (Q + R)^2 (1 + O(u));
+//   * |rc|^2 - 2 qc.rc + |qc|^2 = |(q - r) + e|^2 with |e| <= u (Q + R), and
+//     |q - r| <= Q + R: within 2u (Q + R)^2 + O(u^2) of |q - r|^2;
+//   * ||qc|^2 - Q^2| <= 2u Q^2 + O(u^2);
+//   * the direct form is off by gamma_5 |q - r|^2 <= gamma_5 (Q + R)^2.
+// So E <= (6 + 2 + 2 + 5) u (Q + R)^2 (1 + O(u)) = 15 u (Q + R)^2. The kernel
+// takes delta_q = 2^-18 (Q + R)^2 = 64 u (Q + R)^2 (fold6_screen_margin in
+// blocknn_cuda.py), Q from the rounded |qc|^2: twice E, with 34 u of room
+// for rounding thr (|m1| <= (Q + R)^2: u) and Q, R and delta_q themselves
+// (~10 u). Let x be the row of m1 and r* a least row: s(r*) <= d(r*) - Q^2 +
+// E <= d(x) - Q^2 + E <= s(x) + 2E = m1 + 2E <= thr, so r*'s group has a
+// minimum <= thr. At the 1M refine shape Q + R is a few tile widths (R ~0.06
+// at the median), delta_q ~3e-10 to 1e-9, and the NN d2 ~4e-6.
+//
+// What holds it back (H100 80GB HBM3 at 700 W, the 1M refine shape,
+// scripts/torch_fold6_variants.py): ~0.28-0.29 ms device against the
+// direct form's 0.37. A screen step of 8 rows for 4 queries is ~146
+// instructions (8 LDS.128, 96 FFMA, 32 FMNMX, 4 FSETP, the vote, the
+// branch), 4.6 a pair, issued about half the time (80 registers, 32.5 KB of
+// shared memory: 6 blocks, 24 warps an SM); two groups a loop step (unroll
+// 2) gained 5%. The screen alone, with the exact rows dropped, takes ~0.26
+// ms. Halving the shared-memory traffic (8 queries a thread: 126 registers,
+// fewer warps) made it slower, 0.33-0.39 ms. Marking groups and rescoring
+// them once a stage (nn.cu's resolve) cost more than the screen here: a
+// warp paid its lanes' largest count of marks every stage.
+constexpr int kF6Threads = 128;
+constexpr int kF6Q = 4;             // queries a thread
+constexpr int kF6Group = 8;         // rows a screened group
+constexpr int kF6StageRows = 1024;  // packed rows a stage holds, over the block's tiles
+// dynamic shared memory: the raw stage, the packed rows, a centre and a
+// flag a tile (a block holds at most a tile a thread), the winners' payload
+// rows
+constexpr int kF6Smem = kF6StageRows * 12 + kF6StageRows * 16 + kF6Threads * 20 +
+                        kF6Threads * kF6Q * 4;
+static_assert(kF6StageRows % 4 == 0, "the packed rows start 16-byte aligned");
+constexpr float kF6DeltaScale = 3.814697265625e-06f;  // 2^-18
+constexpr float kF6FarAbs = 5.0e5f;     // a query coordinate at or beyond: the direct scan
+constexpr float kF6DirectD2 = 1.0e11f;  // a best d2 at or beyond: the direct scan
+static_assert(3 * kF6Group % 4 == 0, "a group of rows is a whole number of float4");
+
+__device__ __forceinline__ float f6_screen(float ax, float ay, float az, float4 r) {
+  return __fmaf_rn(ax, r.x, __fmaf_rn(ay, r.y, __fmaf_rn(az, r.z, r.w)));
+}
+
+__device__ __forceinline__ unsigned long long f6_key(float d, int j) {
+  return (static_cast<unsigned long long>(__float_as_uint(d)) << 32) | static_cast<unsigned>(j);
+}
+
+// The plain version's scan for one query, shared by the 32 lanes of a warp
+// (every lane calls it with the same query): lane l scores rows j = l,
+// l + 32, ... of the k * S candidate rows from device memory, and the least
+// key bits(d2) << 32 | j over the warp is the least d2, then the least j,
+// as the plain version's first minimum. Every lane gets it.
+__device__ unsigned long long f6_direct_warp(float qx, float qy, float qz,
+                                             const float* __restrict__ tiles, const int* ids,
+                                             int s, int k) {
+  unsigned long long best = ~0ull;
+#pragma unroll 4
+  for (int j = threadIdx.x & 31; j < k * s; j += 32) {
+    const int lane = j / k, c = j - lane * k;
+    const float* r = tiles + 3 * ((int64_t)ids[c] * s + lane);
+    best = min(best, f6_key(sqdist_rn(qx, qy, qz, r[0], r[1], r[2]), j));
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) best = min(best, __shfl_xor_sync(0xffffffffu, best, off));
+  return best;
+}
+
+// The least key over the rows of screened group gid (stage gid / ng, its
+// group gid % ng), in the direct form from device memory; the group's rows
+// are loaded first, so their loads are in flight together.
+__device__ __forceinline__ unsigned long long f6_group(float qx, float qy, float qz,
+                                                       const float* __restrict__ tiles,
+                                                       const int* ids, int s, int k, int lc,
+                                                       int chunks, int ng, int gid) {
+  const int st = gid / ng, ci = st / chunks;
+  const int l0 = (st - ci * chunks) * lc + (gid - st * ng) * kF6Group;
+  const int n = min(kF6Group, s - l0);
+  const float* base = tiles + 3 * ((int64_t)ids[ci] * s + l0);
+  float r[3 * kF6Group];
+  if (n == kF6Group && (reinterpret_cast<uintptr_t>(base) & 15) == 0) {  // 16-byte loads
+#pragma unroll
+    for (int i = 0; i < 3 * kF6Group / 4; ++i) {
+      const float4 v = reinterpret_cast<const float4*>(base)[i];
+      r[4 * i] = v.x;
+      r[4 * i + 1] = v.y;
+      r[4 * i + 2] = v.z;
+      r[4 * i + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 3 * kF6Group; ++i) r[i] = i < 3 * n ? base[i] : 0.f;
+  }
+  unsigned long long best = ~0ull;
+#pragma unroll
+  for (int e = 0; e < kF6Group; ++e) {
+    if (e < n)
+      best = min(best, f6_key(sqdist_rn(qx, qy, qz, r[3 * e], r[3 * e + 1], r[3 * e + 2]),
+                              (l0 + e) * k + ci));
+  }
+  return best;
+}
+
+// A query tile's screen centre and radius (cx, cy, cz, R) from the boxes of
+// its k candidate tiles ids: c the centre of the first box that holds a row
+// (lo <= hi; the origin if none does), R the distance from c to the
+// farthest corner of those boxes, a little over. Only the speed rests on
+// them: packing checks every valid row against R. fold6_centres in
+// blocknn_cuda.py repeats this arithmetic.
+__device__ float4 f6_centre(const int* ids, const float* __restrict__ box_lo,
+                           const float* __restrict__ box_hi, int k) {
+  float4 c = make_float4(0.f, 0.f, 0.f, 0.f);
+  bool found = false;
+  float r2 = 0.f;
+  for (int pass = 0; pass < 2; ++pass) {
+    for (int i = 0; i < k; ++i) {
+      const float* lo = box_lo + 3 * (int64_t)ids[i];
+      const float* hi = box_hi + 3 * (int64_t)ids[i];
+      if (!(lo[0] <= hi[0] && lo[1] <= hi[1] && lo[2] <= hi[2])) continue;  // no row
+      if (pass == 0) {
+        if (!found) {
+          c.x = 0.5f * __fadd_rn(lo[0], hi[0]);
+          c.y = 0.5f * __fadd_rn(lo[1], hi[1]);
+          c.z = 0.5f * __fadd_rn(lo[2], hi[2]);
+          found = true;
+        }
+      } else {
+        const float dx = fmaxf(fabsf(__fsub_rn(hi[0], c.x)), fabsf(__fsub_rn(lo[0], c.x)));
+        const float dy = fmaxf(fabsf(__fsub_rn(hi[1], c.y)), fabsf(__fsub_rn(lo[1], c.y)));
+        const float dz = fmaxf(fabsf(__fsub_rn(hi[2], c.z)), fabsf(__fsub_rn(lo[2], c.z)));
+        r2 = fmaxf(r2, __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz)));
+      }
+    }
+  }
+  c.w = __fmul_rn(sqrtf(r2), 1.0009765625f);  // 1 + 2^-10 over the boxes' own rounding
+  return c;
+}
+
+__global__ void __launch_bounds__(kF6Threads)
+fold6_kernel(const float* __restrict__ query, const float* __restrict__ tiles,
+             const int* __restrict__ cand, const float* __restrict__ box_lo,
+             const float* __restrict__ box_hi, const float* __restrict__ payload, int tq, int sq,
+             int s, int k, int d, int tpb, int lc, float* __restrict__ out_d,
+             float* __restrict__ out_pl) {
+  extern __shared__ __align__(16) float4 f6_smem[];
+  float* raw = reinterpret_cast<float*>(f6_smem);  // a stage of rows, as read
+  float4* rows = f6_smem + kF6StageRows * 3 / 4;     // rows[b * lcp + lane], centred
+  float4* cent_s = rows + kF6StageRows;                  // (cx, cy, cz, R) a tile
+  int* pos_s = reinterpret_cast<int*>(cent_s + kF6Threads);  // the winners' payload rows
+  int* beyond = pos_s + kF6Threads * kF6Q;  // a tile with a valid row beyond its R: the direct scan
+  const int t0 = blockIdx.x * tpb;
+  const int n_live = min(tpb, tq - t0);  // tiles of this block
+  const int lcp = (lc + kF6Group - 1) / kF6Group * kF6Group;
+  const int ng = lcp / kF6Group;  // groups a stage
+  const int pack_u = threadIdx.x / lcp, pack_l = threadIdx.x - pack_u * lcp;  // this thread's first
+  const int chunks = (s + lc - 1) / lc, n_st = k * chunks;
+  const int nqs = min((sq + kF6Q - 1) / kF6Q, kF6Threads);  // threads a tile in this block
+  const int y0 = blockIdx.y * nqs * kF6Q, ny = min(sq - y0, nqs * kF6Q);  // its queries
+  const int b = threadIdx.x / nqs;
+  const bool live = b < n_live;
+  const int br = live ? b : 0;  // idle threads read tile 0's rows
+  const int q_first = y0 + (threadIdx.x % nqs) * kF6Q;
+  const int tile = t0 + br;
+  const bool by16 = s % 4 == 0 && lc % 4 == 0 && (reinterpret_cast<uintptr_t>(tiles) & 15) == 0;
+  const int* cand_b = cand + (int64_t)t0 * k;  // the block's tiles' candidates, (n_live, k)
+  stage_chunk<kF6Threads>(raw, tiles, cand_b, n_live, s, lc, 0, by16, k);
+  if (threadIdx.x < n_live) {
+    cent_s[threadIdx.x] = f6_centre(cand_b + threadIdx.x * k, box_lo, box_hi, k);
+    beyond[threadIdx.x] = 0;
+  }
+  __syncthreads();
+
+  const float4 c = cent_s[br];
+  // per query: a = -2 (q - c); the two least group minima m1 <= m2 with
+  // their groups g1, g2, and the least of the other groups' minima m3
+  float ax[kF6Q], ay[kF6Q], az[kF6Q], m1[kF6Q], m2[kF6Q], m3[kF6Q];
+  int g1[kF6Q], g2[kF6Q];
+#pragma unroll
+  for (int q = 0; q < kF6Q; ++q) {
+    const bool in = live && q_first + q < sq;
+    const float* qp = query + 3 * ((int64_t)tile * sq + q_first + q);
+    ax[q] = in ? -2.f * __fsub_rn(qp[0], c.x) : 0.f;  // the doubling is exact
+    ay[q] = in ? -2.f * __fsub_rn(qp[1], c.y) : 0.f;
+    az[q] = in ? -2.f * __fsub_rn(qp[2], c.z) : 0.f;
+    m1[q] = m2[q] = m3[q] = __int_as_float(0x7f800000);
+    g1[q] = g2[q] = 0;
+  }
+
+  for (int st = 0; st < n_st; ++st) {
+    cp_async_wait_all();
+    __syncthreads();  // stage st has landed; every thread is done with stage st - 1
+    const int ci = st / chunks, nl = min(lc, s - (st - ci * chunks) * lc);
+    for (int i = threadIdx.x, u = pack_u, l = pack_l; i < n_live * lcp; i += kF6Threads) {
+      if (i != threadIdx.x) {  // (u, l) of row i = u * lcp + l, without a division
+        l += kF6Threads;
+        while (l >= lcp) {
+          l -= lcp;
+          ++u;
+        }
+      }
+      float4 v = make_float4(0.f, 0.f, 0.f, __int_as_float(0x7f800000));
+      if (l < nl) {
+        const float* r = raw + 3 * (u * lc + l);
+        const float x = r[0], y = r[1], z = r[2];
+        if (fabsf(x) < kValidAbs && fabsf(y) < kValidAbs && fabsf(z) < kValidAbs) {
+          const float4 cu = cent_s[u];
+          v.x = __fsub_rn(x, cu.x);
+          v.y = __fsub_rn(y, cu.y);
+          v.z = __fsub_rn(z, cu.z);
+          v.w = __fadd_rn(__fadd_rn(__fmul_rn(v.x, v.x), __fmul_rn(v.y, v.y)), __fmul_rn(v.z, v.z));
+          if (!(v.w <= __fmul_rn(cu.w, cu.w))) beyond[u] = 1;  // the margin's R does not hold
+        }
+      }
+      rows[i] = v;
+    }
+    __syncthreads();
+    if (st + 1 < n_st) {  // into the raw buffer, now packed, while st is screened
+      const int c1 = (st + 1) / chunks;
+      stage_chunk<kF6Threads>(raw, tiles, cand_b + c1, n_live, s, lc, st + 1 - c1 * chunks, by16, k);
+    }
+    const float4* rs = rows + br * lcp;
+#pragma unroll 2  // two groups' loads and chains in flight: 5% faster
+    for (int g = 0; g < ng; ++g) {
+      float gmin[kF6Q];
+#pragma unroll
+      for (int q = 0; q < kF6Q; ++q) gmin[q] = __int_as_float(0x7f800000);
+#pragma unroll
+      for (int e = 0; e < kF6Group; ++e) {
+        const float4 r = rs[g * kF6Group + e];  // a broadcast over the tile's threads
+#pragma unroll
+        for (int q = 0; q < kF6Q; ++q) gmin[q] = fminf(gmin[q], f6_screen(ax[q], ay[q], az[q], r));
+      }
+      bool enters = false;  // a group minimum below m3 enters the three least
+#pragma unroll
+      for (int q = 0; q < kF6Q; ++q) enters |= gmin[q] < m3[q];
+      if (__any_sync(0xffffffffu, enters)) {  // warp-uniform, and rare once near rows are known
+        const int gid = st * ng + g;
+#pragma unroll
+        for (int q = 0; q < kF6Q; ++q) {
+          const float m = gmin[q];
+          if (m < m2[q]) {
+            m3[q] = m2[q];
+            if (m < m1[q]) {
+              m2[q] = m1[q];
+              g2[q] = g1[q];
+              m1[q] = m;
+              g1[q] = gid;
+            } else {
+              m2[q] = m;
+              g2[q] = gid;
+            }
+          } else {
+            m3[q] = fminf(m3[q], m);
+          }
+        }
+      }
+    }
+  }
+
+  // Each query: the least key over its least group and, where m2 is within
+  // the margin, the next. The direct scan, shared by the warp, where a
+  // third group is within the margin, for far queries and where no valid
+  // row is near enough.
+  const int* ids = cand + (int64_t)tile * k;
+  unsigned long long key[kF6Q];
+  unsigned need = 0;  // queries for the direct scan, a bit each
+#pragma unroll
+  for (int q = 0; q < kF6Q; ++q) {
+    key[q] = ~0ull;
+    const int qi = q_first + q;
+    if (!live || qi >= sq) continue;
+    const float* qp = query + 3 * ((int64_t)tile * sq + qi);
+    const float x = qp[0], y = qp[1], z = qp[2];
+    const float qx = -0.5f * ax[q], qy = -0.5f * ay[q], qz = -0.5f * az[q];  // exact
+    const float qq = __fadd_rn(__fadd_rn(__fmul_rn(qx, qx), __fmul_rn(qy, qy)), __fmul_rn(qz, qz));
+    const float sum = __fadd_rn(sqrtf(qq), c.w);
+    const float thr = __fadd_rn(m1[q], __fmul_rn(kF6DeltaScale, __fmul_rn(sum, sum)));
+    if (fmaxf(fabsf(x), fmaxf(fabsf(y), fabsf(z))) < kF6FarAbs && m1[q] < __int_as_float(0x7f800000)
+        && !(m3[q] <= thr) && !beyond[b]) {
+      key[q] = f6_group(x, y, z, tiles, ids, s, k, lc, chunks, ng, g1[q]);
+      if (m2[q] <= thr) key[q] = min(key[q], f6_group(x, y, z, tiles, ids, s, k, lc, chunks, ng, g2[q]));
+    }
+    if (!(__uint_as_float(static_cast<unsigned>(key[q] >> 32)) < kF6DirectD2)) need |= 1u << q;
+  }
+  for (;;) {
+    const unsigned lanes = __ballot_sync(0xffffffffu, need != 0);
+    if (!lanes) break;
+    const int src = __ffs(lanes) - 1;
+    const int q = __shfl_sync(0xffffffffu, __ffs(need) - 1, src);  // that lane's first
+    const int gq = __shfl_sync(0xffffffffu, tile * sq + q_first + q, src);
+    const int* src_ids = cand + (int64_t)(gq / sq) * k;
+    const unsigned long long kd = f6_direct_warp(query[3 * (int64_t)gq], query[3 * (int64_t)gq + 1],
+                                                 query[3 * (int64_t)gq + 2], tiles, src_ids, s, k);
+    if ((threadIdx.x & 31) == src) {
+#pragma unroll
+      for (int i = 0; i < kF6Q; ++i)
+        if (i == q) key[i] = kd;
+      need &= need - 1;
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kF6Q; ++q) {
+    const int qi = q_first + q;
+    if (!live || qi >= sq) continue;
+    const float dd = __uint_as_float(static_cast<unsigned>(key[q] >> 32));
+    const int j = static_cast<int>(static_cast<unsigned>(key[q]));
+    const int lane = j / k;
+    pos_s[b * ny + qi - y0] = ids[j - lane * k] * s + lane;
+    out_d[tile * sq + qi] = dd < kMissD2 ? dd : __int_as_float(0x7f800000);  // Tq * Sq < 2^31
+  }
+  __syncthreads();
+  // The block's outputs are one contiguous run of rows: copy the payload
+  // rows float by float, neighbouring threads on neighbouring addresses.
+  const int n_out = n_live * ny;
+  float* dst = out_pl + ((int64_t)t0 * sq + y0) * d;
+  for (int e = threadIdx.x; e < n_out * d; e += kF6Threads) {
+    const int qo = e / d;
+    dst[e] = payload[(int64_t)pos_s[qo] * d + (e - qo * d)];
+  }
+}
+
 int threads_for(int sq) {
   const int t = ((sq + 31) / 32) * 32;
   return t < 32 ? 32 : (t > 256 ? 256 : t);
@@ -743,20 +1098,47 @@ int icpx_moments6_forward(const void* query, const void* tiles, const void* cand
   return static_cast<int>(cudaGetLastError());
 }
 
-// query (tq, sq, 3) and tiles (t, s, 3) f32; cand (tq, k) i32; payload
-// (t * s, d) f32; outputs d2 (tq * sq,) and payload rows (tq * sq, d) f32.
-// All contiguous, on `device`. Same launch contract as above.
-int icpx_fold6_forward(const void* query, const void* tiles, const void* cand,
-                       const void* payload, int tq, int sq, int s, int k, int d,
-                       void* out_d, void* out_pl, int device, void* stream) {
+// fold6's shape: threads a block, queries a thread, rows a screened group,
+// packed rows a stage. The wrapper plans from these (fold6_plan).
+void icpx_fold6_shape(int* threads, int* queries_per_thread, int* group, int* stage_rows) {
+  *threads = kF6Threads;
+  *queries_per_thread = kF6Q;
+  *group = kF6Group;
+  *stage_rows = kF6StageRows;
+}
+
+// query (tq, sq, 3) and tiles (t, s, 3) f32; cand (tq, k) i32; box_lo and
+// box_hi (t, 3) f32, each index tile's box over its rows (lo > hi where it
+// has none); payload (t * s, d) f32; outputs d2 (tq * sq,) and payload rows
+// (tq * sq, d) f32. All contiguous, on `device`. tpb query tiles a block
+// (parts of one tile a block where its queries need more than kF6Threads
+// threads, then tpb = 1) and
+// lc lanes a stage, as fold6_plan gives them; a plan that does not fit the
+// kernel is refused with cudaErrorInvalidValue. Same launch contract as
+// above.
+int icpx_fold6_forward(const void* query, const void* tiles, const void* cand, const void* box_lo,
+                       const void* box_hi, const void* payload, int tq, int sq, int s, int k, int d,
+                       int tpb, int lc, void* out_d, void* out_pl, int device, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
+  const int nq4 = (sq + kF6Q - 1) / kF6Q;
+  const int nqs = nq4 < kF6Threads ? nq4 : kF6Threads;
+  const int lcp = (lc + kF6Group - 1) / kF6Group * kF6Group;
+  if (s < 1 || k < 1 || d < 0 || tpb < 1 || lc < 1 || lc > s || lcp * tpb > kF6StageRows ||
+      (nqs > 0 && tpb * nqs > kF6Threads))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (tq > 0 && sq > 0) {
-    const size_t smem = sizeof(float4) * (size_t)k * s;
-    fold6_kernel<<<tq, threads_for(sq), smem, static_cast<cudaStream_t>(stream)>>>(
+    if (kF6Smem > 48 * 1024) {
+      const cudaError_t rc =
+          cudaFuncSetAttribute(fold6_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kF6Smem);
+      if (rc != cudaSuccess) return static_cast<int>(rc);
+    }
+    const dim3 grid((tq + tpb - 1) / tpb, (nq4 + nqs - 1) / nqs);
+    fold6_kernel<<<grid, kF6Threads, kF6Smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(query), static_cast<const float*>(tiles),
-        static_cast<const int*>(cand), static_cast<const float*>(payload), sq, s, k, d,
-        static_cast<float*>(out_d), static_cast<float*>(out_pl));
+        static_cast<const int*>(cand), static_cast<const float*>(box_lo),
+        static_cast<const float*>(box_hi), static_cast<const float*>(payload), tq, sq, s, k, d, tpb,
+        lc, static_cast<float*>(out_d), static_cast<float*>(out_pl));
   }
   return static_cast<int>(cudaGetLastError());
 }

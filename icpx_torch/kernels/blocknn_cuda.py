@@ -14,7 +14,11 @@ each beside its plain PyTorch version with the same contract:
   among its tile's k frozen candidate tiles, its d2, and that row of a
   `(T*S, D)` payload table copied exactly. `fold6_prepare` runs once per
   frozen-candidate phase and `block_fold_fused_pre` once per iteration, as
-  in the reference.
+  in the reference. The kernel screens pairs by a centred expansion against
+  a proven margin (`fold6_screen_margin`; centres and radii from the tile
+  boxes, `fold6_centres`) and rescores the few rows that pass in the direct form,
+  so its outputs are the plain version's, bit for bit (`fold6_plan` is its
+  launch shape).
 * `fold7` replaces `blocknn_pallas._fold7_kernel` (`payload_mode="vmem7"`):
   fold6's outputs, scored in bf16 on operands centred on the frozen-phase
   query-tile centroids (see `fold7_prepare`).
@@ -69,6 +73,15 @@ _MAX_ROWS = 3072  # k * S candidate rows a block stages (48 KB of float4)
 _PLAIN_CHUNK = {"moments6": 512, "fold6": 1024, "fold7": 1024, "fused4": 32, "moments_fused": 8}
 
 
+class Fold6Shape(NamedTuple):
+    """The fold6 kernel's constants, as the built library reports them."""
+
+    threads: int  # threads of a block
+    queries_per_thread: int
+    group: int  # rows a screened group
+    stage_rows: int  # packed rows a stage holds, over the block's query tiles
+
+
 class Fused4Shape(NamedTuple):
     """A union kernel's constants (fused4's; moments_fused has the same
     four, with values of its own), as the built library reports them."""
@@ -80,30 +93,31 @@ class Fused4Shape(NamedTuple):
 
 
 _lib: Optional[ctypes.CDLL] = None
+_fold6_shape: Optional[Fold6Shape] = None
 _fused4_shape: Optional[Fused4Shape] = None
 _moments_fused_shape: Optional[Fused4Shape] = None
 
 
-def _read_shape(lib: ctypes.CDLL, name: str) -> Fused4Shape:
+def _read_shape(lib: ctypes.CDLL, name: str, kind=Fused4Shape):
     fn = getattr(lib, name)
-    fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 4
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * len(kind._fields)
     fn.restype = None
-    vals = [ctypes.c_int() for _ in range(4)]
+    vals = [ctypes.c_int() for _ in kind._fields]
     fn(*map(ctypes.byref, vals))
-    return Fused4Shape(*(v.value for v in vals))
+    return kind(*(v.value for v in vals))
 
 
 def build() -> ctypes.CDLL:
     """Compile (if the cache misses) and load the kernel library, and read
-    the union kernels' shapes."""
-    global _lib, _fused4_shape, _moments_fused_shape
+    the shapes of the kernels that plan from them."""
+    global _lib, _fold6_shape, _fused4_shape, _moments_fused_shape
     if _lib is not None:
         return _lib
     lib = cuda_build.load("blocknn")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.icpx_moments6_forward.argtypes = [p, p, p, p, p, i, i, i, i, p, i, p]
     lib.icpx_moments6_forward.restype = i
-    lib.icpx_fold6_forward.argtypes = [p, p, p, p, i, i, i, i, i, p, p, i, p]
+    lib.icpx_fold6_forward.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, p, p, i, p]
     lib.icpx_fold6_forward.restype = i
     lib.icpx_fold7_forward.argtypes = [p, p, p, p, p, i, i, i, i, i, p, p, i, p]
     lib.icpx_fold7_forward.restype = i
@@ -113,10 +127,17 @@ def build() -> ctypes.CDLL:
     lib.icpx_fused4_forward.restype = i
     lib.icpx_moments_fused_forward.argtypes = [p, p, p, p, p, i, i, i, i, p, i, p]
     lib.icpx_moments_fused_forward.restype = i
+    _fold6_shape = _read_shape(lib, "icpx_fold6_shape", Fold6Shape)
     _fused4_shape = _read_shape(lib, "icpx_fused4_shape")
     _moments_fused_shape = _read_shape(lib, "icpx_moments_fused_shape")
     _lib = lib
     return lib
+
+
+def fold6_shape() -> Fold6Shape:
+    """The built fold6 kernel's shape."""
+    build()
+    return _fold6_shape
 
 
 def fused4_shape() -> Fused4Shape:
@@ -262,13 +283,36 @@ class Fold6Operands:
     cand: torch.Tensor  # (Tq, k) int32 candidate tile ids
     tiles: torch.Tensor  # (T, S, 3) f32 index tiles
     payload: torch.Tensor  # (T*S, D) f32 payload table in sorted tile order
+    box_lo: torch.Tensor  # (T, 3) f32 index tile boxes, for the kernel's screen centre
+    box_hi: torch.Tensor  # and radius (`fold6_centres`)
+
+
+def fold6_centres(cand: torch.Tensor, box_lo: torch.Tensor, box_hi: torch.Tensor) -> torch.Tensor:
+    """(Tq, 4) f32 (cx, cy, cz, R) a query tile, as the fold6 kernel makes
+    them at a block's start (`f6_centre`), in the same float32 arithmetic:
+    c the centre of the box of its first candidate tile that holds a row
+    (lo <= hi; the origin if none does), R the distance from c to the
+    farthest corner of those boxes, times 1 + 2^-10. Only the kernel's
+    speed rests on these: it checks every valid row against R, and a query
+    tile with a row beyond R takes the direct scan."""
+    cand = cand.to(torch.int64)
+    lo, hi = box_lo[cand].to(torch.float32), box_hi[cand].to(torch.float32)  # (Tq, k, 3)
+    has = (lo <= hi).all(2)
+    first = has.to(torch.uint8).argmax(1)[:, None, None].expand(-1, 1, 3)
+    mid = 0.5 * (torch.gather(lo, 1, first)[:, 0] + torch.gather(hi, 1, first)[:, 0])
+    c = torch.where(has.any(1, keepdim=True), mid, 0.0)
+    d = torch.maximum((hi - c[:, None]).abs(), (lo - c[:, None]).abs())
+    r2 = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
+    r = torch.sqrt(torch.where(has, r2, 0.0).amax(1)) * 1.0009765625
+    return torch.cat([c, r[:, None]], dim=1)
 
 
 def fold6_prepare(cand_tiles: torch.Tensor, index: TileIndex,
                   payload_table: torch.Tensor) -> Fold6Operands:
     """Check the fold's loop-invariant operands and make them contiguous,
     int32 candidate ids included. Unlike the TPU prep it gathers nothing:
-    the kernel reads candidate rows from the index itself."""
+    the kernel reads candidate rows from the index itself, and its screen
+    centres and radii from the index's tile boxes (`fold6_centres`)."""
     t, s, _ = index.tiles.shape
     if payload_table.ndim != 2 or payload_table.shape[0] != t * s:
         raise ValueError(f"payload table must be ({t * s}, D), got {tuple(payload_table.shape)}")
@@ -278,25 +322,71 @@ def fold6_prepare(cand_tiles: torch.Tensor, index: TileIndex,
         cand=cand_tiles.to(torch.int32).contiguous(),
         tiles=index.tiles.contiguous(),
         payload=payload_table.to(torch.float32).contiguous(),
+        box_lo=index.box_lo.to(torch.float32).contiguous(),
+        box_hi=index.box_hi.to(torch.float32).contiguous(),
     )
+
+
+def fold6_screen_margin(qq: torch.Tensor, big_r: torch.Tensor) -> torch.Tensor:
+    """delta_q of the fold6 kernel's screen, in float32 as the kernel
+    computes it: 2^-18 (|q - c| + R)^2 from |q - c|^2 (the centred query's,
+    rounded) and R (`fold6_centres`). More than twice a bound (15 u
+    (|q - c| + R)^2, u = 2^-24, to first order) on |s + |q - c|^2 - d| over
+    every valid pair, s the centred fp32 screen score and d the uncentred
+    fp32 direct form, with room for rounding the threshold; the source note
+    of the kernel in `csrc/blocknn.cu` gives the argument."""
+    total = torch.sqrt(qq.to(torch.float32)) + big_r.to(torch.float32)
+    return (2.0 ** -18) * (total * total)
+
+
+def fold6_plan(tq: int, sq: int, s: int, k: int, shape: Fold6Shape) -> Dict[str, int]:
+    """How the fold6 kernel of `shape` covers tq query tiles of sq queries
+    against k candidate tiles of s lanes: query tiles a block (a tile's
+    queries take ceil(sq / queries_per_thread) threads; above a block's
+    threads, parts of one tile a block), lanes a stage (at most stage_rows),
+    padded to whole groups, groups a thread screens a stage, stages
+    (candidates x runs of lanes) and the grid. The C entry refuses a plan
+    that does not fit the kernel."""
+    nq4 = -(-sq // shape.queries_per_thread)
+    nqs = max(1, min(nq4, shape.threads))
+    lanes = max(1, min(s, shape.stage_rows))
+    padded = -(-lanes // shape.group) * shape.group
+    tpb = max(1, min(shape.threads // nqs, shape.stage_rows // padded))
+    return dict(tiles_per_block=tpb, lanes_per_stage=lanes, padded_lanes=padded,
+                groups=padded // shape.group, stages=k * -(-s // lanes),
+                blocks=(-(-tq // tpb), -(-nq4 // nqs)))
 
 
 def fold6_cuda(query_tiles: torch.Tensor, ops: Fold6Operands) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the fold kernel: (d2 (Tq*Sq,), payload rows (Tq*Sq, D))."""
-    _check_launch(query_tiles, ops.tiles, ops.cand)
     dev = query_tiles.device
+    if not query_tiles.is_cuda:
+        raise ValueError("the block-NN kernels need CUDA tensors")
+    _check("query_tiles", query_tiles, torch.float32, 3, dev)
+    _check("tiles", ops.tiles, torch.float32, 3, dev)
+    _check("cand", ops.cand, torch.int32, 2, dev)
+    _check("box_lo", ops.box_lo, torch.float32, 2, dev)
+    _check("box_hi", ops.box_hi, torch.float32, 2, dev)
     _check("payload", ops.payload, torch.float32, 2, dev)
     tq, sq, _ = query_tiles.shape
-    k, s = ops.cand.shape[1], ops.tiles.shape[1]
-    d_pl = ops.payload.shape[1]
+    t, s, _ = ops.tiles.shape
+    k, d_pl = ops.cand.shape[1], ops.payload.shape[1]
+    if (ops.cand.shape[0] != tq or ops.box_lo.shape != (t, 3) or ops.box_hi.shape != (t, 3)
+            or query_tiles.shape[2] != 3 or ops.tiles.shape[2] != 3 or ops.payload.shape[0] != t * s):
+        raise ValueError(f"shapes do not fit: query {tuple(query_tiles.shape)}, tiles "
+                         f"{tuple(ops.tiles.shape)}, cand {tuple(ops.cand.shape)}, boxes "
+                         f"{tuple(ops.box_lo.shape)}, payload {tuple(ops.payload.shape)}")
+    if max(ops.tiles.numel(), query_tiles.numel(), ops.payload.numel(), k * s) >= 2**31:
+        raise ValueError("too many rows for the kernel's int32 indices")
     lib = build()
+    plan = fold6_plan(tq, sq, s, k, _fold6_shape)
     d = torch.empty((tq * sq,), dtype=torch.float32, device=dev)
     pl = torch.empty((tq * sq, d_pl), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.icpx_fold6_forward(
-        query_tiles.data_ptr(), ops.tiles.data_ptr(), ops.cand.data_ptr(),
-        ops.payload.data_ptr(), tq, sq, s, k, d_pl, d.data_ptr(), pl.data_ptr(),
-        dev.index, stream,
+        query_tiles.data_ptr(), ops.tiles.data_ptr(), ops.cand.data_ptr(), ops.box_lo.data_ptr(),
+        ops.box_hi.data_ptr(), ops.payload.data_ptr(), tq, sq, s, k, d_pl, plan["tiles_per_block"],
+        plan["lanes_per_stage"], d.data_ptr(), pl.data_ptr(), dev.index, stream,
     )
     cuda_build.check(lib, rc, "fold6 kernel")
     LAUNCHES["fold6"] += 1

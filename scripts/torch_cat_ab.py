@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """A/B of two checkouts of the port on one card: the cat pair's wall, `nn`,
-and the `fused4`, `sort` and `moments_fused` kernels.
+and the `fold6`, `fused4`, `sort` and `moments_fused` kernels.
 
     python3 scripts/torch_cat_ab.py PARENT CHANGE [--pairs 12] [--out FILE]
 
@@ -12,16 +12,19 @@ is the wall of one cat-pair registration (chip_smoke's golden config;
 median of 5 after 2 warm calls, host clock around torch.cuda.synchronize()
 fences), the event time of one `nn` call at the cat shape (3,456 x 3,456,
 56 pad rows on both sides; median of 5), and the device time (a CUDA graph
-of 20 calls) and the event time of one `fused4` call at the 1M flagship's
-refine shape, of the tile-128 KD build's four level sorts (summed) and of
-one `moments_fused` call at the 1M covariance index. After the readings
-each worker holds `nn` to its plain version bit for bit at the cat shape
-and at 65,536 x 65,536, and `fused4` and every level sort likewise, and
-`moments_fused`'s counts; and times `nn` there. Prints each side's median,
-min and max of every reading, and one JSON line with all of it (also
-written to FILE). The timers and the inputs are chip_smoke.py's, from the
-checkout that holds this script: `fused4` on `_refine_operands` of the
-`_gt_pair` flagship (k = 6, groups of 4, unions of 32), the sorts on
+of 20 calls) and the event time of one `fold6` call at the 1M flagship's
+refine shape with the 6-wide payload table and with GICP's 12-wide one, of
+one `fused4` call at the same shape, of the tile-128 KD build's four level
+sorts (summed) and of one `moments_fused` call at the 1M covariance index.
+After the readings each worker holds `nn` to its plain version bit for bit
+at the cat shape and at 65,536 x 65,536, and `fold6` (d2 and payload, both
+tables), `fused4` and every level sort likewise, and `moments_fused`'s
+counts; and times `nn` there. Prints each side's median, min and max of
+every reading, and one JSON line with all of it (also written to FILE).
+The timers and the inputs are chip_smoke.py's, from the checkout that
+holds this script: `fold6` and `fused4` on `_refine_operands` of the
+`_gt_pair` flagship (k = 6; fold6's tables as `main` makes them from
+seeds 2 and 3; fused4's groups of 4, unions of 32), the sorts on
 `_sort_operands`, `moments_fused` on the flagship target's KD index of
 128-point tiles, each its own query tile (`_cov_radius(target, 15)`, k 8,
 groups of 4, unions of 32), as `_phase_moments_fused` has it.
@@ -63,7 +66,8 @@ def worker(root: str) -> None:
     from icpx_torch.cloud import PointCloud
     from icpx_torch.io.loaders import load_cat_pair
     from icpx_torch.kernels import blocknn_cuda, cuda_build, nn_cuda, sort_cuda
-    from icpx_torch.kernels.blocknn import _candidate_tiles, build_kd_index, trim_index
+    from icpx_torch.kernels.blocknn import (_candidate_tiles, build_kd_index, fused_payload_table,
+                                            trim_index)
     from icpx_torch.kernels.knn import nearest_neighbor_reference
     from icpx_torch.registration.icp import ICPConfig, register
 
@@ -85,6 +89,13 @@ def worker(root: str) -> None:
                            f_tgt.capacity, multiple=64)
     query, cand, _ = smoke._refine_operands(f_src, tgt_index, f_gt)
     unions = blocknn_cuda.group_unions(cand, 4, 32).to(torch.int32)  # an older checkout's are int64
+    # fold6's 6-wide (symmetric) and 12-wide (GICP) payload tables
+    fold6_ops = {}
+    for label, seed, width in (("fold6", 2, 3), ("fold6_d12", 3, 9)):
+        aux = torch.as_tensor(np.random.default_rng(seed).normal(size=(smoke.N_FLAG, width))
+                              .astype(np.float32), device=dev)
+        fold6_ops[label] = blocknn_cuda.fold6_prepare(cand, tgt_index, fused_payload_table(tgt_index, aux))
+        del aux
     # moments_fused at the 1M covariance index
     cov_idx = build_kd_index(f_tgt.xyz, f_tgt.mask, tile_size=128)
     cov_radius = smoke._cov_radius(f_tgt, 15)
@@ -104,8 +115,13 @@ def worker(root: str) -> None:
 
     def reading():
         wall = smoke._sync_time(lambda: register(src, tgt, cfg), reps=5, warmup=2)[0]
+        fold6 = {}
+        for label, ops in fold6_ops.items():
+            fold6[f"{label}_device_ms"] = smoke._graph_ms(lambda: blocknn_cuda.fold6_cuda(query, ops))
+            fold6[f"{label}_event_ms"] = smoke._event_ms(lambda: blocknn_cuda.fold6_cuda(query, ops))
         return {"cat_wall_ms": 1e3 * wall,
                 "nn_3456_event_ms": smoke._event_ms(lambda: nn_cuda.nn_cuda(qc, rc, mc)),
+                **fold6,
                 "fused4_device_ms": smoke._graph_ms(fused4),
                 "fused4_event_ms": smoke._event_ms(fused4),
                 "sort4_device_ms": sum(smoke._graph_ms(lambda: sort_cuda.sort_cuda(k, [x, o]))
@@ -124,6 +140,12 @@ def worker(root: str) -> None:
             out[label] = {"bit_equal": bool(equal),
                           "device_ms": smoke._graph_ms(lambda: nn_cuda.nn_cuda(q, r, m)),
                           "event_ms": smoke._event_ms(lambda: nn_cuda.nn_cuda(q, r, m))}
+        equal = True
+        for ops in fold6_ops.values():
+            d_k, pl_k = blocknn_cuda.fold6_cuda(query, ops)
+            d_p, pl_p = blocknn_cuda.fold6_reference(query, ops)
+            equal &= torch.equal(d_k.view(torch.int32), d_p.view(torch.int32)) and torch.equal(pl_k, pl_p)
+        out["fold6"] = {"bit_equal": bool(equal)}  # both tables
         d_k, p_k = fused4()
         d_p, p_p = blocknn_cuda.fused4_reference(query, tgt_index.tiles, unions, 4)
         out["fused4"] = {"bit_equal": bool(torch.equal(d_k, d_p) and torch.equal(p_k, p_p))}

@@ -443,6 +443,297 @@ def test_fold6_all_sentinel_candidates_miss():
     assert np.isfinite(to_np(d_t)[:64]).all()
 
 
+# ---- the fold6 kernel's screen: emulation, margin, plan ------------------------------
+
+# The constants of csrc/blocknn.cu's fold6 kernel, which the wrapper reads
+# from the built library; and one with short stages, so that a candidate
+# tile's lanes span several stages and a block holds fewer tiles.
+F6_SHAPE = blocknn_cuda.Fold6Shape(threads=128, queries_per_thread=4, group=8, stage_rows=1024)
+F6_SHORT = blocknn_cuda.Fold6Shape(threads=128, queries_per_thread=4, group=8, stage_rows=48)
+F6_DIRECT_D2 = np.float32(1e11)
+F6_FAR_ABS = np.float32(5e5)
+
+
+def _fma32(x, y, z):
+    """fma(x, y, z) in float32: the product exact in float64, the sum
+    rounded to float64 and then to float32 (a double rounding may move it by
+    an ulp; the margin covers that, as it covers any score within E)."""
+    return (x.astype(np.float64) * y + z).astype(np.float32)
+
+
+def _f6_score(a, rows):
+    """(Q, 3) a = -2 qc, (R, 4) packed rows -> (Q, R) fma(ax, rx, fma(ay,
+    ry, fma(az, rz, rr)))."""
+    inner = _fma32(a[:, None, 2], rows[None, :, 2], rows[None, :, 3])
+    return _fma32(a[:, None, 0], rows[None, :, 0], _fma32(a[:, None, 1], rows[None, :, 1], inner))
+
+
+def _f6_direct(q, r):
+    """(Q, 3) x (R, 3) -> (Q, R) the plain version's direct form in float32."""
+    d = q[:, None, :] - r[None, :, :]
+    return (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
+
+
+def _f6_keys(d, j):
+    """u64 keys bits(d2) << 32 | j."""
+    return (d.astype(np.float32).view(np.uint32).astype(np.uint64) << np.uint64(32)) | j.astype(np.uint64)
+
+
+def emulate_fold6(query_tiles, tiles, cand, cent, shape):
+    """csrc/blocknn.cu's fold6 in numpy, step for step, a query tile at a
+    time (its queries' results depend on nothing else): stages in order
+    (candidate slot, run of `fold6_plan`'s lanes), each packed centred on the
+    tile's centre (`fold6_centres`) with rr, sentinel rows and group padding (0, 0, 0, +inf),
+    valid rows checked against R; groups screened by the FMA chain and
+    folded by min, the two least group minima and groups and the third
+    least minimum tracked per query in scan order; then thr = m1 + delta_q,
+    the exact keys of g1 (and g2 where m2 <= thr) in the raw direct form, or
+    the direct scan (far query, no valid row, a third group within thr, a
+    row beyond R, best d2 >= 1e11). Returns (d2, flat payload row, counts of
+    queries by path)."""
+    tq, sq, _ = query_tiles.shape
+    s = tiles.shape[1]
+    k = cand.shape[1]
+    plan = blocknn_cuda.fold6_plan(tq, sq, s, k, shape)
+    lc, lcp, group = plan["lanes_per_stage"], plan["padded_lanes"], shape.group
+    chunks = -(-s // lc)
+    ng = lcp // group
+    d_out = np.empty(tq * sq, np.float32)
+    pos_out = np.empty(tq * sq, np.int64)
+    counts = {"one group": 0, "two groups": 0, "direct": 0}
+    inf = np.float32(np.inf)
+    j_all = np.arange(s * k)
+    for t in range(tq):
+        c, big_r = cent[t, :3], cent[t, 3]
+        q = query_tiles[t]
+        a = np.float32(-2.0) * (q - c)
+        m1 = np.full(sq, inf)
+        m2, m3 = m1.copy(), m1.copy()
+        g1 = np.zeros(sq, np.int64)
+        g2 = g1.copy()
+        beyond = False
+        for st in range(k * chunks):
+            ci, l0 = st // chunks, (st % chunks) * lc
+            nl = min(lc, s - l0)
+            raw = tiles[cand[t, ci], l0:l0 + nl]
+            rows = np.zeros((lcp, 4), np.float32)
+            rows[:, 3] = inf
+            valid = (np.abs(raw) < 1e6).all(1)
+            rc = raw - c
+            rr = (rc[:, 0] * rc[:, 0] + rc[:, 1] * rc[:, 1]) + rc[:, 2] * rc[:, 2]
+            rows[:nl][valid] = np.concatenate([rc, rr[:, None]], 1)[valid]
+            beyond |= bool((~(rr[valid] <= big_r * big_r)).any())
+            gmin = _f6_score(a, rows).reshape(sq, ng, group).min(2)
+            for g in range(ng):
+                m, gid = gmin[:, g], st * ng + g
+                low2, low1 = m < m2, m < m1
+                m3 = np.where(low2, m2, np.minimum(m3, m))
+                m2, g2 = np.where(low1, m1, np.where(low2, m, m2)), np.where(low1, g1, np.where(low2, gid, g2))
+                m1, g1 = np.where(low1, m, m1), np.where(low1, gid, g1)
+        qc = q - c
+        qq = (qc[:, 0] * qc[:, 0] + qc[:, 1] * qc[:, 1]) + qc[:, 2] * qc[:, 2]
+        delta = blocknn_cuda.fold6_screen_margin(torch.as_tensor(qq), torch.tensor(big_r)).numpy()
+        thr = m1 + delta
+        for i in range(sq):
+            key = np.uint64(2**64 - 1)
+            direct = (not np.abs(q[i]).max() < F6_FAR_ABS or m1[i] == inf or m3[i] <= thr[i]
+                      or beyond)
+            if not direct:
+                for gid in ([g1[i], g2[i]] if m2[i] <= thr[i] else [g1[i]]):
+                    st, g = divmod(int(gid), ng)
+                    ci, l0 = st // chunks, (st % chunks) * lc + g * group
+                    lanes = np.arange(l0, min(l0 + group, s))
+                    d = _f6_direct(q[i:i + 1], tiles[cand[t, ci], lanes])[0]
+                    key = min(key, _f6_keys(d, lanes * k + ci).min())
+                counts["two groups" if m2[i] <= thr[i] else "one group"] += 1
+            best = (key >> np.uint64(32)).astype(np.uint32).view(np.float32)
+            if direct or not best < F6_DIRECT_D2:
+                r = tiles[cand[t, j_all % k], j_all // k]  # row j = lane * k + c
+                key = _f6_keys(_f6_direct(q[i:i + 1], r)[0], j_all).min()
+                counts["direct"] += 1
+            d = (key >> np.uint64(32)).astype(np.uint32).view(np.float32)
+            j = int(key & np.uint64(0xFFFFFFFF))
+            d_out[t * sq + i] = d if d < 1e15 else inf
+            pos_out[t * sq + i] = int(cand[t, j % k]) * s + j // k
+    return d_out, pos_out, counts
+
+
+def _fold6_fixture(name, tq=6, sq=20, s=32, k=4, n_tiles=12):
+    """(query tiles (tq, sq, 3), TileIndex, cand (tq, k), payload (T*S, 6)),
+    made with numpy from a seed. "random": uniform tiles and queries.
+    "exact ties": small integer coordinates, so rows repeat across lanes
+    and candidate tiles and many d2 tie exactly. "near ties": each query's
+    near row r1 and two copies of it one ulp off in x or y, in other lanes
+    and tiles (direct d2 an ulp or so apart). "mixed sentinel": a third of
+    the rows at PAD_COORD. "all sentinel": query tile 0's candidates are
+    all-sentinel tiles. "pad queries": a quarter of the query rows at
+    PAD_COORD. "far queries": queries 2e5 units from their candidates (a
+    wide margin: queries need two groups or the direct scan)."""
+    rng = np.random.default_rng(sum(map(ord, name)) + 7 * s + k)
+    tiles = rng.uniform(-1, 1, (n_tiles, s, 3)).astype(np.float32)
+    query = rng.uniform(-1, 1, (tq, sq, 3)).astype(np.float32)
+    cand = rng.integers(0, n_tiles, (tq, k))
+    if name == "exact ties":
+        tiles = rng.integers(-2, 3, (n_tiles, s, 3)).astype(np.float32)
+        query = rng.integers(-2, 3, (tq, sq, 3)).astype(np.float32)
+    elif name == "near ties":
+        flat = tiles.reshape(-1, 3)
+        for qi, q in enumerate(query.reshape(-1, 3)):
+            t = cand[qi // sq]
+            r1 = (q + rng.normal(scale=1e-3, size=3)).astype(np.float32)
+            r2, r3 = r1.copy(), r1.copy()
+            r2[0] = np.nextafter(r1[0], np.float32(np.inf))
+            r3[1] = np.nextafter(r1[1], np.float32(-np.inf))
+            for r, c in zip((r1, r2, r3), rng.permutation(k)[:3]):
+                flat[t[c] * s + rng.integers(s)] = r
+    elif name == "mixed sentinel":
+        tiles[rng.uniform(size=(n_tiles, s)) < 0.33] = PAD_COORD
+    elif name == "all sentinel":
+        tiles[-2:] = PAD_COORD
+        cand[0] = [n_tiles - 1 - (c % 2) for c in range(k)]
+    elif name == "pad queries":
+        query[rng.uniform(size=(tq, sq)) < 0.25] = PAD_COORD
+    elif name == "far queries":
+        query += np.float32(2e5)
+    elif name != "random":
+        raise KeyError(name)
+    order = np.where((np.abs(tiles) < 1e6).all(2), np.arange(n_tiles * s).reshape(n_tiles, s), -1)
+    index = tb._finish_index(torch.as_tensor(tiles), torch.as_tensor(order.reshape(-1), dtype=torch.int32))
+    payload = rng.normal(size=(n_tiles * s, 6)).astype(np.float32)
+    return query, index, cand, payload
+
+
+F6_FIXTURES = ["random", "exact ties", "near ties", "mixed sentinel", "all sentinel", "pad queries",
+               "far queries"]
+
+
+@pytest.mark.parametrize("shape", [F6_SHAPE, F6_SHORT], ids=["kernel", "short stages"])
+@pytest.mark.parametrize("name", F6_FIXTURES)
+@pytest.mark.parametrize("tq,sq,s,k", [(6, 20, 32, 4), (3, 64, 100, 6), (9, 3, 8, 2)],
+                         ids=["sq20", "sq64-s100", "sq3"])
+def test_emulated_fold6_equals_reference(name, shape, tq, sq, s, k):
+    """The kernel's centring, packing, grouped screen, top-three tracking,
+    exact rows and direct scan give fold6_reference's d2 and payload bit
+    for bit: on each fixture, at query tiles that do not fill a block (sq 3
+    and 20), S not a multiple of the group, and with stages of 48 rows (a
+    candidate tile's lanes over several stages at S = 100)."""
+    query, index, cand, payload = _fold6_fixture(name, tq, sq, s, k, n_tiles=max(12, k + 2))
+    ops = fold6_prepare(torch.as_tensor(cand), index, torch.as_tensor(payload))
+    cent = blocknn_cuda.fold6_centres(ops.cand, ops.box_lo, ops.box_hi)
+    assert cent.dtype == torch.float32 and tuple(cent.shape) == (tq, 4)
+    d_e, pos_e, counts = emulate_fold6(query, to_np(index.tiles), cand, to_np(cent), shape)
+    d_p, pl_p = fold6_reference(torch.as_tensor(query), ops)
+    np.testing.assert_array_equal(d_e.view(np.int32), to_np(d_p).view(np.int32))
+    np.testing.assert_array_equal(payload[pos_e], to_np(pl_p))
+    if name in ("pad queries", "all sentinel", "far queries"):
+        assert counts["direct"] > 0
+    if name == "random":
+        assert counts["one group"] > counts["direct"]
+
+
+def test_emulated_fold6_covers_reversed_near_ties():
+    """The near-tie fixture holds pairs of candidate rows whose screen order
+    is the reverse of their direct order (direct d2 one ulp or so apart),
+    and the emulated kernel still returns the plain version's winner."""
+    query, index, cand, payload = _fold6_fixture("near ties", 6, 64, 32, 4)
+    ops = fold6_prepare(torch.as_tensor(cand), index, torch.as_tensor(payload))
+    tiles = to_np(index.tiles)
+    cent = to_np(blocknn_cuda.fold6_centres(ops.cand, ops.box_lo, ops.box_hi))
+    reversed_pairs = 0
+    for t in range(len(query)):
+        c = cent[t, :3]
+        r = tiles[cand[t]].reshape(-1, 3)
+        rc = r - c
+        rows = np.concatenate([rc, ((rc[:, 0] * rc[:, 0] + rc[:, 1] * rc[:, 1])
+                                    + rc[:, 2] * rc[:, 2])[:, None]], 1)
+        sc = _f6_score(np.float32(-2.0) * (query[t] - c), rows)
+        d = _f6_direct(query[t], r)
+        near = np.argsort(d, axis=1)[:, :3]  # r1 and its two one-ulp copies
+        for i, (a, b, cc) in enumerate(near):
+            for x, y in ((a, b), (a, cc), (b, cc)):
+                reversed_pairs += int((d[i, x] < d[i, y]) and (sc[i, x] > sc[i, y]))
+    assert reversed_pairs > 0
+    d_e, pos_e, _ = emulate_fold6(query, tiles, cand, cent, F6_SHAPE)
+    d_p, pl_p = fold6_reference(torch.as_tensor(query), ops)
+    np.testing.assert_array_equal(d_e.view(np.int32), to_np(d_p).view(np.int32))
+    np.testing.assert_array_equal(payload[pos_e], to_np(pl_p))
+
+
+def test_emulated_fold6_rows_beyond_radius_take_the_direct_scan():
+    """An index whose boxes miss its rows (a radius that does not hold):
+    the kernel's check sends those tiles to the direct scan, and the
+    result is still the plain version's."""
+    query, index, cand, payload = _fold6_fixture("random")
+    mid = index.tiles.mean(1)
+    small = tb.TileIndex(tiles=index.tiles, box_lo=mid, box_hi=mid, centroids=mid, order=index.order)
+    ops = fold6_prepare(torch.as_tensor(cand), small, torch.as_tensor(payload))
+    cent = blocknn_cuda.fold6_centres(ops.cand, ops.box_lo, ops.box_hi)
+    d_e, pos_e, counts = emulate_fold6(query, to_np(index.tiles), cand, to_np(cent), F6_SHAPE)
+    assert counts["direct"] == query.shape[0] * query.shape[1]
+    d_p, pl_p = fold6_reference(torch.as_tensor(query), ops)
+    np.testing.assert_array_equal(d_e.view(np.int32), to_np(d_p).view(np.int32))
+    np.testing.assert_array_equal(payload[pos_e], to_np(pl_p))
+
+
+@pytest.mark.parametrize("scale", [1.0, 100.0])
+@pytest.mark.parametrize("name", ["uniform", "box corners", "ulp neighbours"])
+def test_fold6_margin_bounds_the_centred_expansion(name, scale):
+    """For every valid pair, the centred fp32 screen score s (the FMA chain
+    on rc = fl(r - c), rr = fl(|rc|^2), a = -2 fl(q - c)) plus the exact
+    |q - c|^2 is within delta_q / 2 of the uncentred fp32 direct-form d2,
+    with c and R from fold6_prepare, at coordinates of scale 1 and 100 (far
+    from the origin: the uncentred expansion would cancel)."""
+    rng = np.random.default_rng(int(scale) + len(name))
+    off = np.float32(scale)
+    tiles = (rng.uniform(-1, 1, (6, 64, 3)) * 0.05 + off).astype(np.float32)
+    query = (rng.uniform(-1, 1, (2, 64, 3)) * 0.05 + off).astype(np.float32)
+    if name == "box corners":  # queries on the far corners of the candidates' boxes
+        lo, hi = tiles.reshape(-1, 3).min(0), tiles.reshape(-1, 3).max(0)
+        pick = rng.integers(0, 2, (2, 64, 3)).astype(bool)
+        query = np.where(pick, lo, hi).astype(np.float32)
+    elif name == "ulp neighbours":
+        flat = tiles.reshape(-1, 3)
+        flat[:128] = query.reshape(-1, 3)
+        flat[128:256] = np.nextafter(flat[:128], np.float32(np.inf))
+    order = np.arange(6 * 64, dtype=np.int32)
+    index = tb._finish_index(torch.as_tensor(tiles), torch.as_tensor(order))
+    cand = np.array([[0, 1, 2, 3, 4, 5], [5, 4, 3, 2, 1, 0]])
+    ops = fold6_prepare(torch.as_tensor(cand), index, torch.zeros((6 * 64, 6)))
+    cent = to_np(blocknn_cuda.fold6_centres(ops.cand, ops.box_lo, ops.box_hi))
+    worst = 0.0
+    for t in range(2):
+        c, big_r = cent[t, :3], cent[t, 3]
+        r = tiles[cand[t]].reshape(-1, 3)
+        rc = r - c
+        rr = (rc[:, 0] * rc[:, 0] + rc[:, 1] * rc[:, 1]) + rc[:, 2] * rc[:, 2]
+        assert (rr <= big_r * big_r).all()  # the kernel's check holds: R is a radius
+        qc = query[t] - c
+        s = _f6_score(np.float32(-2.0) * qc, np.concatenate([rc, rr[:, None]], 1))
+        qq32 = (qc[:, 0] * qc[:, 0] + qc[:, 1] * qc[:, 1]) + qc[:, 2] * qc[:, 2]
+        delta = blocknn_cuda.fold6_screen_margin(torch.as_tensor(qq32), torch.tensor(big_r)).numpy()
+        qq = ((query[t].astype(np.float64) - c.astype(np.float64)) ** 2).sum(1)  # |q - c|^2 exact
+        err = np.abs(s.astype(np.float64) + qq[:, None] - _f6_direct(query[t], r).astype(np.float64))
+        worst = max(worst, float((err / (delta[:, None].astype(np.float64) / 2)).max()))
+    assert worst <= 1.0, f"an expansion error reaches {worst:.3f} x delta_q / 2"
+
+
+@pytest.mark.parametrize("tq,sq,s,k,want", [
+    (16384, 64, 128, 6, (8, 128, 128, 16, 6, (2048, 1))),  # the 1M refine shape
+    (256, 64, 128, 6, (8, 128, 128, 16, 6, (32, 1))),  # the 16k pair's refine shape
+    (2, 8, 8, 4, (64, 8, 8, 1, 4, (1, 1))),  # chip_smoke's fixtures
+    (4, 300, 128, 6, (1, 128, 128, 16, 6, (4, 1))),  # a tile of 75 threads
+    (5, 600, 2000, 1, (1, 1024, 1024, 128, 2, (5, 2))),  # a tile over two blocks, S over two stages
+    (7, 3, 13, 2, (64, 13, 16, 2, 2, (1, 1))),  # S not a multiple of the group
+])
+def test_fold6_plan_of_the_kernel_shape(tq, sq, s, k, want):
+    plan = blocknn_cuda.fold6_plan(tq, sq, s, k, F6_SHAPE)
+    assert (plan["tiles_per_block"], plan["lanes_per_stage"], plan["padded_lanes"], plan["groups"],
+            plan["stages"], plan["blocks"]) == want
+    nqs = min(-(-sq // F6_SHAPE.queries_per_thread), F6_SHAPE.threads)
+    assert plan["tiles_per_block"] * plan["padded_lanes"] <= F6_SHAPE.stage_rows
+    assert plan["tiles_per_block"] * nqs <= F6_SHAPE.threads
+
+
 # ---- in-fold payload selection ("infold", plain torch) ------------------------------
 
 
@@ -1215,6 +1506,13 @@ def test_cuda_fold6_matches_plain(cuda_device):
                         torch.as_tensor(payload, device=cuda_device))
     _, pl = blocknn_cuda.fold6_cuda(torch.as_tensor(query, device=cuda_device), ops)
     assert float(pl[0, 0]) == 9 and float(pl[1, 0]) == 18
+
+
+@pytest.mark.cuda
+def test_cuda_fold6_library_shape(cuda_device):
+    """The built library reports the shape the plan and emulation tests
+    above assume."""
+    assert blocknn_cuda.fold6_shape() == F6_SHAPE
 
 
 @pytest.mark.cuda

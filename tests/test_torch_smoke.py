@@ -192,7 +192,8 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
     extras = {"nn": {"ms_3456", "plain_ms_3456", "library_ms_3456", "bound_ms_3456", "splits",
                      "splits_3456", "device_ms", "device_ms_3456", "library_device_ms_3456"},
               "moments6": {"cov_max_abs_err", "cov_err_over_tol", "device_ms"},
-              "fold6": {"device_ms"},
+              "fold6": {"device_ms", "ms_d12", "plain_ms_d12", "device_ms_d12", "bound_ms_d12",
+                        "prepare_ms"},
               "fold7": {"device_ms"},
               "select": {"ms_d12", "plain_ms_d12", "library_ms_d12", "bound_ms_d12", "device_ms_d12",
                          "library_device_ms_d12"} | device,
