@@ -333,8 +333,11 @@ def _phase_nn(dev, n_pair, rng):
             device_ms = _graph_ms(lambda: nn_cuda.nn_cuda(qc, rc, mc))
             # beside cdist's ~5 s at 65,536^2 the host's launch cost is nothing
             library_device_ms = library_ms if name == big else _graph_ms(library)
-            # every query against every valid reference, 8 operations a pair
-            bound_ms, bound_by = _bound((nq + nr) * 12 + nr + nq * 8, nq * int(m.sum()) * 8.0)
+            # the operations of the kernel's method: every query against every
+            # valid reference screened (3 FFMA = 6, and a min), and at least one
+            # group of 8 rows a query rescored in the direct form (8 a row)
+            bound_ms, bound_by = _bound((nq + nr) * 12 + nr + nq * 8,
+                                        nq * int(m.sum()) * 7.0 + nq * 8 * 8.0)
             suffix = "" if name == big else "_3456"
             fields.update({f"ms{suffix}": ms, f"plain_ms{suffix}": plain_ms,
                            f"library_ms{suffix}": library_ms, f"bound_ms{suffix}": bound_ms,
@@ -433,61 +436,82 @@ def _refine_operands(src, tgt_index, gt):
     return query, cand, q_cent
 
 
-def _fold6_fixtures(dev):
-    """fold6's screen fixtures, made with numpy from a seed, each (query
-    tiles, index, cand, payload): "near ties" (each query's near row and two
-    copies one ulp off in x or y, in other lanes and tiles), "mixed
-    sentinel" (a third of the rows at PAD_COORD), "pad queries" (a quarter
-    of the query rows at PAD_COORD), "far queries" (2e5 units from their
-    candidates: a wide margin, the direct scan), and "rows beyond R" (tile
-    boxes that miss the rows: the kernel's radius check sends those tiles to
-    the direct scan)."""
+FOLD6_FIXTURES = ("random", "exact ties", "near ties", "mixed sentinel", "all sentinel",
+                  "pad queries", "far queries", "rows beyond R")
+# (tq, sq, s, k) of the fixtures on the card: query tiles that do not fill a
+# block (sq 3 and 20), S not a multiple of the group (100), a tile over two
+# blocks with S over two stages (600, 2000), whole blocks of one and of
+# eight tiles (128 and 64 queries)
+FOLD6_FIXTURE_SHAPES = ((6, 20, 32, 4), (3, 64, 100, 6), (9, 3, 8, 2), (5, 600, 2000, 1),
+                        (4, 128, 128, 6), (8, 64, 128, 6))
+
+
+def fold6_fixture(name, tq=6, sq=20, s=32, k=4, n_tiles=12, device="cpu"):
+    """One fold6 screen fixture, made with numpy from a seed: (query tiles
+    (tq, sq, 3), TileIndex, cand (tq, k), payload (n_tiles * s, 6)), on
+    `device`. "random": uniform tiles and queries. "exact ties": small
+    integer coordinates, so rows repeat across lanes and candidate tiles
+    and many d2 tie exactly. "near ties": each query's near row r1 and two
+    copies of it one ulp off in x or y, in other lanes and tiles (direct d2
+    an ulp or so apart; some pairs screen in the reverse order). "mixed
+    sentinel": a third of the rows at PAD_COORD. "all sentinel": query tile
+    0's candidates are all-sentinel tiles. "pad queries": a quarter of the
+    query rows at PAD_COORD. "far queries": queries 2e5 units from their
+    candidates (a wide margin: two groups or the direct scan). "rows beyond
+    R": tile boxes that miss the rows (the kernel's radius check sends every
+    tile to the direct scan)."""
     from icpx_torch.cloud import PAD_COORD
     from icpx_torch.kernels.blocknn import TileIndex, _finish_index
 
-    out = {}
-    for name in ("near ties", "mixed sentinel", "pad queries", "far queries", "rows beyond R"):
-        rng = np.random.default_rng(sum(map(ord, name)))
-        n_tiles, s, tq, sq, k = 24, 128, 8, 64, 6
-        tiles = rng.uniform(-1, 1, (n_tiles, s, 3)).astype(np.float32)
-        query = rng.uniform(-1, 1, (tq, sq, 3)).astype(np.float32)
-        cand = rng.integers(0, n_tiles, (tq, k))
-        if name == "near ties":
-            flat = tiles.reshape(-1, 3)
-            for qi, q in enumerate(query.reshape(-1, 3)):
-                r1 = (q + rng.normal(scale=1e-3, size=3)).astype(np.float32)
-                r2, r3 = r1.copy(), r1.copy()
-                r2[0] = np.nextafter(r1[0], np.float32(np.inf))
-                r3[1] = np.nextafter(r1[1], np.float32(-np.inf))
-                for r, c in zip((r1, r2, r3), rng.permutation(k)[:3]):
-                    flat[cand[qi // sq, c] * s + rng.integers(s)] = r
-        elif name == "mixed sentinel":
-            tiles[rng.uniform(size=(n_tiles, s)) < 0.33] = PAD_COORD
-        elif name == "pad queries":
-            query[rng.uniform(size=(tq, sq)) < 0.25] = PAD_COORD
-        elif name == "far queries":
-            query += np.float32(2e5)
-        valid = (np.abs(tiles) < 1e6).all(2)
-        order = np.where(valid, np.arange(n_tiles * s).reshape(n_tiles, s), -1).reshape(-1)
-        index = _finish_index(torch.as_tensor(tiles, device=dev),
-                              torch.as_tensor(order, dtype=torch.int32, device=dev))
-        if name == "rows beyond R":
-            mid = index.tiles.mean(1)
-            index = TileIndex(tiles=index.tiles, box_lo=mid, box_hi=mid, centroids=mid,
-                              order=index.order)
-        payload = torch.as_tensor(rng.normal(size=(n_tiles * s, 6)).astype(np.float32), device=dev)
-        out[name] = (torch.as_tensor(query, device=dev), index,
-                     torch.as_tensor(cand, device=dev), payload)
-    return out
+    base = "random" if name == "rows beyond R" else name
+    rng = np.random.default_rng(sum(map(ord, name)) + 7 * s + k)
+    tiles = rng.uniform(-1, 1, (n_tiles, s, 3)).astype(np.float32)
+    query = rng.uniform(-1, 1, (tq, sq, 3)).astype(np.float32)
+    cand = rng.integers(0, n_tiles, (tq, k))
+    if base == "exact ties":
+        tiles = rng.integers(-2, 3, (n_tiles, s, 3)).astype(np.float32)
+        query = rng.integers(-2, 3, (tq, sq, 3)).astype(np.float32)
+    elif base == "near ties":
+        flat = tiles.reshape(-1, 3)
+        for qi, q in enumerate(query.reshape(-1, 3)):
+            t = cand[qi // sq]
+            r1 = (q + rng.normal(scale=1e-3, size=3)).astype(np.float32)
+            r2, r3 = r1.copy(), r1.copy()
+            r2[0] = np.nextafter(r1[0], np.float32(np.inf))
+            r3[1] = np.nextafter(r1[1], np.float32(-np.inf))
+            slots = rng.permutation(k)[:3] if k > 1 else (0, 0, 0)  # k = 1: one tile, three lanes
+            for r, c in zip((r1, r2, r3), slots):
+                flat[t[c] * s + rng.integers(s)] = r
+    elif base == "mixed sentinel":
+        tiles[rng.uniform(size=(n_tiles, s)) < 0.33] = PAD_COORD
+    elif base == "all sentinel":
+        tiles[-2:] = PAD_COORD
+        cand[0] = [n_tiles - 1 - (c % 2) for c in range(k)]
+    elif base == "pad queries":
+        query[rng.uniform(size=(tq, sq)) < 0.25] = PAD_COORD
+    elif base == "far queries":
+        query += np.float32(2e5)
+    elif base != "random":
+        raise KeyError(name)
+    order = np.where((np.abs(tiles) < 1e6).all(2), np.arange(n_tiles * s).reshape(n_tiles, s), -1)
+    index = _finish_index(torch.as_tensor(tiles, device=device),
+                          torch.as_tensor(order.reshape(-1), dtype=torch.int32, device=device))
+    if name == "rows beyond R":
+        mid = index.tiles.mean(1)
+        index = TileIndex(tiles=index.tiles, box_lo=mid, box_hi=mid, centroids=mid, order=index.order)
+    payload = rng.normal(size=(n_tiles * s, 6)).astype(np.float32)
+    return (torch.as_tensor(query, device=device), index, torch.as_tensor(cand, device=device),
+            torch.as_tensor(payload, device=device))
 
 
 def _phase_fold6(dev, query, cand, tgt_index, table, table12, fixtures):
     """Kernel #3 against its plain version at the shapes of one flagship
     refine iteration (16,384 x 64 queries, k = 6 frozen candidates, the
     fused (T*S, 6) table of the symmetric objective and GICP's (T*S, 12)
-    one), bit for bit on every row, plus the tie and miss fixtures and the
-    screen's (`_fold6_fixtures`); times at D = 6 and D = 12 (the latter's
-    under *_d12); returns its JSON fields."""
+    one), bit for bit on every row, plus the tie and miss fixtures and each
+    screen fixture (`fold6_fixture`) at each of FOLD6_FIXTURE_SHAPES; times
+    at D = 6 and D = 12 (the latter's under *_d12); returns its JSON
+    fields."""
     from icpx_torch.kernels import blocknn_cuda
 
     def compare(name, query, ops):
@@ -511,17 +535,29 @@ def _phase_fold6(dev, query, cand, tgt_index, table, table12, fixtures):
         _fail("fold6 fixtures: tie rule broken (least d2, lowest lane, earliest candidate)")
     if not (bool(torch.isinf(fd[8:14]).all()) and float(fpl[8, 0]) == 32.0):
         _fail("fold6 fixtures: a tile of all-sentinel candidates must miss onto its first sentinel row")
-    for name, (x_query, x_index, x_cand, x_payload) in _fold6_fixtures(dev).items():
-        _, _, e = compare(f"fixture {name}", x_query, blocknn_cuda.fold6_prepare(x_cand, x_index, x_payload))
-        fx_err = max(fx_err, e)
+    for shape in FOLD6_FIXTURE_SHAPES:
+        for name in FOLD6_FIXTURES:
+            x_query, x_index, x_cand, x_payload = fold6_fixture(name, *shape, n_tiles=max(12, shape[3] + 2),
+                                                                device=dev)
+            _, _, e = compare(f"fixture {name} {shape}", x_query,
+                              blocknn_cuda.fold6_prepare(x_cand, x_index, x_payload))
+            fx_err = max(fx_err, e)
     tq, sq, _ = query.shape
     n, k, s = tq * sq, cand.shape[1], tgt_index.tile_size
+    # The operations this run's data needs of the kernel's method: each
+    # staged row packed (8 a row a query tile); for a query below the far
+    # limit, every pair screened (3 FFMA = 6, and a min) and at least its
+    # least group of 8 rows rescored in the direct form (8 a row); for a far
+    # (pad) query, the direct scan (8 a pair). The second groups (<1% of
+    # the queries) and the other direct scans are left out: a lower bound.
+    far = int((query.abs().amax(-1) >= 5e5).sum())
+    n_ops = tq * k * s * 8.0 + (n - far) * (k * s * 7.0 + 8 * 8.0) + far * k * s * 8.0
     timed = {}
     for suffix, o in (("", ops), ("_d12", ops12)):
         d_pl = o.payload.shape[1]
-        bytes_moved = (n * 12 + tgt_index.tiles.numel() * 4 + tq * k * 4 + tq * 16 + o.payload.numel() * 4
-                       + n * (4 + 4 * d_pl))
-        bound_ms, bound_by = _bound(bytes_moved, n * k * s * 8.0)  # the direct form's 8 a pair
+        bytes_moved = (n * 12 + tgt_index.tiles.numel() * 4 + tq * k * 4 + o.box_lo.numel() * 8
+                       + o.payload.numel() * 4 + n * (4 + 4 * d_pl))
+        bound_ms, bound_by = _bound(bytes_moved, n_ops)
         timed.update({f"ms{suffix}": _event_ms(lambda: blocknn_cuda.fold6_cuda(query, o)),
                       f"device_ms{suffix}": _graph_ms(lambda: blocknn_cuda.fold6_cuda(query, o)),
                       f"plain_ms{suffix}": _event_ms(lambda: blocknn_cuda.fold6_reference(query, o)),
@@ -539,10 +575,12 @@ def _phase_fold6(dev, query, cand, tgt_index, table, table12, fixtures):
         shape_text = "no kernel shape (no CUDA device)"
     print(f"fold6 kernel vs plain {tuple(query.shape)} k=6: d2 and payload bit-equal on all {n} rows "
           f"({int(torch.isfinite(d).sum())} hits), with the 6- and the 12-wide table; fixtures ok "
-          "(ties, misses, padded rows; near ties, mixed sentinel, pad queries, far queries, rows "
-          f"beyond R); D=6: kernel {timed['ms']:.4f} ms, plain {timed['plain_ms']:.3f} ms (CUDA "
+          f"(ties, misses, padded rows; {', '.join(FOLD6_FIXTURES)} at (tq, sq, s, k) "
+          f"{', '.join(map(str, FOLD6_FIXTURE_SHAPES))}); D=6: kernel {timed['ms']:.4f} ms, plain "
+          f"{timed['plain_ms']:.3f} ms (CUDA "
           f"events around one call, median of 5), device time (CUDA graph replay) kernel "
-          f"{timed['device_ms']:.4f} ms, bound {timed['bound_ms']:.4f} ms ({bound_by}); D=12: kernel "
+          f"{timed['device_ms']:.4f} ms, bound {timed['bound_ms']:.4f} ms ({bound_by}: {n_ops:.6g} "
+          f"operations, {far} far queries); D=12: kernel "
           f"{timed['ms_d12']:.4f} ms, plain {timed['plain_ms_d12']:.3f} ms, device time kernel "
           f"{timed['device_ms_d12']:.4f} ms, bound {timed['bound_ms_d12']:.4f} ms; fold6_prepare "
           f"{prepare_ms:.4f} ms (events, once a phase); {shape_text}")

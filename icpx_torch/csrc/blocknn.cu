@@ -524,14 +524,14 @@ static_assert(kF4Q == kF4LaneThreads, "lane thread j writes query j of its quad"
 //     and each query adds its weight (0 for a miss) times the features by
 //     FMA, so the fast path keeps one combined predicate and no per-query
 //     branch. The warp takes that branch in 5.0% of its row steps at the 1M
-//     index (scripts/torch_mf_variants.py's counters); ~0.5% of the pairs
+//     index (scripts/torch_variants.py moments_fused's counters); ~0.5% of the pairs
 //     count.
 //   * 3 blocks an SM (80 registers; 40 bytes of spill stores, reloaded once
 //     every 4 rows in the loop): uncapped, 124 registers and 2 blocks ran
 //     8% slower.
 // What holds it back (H100 80GB HBM3 at 700 W, the 1M covariance index):
 // 0.762-0.769 ms device (the one-query-a-thread version: 1.243), 2.7e12
-// pairs/s; variants are timed by scripts/torch_mf_variants.py. A row step is ~34 instructions for 4 pairs (12 FMUL, 12 FADD, 4
+// pairs/s; variants are timed by scripts/torch_variants.py. A row step is ~34 instructions for 4 pairs (12 FMUL, 12 FADD, 4
 // FSETP, the branch and its BSSY/BSYNC, an address and the LDS), issued
 // ~68% of the time; the rounded score and its compare (28) are the floor
 // of this form. A screen by a 3-FFMA score with a proven rounding margin
@@ -764,7 +764,7 @@ moments_fused_kernel(const float* __restrict__ query, const float* __restrict__ 
 // at the median), delta_q ~3e-10 to 1e-9, and the NN d2 ~4e-6.
 //
 // What holds it back (H100 80GB HBM3 at 700 W, the 1M refine shape,
-// scripts/torch_fold6_variants.py): ~0.28-0.29 ms device against the
+// scripts/torch_variants.py fold6): ~0.28-0.29 ms device against the
 // direct form's 0.37. A screen step of 8 rows for 4 queries is ~146
 // instructions (8 LDS.128, 96 FFMA, 32 FMNMX, 4 FSETP, the vote, the
 // branch), 4.6 a pair, issued about half the time (80 registers, 32.5 KB of
@@ -856,8 +856,8 @@ __device__ __forceinline__ unsigned long long f6_group(float qx, float qy, float
 // its k candidate tiles ids: c the centre of the first box that holds a row
 // (lo <= hi; the origin if none does), R the distance from c to the
 // farthest corner of those boxes, a little over. Only the speed rests on
-// them: packing checks every valid row against R. fold6_centres in
-// blocknn_cuda.py repeats this arithmetic.
+// them: packing checks every valid row against R. The tests' fold6_centres
+// (tests/test_torch_blocknn.py) repeats this arithmetic.
 __device__ float4 f6_centre(const int* ids, const float* __restrict__ box_lo,
                            const float* __restrict__ box_hi, int k) {
   float4 c = make_float4(0.f, 0.f, 0.f, 0.f);

@@ -16,7 +16,7 @@ each beside its plain PyTorch version with the same contract:
   frozen-candidate phase and `block_fold_fused_pre` once per iteration, as
   in the reference. The kernel screens pairs by a centred expansion against
   a proven margin (`fold6_screen_margin`; centres and radii from the tile
-  boxes, `fold6_centres`) and rescores the few rows that pass in the direct form,
+  boxes) and rescores the few rows that pass in the direct form,
   so its outputs are the plain version's, bit for bit (`fold6_plan` is its
   launch shape).
 * `fold7` replaces `blocknn_pallas._fold7_kernel` (`payload_mode="vmem7"`):
@@ -284,27 +284,7 @@ class Fold6Operands:
     tiles: torch.Tensor  # (T, S, 3) f32 index tiles
     payload: torch.Tensor  # (T*S, D) f32 payload table in sorted tile order
     box_lo: torch.Tensor  # (T, 3) f32 index tile boxes, for the kernel's screen centre
-    box_hi: torch.Tensor  # and radius (`fold6_centres`)
-
-
-def fold6_centres(cand: torch.Tensor, box_lo: torch.Tensor, box_hi: torch.Tensor) -> torch.Tensor:
-    """(Tq, 4) f32 (cx, cy, cz, R) a query tile, as the fold6 kernel makes
-    them at a block's start (`f6_centre`), in the same float32 arithmetic:
-    c the centre of the box of its first candidate tile that holds a row
-    (lo <= hi; the origin if none does), R the distance from c to the
-    farthest corner of those boxes, times 1 + 2^-10. Only the kernel's
-    speed rests on these: it checks every valid row against R, and a query
-    tile with a row beyond R takes the direct scan."""
-    cand = cand.to(torch.int64)
-    lo, hi = box_lo[cand].to(torch.float32), box_hi[cand].to(torch.float32)  # (Tq, k, 3)
-    has = (lo <= hi).all(2)
-    first = has.to(torch.uint8).argmax(1)[:, None, None].expand(-1, 1, 3)
-    mid = 0.5 * (torch.gather(lo, 1, first)[:, 0] + torch.gather(hi, 1, first)[:, 0])
-    c = torch.where(has.any(1, keepdim=True), mid, 0.0)
-    d = torch.maximum((hi - c[:, None]).abs(), (lo - c[:, None]).abs())
-    r2 = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
-    r = torch.sqrt(torch.where(has, r2, 0.0).amax(1)) * 1.0009765625
-    return torch.cat([c, r[:, None]], dim=1)
+    box_hi: torch.Tensor  # and radius
 
 
 def fold6_prepare(cand_tiles: torch.Tensor, index: TileIndex,
@@ -312,7 +292,7 @@ def fold6_prepare(cand_tiles: torch.Tensor, index: TileIndex,
     """Check the fold's loop-invariant operands and make them contiguous,
     int32 candidate ids included. Unlike the TPU prep it gathers nothing:
     the kernel reads candidate rows from the index itself, and its screen
-    centres and radii from the index's tile boxes (`fold6_centres`)."""
+    centres and radii from the index's tile boxes."""
     t, s, _ = index.tiles.shape
     if payload_table.ndim != 2 or payload_table.shape[0] != t * s:
         raise ValueError(f"payload table must be ({t * s}, D), got {tuple(payload_table.shape)}")
@@ -330,7 +310,7 @@ def fold6_prepare(cand_tiles: torch.Tensor, index: TileIndex,
 def fold6_screen_margin(qq: torch.Tensor, big_r: torch.Tensor) -> torch.Tensor:
     """delta_q of the fold6 kernel's screen, in float32 as the kernel
     computes it: 2^-18 (|q - c| + R)^2 from |q - c|^2 (the centred query's,
-    rounded) and R (`fold6_centres`). More than twice a bound (15 u
+    rounded) and R (the tile's screen radius). More than twice a bound (15 u
     (|q - c| + R)^2, u = 2^-24, to first order) on |s + |q - c|^2 - d| over
     every valid pair, s the centred fp32 screen score and d the uncentred
     fp32 direct form, with room for rounding the threshold; the source note

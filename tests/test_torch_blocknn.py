@@ -55,6 +55,7 @@ from icpx_torch.kernels.blocknn_cuda import (
 from icpx_torch.kernels.knn import nearest_neighbor_reference
 from icpx_torch.kernels.normals import estimate_normals
 from icpx_torch.kernels.voxel import auto_cell_size
+import chip_smoke
 from torch_parity import clouds, to_np
 
 GAP = 1e-4
@@ -479,6 +480,24 @@ def _f6_keys(d, j):
     return (d.astype(np.float32).view(np.uint32).astype(np.uint64) << np.uint64(32)) | j.astype(np.uint64)
 
 
+def fold6_centres(cand, box_lo, box_hi):
+    """(Tq, 4) f32 (cx, cy, cz, R) a query tile, as the fold6 kernel makes
+    them at a block's start (`f6_centre` in csrc/blocknn.cu), in the same
+    float32 arithmetic: c the centre of the box of its first candidate tile
+    that holds a row (lo <= hi; the origin if none does), R the distance
+    from c to the farthest corner of those boxes, times 1 + 2^-10."""
+    cand = cand.to(torch.int64)
+    lo, hi = box_lo[cand].to(torch.float32), box_hi[cand].to(torch.float32)  # (Tq, k, 3)
+    has = (lo <= hi).all(2)
+    first = has.to(torch.uint8).argmax(1)[:, None, None].expand(-1, 1, 3)
+    mid = 0.5 * (torch.gather(lo, 1, first)[:, 0] + torch.gather(hi, 1, first)[:, 0])
+    c = torch.where(has.any(1, keepdim=True), mid, 0.0)
+    d = torch.maximum((hi - c[:, None]).abs(), (lo - c[:, None]).abs())
+    r2 = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
+    r = torch.sqrt(torch.where(has, r2, 0.0).amax(1)) * 1.0009765625
+    return torch.cat([c, r[:, None]], dim=1)
+
+
 def emulate_fold6(query_tiles, tiles, cand, cent, shape):
     """csrc/blocknn.cu's fold6 in numpy, step for step, a query tile at a
     time (its queries' results depend on nothing else): stages in order
@@ -559,73 +578,38 @@ def emulate_fold6(query_tiles, tiles, cand, cent, shape):
 
 
 def _fold6_fixture(name, tq=6, sq=20, s=32, k=4, n_tiles=12):
-    """(query tiles (tq, sq, 3), TileIndex, cand (tq, k), payload (T*S, 6)),
-    made with numpy from a seed. "random": uniform tiles and queries.
-    "exact ties": small integer coordinates, so rows repeat across lanes
-    and candidate tiles and many d2 tie exactly. "near ties": each query's
-    near row r1 and two copies of it one ulp off in x or y, in other lanes
-    and tiles (direct d2 an ulp or so apart). "mixed sentinel": a third of
-    the rows at PAD_COORD. "all sentinel": query tile 0's candidates are
-    all-sentinel tiles. "pad queries": a quarter of the query rows at
-    PAD_COORD. "far queries": queries 2e5 units from their candidates (a
-    wide margin: queries need two groups or the direct scan)."""
-    rng = np.random.default_rng(sum(map(ord, name)) + 7 * s + k)
-    tiles = rng.uniform(-1, 1, (n_tiles, s, 3)).astype(np.float32)
-    query = rng.uniform(-1, 1, (tq, sq, 3)).astype(np.float32)
-    cand = rng.integers(0, n_tiles, (tq, k))
-    if name == "exact ties":
-        tiles = rng.integers(-2, 3, (n_tiles, s, 3)).astype(np.float32)
-        query = rng.integers(-2, 3, (tq, sq, 3)).astype(np.float32)
-    elif name == "near ties":
-        flat = tiles.reshape(-1, 3)
-        for qi, q in enumerate(query.reshape(-1, 3)):
-            t = cand[qi // sq]
-            r1 = (q + rng.normal(scale=1e-3, size=3)).astype(np.float32)
-            r2, r3 = r1.copy(), r1.copy()
-            r2[0] = np.nextafter(r1[0], np.float32(np.inf))
-            r3[1] = np.nextafter(r1[1], np.float32(-np.inf))
-            for r, c in zip((r1, r2, r3), rng.permutation(k)[:3]):
-                flat[t[c] * s + rng.integers(s)] = r
-    elif name == "mixed sentinel":
-        tiles[rng.uniform(size=(n_tiles, s)) < 0.33] = PAD_COORD
-    elif name == "all sentinel":
-        tiles[-2:] = PAD_COORD
-        cand[0] = [n_tiles - 1 - (c % 2) for c in range(k)]
-    elif name == "pad queries":
-        query[rng.uniform(size=(tq, sq)) < 0.25] = PAD_COORD
-    elif name == "far queries":
-        query += np.float32(2e5)
-    elif name != "random":
-        raise KeyError(name)
-    order = np.where((np.abs(tiles) < 1e6).all(2), np.arange(n_tiles * s).reshape(n_tiles, s), -1)
-    index = tb._finish_index(torch.as_tensor(tiles), torch.as_tensor(order.reshape(-1), dtype=torch.int32))
-    payload = rng.normal(size=(n_tiles * s, 6)).astype(np.float32)
-    return query, index, cand, payload
+    """chip_smoke.py's fold6 screen fixture (`fold6_fixture`, described
+    there) on the CPU: (query tiles, TileIndex, cand, payload), the arrays
+    as numpy."""
+    query, index, cand, payload = chip_smoke.fold6_fixture(name, tq, sq, s, k, n_tiles)
+    return to_np(query), index, to_np(cand), to_np(payload)
 
 
-F6_FIXTURES = ["random", "exact ties", "near ties", "mixed sentinel", "all sentinel", "pad queries",
-               "far queries"]
+F6_FIXTURES = list(chip_smoke.FOLD6_FIXTURES)
+# chip_smoke's fixture shapes, (tq, sq, s, k), by test id
+F6_FIXTURE_SHAPES = dict(zip(["sq20", "sq64-s100", "sq3", "sq600-s2000", "sq128", "sq64-8tiles"],
+                             chip_smoke.FOLD6_FIXTURE_SHAPES))
 
 
 @pytest.mark.parametrize("shape", [F6_SHAPE, F6_SHORT], ids=["kernel", "short stages"])
 @pytest.mark.parametrize("name", F6_FIXTURES)
-@pytest.mark.parametrize("tq,sq,s,k", [(6, 20, 32, 4), (3, 64, 100, 6), (9, 3, 8, 2)],
-                         ids=["sq20", "sq64-s100", "sq3"])
+@pytest.mark.parametrize("tq,sq,s,k", list(F6_FIXTURE_SHAPES.values()), ids=list(F6_FIXTURE_SHAPES))
 def test_emulated_fold6_equals_reference(name, shape, tq, sq, s, k):
     """The kernel's centring, packing, grouped screen, top-three tracking,
     exact rows and direct scan give fold6_reference's d2 and payload bit
     for bit: on each fixture, at query tiles that do not fill a block (sq 3
-    and 20), S not a multiple of the group, and with stages of 48 rows (a
-    candidate tile's lanes over several stages at S = 100)."""
+    and 20), S not a multiple of the group, a tile over two blocks with S
+    over two stages (sq 600, S 2000), whole blocks, and with stages of 48
+    rows (a candidate tile's lanes over several stages at S = 100)."""
     query, index, cand, payload = _fold6_fixture(name, tq, sq, s, k, n_tiles=max(12, k + 2))
     ops = fold6_prepare(torch.as_tensor(cand), index, torch.as_tensor(payload))
-    cent = blocknn_cuda.fold6_centres(ops.cand, ops.box_lo, ops.box_hi)
+    cent = fold6_centres(ops.cand, ops.box_lo, ops.box_hi)
     assert cent.dtype == torch.float32 and tuple(cent.shape) == (tq, 4)
     d_e, pos_e, counts = emulate_fold6(query, to_np(index.tiles), cand, to_np(cent), shape)
     d_p, pl_p = fold6_reference(torch.as_tensor(query), ops)
     np.testing.assert_array_equal(d_e.view(np.int32), to_np(d_p).view(np.int32))
     np.testing.assert_array_equal(payload[pos_e], to_np(pl_p))
-    if name in ("pad queries", "all sentinel", "far queries"):
+    if name in ("pad queries", "all sentinel", "far queries", "rows beyond R"):
         assert counts["direct"] > 0
     if name == "random":
         assert counts["one group"] > counts["direct"]
@@ -638,7 +622,7 @@ def test_emulated_fold6_covers_reversed_near_ties():
     query, index, cand, payload = _fold6_fixture("near ties", 6, 64, 32, 4)
     ops = fold6_prepare(torch.as_tensor(cand), index, torch.as_tensor(payload))
     tiles = to_np(index.tiles)
-    cent = to_np(blocknn_cuda.fold6_centres(ops.cand, ops.box_lo, ops.box_hi))
+    cent = to_np(fold6_centres(ops.cand, ops.box_lo, ops.box_hi))
     reversed_pairs = 0
     for t in range(len(query)):
         c = cent[t, :3]
@@ -663,11 +647,9 @@ def test_emulated_fold6_rows_beyond_radius_take_the_direct_scan():
     """An index whose boxes miss its rows (a radius that does not hold):
     the kernel's check sends those tiles to the direct scan, and the
     result is still the plain version's."""
-    query, index, cand, payload = _fold6_fixture("random")
-    mid = index.tiles.mean(1)
-    small = tb.TileIndex(tiles=index.tiles, box_lo=mid, box_hi=mid, centroids=mid, order=index.order)
-    ops = fold6_prepare(torch.as_tensor(cand), small, torch.as_tensor(payload))
-    cent = blocknn_cuda.fold6_centres(ops.cand, ops.box_lo, ops.box_hi)
+    query, index, cand, payload = _fold6_fixture("rows beyond R")
+    ops = fold6_prepare(torch.as_tensor(cand), index, torch.as_tensor(payload))
+    cent = fold6_centres(ops.cand, ops.box_lo, ops.box_hi)
     d_e, pos_e, counts = emulate_fold6(query, to_np(index.tiles), cand, to_np(cent), F6_SHAPE)
     assert counts["direct"] == query.shape[0] * query.shape[1]
     d_p, pl_p = fold6_reference(torch.as_tensor(query), ops)
@@ -699,7 +681,7 @@ def test_fold6_margin_bounds_the_centred_expansion(name, scale):
     index = tb._finish_index(torch.as_tensor(tiles), torch.as_tensor(order))
     cand = np.array([[0, 1, 2, 3, 4, 5], [5, 4, 3, 2, 1, 0]])
     ops = fold6_prepare(torch.as_tensor(cand), index, torch.zeros((6 * 64, 6)))
-    cent = to_np(blocknn_cuda.fold6_centres(ops.cand, ops.box_lo, ops.box_hi))
+    cent = to_np(fold6_centres(ops.cand, ops.box_lo, ops.box_hi))
     worst = 0.0
     for t in range(2):
         c, big_r = cent[t, :3], cent[t, 3]
@@ -1513,6 +1495,24 @@ def test_cuda_fold6_library_shape(cuda_device):
     """The built library reports the shape the plan and emulation tests
     above assume."""
     assert blocknn_cuda.fold6_shape() == F6_SHAPE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", F6_FIXTURES)
+@pytest.mark.parametrize("tq,sq,s,k", list(F6_FIXTURE_SHAPES.values()), ids=list(F6_FIXTURE_SHAPES))
+def test_cuda_fold6_fixtures_match_plain(cuda_device, name, tq, sq, s, k):
+    """The kernel on each screen fixture at each of chip_smoke's shapes
+    (among them a tile over two blocks with S over two stages, and whole
+    blocks), d2 bits and payload equal to fold6_reference's."""
+    query, index, cand, payload = chip_smoke.fold6_fixture(name, tq, sq, s, k, n_tiles=max(12, k + 2),
+                                                           device=cuda_device)
+    ops = fold6_prepare(cand, index, payload)
+    before = blocknn_cuda.LAUNCHES["fold6"]
+    d_k, pl_k = blocknn_cuda.fold6_cuda(query, ops)
+    d_p, pl_p = fold6_reference(query, ops)
+    torch.cuda.synchronize()
+    assert blocknn_cuda.LAUNCHES["fold6"] == before + 1
+    assert torch.equal(d_k.view(torch.int32), d_p.view(torch.int32)) and torch.equal(pl_k, pl_p)
 
 
 @pytest.mark.cuda
