@@ -588,27 +588,76 @@ def _phase_fold6(dev, query, cand, tgt_index, table, table12, fixtures):
                 prepare_ms=prepare_ms, **timed)
 
 
+FOLD7_FIXTURES = ("random", "exact ties", "near ties", "mixed sentinel", "all sentinel",
+                  "pad queries", "far queries", "tiny products")
+# (tq, sq, s, k) of the fold7 fixtures on the card, one for each kind of
+# fold7_plan: the 1M refine plan (8 tiles a block, 7 stages of 20 lanes)
+# with a block that is not full; a block short of its 25 tiles; Sq not a
+# multiple of 4 with S over 13 stages; k x S above 3,072 rows (32 stages);
+# a tile over two blocks with S over two stages; one query a tile, S not a
+# multiple of 4 (4-byte copies) and stages of 2 lanes; k = 200, which caps a
+# block at 5 tiles of one lane a stage; 4 tiles a block of 40 lanes a stage
+FOLD7_FIXTURE_SHAPES = ((12, 64, 128, 6), (9, 20, 32, 4), (3, 30, 100, 6), (2, 64, 512, 8),
+                        (5, 600, 2000, 1), (9, 3, 13, 3), (4, 8, 8, 200), (4, 128, 128, 6))
+
+
+def fold7_fixture(name, tq=6, sq=20, s=32, k=4, n_tiles=12, device="cpu"):
+    """One fold7 fixture, made with numpy from a seed: (query tiles (tq, sq,
+    3), TileIndex, cand (tq, k), q_cent (tq, 3), payload (n_tiles * s, 6)),
+    on `device`. The kinds of `fold6_fixture` but its "rows beyond R" (a
+    test of fold6's screen alone), with each query tile's valid-query
+    centroid as q_cent, as the frozen phase gives it ("exact ties": rounded
+    to integers, so that every operand and score is exact and ties stay
+    ties), and "tiny products": coordinates of magnitude 2^-76 to 2^-63, so
+    that products a B are subnormal and some lose bits; there the kernel's
+    4-instruction score is not the contract's, and it must take its direct
+    scan."""
+    from icpx_torch.kernels.blocknn import _finish_index, _query_boxes
+
+    if name == "tiny products":
+        rng = np.random.default_rng(7 * s + k + 1)
+
+        def tiny(shape):
+            mag = rng.uniform(1, 2, shape) * np.exp2(-rng.integers(64, 77, shape).astype(np.float64))
+            return (mag * rng.choice([-1.0, 1.0], shape)).astype(np.float32)
+
+        tiles = torch.as_tensor(tiny((n_tiles, s, 3)), device=device)
+        index = _finish_index(tiles, torch.arange(n_tiles * s, dtype=torch.int32, device=device))
+        query = torch.as_tensor(tiny((tq, sq, 3)), device=device)
+        cand = torch.as_tensor(rng.integers(0, n_tiles, (tq, k)), device=device)
+        payload = torch.as_tensor(rng.normal(size=(n_tiles * s, 6)).astype(np.float32), device=device)
+    else:
+        query, index, cand, payload = fold6_fixture(name, tq, sq, s, k, n_tiles, device)
+    q_cent = _query_boxes(query)[2]
+    if name == "exact ties":
+        q_cent = torch.round(q_cent)
+    return query, index, cand, q_cent, payload
+
+
 def _phase_fold7(dev, query, cand, q_cent, tgt_index, table, table12, fixtures):
-    """Kernel #4 against its plain version at the flagship's refine shapes
-    (operands centred on the query tiles' own centroids, as the frozen
-    phase gives them; the 6- and the 12-wide table), plus the fixtures;
-    returns its JSON fields (times at D = 6)."""
+    """Kernel #4 against its plain version at the shapes of one flagship
+    refine iteration (operands centred on the query tiles' own centroids, as
+    the frozen phase gives them; the fused (T*S, 6) table of the symmetric
+    objective and GICP's (T*S, 12) one), bit for bit on every row, plus the
+    tie and miss fixtures and each fold7 fixture (`fold7_fixture`) at each
+    of FOLD7_FIXTURE_SHAPES, which reach every kind of plan; times at D = 6
+    and D = 12 (the latter's under *_d12); returns its JSON fields."""
     from icpx_torch.kernels import blocknn_cuda
 
     def compare(name, query, ops):
         d_k, pl_k = blocknn_cuda.fold7_cuda(query, ops)
         d_p, pl_p = blocknn_cuda.fold7_reference(query, ops)
         torch.cuda.synchronize()
-        # the same bf16 operands, product order and scan order: bit equality
-        if not (torch.equal(d_k, d_p) and torch.equal(pl_k, pl_p)):
+        # the same bf16 operands, product order and scan order: the same d2 bits and winner
+        if not (torch.equal(d_k.view(torch.int32), d_p.view(torch.int32)) and torch.equal(pl_k, pl_p)):
             _fail(f"fold7 {name}: kernel and plain differ on "
                   f"{int(((d_k != d_p) | (pl_k != pl_p).any(1)).sum())} rows")
         return d_k, pl_k, _max_err(d_k, d_p)
 
     ops = blocknn_cuda.fold7_prepare(cand, q_cent, tgt_index, table)
+    ops12 = blocknn_cuda.fold7_prepare(cand, q_cent, tgt_index, table12)
     d, _, err = compare(f"{tuple(query.shape)} k=6", query, ops)
-    _, _, err12 = compare(f"{tuple(query.shape)} k=6 D=12", query,
-                          blocknn_cuda.fold7_prepare(cand, q_cent, tgt_index, table12))
+    _, _, err12 = compare(f"{tuple(query.shape)} k=6 D=12", query, ops12)
     fq, f_index, f_cand, f_payload = fixtures
     f_ops = blocknn_cuda.fold7_prepare(f_cand, torch.zeros((2, 3), device=dev), f_index, f_payload)
     fd, fpl, fx_err = compare("fixtures", fq, f_ops)
@@ -616,22 +665,54 @@ def _phase_fold7(dev, query, cand, q_cent, tgt_index, table, table12, fixtures):
         _fail("fold7 fixtures: tie rule broken (least score, lowest lane, earliest candidate)")
     if not (bool(torch.isinf(fd[8:14]).all()) and float(fpl[8, 0]) == 32.0):
         _fail("fold7 fixtures: a tile of all-sentinel candidates must miss onto its first sentinel row")
-    ms = _event_ms(lambda: blocknn_cuda.fold7_cuda(query, ops))
-    device_ms = _graph_ms(lambda: blocknn_cuda.fold7_cuda(query, ops))
-    plain_ms = _event_ms(lambda: blocknn_cuda.fold7_reference(query, ops))
+    for shape in FOLD7_FIXTURE_SHAPES:
+        for name in FOLD7_FIXTURES:
+            x_query, x_index, x_cand, x_cent, x_payload = fold7_fixture(
+                name, *shape, n_tiles=max(12, shape[3] + 2), device=dev)
+            _, _, e = compare(f"fixture {name} {shape}", x_query,
+                              blocknn_cuda.fold7_prepare(x_cand, x_cent, x_index, x_payload))
+            fx_err = max(fx_err, e)
     tq, sq, _ = query.shape
-    n, k = tq * sq, cand.shape[1]
-    s = tgt_index.tile_size
-    bytes_moved = n * 12 + ops.b.numel() * 2 + tq * k * 4 + tq * 12 + table.numel() * 4 + n * 28
-    # a pair: 3 FMUL + 3 FADD (the fourth product is 1 x B3)
-    bound_ms, bound_by = _bound(bytes_moved, n * k * s * 6.0)
-    print(f"fold7 kernel vs plain {tuple(query.shape)} k=6: d2 and payload equal on all {n} rows "
+    n, k, s = tq * sq, cand.shape[1], tgt_index.tile_size
+    # The operations of the kernel's method on this run's data: every pair
+    # scored (FMUL, 2 FFMA and FADD = 6, and a min), each staged row's
+    # operands made (3 FSUB, 3 FMUL and 2 FADD for rr, 3 doublings: 11), and
+    # each query's winning group of 8 rows made and scored again (8 x 17).
+    # The direct scans (none at this shape) are left out: a lower bound.
+    n_ops = n * k * s * 7.0 + tq * k * s * 11.0 + n * 8 * 17.0
+    timed = {}
+    for suffix, o in (("", ops), ("_d12", ops12)):
+        d_pl = o.payload.shape[1]
+        bytes_moved = (n * 12 + tgt_index.tiles.numel() * 4 + tq * k * 4 + tq * 12
+                       + o.payload.numel() * 4 + n * (4 + 4 * d_pl))
+        bound_ms, bound_by = _bound(bytes_moved, n_ops)
+        timed.update({f"ms{suffix}": _event_ms(lambda: blocknn_cuda.fold7_cuda(query, o)),
+                      f"device_ms{suffix}": _graph_ms(lambda: blocknn_cuda.fold7_cuda(query, o)),
+                      f"plain_ms{suffix}": _event_ms(lambda: blocknn_cuda.fold7_reference(query, o)),
+                      f"bound_ms{suffix}": bound_ms})
+    prepare_ms = _event_ms(lambda: blocknn_cuda.fold7_prepare(cand, q_cent, tgt_index, table))
+    # the kernel's shape lives in the built library; a rehearsal off the card has none
+    if dev.type == "cuda":
+        shape = blocknn_cuda.fold7_shape()
+        plan = blocknn_cuda.fold7_plan(tq, sq, s, k, shape)
+        shape_text = (f"{shape.threads} threads, {shape.queries_per_thread} queries a thread, groups "
+                      f"of {shape.group} rows, stages of {shape.stage_rows} rows; plan: "
+                      f"{plan['tiles_per_block']} query tiles a block, {plan['stages']} stages of "
+                      f"{plan['lanes_per_stage']} lanes, grid {plan['blocks']}")
+    else:
+        shape_text = "no kernel shape (no CUDA device)"
+    print(f"fold7 kernel vs plain {tuple(query.shape)} k=6: d2 and payload bit-equal on all {n} rows "
           f"({int(torch.isfinite(d).sum())} hits), with the 6- and the 12-wide table; fixtures ok "
-          f"(ties, misses, padded rows); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (CUDA events "
-          f"around one call, median of 5), device time (CUDA graph replay) kernel {device_ms:.4f} "
-          f"ms, bound {bound_ms:.3f} ms ({bound_by})")
-    return dict(max_abs_err=max(err, err12, fx_err), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None, device_ms=device_ms)
+          f"(ties, misses, padded rows; {', '.join(FOLD7_FIXTURES)} at (tq, sq, s, k) "
+          f"{', '.join(map(str, FOLD7_FIXTURE_SHAPES))}); D=6: kernel {timed['ms']:.4f} ms, plain "
+          f"{timed['plain_ms']:.3f} ms (CUDA events around one call, median of 5), device time "
+          f"(CUDA graph replay) kernel {timed['device_ms']:.4f} ms, bound {timed['bound_ms']:.4f} ms "
+          f"({bound_by}: {n_ops:.6g} operations); D=12: kernel {timed['ms_d12']:.4f} ms, plain "
+          f"{timed['plain_ms_d12']:.3f} ms, device time kernel {timed['device_ms_d12']:.4f} ms, bound "
+          f"{timed['bound_ms_d12']:.4f} ms; fold7_prepare {prepare_ms:.4f} ms (events, once a phase); "
+          f"{shape_text}")
+    return dict(max_abs_err=max(err, err12, fx_err), bound_by=bound_by, library_ms=None,
+                prepare_ms=prepare_ms, **timed)
 
 
 def _phase_select(dev, query, cand, tgt_index, table, table12, fixtures):

@@ -16,20 +16,20 @@
 //             (wrapper block_radius_moments_fused, the fused branch of
 //             normals._block_radius_cov).
 //
-// moments6 and fold7 score each query tile (one block) against its own k
-// candidate tiles of the index, (T, S, 3) rows, listed in cand (Tq, k). The
-// block stages the k x S candidate rows in shared memory as float4; every
-// thread of a warp then reads the same row (a broadcast, no bank conflicts)
-// while each thread keeps one query and its running state in registers.
-// Candidate tiles are contiguous rows of the index, so staging reads are
-// coalesced. fold6, fused4 and moments_fused (see theirs below) hold 4
-// queries a thread, split the rows across 4 neighbouring threads and stream
-// the rows through shared memory by cp.async; fold6 also screens. The TPU
-// kernels' shapes (S-minor transposes, (Tq, k, 3, S) and (Tq, k, 8, S) prep
-// copies, the 3-term bf16 one-hot payload selection) exist for the MXU and
-// the 128-lane VMEM layout and are dropped: nothing is copied ahead of a
-// launch, and the folds copy the winning payload row straight from device
-// memory, exactly.
+// moments6 scores each query tile (one block) against its own k candidate
+// tiles of the index, (T, S, 3) rows, listed in cand (Tq, k). The block
+// stages the k x S candidate rows in shared memory as float4; every thread
+// of a warp then reads the same row (a broadcast, no bank conflicts) while
+// each thread keeps one query and its running state in registers. Candidate
+// tiles are contiguous rows of the index, so staging reads are coalesced.
+// fold6, fold7, fused4 and moments_fused (see theirs below) hold 4 queries a
+// thread and stream the rows through shared memory by cp.async; fused4 and
+// moments_fused split the rows across 4 neighbouring threads, fold6 screens.
+// The TPU kernels' shapes (S-minor transposes, (Tq, k, 3, S), (Tq, k, 4, S)
+// and (Tq, k, 8, S) prep copies, the 3-term bf16 one-hot payload selection)
+// exist for the MXU and the 128-lane VMEM layout and are dropped: nothing is
+// copied ahead of a launch, and the folds copy the winning payload row
+// straight from device memory, exactly.
 //
 // Cost model. Per scored pair: 3 FSUB + 3 FMUL + 2 FADD, a compare and a
 // select (plus, for moments, 16 operations on pairs inside the radius), with
@@ -43,13 +43,15 @@
 // radius test and the fold's winner agree exactly with them. The TPU kernels
 // score by the expansion ||r||^2 - 2 q.r (+ ||q||^2), which cancels at fp32;
 // fold6 screens by a centred expansion against a proven margin and keeps the
-// direct form's bits for the winner.
+// direct form's bits for the winner. fold7's contract is the TPU's own
+// centred bf16 score, in a fixed order (see its note).
 //
-// Later work (not here): moments6 and fold7 still run one query a thread over
-// k x S rows staged whole; fold6, fused4 and moments_fused are the pattern
-// for them. TMA staging; the union moments' 0/1 weight product on the tensor
-// cores, as the TPU ran it on its MXU (TF32 operands lose the second
-// moments' accuracy, and split bf16 operands are a design of their own).
+// Later work (not here): moments6 still runs one query a thread over k x S
+// rows staged whole; fold6, fold7, fused4 and moments_fused are the pattern
+// for it. TMA staging; the union moments' 0/1 weight product and fold7's
+// bf16 score on the tensor cores, as the TPU ran them on its MXU (TF32
+// operands lose the second moments' accuracy, split bf16 operands are a
+// design of their own, and mma's accumulation order is not fold7's).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -135,70 +137,8 @@ __global__ void moments6_kernel(const float* __restrict__ query, const float* __
   }
 }
 
-// Two bf16 values packed in 32 bits (element 0 in the low half) to fp32,
-// exactly.
-__device__ __forceinline__ float bf16_lo(unsigned v) { return __uint_as_float(v << 16); }
-__device__ __forceinline__ float bf16_hi(unsigned v) { return __uint_as_float(v & 0xffff0000u); }
-
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// Frozen-candidate fold scored in bf16 (fold7). b holds (tq, k, s, 4) bf16
-// score operands [-2 rc; |rc|^2], rc = r - q_cent, made once per phase by
-// fold7_prepare; each query is centred on the same q_cent and rounded to bf16
-// as (x, y, z, 1). A bf16 x bf16 product is exact in fp32, and the four are
-// summed in the fixed order ((p0 + p1) + p2) + p3 that the plain version
-// uses. qq comes from the unrounded centred query: d2 = max(smin + qq, 0).
-// Rows are staged lane-major, candidate-minor (rows[lane * k + c]) and
-// scanned in that order with a strict '<': the lowest lane, then the
-// earliest candidate. The TPU ran this score on its matrix unit; here it is
-// 4 FMUL + 3 FADD on the FP32 pipes (wgmma is later work), so the kernel is
-// bound by FP32 issue. Later work: the products of bf16 values are exact in
-// fp32, so the sum equals fadd(fma(az, rz, fma(ay, ry, ax * rx)), r.w) bit for
-// bit, 4 FP instructions a pair instead of 7.
-__global__ void fold7_kernel(const float* __restrict__ query, const uint2* __restrict__ b,
-                             const int* __restrict__ cand, const float* __restrict__ q_cent,
-                             const float* __restrict__ payload, int sq, int s, int k, int d,
-                             float* __restrict__ out_d, float* __restrict__ out_pl) {
-  extern __shared__ float4 rows[];  // s * k score operands
-  const int tile = blockIdx.x;
-  const int rows_n = k * s;
-  const uint2* bt = b + (int64_t)tile * rows_n;  // (k, s) rows of 4 bf16
-  for (int j = threadIdx.x; j < rows_n; j += blockDim.x) {
-    const int c = j / s, lane = j - c * s;
-    const uint2 v = bt[j];
-    rows[lane * k + c] = make_float4(bf16_lo(v.x), bf16_hi(v.x), bf16_lo(v.y), bf16_hi(v.y));
-  }
-  __syncthreads();
-  const float cx = q_cent[3 * tile + 0];
-  const float cy = q_cent[3 * tile + 1];
-  const float cz = q_cent[3 * tile + 2];
-  for (int qi = threadIdx.x; qi < sq; qi += blockDim.x) {
-    const int64_t q = (int64_t)tile * sq + qi;
-    const float qx = __fsub_rn(query[3 * q + 0], cx);
-    const float qy = __fsub_rn(query[3 * q + 1], cy);
-    const float qz = __fsub_rn(query[3 * q + 2], cz);
-    const float qq = __fadd_rn(__fadd_rn(__fmul_rn(qx, qx), __fmul_rn(qy, qy)), __fmul_rn(qz, qz));
-    const float ax = bf16_round(qx), ay = bf16_round(qy), az = bf16_round(qz);
-    float best = __int_as_float(0x7f800000);
-    int best_j = 0;
-#pragma unroll 6
-    for (int j = 0; j < rows_n; ++j) {
-      const float4 r = rows[j];
-      const float sc = __fadd_rn(
-          __fadd_rn(__fadd_rn(__fmul_rn(ax, r.x), __fmul_rn(ay, r.y)), __fmul_rn(az, r.z)), r.w);
-      if (sc < best) {
-        best = sc;
-        best_j = j;
-      }
-    }
-    const int lane = best_j / k, c = best_j - lane * k;
-    const int64_t pos = (int64_t)cand[(int64_t)tile * k + c] * s + lane;
-    const float dd = fmaxf(__fadd_rn(best, qq), 0.f);
-    out_d[q] = dd < kMissD2 ? dd : __int_as_float(0x7f800000);
-    for (int f = 0; f < d; ++f) out_pl[q * d + f] = payload[pos * d + f];
-  }
 }
 
 // Payload selection (select). The query's position pos (from the plain
@@ -1070,6 +1010,335 @@ fold6_kernel(const float* __restrict__ query, const float* __restrict__ tiles,
   }
 }
 
+// Frozen-candidate fold scored in bf16 (fold7, payload_mode="vmem7"):
+// replaces icpx/kernels/blocknn_pallas.py::_fold7_kernel. For each query of
+// query tile t, against the rows of its k candidate tiles cand[t], with
+// c = q_cent[t] the frozen phase's centroid of the tile:
+//   qc = fl(q - c), qq = fl(fl(qc_x^2 + qc_y^2) + qc_z^2), a = bf16(qc);
+//   rc = fl(r - c), rr = fl(fl(rc_x^2 + rc_y^2) + rc_z^2),
+//   B = bf16(-2 rc_x, -2 rc_y, -2 rc_z, rr) (round to nearest even);
+//   score = ((a_x B_x + a_y B_y) + a_z B_z) + B_w, each step rounded;
+// the winner is the least score, then the least j = lane * k + c (the lowest
+// lane, then the earliest candidate); d2 = max(smin + qq, 0), +inf from
+// kMissD2 on; the payload is the winner's row, copied exactly. Sentinel rows
+// and pad queries are scored like any other: their operands are finite.
+//
+// Bound by FP32 issue. The first version ran one query a thread over k x S
+// operand rows staged whole, ~11 instructions a pair (a broadcast LDS.128, 4
+// FMUL, 3 FADD, a compare, two selects), ~84% of the card's issue rate: 0.315
+// ms at the 1M refine shape (8.05e8 pairs). Its operands were a (Tq, k, S, 4)
+// bf16 copy made ahead of every phase (100 MB at 1M, 1.17 ms of torch ops).
+// Now:
+// 1. Score. A bf16 x bf16 product has at most 16 significant bits, so it is
+//    exact in fp32 unless it is subnormal or overflows, and then
+//    ((p0 + p1) + p2) + p3 = fadd(fma(az, Bz, fma(ay, By, ax * Bx)), Bw) bit
+//    for bit: FMUL, 2 FFMA and FADD a pair (f7_score), and fminf into the
+//    group's minimum. The condition: every nonzero |a_i| in [2^-63, 2^63)
+//    and every nonzero |B_i| in [2^-62, 2^64) (i = x, y, z), so every
+//    nonzero product lies in [2^-125, 2^127): normal and finite. Packing
+//    flags a tile with an operand outside it, the start a query outside it;
+//    such a query takes the direct scan (step 5), which scores in the
+//    contract's own steps (f7_score_rn). Only coordinates within ~1e-19 of
+//    the centroid, or beyond ~1e18 from it, leave the range. B_w >= +0 (a
+//    rounded sum of squares), so no score is -0.
+// 2. Work. A thread holds kF7Q = 4 queries of one query tile, so one
+//    broadcast float4 read from shared memory feeds 4 pairs. A 128-thread
+//    block holds tiles_per_block query tiles (8 at Sq = 64) or, above 512
+//    queries a tile, a part of one (blockIdx.y); the wrapper's plan
+//    (fold7_plan) picks them and the lanes a stage, and the C entry refuses
+//    a plan that does not fit.
+// 3. Staging, lane-major. A stage is the lanes [l0, l0 + L) of all k
+//    candidate tiles of each of the block's tiles, brought in by cp.async
+//    (stage_chunk, its slots the block's (tiles, k) candidate ids) into one
+//    raw buffer: stage st + 1 is issued once st is packed and lands while st
+//    is scored. Packing makes each row's operands from the tile's c, in the
+//    contract's steps (f7_operands), at rows[b][(l - l0) k + c]: scan order
+//    is j order. A tile's rows of a stage are padded to whole groups of
+//    kF7Group with (0, 0, 0, +inf), whose score is +inf. The k x S rows are
+//    never held whole, so k x S has no cap. 34.5 KB of shared memory a block.
+// 4. Winner. Per group of 8 rows, a query keeps the group's least score, and
+//    a strict '<' against its best keeps the group's first j (a compare and
+//    a select; the best by fminf). The strict '<' keeps the earliest group
+//    of a tie, and that group holds the least tied j. After the last stage
+//    the winning group's rows are made and scored again from device memory
+//    (L2) and the first equal to the best is the winner: no screen, no
+//    margin, the score being the contract.
+// 5. The direct scan, for a query outside step 1's condition: the warp's 32
+//    lanes share the query's k x S rows from device memory in the contract's
+//    steps, and fold keys map(score) << 32 | j by shuffles; map flips the
+//    sign bit of a positive score and every bit of a negative one, so the
+//    keys order as the scores do (no score is -0 or NaN).
+// 6. Epilogue. The winners' payload rows go through shared memory, and the
+//    block copies its contiguous run of output rows float by float.
+// What holds it back (H100 80GB HBM3 at 700 W, the 1M refine shape,
+// scripts/torch_variants.py fold7): ~0.28 ms device against the first
+// version's 0.31. A group step of 8 rows for 4 queries is ~180
+// instructions (8 LDS.128, 32 FMUL, 64 FFMA, 32 FADD, 32 FMNMX, the
+// compares and selects), 5.6 a pair, issued about half the time at 80
+// registers (capped for the 6 blocks, 24 warps, an SM that shared memory
+// allows; uncapped, 72 and a spill) as fold6's screen is; packing makes
+// ~13% of the instructions (its range check alone ~4% of the time) and the
+// rescoring ~5% (0.266 ms without it). A warp vote before the best's
+// update cost 3%, 8 queries a thread (96 registers) 24%; unrolling,
+// 896-row stages at 7 blocks an SM and integer bf16 rounding moved nothing.
+constexpr int kF7Threads = 128;
+constexpr int kF7Q = 4;             // queries a thread
+constexpr int kF7Group = 8;         // rows a group
+constexpr int kF7StageRows = 1024;  // packed rows a stage holds, over the block's tiles
+// dynamic shared memory: the raw stage, the packed rows, a centroid and a
+// flag a tile (a block holds at most a tile a thread), the winners' payload
+// rows, the stage's row table
+constexpr int kF7Smem = kF7StageRows * 12 + kF7StageRows * 16 + kF7Threads * 20 +
+                        kF7Threads * kF7Q * 4 + kF7StageRows * 2;
+static_assert(kF7StageRows % 4 == 0, "the packed rows start 16-byte aligned");
+static_assert(kF7StageRows <= 65536, "the row table holds 16-bit offsets");
+// step 1's range, as float bits: [2^-63, 2^63) for a, [2^-62, 2^64) for B
+constexpr unsigned kF7LoA = 0x20000000u, kF7HiA = 0x5f000000u;
+constexpr unsigned kF7LoB = 0x20800000u, kF7HiB = 0x5f800000u;
+
+// One of x, y, z is not 0 and its magnitude lies outside [lo, hi) (floats
+// given by their bits; inf and NaN lie outside): the least of |bits| - 1
+// (0 wraps to the largest) below lo - 1, or the largest |bits| from hi on.
+__device__ __forceinline__ bool f7_outside3(float4 v, unsigned lo, unsigned hi) {
+  const unsigned mx = __float_as_uint(v.x) & 0x7fffffffu, my = __float_as_uint(v.y) & 0x7fffffffu,
+                 mz = __float_as_uint(v.z) & 0x7fffffffu;
+  return min(min(mx - 1u, my - 1u), mz - 1u) < lo - 1u || max(max(mx, my), mz) >= hi;
+}
+
+// A candidate row's operands centred on c: bf16(-2 rc) and bf16(rr), as
+// floats (the doubling is exact).
+__device__ __forceinline__ float4 f7_operands(float x, float y, float z, float4 c) {
+  const float rx = __fsub_rn(x, c.x), ry = __fsub_rn(y, c.y), rz = __fsub_rn(z, c.z);
+  const float rr = __fadd_rn(__fadd_rn(__fmul_rn(rx, rx), __fmul_rn(ry, ry)), __fmul_rn(rz, rz));
+  return make_float4(bf16_round(__fmul_rn(-2.f, rx)), bf16_round(__fmul_rn(-2.f, ry)),
+                     bf16_round(__fmul_rn(-2.f, rz)), bf16_round(rr));
+}
+
+// The score in four instructions; equal to f7_score_rn where no product is
+// subnormal (step 1).
+__device__ __forceinline__ float f7_score(float ax, float ay, float az, float4 r) {
+  return __fadd_rn(__fmaf_rn(az, r.z, __fmaf_rn(ay, r.y, __fmul_rn(ax, r.x))), r.w);
+}
+
+// The score in the contract's steps, as the plain version computes it.
+__device__ __forceinline__ float f7_score_rn(float ax, float ay, float az, float4 r) {
+  return __fadd_rn(
+      __fadd_rn(__fadd_rn(__fmul_rn(ax, r.x), __fmul_rn(ay, r.y)), __fmul_rn(az, r.z)), r.w);
+}
+
+// Keys that order as (score, j) do: map(score) << 32 | j (step 5).
+__device__ __forceinline__ unsigned long long f7_key(float sc, int j) {
+  const unsigned u = __float_as_uint(sc);
+  const unsigned m = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return (static_cast<unsigned long long>(m) << 32) | static_cast<unsigned>(j);
+}
+
+__device__ __forceinline__ float f7_key_score(unsigned long long key) {
+  const unsigned m = static_cast<unsigned>(key >> 32);
+  return __uint_as_float((m & 0x80000000u) ? (m & 0x7fffffffu) : ~m);
+}
+
+// The direct scan for one query, shared by the 32 lanes of a warp (every
+// lane calls it with the same query): lane l scores rows j = l, l + 32, ...
+// of the k * S candidate rows from device memory; every lane gets the
+// least key.
+__device__ unsigned long long f7_direct_warp(float ax, float ay, float az, float4 c,
+                                             const float* __restrict__ tiles, const int* ids,
+                                             int s, int k) {
+  unsigned long long best = ~0ull;
+#pragma unroll 4
+  for (int j = threadIdx.x & 31; j < k * s; j += 32) {
+    const int lane = j / k, cc = j - lane * k;
+    const float* r = tiles + 3 * ((int64_t)ids[cc] * s + lane);
+    best = min(best, f7_key(f7_score_rn(ax, ay, az, f7_operands(r[0], r[1], r[2], c)), j));
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) best = min(best, __shfl_xor_sync(0xffffffffu, best, off));
+  return best;
+}
+
+__global__ void __launch_bounds__(kF7Threads, 6)
+fold7_kernel(const float* __restrict__ query, const float* __restrict__ tiles,
+             const int* __restrict__ cand, const float* __restrict__ q_cent,
+             const float* __restrict__ payload, int tq, int sq, int s, int k, int d, int tpb,
+             int lc, float* __restrict__ out_d, float* __restrict__ out_pl) {
+  extern __shared__ __align__(16) float4 f7_smem[];
+  float* raw = reinterpret_cast<float*>(f7_smem);  // a stage of rows, as read
+  float4* rows = f7_smem + kF7StageRows * 3 / 4;     // rows[b * lcp + (l - l0) * k + c]: operands
+  float4* cent_s = rows + kF7StageRows;              // c a tile
+  int* pos_s = reinterpret_cast<int*>(cent_s + kF7Threads);  // the winners' payload rows
+  int* outside = pos_s + kF7Threads * kF7Q;  // a tile with an operand outside step 1's range
+  unsigned short* tab = reinterpret_cast<unsigned short*>(outside + kF7Threads);  // row -> c * lc + l
+  const int t0 = blockIdx.x * tpb;
+  const int n_live = min(tpb, tq - t0);  // tiles of this block
+  const int klc = k * lc;                // rows a tile a full stage
+  const int lcp = (klc + kF7Group - 1) / kF7Group * kF7Group;
+  const int n_st = (s + lc - 1) / lc;
+  const int nqs = min((sq + kF7Q - 1) / kF7Q, kF7Threads);  // threads a tile in this block
+  const int y0 = blockIdx.y * nqs * kF7Q, ny = min(sq - y0, nqs * kF7Q);  // its queries
+  const int b = threadIdx.x / nqs;
+  const bool live = b < n_live;
+  const int br = live ? b : 0;  // idle threads read tile 0's rows
+  const int q_first = y0 + (threadIdx.x % nqs) * kF7Q;
+  const int tile = t0 + br;
+  const bool by16 = s % 4 == 0 && lc % 4 == 0 && (reinterpret_cast<uintptr_t>(tiles) & 15) == 0;
+  const int* cand_b = cand + (int64_t)t0 * k;  // the block's tiles' candidates, (n_live, k)
+  stage_chunk<kF7Threads>(raw, tiles, cand_b, n_live * k, s, lc, 0, by16);
+  for (int i = threadIdx.x; i < klc; i += kF7Threads) {
+    const int l = i / k;
+    tab[i] = static_cast<unsigned short>((i - l * k) * lc + l);  // raw slot c's lane l
+  }
+  if (threadIdx.x < n_live) {
+    const float* cp = q_cent + 3 * (int64_t)(t0 + threadIdx.x);
+    cent_s[threadIdx.x] = make_float4(cp[0], cp[1], cp[2], 0.f);
+    outside[threadIdx.x] = 0;
+  }
+  __syncthreads();
+
+  const float4 c = cent_s[br];
+  float ax[kF7Q], ay[kF7Q], az[kF7Q], best[kF7Q];
+  int bj[kF7Q];  // the first j of the group that holds the best
+#pragma unroll
+  for (int q = 0; q < kF7Q; ++q) {
+    const bool in = live && q_first + q < sq;
+    const float* qp = query + 3 * ((int64_t)tile * sq + q_first + q);
+    ax[q] = in ? bf16_round(__fsub_rn(qp[0], c.x)) : 0.f;
+    ay[q] = in ? bf16_round(__fsub_rn(qp[1], c.y)) : 0.f;
+    az[q] = in ? bf16_round(__fsub_rn(qp[2], c.z)) : 0.f;
+    best[q] = __int_as_float(0x7f800000);
+    bj[q] = 0;
+  }
+
+  const int pack_u = threadIdx.x / lcp, pack_l = threadIdx.x - pack_u * lcp;  // this thread's first
+  for (int st = 0; st < n_st; ++st) {
+    cp_async_wait_all();
+    __syncthreads();  // stage st has landed; every thread is done with stage st - 1
+    const int nlk = min(lc, s - st * lc) * k;  // rows a tile this stage
+    for (int i = threadIdx.x, u = pack_u, l = pack_l; i < n_live * lcp; i += kF7Threads) {
+      if (i != threadIdx.x) {  // (u, l) of row i = u * lcp + l, without a division
+        l += kF7Threads;
+        while (l >= lcp) {
+          l -= lcp;
+          ++u;
+        }
+      }
+      float4 v = make_float4(0.f, 0.f, 0.f, __int_as_float(0x7f800000));
+      if (l < nlk) {
+        const float* r = raw + 3 * (u * klc + tab[l]);
+        v = f7_operands(r[0], r[1], r[2], cent_s[u]);
+        if (f7_outside3(v, kF7LoB, kF7HiB)) outside[u] = 1;
+      }
+      rows[i] = v;
+    }
+    __syncthreads();
+    if (st + 1 < n_st)  // into the raw buffer, now packed, while st is scored
+      stage_chunk<kF7Threads>(raw, tiles, cand_b, n_live * k, s, lc, st + 1, by16);
+    const float4* rs = rows + br * lcp;
+    const int ng = (nlk + kF7Group - 1) / kF7Group, j0 = st * klc;
+#pragma unroll 2
+    for (int g = 0; g < ng; ++g) {
+      const float4* rg = rs + g * kF7Group;  // broadcasts over the tile's threads
+      float gmin[kF7Q];
+      const float4 r0 = rg[0];
+#pragma unroll
+      for (int q = 0; q < kF7Q; ++q) gmin[q] = f7_score(ax[q], ay[q], az[q], r0);
+#pragma unroll
+      for (int e = 1; e < kF7Group; ++e) {
+        const float4 r = rg[e];
+#pragma unroll
+        for (int q = 0; q < kF7Q; ++q) gmin[q] = fminf(gmin[q], f7_score(ax[q], ay[q], az[q], r));
+      }
+#pragma unroll
+      for (int q = 0; q < kF7Q; ++q) {  // a strict '<': the earlier group keeps a tie
+        bj[q] = gmin[q] < best[q] ? j0 + g * kF7Group : bj[q];
+        best[q] = fminf(best[q], gmin[q]);
+      }
+    }
+  }
+
+  // Each query: the first row of its best group whose score equals the
+  // best; the direct scan, shared by the warp, outside step 1's condition.
+  const int* ids = cand + (int64_t)tile * k;
+  const bool tile_out = outside[br] != 0;
+  const int rows_n = k * s;
+  unsigned need = 0;  // queries for the direct scan, a bit each
+#pragma unroll
+  for (int q = 0; q < kF7Q; ++q) {
+    const int qi = q_first + q;
+    if (!live || qi >= sq) continue;
+    if (tile_out || f7_outside3(make_float4(ax[q], ay[q], az[q], 0.f), kF7LoA, kF7HiA)) {
+      need |= 1u << q;
+      continue;
+    }
+    float r[3 * kF7Group];  // the group's rows, loaded first so the loads are in flight together
+    int l = bj[q] / k, cc = bj[q] - l * k;
+#pragma unroll
+    for (int e = 0; e < kF7Group; ++e) {
+      const bool in = bj[q] + e < rows_n;
+      const float* p = tiles + 3 * ((int64_t)ids[in ? cc : 0] * s + (in ? l : 0));
+      r[3 * e] = p[0];
+      r[3 * e + 1] = p[1];
+      r[3 * e + 2] = p[2];
+      if (++cc == k) {
+        cc = 0;
+        ++l;
+      }
+    }
+    int win = bj[q];
+#pragma unroll
+    for (int e = kF7Group - 1; e >= 0; --e) {  // inside step 1's range: f7_score is the contract's
+      const float sc = f7_score(ax[q], ay[q], az[q], f7_operands(r[3 * e], r[3 * e + 1], r[3 * e + 2], c));
+      if (bj[q] + e < rows_n && sc == best[q]) win = bj[q] + e;
+    }
+    bj[q] = win;
+  }
+  for (;;) {
+    const unsigned lanes = __ballot_sync(0xffffffffu, need != 0);
+    if (!lanes) break;
+    const int src = __ffs(lanes) - 1;
+    const int q = __shfl_sync(0xffffffffu, __ffs(need) - 1, src);  // that lane's first
+    const int gq = __shfl_sync(0xffffffffu, tile * sq + q_first + q, src);
+    const int t = gq / sq;
+    const float4 tc = make_float4(q_cent[3 * (int64_t)t], q_cent[3 * (int64_t)t + 1],
+                                  q_cent[3 * (int64_t)t + 2], 0.f);
+    const float* qp = query + 3 * (int64_t)gq;
+    const unsigned long long key = f7_direct_warp(
+        bf16_round(__fsub_rn(qp[0], tc.x)), bf16_round(__fsub_rn(qp[1], tc.y)),
+        bf16_round(__fsub_rn(qp[2], tc.z)), tc, tiles, cand + (int64_t)t * k, s, k);
+    if ((threadIdx.x & 31) == src) {
+#pragma unroll
+      for (int i = 0; i < kF7Q; ++i) {
+        if (i == q) {
+          best[i] = f7_key_score(key);
+          bj[i] = static_cast<int>(static_cast<unsigned>(key));
+        }
+      }
+      need &= need - 1;
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kF7Q; ++q) {
+    const int qi = q_first + q;
+    if (!live || qi >= sq) continue;
+    const float* qp = query + 3 * ((int64_t)tile * sq + qi);
+    const float qx = __fsub_rn(qp[0], c.x), qy = __fsub_rn(qp[1], c.y), qz = __fsub_rn(qp[2], c.z);
+    const float qq = __fadd_rn(__fadd_rn(__fmul_rn(qx, qx), __fmul_rn(qy, qy)), __fmul_rn(qz, qz));
+    const float dd = fmaxf(__fadd_rn(best[q], qq), 0.f);
+    const int lane = bj[q] / k;
+    pos_s[b * ny + qi - y0] = ids[bj[q] - lane * k] * s + lane;
+    out_d[tile * sq + qi] = dd < kMissD2 ? dd : __int_as_float(0x7f800000);  // Tq * Sq < 2^31
+  }
+  __syncthreads();
+  // The block's outputs are one contiguous run of rows: copy the payload
+  // rows float by float, neighbouring threads on neighbouring addresses.
+  const int n_out = n_live * ny;
+  float* dst = out_pl + ((int64_t)t0 * sq + y0) * d;
+  for (int e = threadIdx.x; e < n_out * d; e += kF7Threads) {
+    const int qo = e / d;
+    dst[e] = payload[(int64_t)pos_s[qo] * d + (e - qo * d)];
+  }
+}
+
 int threads_for(int sq) {
   const int t = ((sq + 31) / 32) * 32;
   return t < 32 ? 32 : (t > 256 ? 256 : t);
@@ -1143,20 +1412,44 @@ int icpx_fold6_forward(const void* query, const void* tiles, const void* cand, c
   return static_cast<int>(cudaGetLastError());
 }
 
-// query (tq, sq, 3), q_cent (tq, 3) and payload (t * s, d) f32; b (tq, k, s, 4)
-// bf16, 8-byte aligned; cand (tq, k) i32; outputs d2 (tq * sq,) and payload
-// rows (tq * sq, d) f32. Same launch contract as above.
-int icpx_fold7_forward(const void* query, const void* b, const void* cand, const void* q_cent,
-                       const void* payload, int tq, int sq, int s, int k, int d, void* out_d,
-                       void* out_pl, int device, void* stream) {
+// fold7's shape: threads a block, queries a thread, rows a group, packed
+// rows a stage. The wrapper plans from these (fold7_plan).
+void icpx_fold7_shape(int* threads, int* queries_per_thread, int* group, int* stage_rows) {
+  *threads = kF7Threads;
+  *queries_per_thread = kF7Q;
+  *group = kF7Group;
+  *stage_rows = kF7StageRows;
+}
+
+// query (tq, sq, 3), tiles (t, s, 3), q_cent (tq, 3) and payload (t * s, d)
+// f32; cand (tq, k) i32; outputs d2 (tq * sq,) and payload rows (tq * sq, d)
+// f32. All contiguous, on `device`. tpb query tiles a block (parts of one
+// tile a block where its queries need more than kF7Threads threads, then
+// tpb = 1) and lc lanes a stage, as fold7_plan gives them; a plan that does
+// not fit the kernel is refused with cudaErrorInvalidValue. Same launch
+// contract as above.
+int icpx_fold7_forward(const void* query, const void* tiles, const void* cand, const void* q_cent,
+                       const void* payload, int tq, int sq, int s, int k, int d, int tpb, int lc,
+                       void* out_d, void* out_pl, int device, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
+  const int nq4 = (sq + kF7Q - 1) / kF7Q;
+  const int nqs = nq4 < kF7Threads ? nq4 : kF7Threads;
+  if (s < 1 || k < 1 || d < 0 || tpb < 1 || lc < 1 || lc > s || k > kF7StageRows ||
+      (long long)tpb * (((long long)k * lc + kF7Group - 1) / kF7Group * kF7Group) > kF7StageRows ||
+      (nqs > 0 && tpb * nqs > kF7Threads))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (tq > 0 && sq > 0) {
-    const size_t smem = sizeof(float4) * (size_t)k * s;
-    fold7_kernel<<<tq, threads_for(sq), smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(query), static_cast<const uint2*>(b),
+    if (kF7Smem > 48 * 1024) {
+      const cudaError_t rc =
+          cudaFuncSetAttribute(fold7_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kF7Smem);
+      if (rc != cudaSuccess) return static_cast<int>(rc);
+    }
+    const dim3 grid((tq + tpb - 1) / tpb, (nq4 + nqs - 1) / nqs);
+    fold7_kernel<<<grid, kF7Threads, kF7Smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(query), static_cast<const float*>(tiles),
         static_cast<const int*>(cand), static_cast<const float*>(q_cent),
-        static_cast<const float*>(payload), sq, s, k, d, static_cast<float*>(out_d),
+        static_cast<const float*>(payload), tq, sq, s, k, d, tpb, lc, static_cast<float*>(out_d),
         static_cast<float*>(out_pl));
   }
   return static_cast<int>(cudaGetLastError());

@@ -21,7 +21,9 @@ each beside its plain PyTorch version with the same contract:
   launch shape).
 * `fold7` replaces `blocknn_pallas._fold7_kernel` (`payload_mode="vmem7"`):
   fold6's outputs, scored in bf16 on operands centred on the frozen-phase
-  query-tile centroids (see `fold7_prepare`).
+  query-tile centroids. The kernel makes each candidate row's operands as
+  it stages the row, so `fold7_prepare` gathers nothing (`fold7_plan` is
+  its launch shape; `fold7_operands` makes the operands in plain torch).
 * `select` replaces `blocknn_pallas._select_kernel`
   (`payload_mode="select"`): flat positions from the plain `block_nn` fold
   to payload rows (see `payload_select_fused`).
@@ -74,7 +76,8 @@ _PLAIN_CHUNK = {"moments6": 512, "fold6": 1024, "fold7": 1024, "fused4": 32, "mo
 
 
 class Fold6Shape(NamedTuple):
-    """The fold6 kernel's constants, as the built library reports them."""
+    """A fold kernel's constants (fold6's; fold7 has the same four, with
+    values of its own), as the built library reports them."""
 
     threads: int  # threads of a block
     queries_per_thread: int
@@ -94,6 +97,7 @@ class Fused4Shape(NamedTuple):
 
 _lib: Optional[ctypes.CDLL] = None
 _fold6_shape: Optional[Fold6Shape] = None
+_fold7_shape: Optional[Fold6Shape] = None
 _fused4_shape: Optional[Fused4Shape] = None
 _moments_fused_shape: Optional[Fused4Shape] = None
 
@@ -110,7 +114,7 @@ def _read_shape(lib: ctypes.CDLL, name: str, kind=Fused4Shape):
 def build() -> ctypes.CDLL:
     """Compile (if the cache misses) and load the kernel library, and read
     the shapes of the kernels that plan from them."""
-    global _lib, _fold6_shape, _fused4_shape, _moments_fused_shape
+    global _lib, _fold6_shape, _fold7_shape, _fused4_shape, _moments_fused_shape
     if _lib is not None:
         return _lib
     lib = cuda_build.load("blocknn")
@@ -119,7 +123,7 @@ def build() -> ctypes.CDLL:
     lib.icpx_moments6_forward.restype = i
     lib.icpx_fold6_forward.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, p, p, i, p]
     lib.icpx_fold6_forward.restype = i
-    lib.icpx_fold7_forward.argtypes = [p, p, p, p, p, i, i, i, i, i, p, p, i, p]
+    lib.icpx_fold7_forward.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p, p, i, p]
     lib.icpx_fold7_forward.restype = i
     lib.icpx_select_forward.argtypes = [p, p, p, i, i, i, i, i, i, i, p, i, p]
     lib.icpx_select_forward.restype = i
@@ -128,6 +132,7 @@ def build() -> ctypes.CDLL:
     lib.icpx_moments_fused_forward.argtypes = [p, p, p, p, p, i, i, i, i, p, i, p]
     lib.icpx_moments_fused_forward.restype = i
     _fold6_shape = _read_shape(lib, "icpx_fold6_shape", Fold6Shape)
+    _fold7_shape = _read_shape(lib, "icpx_fold7_shape", Fold6Shape)
     _fused4_shape = _read_shape(lib, "icpx_fused4_shape")
     _moments_fused_shape = _read_shape(lib, "icpx_moments_fused_shape")
     _lib = lib
@@ -138,6 +143,12 @@ def fold6_shape() -> Fold6Shape:
     """The built fold6 kernel's shape."""
     build()
     return _fold6_shape
+
+
+def fold7_shape() -> Fold6Shape:
+    """The built fold7 kernel's shape."""
+    build()
+    return _fold7_shape
 
 
 def fused4_shape() -> Fused4Shape:
@@ -408,46 +419,80 @@ def block_fold_fused_pre(query_tiles: torch.Tensor, ops: Fold6Operands) -> Tuple
 
 # ---- kernel #4: the bf16-scored frozen-candidate fold ---------------------------
 #
-# Contract (blocknn_pallas.py:694-855): fold6's outputs, but each score is
-# sum_i q4_i * B_i over bf16 values rounded to nearest even, with
-# q4 = bf16([q - q_cent, 1]) and B = bf16([-2 rc; |rc|^2]), rc = r - q_cent,
-# centred on the FROZEN-phase query-tile centroids, and
-# d = max(smin + |q - q_cent|^2, 0) with that qq in fp32 from the unrounded
-# centred query. A bf16 x bf16 product is exact in fp32; the four products
-# are summed in the fixed order ((p0 + p1) + p2) + p3 by both versions.
-# Ties: the earliest candidate per lane, then the lowest lane (scan order
-# lane-major, candidate-minor, strict '<', as fold6).
+# Contract (blocknn_pallas.py:694-855): fold6's outputs, but scored in bf16
+# on operands centred on the FROZEN-phase query-tile centroids c = q_cent[t]:
+# qc = q - c, a = bf16(qc), and for each candidate row rc = r - c,
+# rr = (rc_x^2 + rc_y^2) + rc_z^2, B = bf16([-2 rc; rr]), every bf16 rounded
+# to nearest even; score = ((a_x B_x + a_y B_y) + a_z B_z) + B_w with each
+# step rounded in fp32 (a bf16 x bf16 product is exact there), the same
+# fixed order in both versions; d = max(smin + |qc|^2, 0), that qq in fp32
+# from the unrounded qc, inf from 1e15 on. Ties: the least j = lane * k + c
+# (the lowest lane, then the earliest candidate; scan order lane-major,
+# candidate-minor, first minimum wins). Sentinel rows and pad queries are
+# scored like any other row: their operands are finite.
 
 
 @dataclasses.dataclass(frozen=True)
 class Fold7Operands:
     """What `block_fold7_pre` needs besides the queries, made once per
-    frozen-candidate phase by `fold7_prepare`."""
+    frozen-candidate phase by `fold7_prepare`: the inputs themselves, no
+    per-candidate copy."""
 
     cand: torch.Tensor  # (Tq, k) int32 candidate tile ids
-    b: torch.Tensor  # (Tq, k, S, 4) bf16 score operands [-2 rc; |rc|^2]
+    tiles: torch.Tensor  # (T, S, 3) f32 index tiles
     q_cent: torch.Tensor  # (Tq, 3) f32 frozen-phase query-tile centroids
     payload: torch.Tensor  # (T*S, D) f32 payload table in sorted tile order
 
 
 def fold7_prepare(cand_tiles: torch.Tensor, q_cent: torch.Tensor, index: TileIndex,
                   payload_table: torch.Tensor) -> Fold7Operands:
-    """The loop-invariant bf16 score operands of every candidate row,
-    centred on `q_cent` (plain torch, as the reference's prep is XLA), and
-    the contiguous int32 candidates and payload table."""
+    """Check the fold's loop-invariant operands and make them contiguous,
+    int32 candidate ids included. Unlike the TPU prep it gathers nothing:
+    the kernel makes each candidate row's bf16 operands from the index and
+    the centroids as it stages the row (the plain version, a chunk of query
+    tiles at a time, with `fold7_operands`)."""
     t, s, _ = index.tiles.shape
     if payload_table.ndim != 2 or payload_table.shape[0] != t * s:
         raise ValueError(f"payload table must be ({t * s}, D), got {tuple(payload_table.shape)}")
     if cand_tiles.ndim != 2 or q_cent.shape != (cand_tiles.shape[0], 3):
         raise ValueError(f"cand_tiles (Tq, k) and q_cent (Tq, 3) do not fit: "
                          f"{tuple(cand_tiles.shape)}, {tuple(q_cent.shape)}")
-    q_cent = q_cent.to(torch.float32).contiguous()
-    rc = index.tiles[cand_tiles.to(torch.int64)] - q_cent[:, None, None, :]  # (Tq, k, S, 3)
+    return Fold7Operands(cand=cand_tiles.to(torch.int32).contiguous(),
+                         tiles=index.tiles.contiguous(),
+                         q_cent=q_cent.to(torch.float32).contiguous(),
+                         payload=payload_table.to(torch.float32).contiguous())
+
+
+def fold7_operands(ops: Fold7Operands, lo: int, hi: int) -> torch.Tensor:
+    """The bf16 score operands [-2 rc; |rc|^2], rc = r - q_cent[t], of the
+    candidate rows of query tiles lo..hi: (hi - lo, k, S, 4), in the
+    contract's order of operations (the TPU prep's `b`, with each row's 4
+    operands last)."""
+    rc = ops.tiles[ops.cand[lo:hi].to(torch.int64)] - ops.q_cent[lo:hi, None, None, :]
     x, y, z = rc.unbind(-1)
     rrc = x * x + y * y + z * z
-    b = torch.stack([-2.0 * x, -2.0 * y, -2.0 * z, rrc], dim=-1).to(torch.bfloat16)
-    return Fold7Operands(cand=cand_tiles.to(torch.int32).contiguous(), b=b.contiguous(),
-                         q_cent=q_cent, payload=payload_table.to(torch.float32).contiguous())
+    return torch.stack([-2.0 * x, -2.0 * y, -2.0 * z, rrc], dim=-1).to(torch.bfloat16)
+
+
+def fold7_plan(tq: int, sq: int, s: int, k: int, shape: Fold6Shape) -> Dict[str, int]:
+    """How the fold7 kernel of `shape` covers tq query tiles of sq queries
+    against k candidate tiles of s lanes: query tiles a block (a tile's
+    queries take ceil(sq / queries_per_thread) threads; above a block's
+    threads, parts of one tile a block; no more tiles than stages of k rows
+    fit), lanes a stage (each of the block's tiles holds lanes x k rows,
+    padded to whole groups, in its share of stage_rows; a multiple of 4
+    where it splits S, so that a stage's rows start on 16 bytes), the packed
+    rows a tile a stage, stages and the grid. The C entry refuses a plan
+    that does not fit the kernel."""
+    g = shape.group
+    nq4 = -(-sq // shape.queries_per_thread)
+    nqs = max(1, min(nq4, shape.threads))
+    tpb = max(1, min(shape.threads // nqs, shape.stage_rows // (-(-k // g) * g)))
+    lanes = max(1, min(s, shape.stage_rows // tpb // g * g // k))
+    if 4 <= lanes < s:
+        lanes -= lanes % 4
+    return dict(tiles_per_block=tpb, lanes_per_stage=lanes, padded_rows=-(-lanes * k // g) * g,
+                stages=-(-s // lanes), blocks=(-(-tq // tpb), -(-nq4 // nqs)))
 
 
 def fold7_cuda(query_tiles: torch.Tensor, ops: Fold7Operands) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -456,29 +501,32 @@ def fold7_cuda(query_tiles: torch.Tensor, ops: Fold7Operands) -> Tuple[torch.Ten
     if not query_tiles.is_cuda:
         raise ValueError("the block-NN kernels need CUDA tensors")
     _check("query_tiles", query_tiles, torch.float32, 3, dev)
-    _check("b", ops.b, torch.bfloat16, 4, dev)
+    _check("tiles", ops.tiles, torch.float32, 3, dev)
     _check("cand", ops.cand, torch.int32, 2, dev)
     _check("q_cent", ops.q_cent, torch.float32, 2, dev)
     _check("payload", ops.payload, torch.float32, 2, dev)
     tq, sq, _ = query_tiles.shape
-    _, k, s, _ = ops.b.shape
-    if ops.b.shape[0] != tq or ops.cand.shape != (tq, k) or query_tiles.shape[2] != 3:
-        raise ValueError(f"shapes do not fit: query {tuple(query_tiles.shape)}, "
-                         f"b {tuple(ops.b.shape)}, cand {tuple(ops.cand.shape)}")
-    if k * s > _MAX_ROWS:
-        raise ValueError(f"k * S = {k * s} candidate rows exceed {_MAX_ROWS}")
-    if ops.b.data_ptr() % 8:
-        raise ValueError("b must be 8-byte aligned (the kernel reads 4 bf16 at once)")
-    if ops.payload.numel() >= 2**31 or query_tiles.numel() >= 2**31:
-        raise ValueError("too many rows for the kernels' int32 tile ids")
-    d_pl = ops.payload.shape[1]
+    t, s, _ = ops.tiles.shape
+    k, d_pl = ops.cand.shape[1], ops.payload.shape[1]
+    if (ops.cand.shape[0] != tq or ops.q_cent.shape != (tq, 3) or query_tiles.shape[2] != 3
+            or ops.tiles.shape[2] != 3 or ops.payload.shape[0] != t * s):
+        raise ValueError(f"shapes do not fit: query {tuple(query_tiles.shape)}, tiles "
+                         f"{tuple(ops.tiles.shape)}, cand {tuple(ops.cand.shape)}, q_cent "
+                         f"{tuple(ops.q_cent.shape)}, payload {tuple(ops.payload.shape)}")
+    if max(ops.tiles.numel(), query_tiles.numel(), ops.payload.numel(), k * s) >= 2**31:
+        raise ValueError("too many rows for the kernel's int32 indices")
     lib = build()
+    plan = fold7_plan(tq, sq, s, k, _fold7_shape)
+    if plan["tiles_per_block"] * plan["padded_rows"] > _fold7_shape.stage_rows:
+        raise ValueError(f"k = {k} candidate tiles exceed the kernel's stage of "
+                         f"{_fold7_shape.stage_rows} rows")
     d = torch.empty((tq * sq,), dtype=torch.float32, device=dev)
     pl = torch.empty((tq * sq, d_pl), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.icpx_fold7_forward(
-        query_tiles.data_ptr(), ops.b.data_ptr(), ops.cand.data_ptr(), ops.q_cent.data_ptr(),
-        ops.payload.data_ptr(), tq, sq, s, k, d_pl, d.data_ptr(), pl.data_ptr(), dev.index, stream,
+        query_tiles.data_ptr(), ops.tiles.data_ptr(), ops.cand.data_ptr(), ops.q_cent.data_ptr(),
+        ops.payload.data_ptr(), tq, sq, s, k, d_pl, plan["tiles_per_block"],
+        plan["lanes_per_stage"], d.data_ptr(), pl.data_ptr(), dev.index, stream,
     )
     cuda_build.check(lib, rc, "fold7 kernel")
     LAUNCHES["fold7"] += 1
@@ -487,10 +535,11 @@ def fold7_cuda(query_tiles: torch.Tensor, ops: Fold7Operands) -> Tuple[torch.Ten
 
 def fold7_reference(query_tiles: torch.Tensor, ops: Fold7Operands) -> Tuple[torch.Tensor, torch.Tensor]:
     """The fold7 kernel's plain version, any device, chunked over query
-    tiles: the same bf16 operands, product order, scan order and miss rule,
-    so the same d2 bits and winners."""
+    tiles: the operands of each chunk's candidate rows (`fold7_operands`),
+    then the same products, sum order, scan order and miss rule, so the same
+    d2 bits and winners."""
     tq, sq, _ = query_tiles.shape
-    _, k, s, _ = ops.b.shape
+    k, s = ops.cand.shape[1], ops.tiles.shape[1]
     cand = ops.cand.to(torch.int64)
     chunk = _PLAIN_CHUNK["fold7"]
     d_parts, pos_parts = [], []
@@ -499,7 +548,7 @@ def fold7_reference(query_tiles: torch.Tensor, ops: Fold7Operands) -> Tuple[torc
         x, y, z = qc.unbind(-1)
         qq = x * x + y * y + z * z
         a = qc.to(torch.bfloat16).to(torch.float32)[..., None, :]  # (c, Sq, 1, 3)
-        b = ops.b[t0:t0 + chunk].to(torch.float32).transpose(1, 2)  # (c, S, k, 4)
+        b = fold7_operands(ops, t0, t0 + chunk).to(torch.float32).transpose(1, 2)  # (c, S, k, 4)
         b = b.reshape(b.shape[0], 1, s * k, 4)  # row j = lane * k + cand
         score = a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2] + b[..., 3]
         best, j = score.min(dim=2)  # first among ties

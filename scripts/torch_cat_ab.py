@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """A/B of two checkouts of the port on one card: the cat pair's wall, `nn`,
-and the `fold6`, `fused4`, `sort` and `moments_fused` kernels.
+and the `fold6`, `fold7`, `fused4`, `sort` and `moments_fused` kernels.
 
     python3 scripts/torch_cat_ab.py PARENT CHANGE [--pairs 12] [--out FILE]
 
@@ -14,17 +14,21 @@ fences), the event time of one `nn` call at the cat shape (3,456 x 3,456,
 56 pad rows on both sides; median of 5), and the device time (a CUDA graph
 of 20 calls) and the event time of one `fold6` call at the 1M flagship's
 refine shape with the 6-wide payload table and with GICP's 12-wide one, of
-one `fused4` call at the same shape, of the tile-128 KD build's four level
-sorts (summed) and of one `moments_fused` call at the 1M covariance index.
-After the readings each worker holds `nn` to its plain version bit for bit
-at the cat shape and at 65,536 x 65,536, and `fold6` (d2 and payload, both
-tables), `fused4` and every level sort likewise, and `moments_fused`'s
-counts; and times `nn` there. Prints each side's median, min and max of
+one `fold7` call likewise (and the event time of one `fold7_prepare`, once
+a phase, with the 6-wide table; each checkout makes its own operands
+through the public signatures), of one `fused4` call at the same shape, of
+the tile-128 KD build's four level sorts (summed) and of one
+`moments_fused` call at the 1M covariance index. After the readings each
+worker holds `nn` to its plain version bit for bit at the cat shape and at
+65,536 x 65,536, and `fold6` and `fold7` (d2 and payload, both tables),
+`fused4` and every level sort likewise, and `moments_fused`'s counts; and
+times `nn` there. Prints each side's median, min and max of
 every reading, and one JSON line with all of it (also written to FILE).
 The timers and the inputs are chip_smoke.py's, from the checkout that
-holds this script: `fold6` and `fused4` on `_refine_operands` of the
-`_gt_pair` flagship (k = 6; fold6's tables as `main` makes them from
-seeds 2 and 3; fused4's groups of 4, unions of 32), the sorts on
+holds this script: `fold6`, `fold7` and `fused4` on `_refine_operands` of
+the `_gt_pair` flagship (k = 6; the folds' tables as `main` makes them from
+seeds 2 and 3, fold7 centred on the query tiles' centroids; fused4's groups
+of 4, unions of 32), the sorts on
 `_sort_operands`, `moments_fused` on the flagship target's KD index of
 128-point tiles, each its own query tile (`_cov_radius(target, 15)`, k 8,
 groups of 4, unions of 32), as `_phase_moments_fused` has it.
@@ -87,14 +91,16 @@ def worker(root: str) -> None:
     f_src, f_tgt, f_gt = smoke._gt_pair(smoke.N_FLAG, 0, dev)
     tgt_index = trim_index(build_kd_index(f_tgt.xyz, f_tgt.mask, tile_size=128),
                            f_tgt.capacity, multiple=64)
-    query, cand, _ = smoke._refine_operands(f_src, tgt_index, f_gt)
+    query, cand, q_cent = smoke._refine_operands(f_src, tgt_index, f_gt)
     unions = blocknn_cuda.group_unions(cand, 4, 32).to(torch.int32)  # an older checkout's are int64
-    # fold6's 6-wide (symmetric) and 12-wide (GICP) payload tables
-    fold6_ops = {}
-    for label, seed, width in (("fold6", 2, 3), ("fold6_d12", 3, 9)):
+    # the folds' 6-wide (symmetric) and 12-wide (GICP) payload tables
+    fold6_ops, fold7_ops, tables = {}, {}, {}
+    for suffix, seed, width in (("", 2, 3), ("_d12", 3, 9)):
         aux = torch.as_tensor(np.random.default_rng(seed).normal(size=(smoke.N_FLAG, width))
                               .astype(np.float32), device=dev)
-        fold6_ops[label] = blocknn_cuda.fold6_prepare(cand, tgt_index, fused_payload_table(tgt_index, aux))
+        tables[suffix] = fused_payload_table(tgt_index, aux)
+        fold6_ops["fold6" + suffix] = blocknn_cuda.fold6_prepare(cand, tgt_index, tables[suffix])
+        fold7_ops["fold7" + suffix] = blocknn_cuda.fold7_prepare(cand, q_cent, tgt_index, tables[suffix])
         del aux
     # moments_fused at the 1M covariance index
     cov_idx = build_kd_index(f_tgt.xyz, f_tgt.mask, tile_size=128)
@@ -103,7 +109,7 @@ def worker(root: str) -> None:
     cov_unions = blocknn_cuda.group_unions(_candidate_tiles(cov_idx.tiles, cov_idx, 8)[0], 4, 32)
     cov_cent = blocknn_cuda.group_centroids(cov_idx.tiles, 4)
     cov_args = (cov_idx.tiles, cov_idx.tiles, cov_unions.to(torch.int32), cov_cent)
-    del f_src, f_tgt, cand
+    del f_src, f_tgt
     levels = [smoke._sort_operands(dev, c, m, i)
               for i, (c, m) in enumerate(((64, 16384), (256, 4096), (1024, 1024), (4096, 256)))]
 
@@ -115,13 +121,17 @@ def worker(root: str) -> None:
 
     def reading():
         wall = smoke._sync_time(lambda: register(src, tgt, cfg), reps=5, warmup=2)[0]
-        fold6 = {}
-        for label, ops in fold6_ops.items():
-            fold6[f"{label}_device_ms"] = smoke._graph_ms(lambda: blocknn_cuda.fold6_cuda(query, ops))
-            fold6[f"{label}_event_ms"] = smoke._event_ms(lambda: blocknn_cuda.fold6_cuda(query, ops))
+        folds = {}
+        for fold, all_ops in (("fold6", fold6_ops), ("fold7", fold7_ops)):
+            launch = getattr(blocknn_cuda, f"{fold}_cuda")
+            for label, ops in all_ops.items():
+                folds[f"{label}_device_ms"] = smoke._graph_ms(lambda: launch(query, ops))
+                folds[f"{label}_event_ms"] = smoke._event_ms(lambda: launch(query, ops))
+        folds["fold7_prepare_event_ms"] = smoke._event_ms(
+            lambda: blocknn_cuda.fold7_prepare(cand, q_cent, tgt_index, tables[""]))
         return {"cat_wall_ms": 1e3 * wall,
                 "nn_3456_event_ms": smoke._event_ms(lambda: nn_cuda.nn_cuda(qc, rc, mc)),
-                **fold6,
+                **folds,
                 "fused4_device_ms": smoke._graph_ms(fused4),
                 "fused4_event_ms": smoke._event_ms(fused4),
                 "sort4_device_ms": sum(smoke._graph_ms(lambda: sort_cuda.sort_cuda(k, [x, o]))
@@ -140,12 +150,14 @@ def worker(root: str) -> None:
             out[label] = {"bit_equal": bool(equal),
                           "device_ms": smoke._graph_ms(lambda: nn_cuda.nn_cuda(q, r, m)),
                           "event_ms": smoke._event_ms(lambda: nn_cuda.nn_cuda(q, r, m))}
-        equal = True
-        for ops in fold6_ops.values():
-            d_k, pl_k = blocknn_cuda.fold6_cuda(query, ops)
-            d_p, pl_p = blocknn_cuda.fold6_reference(query, ops)
-            equal &= torch.equal(d_k.view(torch.int32), d_p.view(torch.int32)) and torch.equal(pl_k, pl_p)
-        out["fold6"] = {"bit_equal": bool(equal)}  # both tables
+        for fold, all_ops in (("fold6", fold6_ops), ("fold7", fold7_ops)):
+            equal = True
+            for ops in all_ops.values():
+                d_k, pl_k = getattr(blocknn_cuda, f"{fold}_cuda")(query, ops)
+                d_p, pl_p = getattr(blocknn_cuda, f"{fold}_reference")(query, ops)
+                equal &= (torch.equal(d_k.view(torch.int32), d_p.view(torch.int32))
+                          and torch.equal(pl_k, pl_p))
+            out[fold] = {"bit_equal": bool(equal)}  # both tables
         d_k, p_k = fused4()
         d_p, p_p = blocknn_cuda.fused4_reference(query, tgt_index.tiles, unions, 4)
         out["fused4"] = {"bit_equal": bool(torch.equal(d_k, d_p) and torch.equal(p_k, p_p))}

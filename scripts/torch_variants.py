@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Design variants of one CUDA kernel of `icpx_torch/csrc/blocknn.cu` on one card.
 
-    python3 scripts/torch_variants.py {fold6,moments_fused} [--parent ROOT] [--reps 2] [--out FILE]
+    python3 scripts/torch_variants.py {fold6,fold7,moments_fused} [--parent ROOT] [--reps 2] [--out FILE]
 
 Each variant is a text edit of this checkout's `icpx_torch/csrc/blocknn.cu`
 ("committed" is the source unedited; "parent" is ROOT's source, when
@@ -24,6 +24,12 @@ The kernels (`KERNELS`):
   `fold6_reference` bit for bit in d2 and payload. "count" counts the
   queries resolved from one screened group, from two, and sent to the
   direct scan (and of those, for a third group within the margin).
+* fold7: the same refine shape, operands centred on the query tiles'
+  centroids, each variant with the plan `fold7_plan` makes from the shape
+  its own library reports (the parent's one-query-a-thread kernel before
+  it takes the (Tq, k, S, 4) bf16 operands, made here by
+  `fold7_operands`); held to `fold7_reference` bit for bit. "count" counts
+  the queries resolved from their best group and by the direct scan.
 * moments_fused: chip_smoke.py's 1M covariance index (the `_gt_pair`
   flagship target's KD index of 128-point tiles, each its own query tile,
   `_cov_radius(target, 15)`, k 8, groups of 4, unions of 32); held to the
@@ -277,6 +283,120 @@ def _f6_setup(smoke, dev, libs):
     return Case(launch, lambda: torch.equal(out_d, want[0]) and torch.equal(out_pl, want[1]), report)
 
 
+# ---- fold7 ----------------------------------------------------------------------------
+
+F7_BOUNDS = "__global__ void __launch_bounds__(kF7Threads, 6)\nfold7_kernel("
+F7_STAGE = "constexpr int kF7StageRows = 1024;"
+F7_QUERIES = "constexpr int kF7Q = 4; "
+F7_UNROLL = "#pragma unroll 2\n    for (int g = 0; g < ng; ++g) {"
+F7_SELECTS = """#pragma unroll
+      for (int q = 0; q < kF7Q; ++q) {  // a strict '<': the earlier group keeps a tie
+        bj[q] = gmin[q] < best[q] ? j0 + g * kF7Group : bj[q];
+        best[q] = fminf(best[q], gmin[q]);
+      }
+"""
+F7_VOTE = """      bool enters = false;
+#pragma unroll
+      for (int q = 0; q < kF7Q; ++q) enters |= gmin[q] < best[q];
+      if (__any_sync(0xffffffffu, enters)) {  // warp-uniform
+#pragma unroll
+        for (int q = 0; q < kF7Q; ++q) {
+          if (gmin[q] < best[q]) {
+            best[q] = gmin[q];
+            bj[q] = j0 + g * kF7Group;
+          }
+        }
+      }
+"""
+F7_RANGE = "        if (f7_outside3(v, kF7LoB, kF7HiB)) outside[u] = 1;\n"
+F7_RESCORE_START = "    float r[3 * kF7Group];  // the group's rows"
+F7_RESCORE_END = "    bj[q] = win;\n"
+F7_NEED = "      need |= 1u << q;\n      continue;\n"
+
+
+def _f7_count(text):
+    """Counters: the queries resolved from their best group, and by the
+    direct scan."""
+    text = _replace(text, "namespace {\n", "namespace {\n__device__ unsigned long long g_f7_count[2];\n")
+    text = _replace(text, F7_RESCORE_END, F7_RESCORE_END + "    atomicAdd(&g_f7_count[0], 1ull);\n")
+    text = _replace(text, F7_NEED, "      atomicAdd(&g_f7_count[1], 1ull);\n" + F7_NEED)
+    return text + _counters("f7", 2)
+
+
+def _f7_no_rescore(text):
+    """Diagnostic: no rescoring; the winner is its group's first row."""
+    a, b = text.index(F7_RESCORE_START), text.index(F7_RESCORE_END) + len(F7_RESCORE_END)
+    return text[:a] + text[b:]
+
+
+def _f7_config(queries=4, stage=1024, blocks=None):
+    edits = [(F7_QUERIES, F7_QUERIES.replace("4", str(queries))),
+             (F7_STAGE, F7_STAGE.replace("1024", str(stage)))]
+    if blocks:
+        edits.append((F7_BOUNDS, F7_BOUNDS.replace("(kF7Threads, 6)", f"(kF7Threads, {blocks})")))
+    return _edits(*edits)
+
+
+F7_VARIANTS = {
+    "a warp vote a group": (_edits((F7_SELECTS, F7_VOTE)), True),
+    "no unroll": (_edits((F7_UNROLL, F7_UNROLL.replace("#pragma unroll 2\n", ""))), True),
+    "unroll 4": (_edits((F7_UNROLL, F7_UNROLL.replace("2", "4", 1))), True),
+    "896 rows, 7 blocks an SM": (_f7_config(stage=896, blocks=7), True),
+    "uncapped registers": (_edits((F7_BOUNDS, F7_BOUNDS.replace(", 6)", ")"))), True),
+    "8 queries, 2048 rows, 3 blocks an SM": (_f7_config(queries=8, stage=2048, blocks=3), True),
+    "no range check (diagnostic)": (_edits((F7_RANGE, "")), True),
+    "no rescoring": (_f7_no_rescore, False),
+    "count": (_f7_count, True),
+}
+
+
+def _f7_setup(smoke, dev, libs):
+    from icpx_torch.kernels import blocknn_cuda
+    from icpx_torch.kernels.blocknn import build_kd_index, fused_payload_table, trim_index
+
+    f_src, f_tgt, f_gt = smoke._gt_pair(smoke.N_FLAG, 0, dev)
+    tgt_index = trim_index(build_kd_index(f_tgt.xyz, f_tgt.mask, tile_size=128),
+                           f_tgt.capacity, multiple=64)
+    query, cand, q_cent = smoke._refine_operands(f_src, tgt_index, f_gt)
+    aux = torch.as_tensor(np.random.default_rng(2).normal(size=(smoke.N_FLAG, 3)).astype(np.float32),
+                          device=dev)
+    ops = blocknn_cuda.fold7_prepare(cand, q_cent, tgt_index, fused_payload_table(tgt_index, aux))
+    want = blocknn_cuda.fold7_reference(query, ops)
+    tq, sq, _ = query.shape
+    s, k, d_pl = ops.tiles.shape[1], ops.cand.shape[1], ops.payload.shape[1]
+    out_d = torch.empty((tq * sq,), device=dev)
+    out_pl = torch.empty((tq * sq, d_pl), device=dev)
+    plans, b_ops = {}, None
+    for name, lib in libs.items():
+        if hasattr(lib, "icpx_fold7_shape"):  # the staged kernel: plans from its shape
+            shape = blocknn_cuda._read_shape(lib, "icpx_fold7_shape", blocknn_cuda.Fold6Shape)
+            plans[name] = blocknn_cuda.fold7_plan(tq, sq, s, k, shape)
+            lib.icpx_fold7_forward.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, P, P, I, P]
+        else:  # the one-query-a-thread kernel before it, on a (Tq, k, S, 4) bf16 copy
+            b_ops = blocknn_cuda.fold7_operands(ops, 0, tq).contiguous()
+            lib.icpx_fold7_forward.argtypes = [P, P, P, P, P, I, I, I, I, I, P, P, I, P]
+    print(f"plans: {json.dumps(plans)}")
+
+    def launch(name, lib):
+        st = torch.cuda.current_stream().cuda_stream
+        if name in plans:
+            return lib.icpx_fold7_forward(
+                query.data_ptr(), ops.tiles.data_ptr(), ops.cand.data_ptr(), ops.q_cent.data_ptr(),
+                ops.payload.data_ptr(), tq, sq, s, k, d_pl, plans[name]["tiles_per_block"],
+                plans[name]["lanes_per_stage"], out_d.data_ptr(), out_pl.data_ptr(), 0, st)
+        return lib.icpx_fold7_forward(
+            query.data_ptr(), b_ops.data_ptr(), ops.cand.data_ptr(), ops.q_cent.data_ptr(),
+            ops.payload.data_ptr(), tq, sq, s, k, d_pl, out_d.data_ptr(), out_pl.data_ptr(), 0, st)
+
+    def report(counts):
+        group, direct = counts
+        return (f"of {tq * sq} queries: from their best group {group}, by the direct scan {direct}",
+                {"plans": plans, "best_group": group, "direct": direct})
+
+    return Case(launch, lambda: torch.equal(out_d.view(torch.int32), want[0].view(torch.int32))
+                and torch.equal(out_pl, want[1]), report)
+
+
 # ---- moments_fused --------------------------------------------------------------------
 
 MF_TEST = "(s1[0] <= nc[0]) | (s1[1] <= nc[1]) | (s1[2] <= nc[2]) | (s1[3] <= nc[3])"
@@ -430,6 +550,7 @@ def _mf_setup(smoke, dev, libs):
 
 KERNELS = {
     "fold6": Kernel("fold6_kernel", F6_VARIANTS, 4, "f6_counts", _f6_setup),
+    "fold7": Kernel("fold7_kernel", F7_VARIANTS, 2, "f7_counts", _f7_setup),
     "moments_fused": Kernel("moments_fused_kernel", MF_VARIANTS, 2, "mf_counts", _mf_setup),
 }
 

@@ -19,6 +19,7 @@ them. Tolerances:
   components 1e-4 on rows whose counts agree.
 """
 
+import dataclasses
 from types import SimpleNamespace
 
 import jax.numpy as jnp
@@ -905,6 +906,231 @@ def test_fold7_tie_rule_and_misses(cand):
     np.testing.assert_array_equal(to_np(d_t), np.asarray(d_j))
 
 
+
+def _fold7_jax_case(case):
+    """(cand, q_cent, torch TileIndex, payload table, the JAX prep's b as
+    (Tq, k, S, 4)) on the fold case of seed 18 (its frozen candidates and
+    query-tile centroids) or on the sentinel fixture (candidates 0-3 and
+    the all-sentinel tile, centred on 0)."""
+    if case == "fold case":
+        jq, ji, table, cand = _fold_case(seed=18)
+        _, q_cent = jb._candidate_tiles(jq.tiles, ji, 6)
+        q_cent = np.asarray(q_cent)
+        index = _same_index(ji)
+        pl_tiles = jnp.asarray(table.reshape(ji.n_tiles, ji.tile_size, 6))
+    else:
+        _, table, fields = _sentinel_fixture()
+        cand, q_cent = np.array([[0, 1, 2, 3], [4, 4, 4, 4]]), np.zeros((2, 3), np.float32)
+        index = interop.tile_index_from_numpy(fields, device="cpu")
+        ji = jb.TileIndex(**{f: jnp.asarray(v) for f, v in vars(fields).items()})
+        pl_tiles = jnp.asarray(table.reshape(5, 8, 6))
+    b, _, _, _ = j_fold7_prepare(jnp.asarray(cand, jnp.int32), jnp.asarray(q_cent), ji, pl_tiles)
+    b = np.swapaxes(np.asarray(b[:len(cand)]), 2, 3)  # (Tq', k, 4, S) -> (Tq, k, S, 4)
+    return cand, q_cent, index, table, b
+
+
+@pytest.mark.parametrize("case", ["fold case", "sentinel fixture"])
+def test_fold7_operands_equal_the_jax_prep(case):
+    """The bf16 operands the plain version makes a chunk at a time
+    (`fold7_operands`, the rows the kernel makes as it stages them) are the
+    JAX prep's `b`, bit for bit: dropping the per-phase copy changed no
+    operand."""
+    cand, q_cent, index, table, b_j = _fold7_jax_case(case)
+    ops = blocknn_cuda.fold7_prepare(torch.as_tensor(cand), torch.as_tensor(q_cent), index,
+                                     torch.as_tensor(table))
+    got = blocknn_cuda.fold7_operands(ops, 0, len(cand))
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == b_j.shape
+    np.testing.assert_array_equal(to_np(got.view(torch.int16)), b_j.view(np.int16))
+    # and a chunk of it is the same rows
+    np.testing.assert_array_equal(to_np(blocknn_cuda.fold7_operands(ops, 1, 2).view(torch.int16)),
+                                  b_j[1:2].view(np.int16))
+
+
+def test_fold7_operands_hold_no_per_candidate_copy():
+    """`fold7_prepare` keeps the inputs (the index's tiles and the payload
+    table themselves where they are already contiguous float32) and makes
+    no tensor of Tq * k * S elements or more."""
+    cand, q_cent, index, table, _ = _fold7_jax_case("fold case")
+    tq, k = cand.shape
+    table_t = torch.as_tensor(table)
+    ops = blocknn_cuda.fold7_prepare(torch.as_tensor(cand), torch.as_tensor(q_cent), index, table_t)
+    fields = [getattr(ops, f.name) for f in dataclasses.fields(ops)]
+    assert all(isinstance(x, torch.Tensor) for x in fields)
+    assert max(x.numel() for x in fields) < tq * k * index.tile_size
+    assert ops.tiles.data_ptr() == index.tiles.data_ptr() and ops.payload.data_ptr() == table_t.data_ptr()
+    assert ops.cand.dtype == torch.int32 and ops.q_cent.dtype == torch.float32
+
+
+# The constants of csrc/blocknn.cu's fold7 kernel, which the wrapper reads
+# from the built library, and step 1's range of its source note.
+F7_SHAPE = blocknn_cuda.Fold6Shape(threads=128, queries_per_thread=4, group=8, stage_rows=1024)
+F7_RANGE_A = (np.uint32(0x20000000), np.uint32(0x5F000000))  # [2^-63, 2^63)
+F7_RANGE_B = (np.uint32(0x20800000), np.uint32(0x5F800000))  # [2^-62, 2^64)
+F7_FIXTURES = list(chip_smoke.FOLD7_FIXTURES)
+# chip_smoke's fold7 fixture shapes, (tq, sq, s, k), by test id
+F7_FIXTURE_SHAPES = dict(zip(["1M plan", "25 a block", "sq30-s100", "k8-s512", "sq600-s2000",
+                              "sq3-s13", "k200", "sq128"], chip_smoke.FOLD7_FIXTURE_SHAPES))
+
+
+@pytest.mark.parametrize("tq,sq,s,k,want", [
+    (16384, 64, 128, 6, (8, 20, 120, 7, (2048, 1))),  # the 1M refine shape
+    (256, 64, 128, 6, (8, 20, 120, 7, (32, 1))),  # the 16k pair's refine shape
+    (2, 8, 8, 4, (64, 4, 16, 2, (1, 1))),  # chip_smoke's tie and miss fixtures
+    (2, 64, 512, 8, (8, 16, 128, 32, (1, 1))),  # k x S above 3,072 rows
+    (5, 600, 2000, 1, (1, 1024, 1024, 2, (5, 2))),  # a tile over two blocks, S over two stages
+    (9, 3, 13, 3, (128, 2, 8, 7, (1, 1))),  # S not a multiple of 4: stages of 2 lanes
+    (4, 8, 8, 200, (5, 1, 200, 8, (1, 1))),  # k = 200 caps a block at 5 tiles
+    (3, 30, 100, 6, (16, 8, 48, 13, (1, 1))),  # Sq not a multiple of 4
+    (1, 1, 4, 2000, (1, 1, 2000, 4, (1, 1))),  # k beyond a stage: fold7_cuda refuses it
+])
+def test_fold7_plan_of_the_kernel_shape(tq, sq, s, k, want):
+    plan = blocknn_cuda.fold7_plan(tq, sq, s, k, F7_SHAPE)
+    assert (plan["tiles_per_block"], plan["lanes_per_stage"], plan["padded_rows"], plan["stages"],
+            plan["blocks"]) == want
+    nqs = min(-(-sq // F7_SHAPE.queries_per_thread), F7_SHAPE.threads)
+    assert plan["tiles_per_block"] * nqs <= F7_SHAPE.threads
+    assert plan["padded_rows"] % F7_SHAPE.group == 0 and plan["lanes_per_stage"] <= s
+    fits = plan["tiles_per_block"] * plan["padded_rows"] <= F7_SHAPE.stage_rows
+    assert fits == (k <= F7_SHAPE.stage_rows)
+    if 4 <= plan["lanes_per_stage"] < s:  # a split stage starts on 16 bytes
+        assert plan["lanes_per_stage"] % 4 == 0
+
+
+def _bf16(x):
+    """float32 -> bf16, rounded to nearest even -> float32."""
+    return to_np(torch.as_tensor(np.ascontiguousarray(x)).to(torch.bfloat16).to(torch.float32))
+
+
+def _f7_outside(x, rng):
+    """Nonzero entries of x whose magnitude lies outside [lo, hi) (the
+    range given as float bits), as the kernel's f7_outside."""
+    m = np.asarray(x, np.float32).view(np.uint32) & np.uint32(0x7FFFFFFF)
+    return ((m - np.uint32(1)) < rng[0] - np.uint32(1)) | (m >= rng[1])
+
+
+def _f7_fast(a, rows):
+    """(Q, 3) x (R, 4) -> (Q, R) fadd(fma(az, Bz, fma(ay, By, ax * Bx)),
+    Bw), the kernel's 4-instruction score."""
+    p0 = a[:, None, 0] * rows[None, :, 0]
+    s2 = _fma32(a[:, None, 2], rows[None, :, 2], _fma32(a[:, None, 1], rows[None, :, 1], p0))
+    return s2 + rows[None, :, 3]
+
+
+def _f7_steps(a, rows):
+    """(Q, 3) x (R, 4) -> (Q, R) ((ax Bx + ay By) + az Bz) + Bw, each step
+    rounded: the contract's score."""
+    p = a[:, None, :] * rows[None, :, :3]
+    return ((p[..., 0] + p[..., 1]) + p[..., 2]) + rows[None, :, 3]
+
+
+def emulate_fold7(query_tiles, index, cand, q_cent, shape):
+    """csrc/blocknn.cu's fold7 in numpy, a query tile at a time: the
+    operands of its k x S rows in j order (`fold7_operands`), staged as
+    `fold7_plan` cuts them (lanes [l0, l0 + L) of every candidate, padded
+    to whole groups with (0, 0, 0, +inf)), scored by the 4-instruction form
+    and folded by group minima; the strict '<' over groups in scan order
+    keeps the first least group, whose rows are scored again in the
+    contract's steps, the first equal to the best winning; a query outside
+    step 1's range (or in a tile with an operand outside it) takes the
+    direct scan in the contract's steps instead. Returns (d2, flat payload
+    row, counts of queries by path)."""
+    tq, sq, _ = query_tiles.shape
+    s, k = index.tile_size, cand.shape[1]
+    plan = blocknn_cuda.fold7_plan(tq, sq, s, k, shape)
+    lc, lcp, group = plan["lanes_per_stage"], plan["padded_rows"], shape.group
+    ops = blocknn_cuda.fold7_prepare(torch.as_tensor(cand), torch.as_tensor(q_cent), index,
+                                     torch.zeros((index.n_tiles * s, 1)))
+    ops_b = to_np(blocknn_cuda.fold7_operands(ops, 0, tq).to(torch.float32))
+    ops_b = np.ascontiguousarray(ops_b.transpose(0, 2, 1, 3)).reshape(tq, s * k, 4)  # j = lane * k + c
+    d_out = np.empty(tq * sq, np.float32)
+    pos_out = np.empty(tq * sq, np.int64)
+    counts = {"group": 0, "direct": 0}
+    inf = np.float32(np.inf)
+    for t in range(tq):
+        qc = query_tiles[t] - q_cent[t]
+        qq = (qc[:, 0] * qc[:, 0] + qc[:, 1] * qc[:, 1]) + qc[:, 2] * qc[:, 2]
+        a = _bf16(qc)
+        b = ops_b[t]
+        tile_out = bool(_f7_outside(b[:, :3], F7_RANGE_B).any())
+        gmins, firsts = [], []
+        for st in range(plan["stages"]):
+            l0 = st * lc
+            nl = min(lc, s - l0)
+            rows = np.zeros((lcp, 4), np.float32)
+            rows[:, 3] = inf
+            rows[:nl * k] = b[l0 * k:(l0 + nl) * k]
+            ng = -(-nl * k // group)
+            gmins.append(_f7_fast(a, rows[:ng * group]).reshape(sq, ng, group).min(2))
+            firsts.append(l0 * k + group * np.arange(ng))
+        gmin, first = np.concatenate(gmins, 1), np.concatenate(firsts)
+        g = np.argmin(gmin, axis=1)  # the first least group: a strict '<' in scan order
+        best, bj = gmin[np.arange(sq), g], first[g]
+        for i in range(sq):
+            if tile_out or _f7_outside(a[i], F7_RANGE_A).any():
+                sc = _f7_steps(a[i:i + 1], b)[0]
+                j = int(np.argmin(sc))  # the least score, then the least j
+                best[i] = sc[j]
+                counts["direct"] += 1
+            else:
+                js = np.arange(bj[i], min(bj[i] + group, s * k))
+                j = int(js[np.nonzero(_f7_steps(a[i:i + 1], b[js])[0] == best[i])[0][0]])
+                counts["group"] += 1
+            d = np.maximum(best[i] + qq[i], np.float32(0))
+            d_out[t * sq + i] = d if d < 1e15 else inf
+            pos_out[t * sq + i] = int(cand[t, j % k]) * s + j // k
+    return d_out, pos_out, counts
+
+
+@pytest.mark.parametrize("name", F7_FIXTURES)
+@pytest.mark.parametrize("tq,sq,s,k", list(F7_FIXTURE_SHAPES.values()), ids=list(F7_FIXTURE_SHAPES))
+def test_emulated_fold7_equals_reference(name, tq, sq, s, k):
+    """The kernel's lane-major stages, group minima of the 4-instruction
+    score, first-least-group tracking, rescoring and direct scan give
+    fold7_reference's d2 and payload bit for bit, on each of chip_smoke's
+    fold7 fixtures at each of its shapes (every kind of plan)."""
+    query, index, cand, q_cent, payload = chip_smoke.fold7_fixture(name, tq, sq, s, k,
+                                                                   n_tiles=max(12, k + 2))
+    query, cand, q_cent, payload = to_np(query), to_np(cand), to_np(q_cent), to_np(payload)
+    d_e, pos_e, counts = emulate_fold7(query, index, cand, q_cent, F7_SHAPE)
+    ops = blocknn_cuda.fold7_prepare(torch.as_tensor(cand), torch.as_tensor(q_cent), index,
+                                     torch.as_tensor(payload))
+    d_p, pl_p = blocknn_cuda.fold7_reference(torch.as_tensor(query), ops)
+    np.testing.assert_array_equal(d_e.view(np.int32), to_np(d_p).view(np.int32))
+    np.testing.assert_array_equal(payload[pos_e], to_np(pl_p))
+    assert counts["direct"] == (tq * sq if name == "tiny products" else 0)
+
+
+def test_fold7_fma_form_is_the_contract_inside_the_range():
+    """Where a and B lie in step 1's range, the 4-instruction score equals
+    the contract's steps bit for bit (the fold case of seed 18, every
+    pair); on the tiny-products fixture some pairs differ, and every pair
+    that differs has a factor outside the range, which the kernel sends to
+    the direct scan."""
+    cand, q_cent, index, _, _ = _fold7_jax_case("fold case")
+    jq, _, _, _ = _fold_case(seed=18)
+    ops = blocknn_cuda.fold7_prepare(torch.as_tensor(cand), torch.as_tensor(q_cent), index,
+                                     torch.zeros((index.n_tiles * index.tile_size, 1)))
+    b = to_np(blocknn_cuda.fold7_operands(ops, 0, len(cand)).to(torch.float32))
+    query = np.asarray(jq.tiles)
+    for t in range(len(cand)):
+        a = _bf16(query[t] - q_cent[t])
+        rows = b[t].reshape(-1, 4)
+        assert not _f7_outside(a, F7_RANGE_A).any() and not _f7_outside(rows[:, :3], F7_RANGE_B).any()
+        np.testing.assert_array_equal(_f7_fast(a, rows).view(np.int32), _f7_steps(a, rows).view(np.int32))
+    query, index, cand, q_cent, _ = chip_smoke.fold7_fixture("tiny products", 6, 20, 32, 4)
+    ops = blocknn_cuda.fold7_prepare(cand, q_cent, index, torch.zeros((12 * 32, 1)))
+    b = to_np(blocknn_cuda.fold7_operands(ops, 0, 6).to(torch.float32))
+    differ = 0
+    for t in range(6):
+        a = _bf16(to_np(query[t] - q_cent[t]))
+        rows = b[t].reshape(-1, 4)
+        bad = _f7_fast(a, rows).view(np.int32) != _f7_steps(a, rows).view(np.int32)
+        out = _f7_outside(a, F7_RANGE_A).any(1)[:, None] | _f7_outside(rows[:, :3], F7_RANGE_B).any(1)[None, :]
+        assert not (bad & ~out).any()
+        differ += int(bad.sum())
+    assert differ > 0
+
+
 # ---- the fused union fold (kernel #6) ----------------------------------------------------
 
 
@@ -1516,19 +1742,39 @@ def test_cuda_fold6_fixtures_match_plain(cuda_device, name, tq, sq, s, k):
 
 
 @pytest.mark.cuda
-def test_cuda_fold7_matches_plain(cuda_device):
-    jq, ji, table, cand = _fold_case(seed=18)
-    ti = interop.tile_index_from_numpy(ji, device=cuda_device)
-    q = torch.as_tensor(np.asarray(jq.tiles), device=cuda_device)
-    cand_t = torch.as_tensor(cand, device=cuda_device)
-    _, q_cent = tb._candidate_tiles(q, ti, 6)
-    ops = blocknn_cuda.fold7_prepare(cand_t, q_cent, ti, torch.as_tensor(table, device=cuda_device))
+@pytest.mark.parametrize("name,shape", [("fold case", None)] + [
+    (name, shape) for shape in chip_smoke.FOLD7_FIXTURE_SHAPES for name in F7_FIXTURES])
+def test_cuda_fold7_matches_plain(cuda_device, name, shape):
+    """The kernel on the fold case of seed 18 and on each fold7 fixture at
+    each of chip_smoke's shapes, which reach every kind of plan (S over
+    stages, k x S above 3,072, Sq not a multiple of 4, a block not full, a
+    tile over two blocks, k capping a block; ties, all-sentinel tiles, pad
+    queries, subnormal products): d2 bits and payload equal to
+    fold7_reference's."""
+    if shape is None:
+        jq, ji, table, cand = _fold_case(seed=18)
+        index = interop.tile_index_from_numpy(ji, device=cuda_device)
+        query = torch.as_tensor(np.asarray(jq.tiles), device=cuda_device)
+        cand = torch.as_tensor(cand, device=cuda_device)
+        q_cent = tb._candidate_tiles(query, index, 6)[1]
+        payload = torch.as_tensor(table, device=cuda_device)
+    else:
+        query, index, cand, q_cent, payload = chip_smoke.fold7_fixture(
+            name, *shape, n_tiles=max(12, shape[3] + 2), device=cuda_device)
+    ops = blocknn_cuda.fold7_prepare(cand, q_cent, index, payload)
     before = blocknn_cuda.LAUNCHES["fold7"]
-    d_k, pl_k = blocknn_cuda.fold7_cuda(q, ops)
-    d_p, pl_p = blocknn_cuda.fold7_reference(q, ops)
+    d_k, pl_k = blocknn_cuda.fold7_cuda(query, ops)
+    d_p, pl_p = blocknn_cuda.fold7_reference(query, ops)
     torch.cuda.synchronize()
     assert blocknn_cuda.LAUNCHES["fold7"] == before + 1
-    assert torch.equal(d_k, d_p) and torch.equal(pl_k, pl_p)  # bit for bit
+    assert torch.equal(d_k.view(torch.int32), d_p.view(torch.int32)) and torch.equal(pl_k, pl_p)
+
+
+@pytest.mark.cuda
+def test_cuda_fold7_library_shape(cuda_device):
+    """The built library reports the shape the plan and emulation tests
+    above assume."""
+    assert blocknn_cuda.fold7_shape() == F7_SHAPE
 
 
 @pytest.mark.cuda

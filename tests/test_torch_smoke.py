@@ -194,7 +194,8 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
               "moments6": {"cov_max_abs_err", "cov_err_over_tol", "device_ms"},
               "fold6": {"device_ms", "ms_d12", "plain_ms_d12", "device_ms_d12", "bound_ms_d12",
                         "prepare_ms"},
-              "fold7": {"device_ms"},
+              "fold7": {"device_ms", "ms_d12", "plain_ms_d12", "device_ms_d12", "bound_ms_d12",
+                        "prepare_ms"},
               "select": {"ms_d12", "plain_ms_d12", "library_ms_d12", "bound_ms_d12", "device_ms_d12",
                          "library_device_ms_d12"} | device,
               "fused4": {"union_mean", "union_max", "device_ms"},
