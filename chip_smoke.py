@@ -192,20 +192,20 @@ def _flag_configs():
 
 
 # What each flagship path must launch: {kernel: "refine" (once a refine
-# iteration), "all" (once an iteration of both phases), "some" (at least
-# twice: the normals of both clouds), "builds" (the level sorts of the
+# iteration), "all" (once an iteration of both phases), "builds" (the level sorts of the
 # source's KD index at tiles of 64 and the target's at 128: 5 + 4 at 1M),
 # "gicp builds" (those and, where the covariances take the block method,
 # the two covariance indexes at 128: 17 at 1M), or
-# a number}; every kernel not named stays at 0. "gicp fused" takes the
-# covariances through the union moments kernel, once a cloud.
+# a number (moments6: 2, the normals of both clouds)}; every kernel not
+# named stays at 0. "gicp fused" takes the covariances through the union
+# moments kernel, once a cloud.
 _FLAG_LAUNCHES = {
-    "kernels": {"moments6": "some", "fold6": "refine", "sort": "builds"},
+    "kernels": {"moments6": 2, "fold6": "refine", "sort": "builds"},
     "plain": {"sort": "builds"},
-    "vmem7": {"moments6": "some", "fold7": "refine", "sort": "builds"},
-    "select": {"moments6": "some", "select": "refine", "sort": "builds"},
-    "infold": {"moments6": "some", "sort": "builds"},
-    "fused": {"moments6": "some", "fused4": "all", "sort": "builds"},
+    "vmem7": {"moments6": 2, "fold7": "refine", "sort": "builds"},
+    "select": {"moments6": 2, "select": "refine", "sort": "builds"},
+    "infold": {"moments6": 2, "sort": "builds"},
+    "fused": {"moments6": 2, "fused4": "all", "sort": "builds"},
     "gicp": {"fold6": "refine", "sort": "gicp builds"},
     "gicp fused": {"fold6": "refine", "sort": "gicp builds", "moments_fused": 2},
 }
@@ -228,8 +228,7 @@ def _check_launches(label, counts, res, shapes):
             "gicp builds": builds + cov_builds}
     for name, n in counts.items():
         rule = _FLAG_LAUNCHES[label].get(name)
-        ok = n >= 2 if rule == "some" else n == (rule if isinstance(rule, int) else want.get(rule, 0))
-        if not ok:
+        if n != (rule if isinstance(rule, int) else want.get(rule, 0)):
             _fail(f"flagship ({label}): {name} launched {n} times "
                   f"({refine} refine of {res.iters} iterations; {counts})")
     return refine
@@ -358,24 +357,161 @@ def _phase_nn(dev, n_pair, rng):
     return dict(fields, max_abs_err=max_abs_err)
 
 
-def _phase_moments6(dev, index, radius, fixtures):
-    """Kernel #2 against its plain version at the shapes of one flagship
-    normals launch (the target index's 8,192 x 128 self-query, k_tiles = 2),
-    plus the fixtures; returns its JSON fields."""
+MOMENTS6_FIXTURES = ("random", "exact ties", "on the radius", "near the radius", "mixed sentinel",
+                     "all sentinel", "pad queries", "all miss", "far queries", "far tile")
+# (tq, sq, s, k) of the moments6 fixtures, one for each kind of moments6_plan:
+# the 1M normals plan (2 tiles a block, stages of 128 lanes); GICP's k = 8
+# with a block that is not full; 11 threads a tile, 11 tiles a block; 3
+# queries a tile (the last thread's second query past the tile's end) over
+# S = 8 (a stage padded to a mask word); a tile over three blocks with S
+# over three stages (the last of 44 lanes); S not a multiple of 4 (4-byte
+# copies, padded lanes); Sq 5 with a last stage of 2 lanes
+MOMENTS6_FIXTURE_SHAPES = ((4, 128, 128, 2), (6, 128, 128, 8), (5, 22, 32, 4), (3, 3, 8, 3),
+                           (2, 600, 300, 2), (7, 64, 100, 3), (9, 5, 130, 2))
+
+
+def moments6_fixture(name, tq=4, sq=20, s=32, k=2, n_tiles=12, device="cpu"):
+    """One moments6 fixture, made with numpy from a seed: (query tiles (tq,
+    sq, 3), tiles (n_tiles, s, 3), cand (tq, k), q_cent (tq, 3), r2 ()), on
+    `device`. Tiles are uniform in [-1, 1]^3; each query lies within 0.05 of
+    a row of its tile's candidates; q_cent is each query tile's valid-query
+    centroid; the radius is 0.2. "exact ties": coordinates and centroids on
+    small integers, r2 = 2, so rows repeat and many d2 tie exactly, on the
+    radius among them. "on the radius": the same with r2 = 5, and a row at
+    d2 = 5 exactly for every query. "near the radius": each query's rows
+    at the radius and one ulp inside and outside it in x (direct d2 within
+    a few ulps of r2: the screen's band). "mixed sentinel": a third of the
+    rows at PAD_COORD. "all sentinel": query tile 0's candidates are
+    all-sentinel tiles. "pad queries": a quarter of the queries at
+    PAD_COORD. "all miss": queries 3 units off the rows in z. "far
+    queries": queries 50 units off the rows, centred on the origin (the
+    kernel's far test). "far tile": each centroid 4 units off its queries
+    in every axis (|qc| and R ~7: a band ~1e4 times the 1M shape's, where
+    the direct form decides more pairs)."""
+    from icpx_torch.cloud import PAD_COORD
+
+    rng = np.random.default_rng(sum(map(ord, name)) + 7 * s + k + 3 * sq)
+    cand = rng.integers(0, n_tiles, (tq, k))
+    integer = name in ("exact ties", "on the radius")
+    if integer:
+        tiles = rng.integers(-2, 3, (n_tiles, s, 3)).astype(np.float32)
+        near = tiles[cand[:, rng.integers(0, k, sq)], rng.integers(0, s, (tq, sq))]
+        query = near + rng.integers(-1, 2, (tq, sq, 3)).astype(np.float32)
+    else:
+        tiles = rng.uniform(-1, 1, (n_tiles, s, 3)).astype(np.float32)
+        near = tiles[cand[:, rng.integers(0, k, sq)], rng.integers(0, s, (tq, sq))]
+        query = (near + rng.uniform(-0.05, 0.05, (tq, sq, 3))).astype(np.float32)
+    r2 = {"exact ties": 2.0, "on the radius": 5.0}.get(name, 0.04)
+    if name == "on the radius":
+        flat = tiles.reshape(-1, 3)
+        for t in range(tq):
+            for i in range(sq):  # a row at offset (1, 2, 0) from the query: d2 = 5
+                flat[cand[t, rng.integers(k)] * s + rng.integers(s)] = query[t, i] + np.float32([1, 2, 0])
+    elif name == "near the radius":
+        flat = tiles.reshape(-1, 3)
+        for t in range(tq):
+            for i in range(sq):
+                r1 = query[t, i] + np.float32([0.2, 0.0, 0.0])
+                for step in (0.0, -np.inf, np.inf):
+                    r = r1.copy()
+                    if step:
+                        r[0] = np.nextafter(r1[0], np.float32(step))
+                    flat[cand[t, rng.integers(k)] * s + rng.integers(s)] = r
+    elif name == "mixed sentinel":
+        tiles[rng.uniform(size=(n_tiles, s)) < 0.33] = PAD_COORD
+    elif name == "all sentinel":
+        tiles[-2:] = PAD_COORD
+        cand[0] = [n_tiles - 1 - (c % 2) for c in range(k)]
+    elif name == "pad queries":
+        query[rng.uniform(size=(tq, sq)) < 0.25] = PAD_COORD
+    elif name == "all miss":
+        query[..., 2] += np.float32(3.0)
+    elif name == "far queries":
+        query += np.float32(50.0)
+    elif name not in ("random", "exact ties", "far tile"):
+        raise KeyError(name)
+    valid = (np.abs(query) < 1e6).all(-1)
+    q_cent = (np.where(valid[..., None], query, 0).sum(1)
+              / np.maximum(valid.sum(1), 1)[:, None]).astype(np.float32)
+    if integer:
+        q_cent = np.round(q_cent)
+    elif name == "far queries":
+        q_cent[:] = 0.0
+    elif name == "far tile":
+        q_cent += np.float32(4.0)
+    return tuple(torch.as_tensor(x, device=device) for x in
+                 (query, tiles, cand, q_cent, np.float32(r2)))
+
+
+def _moments6_work(query, tiles, cand, q_cent, r2, chunk=256):
+    """The moments6 kernel's work on these inputs, from float64 distances:
+    (pairs screened, pairs in the screen's band, pad queries). A query
+    screens the rows of each mask word (32 rows of a candidate tile) whose
+    box of valid rows lies within its reach r2 + delta (the kernel skips a
+    word only when every query of a warp is beyond it: a lower bound); a
+    pair is in the band when its d2 lies within delta of r2, delta from
+    `moments6_screen_margin` with R the largest valid |rc| of its candidate
+    tile; a query at or beyond kValidAbs (a pad row) is far and screens
+    nothing. S must be a whole number of words no longer than a stage."""
     from icpx_torch.kernels import blocknn_cuda
-    from icpx_torch.kernels.blocknn import _candidate_tiles
+
+    k, s = cand.shape[1], tiles.shape[1]
+    if s % 32 or s > 128:
+        raise ValueError(f"S = {s}: not whole words of one stage")
+    screened = band = 0
+    pad = int((query.abs().amax(-1) >= 1e6).sum())
+    r2 = r2.reshape(()).double()
+    for t0 in range(0, query.shape[0], chunk):
+        c = q_cent[t0:t0 + chunk].double()
+        raw = tiles[cand[t0:t0 + chunk].long()].double()  # (c, k, S, 3)
+        valid = raw.abs().amax(-1) < 1e6
+        rc = raw - c[:, None, None, :]
+        big_r = torch.where(valid, (rc * rc).sum(-1), 0.0).amax(-1).sqrt()  # (c, k)
+        qc = query[t0:t0 + chunk].double() - c[:, None, :]
+        live = (query[t0:t0 + chunk].abs().amax(-1) < 1e6)[..., None]  # (c, Sq, 1)
+        delta = blocknn_cuda.moments6_screen_margin((qc * qc).sum(-1)[..., None], big_r[:, None, :],
+                                                    r2).double()  # (c, Sq, k)
+        words = rc.reshape(rc.shape[0], k, s // 32, 32, 3)
+        wv = valid.reshape(rc.shape[0], k, s // 32, 32, 1)
+        lo = torch.where(wv, words, math.inf).amin(3)[:, None]  # (c, 1, k, W, 3)
+        hi = torch.where(wv, words, -math.inf).amax(3)[:, None]
+        q5 = qc[:, :, None, None, :]
+        gap = torch.maximum(torch.maximum(lo - q5, q5 - hi), torch.zeros((), dtype=torch.float64,
+                                                                         device=qc.device))
+        within = (gap * gap).sum(-1) <= (r2 + delta)[..., None]  # (c, Sq, k, W)
+        screened += 32 * int((within & live[..., None]).sum())
+        d = ((qc[:, :, None, None, :] - rc[:, None]) ** 2).sum(-1)  # (c, Sq, k, S)
+        near = ((d - r2).abs() <= delta[..., None]) & valid[:, None] & live[..., None]
+        band += int(near.sum())
+    return screened, band, pad
+
+
+def _phase_moments6(dev, index, radius, fixtures, f_tgt):
+    """Kernel #2 against its plain version at the shapes of one flagship
+    normals launch (the target index's 8,192 x 128 self-query, k_tiles = 2)
+    and of GICP's covariances (the target's covariance index of 128-point
+    tiles, k_tiles = 8, the radius for k = 15), plus the tie and sentinel
+    fixtures and each moments6 fixture (`moments6_fixture`) at each of
+    MOMENTS6_FIXTURE_SHAPES: counts equal on every row, means within 1e-5,
+    covariances within `_cov_tol`'s per-row tolerance. Times at both 1M
+    shapes (k = 8's under *_k8); returns its JSON fields."""
+    from icpx_torch.kernels import blocknn_cuda
+    from icpx_torch.kernels.blocknn import _candidate_tiles, build_kd_index
 
     def compare(name, query, tiles, cand, q_cent, r2):
         out_k = blocknn_cuda.moments6_cuda(query, tiles, cand.to(torch.int32), q_cent, r2.reshape(1))
         out_p = blocknn_cuda.moments6_reference(query, tiles, cand, q_cent, r2)
         torch.cuda.synchronize()
-        # the same d2 bits decide the radius test: counts equal on every
-        # row; means and covariances differ only by the order of the sums
+        # the same verdicts on every pair: counts equal on every row; means
+        # and covariances differ only by the order of the sums
         if not torch.equal(out_k[0], out_p[0]):
             _fail(f"moments6 {name}: counts differ on {int((out_k[0] != out_p[0]).sum())} rows")
         if not bool(torch.isfinite(out_k).all()):
             _fail(f"moments6 {name}: moments not finite")
-        mean_err = float((out_k[1:4] - out_p[1:4]).abs().max())
+        none = out_p[0] == 0  # no row counts: count 0, the centroid and zeros, exactly
+        if not torch.equal(out_k[:, none], out_p[:, none]):
+            _fail(f"moments6 {name}: rows without neighbours differ from the plain version's")
+        mean_err = float((out_k[1:4] - out_p[1:4]).abs().max()) if out_k.numel() else 0.0
         if mean_err > 1e-5:
             _fail(f"moments6 {name}: means off by {mean_err:.3e}")
         # The covariances are ~r^2/4 in the plane and far less along the
@@ -386,42 +522,92 @@ def _phase_moments6(dev, index, radius, fixtures):
         q_rows = q_cent.repeat_interleave(query.shape[1], 0).T
         tol = 1e-4 * (out_p[4] + out_p[7] + out_p[9]) + 1e-5 * ((out_p[1:4] - q_rows) ** 2).sum(0)
         cov_err = (out_k[4:] - out_p[4:]).abs()
-        over = float(torch.where(cov_err == 0, 0.0, cov_err / tol).max())
+        over = float(torch.where(cov_err == 0, 0.0, cov_err / tol).max()) if out_k.numel() else 0.0
         if over > 1.0:
             _fail(f"moments6 {name}: a covariance is off by {over:.3g} x its tolerance")
-        return out_k, mean_err, float(cov_err.max()), over
+        return out_k, mean_err, float(cov_err.max()) if out_k.numel() else 0.0, over
 
-    cand, q_cent = _candidate_tiles(index.tiles, index, 2)
-    r2 = (radius * radius).reshape(())
-    args = (index.tiles, index.tiles, cand, q_cent, r2)
-    out, mean_err, cov_err, over = compare(f"{tuple(index.tiles.shape)} k=2", *args)
+    cov_index = build_kd_index(f_tgt.xyz, f_tgt.mask, tile_size=128)
+    shapes = {"": (index, radius, 2), "_k8": (cov_index, _cov_radius(f_tgt, 15), 8)}
+    errs, timed, cases = [], {}, {}
+    for suffix, (idx, rad, k) in shapes.items():
+        cand, q_cent = _candidate_tiles(idx.tiles, idx, k)
+        r2 = (rad * rad).reshape(()).to(torch.float32)
+        out, *e = compare(f"{tuple(idx.tiles.shape)} k={k}", idx.tiles, idx.tiles, cand, q_cent, r2)
+        errs.append(e)
+        cases[suffix] = (idx, cand, q_cent, r2, out)
     query, fx_index, fx_cand, _ = fixtures
     _, fq_cent = _candidate_tiles(query, fx_index, 4)
-    fx, *fx_errs = compare("fixtures", query, fx_index.tiles, fx_cand, fq_cent,
-                           torch.tensor(4.0, device=dev))
-    mean_err, cov_err, over = (max(a, b) for a, b in zip((mean_err, cov_err, over), fx_errs))
+    fx, *e = compare("fixtures", query, fx_index.tiles, fx_cand, fq_cent, torch.tensor(4.0, device=dev))
+    errs.append(e)
     if float(fx[0, 8:].max()) != 0.0 or float(fx[0, 6:8].max()) != 0.0:
         _fail("moments6 fixtures: sentinel rows or padded query rows were counted")
-    cand32 = cand.to(torch.int32)
-    ms = _event_ms(lambda: blocknn_cuda.moments6_cuda(*args[:2], cand32, q_cent, r2.reshape(1)))
-    device_ms = _graph_ms(lambda: blocknn_cuda.moments6_cuda(*args[:2], cand32, q_cent, r2.reshape(1)))
-    plain_ms = _event_ms(lambda: blocknn_cuda.moments6_reference(*args))
-    tq, sq, _ = index.tiles.shape
-    n = tq * sq
-    pairs = n * cand.shape[1] * index.tile_size
-    inside = float(out[0].sum())  # pairs within the radius: 16 more flops each
-    bytes_moved = n * 12 + index.tiles.numel() * 4 + cand.numel() * 4 + tq * 12 + 4 + n * 40
-    bound_ms, bound_by = _bound(bytes_moved, pairs * 8.0 + inside * 16.0)
-    print(f"moments6 kernel vs plain {tuple(index.tiles.shape)} k=2: counts equal on all "
-          f"{n} rows (mean {float(out[0].mean()):.2f}), means within {mean_err:.3e}, "
-          f"covariances within {cov_err:.3e} = {over:.3g} x their tolerance "
-          f"(median trace {float((out[4] + out[7] + out[9]).median()):.3e}); fixtures ok; "
-          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (CUDA events around one call, median of "
-          f"5), device time (CUDA graph replay) kernel {device_ms:.4f} ms, bound {bound_ms:.3f} ms "
-          f"({bound_by})")
+    for shape in MOMENTS6_FIXTURE_SHAPES:
+        for name in MOMENTS6_FIXTURES:
+            x = moments6_fixture(name, *shape, n_tiles=max(12, shape[3] + 2), device=dev)
+            out, *e = compare(f"fixture {name} {shape}", *x)
+            errs.append(e)
+            if name in ("all sentinel", "pad queries", "all miss", "far queries"):
+                dead = (x[0].abs().amax(-1) >= 1e6).reshape(-1)
+                if name == "all sentinel":
+                    dead[:shape[1]] = True
+                elif name in ("all miss", "far queries"):
+                    dead[:] = True
+                if bool((out[0][dead] != 0).any()):
+                    _fail(f"moments6 fixture {name} {shape}: a sentinel row or a far query counted")
+    mean_err, cov_err, over = (max(col) for col in zip(*errs))
+    lines = []
+    for suffix, (idx, cand, q_cent, r2, out) in cases.items():
+        cand32 = cand.to(torch.int32)
+        tq, sq, _ = idx.tiles.shape
+        n, k, s = tq * sq, cand.shape[1], idx.tile_size
+
+        def run():
+            return blocknn_cuda.moments6_cuda(idx.tiles, idx.tiles, cand32, q_cent, r2.reshape(1))
+
+        ms, device_ms = _event_ms(run), _graph_ms(run)
+        plain_ms = _event_ms(lambda: blocknn_cuda.moments6_reference(idx.tiles, idx.tiles, cand, q_cent, r2),
+                             reps=3)
+        # The operations of the kernel's method on this run's data: each
+        # staged row packed (8 a row a query tile); each pair of a word
+        # within a query's reach screened (FADD and 3 FFMA = 7); each pair
+        # within delta of the radius decided in the direct form (8); each
+        # pair inside the radius added to its query's sums (16). The pad
+        # queries are far and screen nothing.
+        screened, band, pad = _moments6_work(idx.tiles, idx.tiles, cand, q_cent, r2)
+        inside = float(out[0].sum())
+        n_ops = tq * k * s * 8.0 + screened * 7.0 + band * 8.0 + inside * 16.0
+        bytes_moved = n * 12 + idx.tiles.numel() * 4 + cand.numel() * 4 + tq * 12 + 4 + n * 40
+        bound_ms, bound_by = _bound(bytes_moved, n_ops)
+        timed.update({f"ms{suffix}": ms, f"device_ms{suffix}": device_ms, f"plain_ms{suffix}": plain_ms,
+                      f"bound_ms{suffix}": bound_ms, f"bytes_ms{suffix}": bytes_moved / HBM_BYTES_PER_S * 1e3,
+                      f"band_pairs{suffix}": band, f"screened_pairs{suffix}": screened,
+                      f"mean_count{suffix}": float(out[0].mean())})
+        if not suffix:
+            timed["bound_by"] = bound_by
+        lines.append(f"{tuple(idx.tiles.shape)} k={k}: counts equal on all {n} rows (mean "
+                     f"{float(out[0].mean()):.2f}, {pad} pad queries); kernel {ms:.4f} ms, plain "
+                     f"{plain_ms:.3f} ms (CUDA events around one call, median of 5; plain of 3), device "
+                     f"time (CUDA graph replay) kernel {device_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                     f"({bound_by}: {n_ops:.6g} operations, {screened} pairs screened, {band} in the "
+                     f"band; bytes alone "
+                     f"{timed[f'bytes_ms{suffix}']:.4f} ms)")
+    if dev.type == "cuda":  # the kernel's shape lives in the built library
+        shape = blocknn_cuda.moments6_shape()
+        tq, sq, _ = index.tiles.shape
+        plan = blocknn_cuda.moments6_plan(tq, sq, index.tile_size, 2, shape)
+        shape_text = (f"{shape.threads} threads, {shape.queries_per_thread} queries a thread, mask "
+                      f"words of {shape.group} rows, stages of {shape.stage_lanes} lanes and "
+                      f"{shape.stage_rows} rows; plan: {plan['tiles_per_block']} query tiles a block, "
+                      f"{plan['stages']} stages of {plan['lanes_per_stage']} lanes, grid {plan['blocks']}")
+    else:
+        shape_text = "no kernel shape (no CUDA device)"
+    print(f"moments6 kernel vs plain: " + "; ".join(lines) + f"; means within {mean_err:.3e}, "
+          f"covariances within {cov_err:.3e} = {over:.3g} x their tolerance; fixtures ok (ties, "
+          f"sentinel rows, padded rows; {', '.join(MOMENTS6_FIXTURES)} at (tq, sq, s, k) "
+          f"{', '.join(map(str, MOMENTS6_FIXTURE_SHAPES))}); {shape_text}")
     return dict(max_abs_err=max(mean_err, cov_err), cov_max_abs_err=cov_err, cov_err_over_tol=over,
-                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                device_ms=device_ms)
+                library_ms=None, **timed)
 
 
 def _refine_operands(src, tgt_index, gt):
@@ -1258,7 +1444,7 @@ def main(dev=None, n_pair: int = N_PAIR, n_flag: int = N_FLAG, n_small: int = N_
     flat = tgt_index.tiles.reshape(-1, 3)
     radius = auto_cell_size(flat, tgt_index.order >= 0, scale=3.0)
     fixtures = _block_fixtures(dev)
-    kernels["moments6"] = _phase_moments6(dev, tgt_index, radius, fixtures)
+    kernels["moments6"] = _phase_moments6(dev, tgt_index, radius, fixtures, f_tgt)
     aux = torch.as_tensor(np.random.default_rng(2).normal(size=(n_flag, 3)).astype(np.float32),
                           device=dev)
     table = fused_payload_table(tgt_index, aux)

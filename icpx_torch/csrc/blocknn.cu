@@ -16,15 +16,14 @@
 //             (wrapper block_radius_moments_fused, the fused branch of
 //             normals._block_radius_cov).
 //
-// moments6 scores each query tile (one block) against its own k candidate
-// tiles of the index, (T, S, 3) rows, listed in cand (Tq, k). The block
-// stages the k x S candidate rows in shared memory as float4; every thread
-// of a warp then reads the same row (a broadcast, no bank conflicts) while
-// each thread keeps one query and its running state in registers. Candidate
-// tiles are contiguous rows of the index, so staging reads are coalesced.
-// fold6, fold7, fused4 and moments_fused (see theirs below) hold 4 queries a
-// thread and stream the rows through shared memory by cp.async; fused4 and
-// moments_fused split the rows across 4 neighbouring threads, fold6 screens.
+// moments6, fold6 and fold7 hold 4 queries a thread, several query tiles a
+// 128-thread block, and stream each tile's candidate rows through shared
+// memory by cp.async, packed centred while the next stage lands; moments6
+// and fold6 screen pairs by a centred expansion against a proven margin and
+// keep the direct form's verdicts. fused4 and moments_fused (see theirs
+// below) hold 4 queries a thread too and split a union's rows across 4
+// neighbouring threads.
+//
 // The TPU kernels' shapes (S-minor transposes, (Tq, k, 3, S), (Tq, k, 4, S)
 // and (Tq, k, 8, S) prep copies, the 3-term bf16 one-hot payload selection)
 // exist for the MXU and the 128-lane VMEM layout and are dropped: nothing is
@@ -42,16 +41,14 @@
 // icpx_torch/kernels/blocknn_cuda.py reproduce every d2 bit for bit: the
 // radius test and the fold's winner agree exactly with them. The TPU kernels
 // score by the expansion ||r||^2 - 2 q.r (+ ||q||^2), which cancels at fp32;
-// fold6 screens by a centred expansion against a proven margin and keeps the
-// direct form's bits for the winner. fold7's contract is the TPU's own
+// moments6 and fold6 screen by a centred expansion against a proven margin
+// and keep the direct form's verdicts (fold6: the winner's bits). fold7's contract is the TPU's own
 // centred bf16 score, in a fixed order (see its note).
 //
-// Later work (not here): moments6 still runs one query a thread over k x S
-// rows staged whole; fold6, fold7, fused4 and moments_fused are the pattern
-// for it. TMA staging; the union moments' 0/1 weight product and fold7's
-// bf16 score on the tensor cores, as the TPU ran them on its MXU (TF32
-// operands lose the second moments' accuracy, split bf16 operands are a
-// design of their own, and mma's accumulation order is not fold7's).
+// Later work (not here): TMA staging; the union moments' 0/1 weight product
+// and fold7's bf16 score on the tensor cores, as the TPU ran them on its MXU
+// (TF32 operands lose the second moments' accuracy, split bf16 operands are
+// a design of their own, and mma's accumulation order is not fold7's).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -68,73 +65,6 @@ __device__ __forceinline__ float sqdist_rn(float ax, float ay, float az,
   const float dy = __fsub_rn(ay, by);
   const float dz = __fsub_rn(az, bz);
   return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
-}
-
-// Radius moments. out is (10, N) with N = tq * sq, one row per quantity:
-// count, mean x, y, z (de-centred), and the covariance components c00, c01,
-// c02, c11, c12, c22. Queries and candidates are centred on the query tile's
-// centroid q_cent first. A candidate row counts when it is not a sentinel
-// row and d2 <= r2; sentinel rows are staged as NaN, whose compare is false.
-__global__ void moments6_kernel(const float* __restrict__ query, const float* __restrict__ tiles,
-                                const int* __restrict__ cand, const float* __restrict__ q_cent,
-                                const float* __restrict__ r2_ptr, int sq, int s, int k,
-                                float* __restrict__ out, int64_t n) {
-  extern __shared__ float4 rows[];  // k * s centred candidate rows
-  const int tile = blockIdx.x;
-  const float cx = q_cent[3 * tile + 0];
-  const float cy = q_cent[3 * tile + 1];
-  const float cz = q_cent[3 * tile + 2];
-  const float kNaN = __int_as_float(0x7fc00000);
-  const int rows_n = k * s;
-  for (int j = threadIdx.x; j < rows_n; j += blockDim.x) {
-    const int c = j / s;
-    const int64_t row = (int64_t)cand[(int64_t)tile * k + c] * s + (j - c * s);
-    const float x = tiles[3 * row + 0], y = tiles[3 * row + 1], z = tiles[3 * row + 2];
-    float4 v = make_float4(kNaN, kNaN, kNaN, 0.f);
-    if (fabsf(x) < kValidAbs && fabsf(y) < kValidAbs && fabsf(z) < kValidAbs) {
-      v.x = __fsub_rn(x, cx);
-      v.y = __fsub_rn(y, cy);
-      v.z = __fsub_rn(z, cz);
-    }
-    rows[j] = v;
-  }
-  __syncthreads();
-  const float r2 = *r2_ptr;
-  for (int qi = threadIdx.x; qi < sq; qi += blockDim.x) {
-    const int64_t q = (int64_t)tile * sq + qi;
-    const float qx = __fsub_rn(query[3 * q + 0], cx);
-    const float qy = __fsub_rn(query[3 * q + 1], cy);
-    const float qz = __fsub_rn(query[3 * q + 2], cz);
-    float cnt = 0.f, sx = 0.f, sy = 0.f, sz = 0.f;
-    float sxx = 0.f, syy = 0.f, szz = 0.f, sxy = 0.f, sxz = 0.f, syz = 0.f;
-    for (int j = 0; j < rows_n; ++j) {
-      const float4 r = rows[j];
-      if (sqdist_rn(qx, qy, qz, r.x, r.y, r.z) <= r2) {
-        cnt += 1.f;
-        sx += r.x;
-        sy += r.y;
-        sz += r.z;
-        sxx += r.x * r.x;
-        syy += r.y * r.y;
-        szz += r.z * r.z;
-        sxy += r.x * r.y;
-        sxz += r.x * r.z;
-        syz += r.y * r.z;
-      }
-    }
-    const float safe = fmaxf(cnt, 1.f);
-    const float mx = __fdiv_rn(sx, safe), my = __fdiv_rn(sy, safe), mz = __fdiv_rn(sz, safe);
-    out[0 * n + q] = cnt;
-    out[1 * n + q] = __fadd_rn(mx, cx);
-    out[2 * n + q] = __fadd_rn(my, cy);
-    out[3 * n + q] = __fadd_rn(mz, cz);
-    out[4 * n + q] = __fsub_rn(__fdiv_rn(sxx, safe), __fmul_rn(mx, mx));
-    out[5 * n + q] = __fsub_rn(__fdiv_rn(sxy, safe), __fmul_rn(mx, my));
-    out[6 * n + q] = __fsub_rn(__fdiv_rn(sxz, safe), __fmul_rn(mx, mz));
-    out[7 * n + q] = __fsub_rn(__fdiv_rn(syy, safe), __fmul_rn(my, my));
-    out[8 * n + q] = __fsub_rn(__fdiv_rn(syz, safe), __fmul_rn(my, mz));
-    out[9 * n + q] = __fsub_rn(__fdiv_rn(szz, safe), __fmul_rn(mz, mz));
-  }
 }
 
 __device__ __forceinline__ float bf16_round(float x) {
@@ -616,6 +546,385 @@ moments_fused_kernel(const float* __restrict__ query, const float* __restrict__ 
     const int64_t q = (int64_t)grp * gq + qi;
 #pragma unroll
     for (int f = 0; f < 10; ++f) out[f * n + q] = res[f];
+  }
+}
+
+// Radius moments (moments6): for each query of query tile t, over the rows
+// of its k candidate tiles cand[t], with c = q_cent[t]: qc = fl(q - c) and
+// rc = fl(r - c) (each component rounded once), and a row counts when it is
+// not a sentinel row (a coordinate at or beyond kValidAbs) and the direct
+// form sqdist_rn(qc, rc) <= r2. out is (10, N), N = tq * sq, one row a
+// quantity: the count, the mean x, y, z (de-centred) and the covariance
+// c00, c01, c02, c11, c12, c22 of the rows that count, finished as
+// mean = s / max(count, 1) + c and cov = ss / max(count, 1) - mean_c mean_c;
+// a query with no row gets count 0, c and zeros, as the plain version does.
+//
+// Bound by FP32 issue. The first version ran one query a thread over k x S
+// rows staged whole (k * S * 16 bytes of shared memory): a broadcast LDS.128,
+// the direct form (3 FSUB, 3 FMUL, 2 FADD), a compare and a branch a pair,
+// and the ten sums under a branch per thread: 0.161 ms at the 1M normals
+// shape (8,192 x 128 queries, k 2: 2.68e8 pairs, ~11 of them counting a
+// query). On fold6's frame:
+// 1. Work. A thread holds kM6Q = 2 queries of one query tile, so one
+//    broadcast float4 read from shared memory feeds 2 pairs. A 128-thread
+//    block holds tiles_per_block query tiles (2 at Sq = 128: 4,096 blocks at
+//    the 1M shape) or, above 256 queries a tile, a part of one (blockIdx.y);
+//    the wrapper's plan (moments6_plan) picks them, and the C entry refuses
+//    a plan that does not fit.
+// 2. Staging. A stage is one candidate slot (a run of at most kM6StageLanes
+//    lanes of it) of each of the block's tiles, brought in by 16-byte
+//    cp.async (stage_chunk) into one raw buffer: stage st + 1 is issued once
+//    st is packed and lands while st is screened. Packing centres each row
+//    on its own tile's c as (x, y, z, rr), rr = fl(fl(x^2 + y^2) + z^2); a
+//    sentinel row and the padding up to a whole mask word of 32 rows are
+//    (NaN, NaN, NaN, +inf), whose screen score is NaN. A warp packs one mask
+//    word of one tile, and takes by REDUX the word's exact box of valid rows
+//    and the tile's largest rr of the stage (a shared atomicMax), whose root
+//    is the stage's R: every valid row has rr <= R^2 by construction. Shared
+//    memory does not grow with k or S: 19 KB a block.
+// 3. Thresholds. A query's verdicts for the stage: A = fl(r2 - qq), qq =
+//    fl(|qc|^2), and thr = A -/+ delta (below); s <= thr_lo counts for
+//    certain, s > thr_hi does not, and between them (the band) the direct
+//    form decides; s = fma(ax, x, fma(ay, y, fma(az, z, rr))) with a = -2 qc,
+//    s + |qc|^2 the squared distance.
+// 4. Screen. A mask word whose box lies beyond the reach fl(r2 + delta) of
+//    every query of the warp is skipped (39% of the warps' words at the 1M
+//    normals shape, 68% at k 8). Otherwise each pair's bit is the sign of
+//    t = fma(ax, x, fma(ay, y, fma(az, z, fl(rr - thr_hi)))), shifted into
+//    the query's word by a funnel shift: FADD, 3 FFMA and an SHF a pair (an
+//    FSETP, a select and an add in its place cost 6%, 0.1373 against 0.1296
+//    ms). The words of the stage go to shared memory.
+// 5. Hits. Each pass of the walk takes the next set bit of both queries of
+//    the thread: the row from shared memory, s again, and either s <= thr_lo
+//    or, in the band, sqdist_rn(qc, rc) <= r2; a row that counts adds 1, x,
+//    y, z and the six products to the query's sums, so a warp makes as many
+//    passes as its lanes' most hits of one query in the stage. A branch a row
+//    step instead, whose body sums for every query of the thread (the mf_row
+//    pattern), ran the sums in 35% of a warp's row steps (57% with 4 queries
+//    a thread: a tile's own rows count for themselves): 0.207 ms, 0.290 with 4
+//    queries a thread.
+// 6. Far queries. A query whose stage is far (qn - R > 0 and (qn - R)^2 >
+//    r2 + delta, qn = sqrt(qq)) or that lies past its tile's end gets
+//    thr_hi = -inf and sets no bit; a warp whose queries are all far for a
+//    stage skips it. The pad rows (PAD_COORD) are far from any tile's rows,
+//    so a pad query writes count 0, c and zeros, without scanning.
+// 7. Epilogue. Each thread finishes its queries (one correctly rounded
+//    reciprocal of max(count, 1) a query) and writes them as float2 where
+//    Sq is even.
+//
+// Why the verdicts are the direct form's. Write u = 2^-24, gamma_n = n u /
+// (1 - n u), Q = |qc|, rho = |rc| for a valid row, and W = (Q + R)^2 +
+// |r2|; D = |qc - rc|^2 exactly, d the direct form. qc and rc are the
+// contract's own floats, so the only errors are the ones below.
+//   * d = D (1 + theta), |theta| <= gamma_5 (3 roundings a square, 2 adds of
+//     nonnegative terms): |d - D| <= gamma_5 (Q + rho)^2.
+//   * rr = rho^2 (1 + theta_3), and the FMA chain rounds 3 times:
+//     |s - (rho^2 - 2 qc.rc)| <= gamma_3 rho^2 + gamma_3 (rr + 2 Q rho)
+//     <= 2 gamma_3 (Q + rho)^2 (1 + O(u)) (Cauchy-Schwarz), and
+//     rho^2 - 2 qc.rc = D - Q^2.
+//   * |qq - Q^2| <= gamma_3 Q^2, and |A - (r2 - qq)| <= u (|r2| + qq).
+//   So |(s - A) - (d - r2)| <= E = (5 + 6 + 3) u (Q + rho)^2 + u (|r2| +
+//   Q^2) (1 + O(u)) <= 15 u W (1 + O(u)), with rho <= R (step 2).
+// The kernel takes delta = fl(fl(2^-18 fl(fl(sum^2) + |r2|)) + 2^-100),
+// sum = fl(qn + fl(sqrt(R^2))): qn >= Q (1 - 3u) and the computed R >=
+// rho (1 - 3u), so delta >= 63 u W. The thresholds thr = fl(A -/+ delta)
+// are off by at most u |A -/+ delta| <= 1.01 u W. Then s <= thr_lo gives
+// d - r2 <= -delta + 1.01 u W + E < 0: the row counts. The screen's t
+// rounds fl(rr - thr_hi) (u (rr + |thr_hi|)) and 3 FMAs on terms of at most
+// rr + |thr_hi| + 2 Q rho: |t - (D - Q^2 - thr_hi)| <= 11 u W (1 + O(u)),
+// so a clear sign bit (t >= +0) gives d - r2 >= delta - 23 u W > 0: the row
+// does not count. A NaN's sign bit is clear (the card's NaN results are the
+// canonical 0x7fffffff), so sentinel rows never set a bit. Box: every valid
+// row of a word lies in its exact box, the computed distance to the box is
+// at most its exact value times (1 + gamma_5), and above fl(r2 + delta) it
+// gives d > (r2 + delta)(1 - 11 u) > r2 for every row of the word. Far: qn
+// >= Q (1 - 3u) and the computed R >= rho (1 - 3u) bound Q - rho >= g - 4 u
+// sum for g = fl(qn - R) > 0, and fl(g^2) > fl(r2 + delta) then gives
+// d >= (Q - rho)^2 - 5 u W > r2 + delta - 17 u W > r2 for every valid row of
+// the stage. The floor 2^-100 covers the absolute error of subnormal
+// roundings (each under 2^-149), where the relative bounds above fail.
+// Anything the proof does not cover takes the direct form: where W is not
+// below 2^100 (or not a number), thr_lo = -inf and thr_hi = +inf, so every
+// pair with a score sets a bit and is in the band.
+//
+// What holds it back (H100 80GB HBM3 at 700 W, the 1M normals shape,
+// scripts/torch_variants.py moments6): 0.130 ms device against 0.161, of it
+// ~0.035 staging, packing, thresholds and the 40 MB of outputs (the kernel
+// without screen and walk), ~0.042 the screen (5.5 instructions a screened
+// pair at ~60% issue) and ~0.053 the walk: a warp makes ~11 passes a stage,
+// the most hits any of its 64 queries has there, against 5.4 on average, at
+// ~110 instructions a pass, a third of them finding and clearing the next
+// bit of two 128-bit masks. 4 queries a thread (sums in 40 registers, 80 a thread, and
+// spills) ran 0.200 ms; uncapped registers 0.132; 6 blocks an SM 0.134.
+constexpr int kM6Threads = 128;
+constexpr int kM6Q = 2;              // queries a thread
+constexpr int kM6Group = 32;         // rows a mask word covers
+constexpr int kM6StageLanes = 128;   // lanes of one candidate slot a stage holds, at most
+constexpr int kM6StageRows = 512;    // packed rows a stage holds, over the block's tiles
+constexpr int kM6Words = kM6StageLanes / kM6Group;    // mask words a query a stage
+constexpr int kM6MaxTiles = kM6StageRows / kM6Group;  // query tiles a block, at most
+constexpr float kM6DeltaScale = 3.814697265625e-06f;   // 2^-18
+constexpr float kM6DeltaFloor = 7.888609052210118e-31f;  // 2^-100
+constexpr float kM6ScreenMax = 1.2676506002282294e30f;   // 2^100: W at or beyond, the band
+static_assert(kM6StageLanes % kM6Group == 0 && kM6StageRows % kM6StageLanes == 0,
+              "a stage holds whole mask words and a whole run of lanes");
+static_assert(kM6Group == 32, "a mask word is a 32-bit word, and a warp packs one tile's rows");
+static_assert(kM6Words <= 4, "a stage's mask words fit two 64-bit masks a query");
+
+// A float as an int that orders as the floats do (-0 just below +0), and back.
+__device__ __forceinline__ int m6_key(float f) {
+  const int b = __float_as_int(f);
+  return b >= 0 ? b : b ^ 0x7fffffff;
+}
+__device__ __forceinline__ float m6_unkey(int k) { return __int_as_float(k >= 0 ? k : k ^ 0x7fffffff); }
+
+__device__ __forceinline__ float m6_screen(const float ax, const float ay, const float az,
+                                           const float4 r) {
+  return __fmaf_rn(ax, r.x, __fmaf_rn(ay, r.y, __fmaf_rn(az, r.z, r.w)));
+}
+
+__global__ void __launch_bounds__(kM6Threads, 8)
+moments6_kernel(const float* __restrict__ query, const float* __restrict__ tiles,
+                const int* __restrict__ cand, const float* __restrict__ q_cent,
+                const float* __restrict__ r2_ptr, int tq, int sq, int s, int k, int tpb, int lc,
+                float* __restrict__ out, int64_t n) {
+  __shared__ __align__(16) float raw[kM6StageRows * 3];  // a stage of rows, as read
+  __shared__ __align__(16) float4 rows[kM6StageRows];    // rows[b * lcp + lane], centred
+  __shared__ unsigned hit_s[kM6Words][kM6Q][kM6Threads];  // a stage's mask words, a query each
+  __shared__ float4 cent_s[kM6MaxTiles];                  // c a tile
+  __shared__ unsigned rmax_s[2][kM6MaxTiles];             // a stage's largest valid rr a tile, bits
+  __shared__ float4 box_lo_s[kM6MaxTiles], box_hi_s[kM6MaxTiles];  // a stage's box a mask word
+  const float kInf = __int_as_float(0x7f800000), kNaN = __int_as_float(0x7fc00000);
+  const int t0 = blockIdx.x * tpb;
+  const int n_live = min(tpb, tq - t0);  // tiles of this block
+  const int lcp = (lc + kM6Group - 1) / kM6Group * kM6Group;
+  const int nw = lcp / kM6Group;  // mask words a stage
+  const int chunks = (s + lc - 1) / lc, n_st = k * chunks;
+  const int nqs = min((sq + kM6Q - 1) / kM6Q, kM6Threads);  // threads a tile in this block
+  const int b = threadIdx.x / nqs;
+  const bool live = b < n_live;
+  const int br = live ? b : 0;  // idle threads read tile 0's rows
+  const int q_first = blockIdx.y * nqs * kM6Q + (threadIdx.x % nqs) * kM6Q;
+  const int tile = t0 + br;
+  const bool by16 = s % 4 == 0 && lc % 4 == 0 && (reinterpret_cast<uintptr_t>(tiles) & 15) == 0;
+  const int* cand_b = cand + (int64_t)t0 * k;  // the block's tiles' candidates, (n_live, k)
+  stage_chunk<kM6Threads>(raw, tiles, cand_b, n_live, s, lc, 0, by16, k);
+  if (threadIdx.x < n_live) {
+    const float* cp = q_cent + 3 * (int64_t)(t0 + threadIdx.x);
+    cent_s[threadIdx.x] = make_float4(cp[0], cp[1], cp[2], 0.f);
+    rmax_s[0][threadIdx.x] = 0u;
+  }
+  __syncthreads();
+
+  const float4 c = cent_s[br];
+  const float r2 = *r2_ptr;
+  unsigned in = 0;  // the thread's queries inside its tile, a bit each
+  float ax[kM6Q], ay[kM6Q], az[kM6Q], m[kM6Q][10];  // a = -2 qc; the sums
+#pragma unroll
+  for (int q = 0; q < kM6Q; ++q) {
+    const bool ok = live && q_first + q < sq;
+    const float* qp = query + 3 * ((int64_t)tile * sq + q_first + q);
+    ax[q] = ok ? -2.f * __fsub_rn(qp[0], c.x) : 0.f;  // the doubling is exact
+    ay[q] = ok ? -2.f * __fsub_rn(qp[1], c.y) : 0.f;
+    az[q] = ok ? -2.f * __fsub_rn(qp[2], c.z) : 0.f;
+    in |= (ok ? 1u : 0u) << q;
+#pragma unroll
+    for (int f = 0; f < 10; ++f) m[q][f] = 0.f;
+  }
+
+  const int pack_u = threadIdx.x / lcp, pack_l = threadIdx.x - pack_u * lcp;  // this thread's first
+  const float4* rs = rows + br * lcp;
+  for (int st = 0; st < n_st; ++st) {
+    cp_async_wait_all();
+    __syncthreads();  // stage st has landed; every thread is done with stage st - 1
+    const int ci = st / chunks, nl = min(lc, s - (st - ci * chunks) * lc);
+    unsigned* rmax = rmax_s[st & 1];
+    // n_live * lcp is a whole number of warps' rows, and a warp's 32 rows are one tile's
+    for (int i = threadIdx.x, u = pack_u, l = pack_l; i < n_live * lcp; i += kM6Threads) {
+      if (i != threadIdx.x) {  // (u, l) of row i = u * lcp + l, without a division
+        l += kM6Threads;
+        while (l >= lcp) {
+          l -= lcp;
+          ++u;
+        }
+      }
+      float4 v = make_float4(kNaN, kNaN, kNaN, kInf);
+      unsigned rb = 0u;
+      bool valid = false;
+      if (l < nl) {
+        const float* r = raw + 3 * (u * lc + l);
+        const float x = r[0], y = r[1], z = r[2];
+        if (fabsf(x) < kValidAbs && fabsf(y) < kValidAbs && fabsf(z) < kValidAbs) {
+          const float4 cu = cent_s[u];
+          v.x = __fsub_rn(x, cu.x);
+          v.y = __fsub_rn(y, cu.y);
+          v.z = __fsub_rn(z, cu.z);
+          v.w = __fadd_rn(__fadd_rn(__fmul_rn(v.x, v.x), __fmul_rn(v.y, v.y)), __fmul_rn(v.z, v.z));
+          rb = __float_as_uint(v.w);  // rr >= +0 (or NaN): its bits order as its values
+          valid = true;
+        }
+      }
+      rows[i] = v;
+      rb = __reduce_max_sync(0xffffffffu, rb);
+      // the word's box of valid rows (none: lo +inf, hi -inf), exact
+      const int lox = __reduce_min_sync(0xffffffffu, valid ? m6_key(v.x) : 0x7f800000);
+      const int loy = __reduce_min_sync(0xffffffffu, valid ? m6_key(v.y) : 0x7f800000);
+      const int loz = __reduce_min_sync(0xffffffffu, valid ? m6_key(v.z) : 0x7f800000);
+      const int hix = __reduce_max_sync(0xffffffffu, valid ? m6_key(v.x) : m6_key(-kInf));
+      const int hiy = __reduce_max_sync(0xffffffffu, valid ? m6_key(v.y) : m6_key(-kInf));
+      const int hiz = __reduce_max_sync(0xffffffffu, valid ? m6_key(v.z) : m6_key(-kInf));
+      if ((threadIdx.x & 31) == 0) {
+        atomicMax(&rmax[u], rb);
+        box_lo_s[i / kM6Group] = make_float4(m6_unkey(lox), m6_unkey(loy), m6_unkey(loz), 0.f);
+        box_hi_s[i / kM6Group] = make_float4(m6_unkey(hix), m6_unkey(hiy), m6_unkey(hiz), 0.f);
+      }
+    }
+    __syncthreads();
+    if (st + 1 < n_st) {  // into the raw buffer, now packed, while st is screened
+      const int c1 = (st + 1) / chunks;
+      stage_chunk<kM6Threads>(raw, tiles, cand_b + c1, n_live, s, lc, st + 1 - c1 * chunks, by16, k);
+    }
+    if (threadIdx.x < n_live) rmax_s[(st + 1) & 1][threadIdx.x] = 0u;  // stage st - 1's, now free
+
+    // each query's thresholds for this stage (the note's proof), and the far test
+    const float big_r = sqrtf(__uint_as_float(rmax[br]));
+    float lo[kM6Q], hi[kM6Q], reach[kM6Q];
+    bool skip_all = true;
+#pragma unroll
+    for (int q = 0; q < kM6Q; ++q) {
+      const float qx = -0.5f * ax[q], qy = -0.5f * ay[q], qz = -0.5f * az[q];  // exact
+      const float qq = __fadd_rn(__fadd_rn(__fmul_rn(qx, qx), __fmul_rn(qy, qy)), __fmul_rn(qz, qz));
+      const float qn = sqrtf(qq);
+      const float sum = __fadd_rn(qn, big_r);
+      const float w = __fadd_rn(__fmul_rn(sum, sum), fabsf(r2));
+      const float delta = __fadd_rn(__fmul_rn(kM6DeltaScale, w), kM6DeltaFloor);
+      const float a = __fsub_rn(r2, qq);
+      const float g = __fsub_rn(qn, big_r);
+      const bool proven = w < kM6ScreenMax;
+      const bool far = proven && g > 0.f && __fmul_rn(g, g) > __fadd_rn(r2, delta);
+      const bool skip = !((in >> q) & 1u) || far;
+      lo[q] = proven ? __fsub_rn(a, delta) : -kInf;
+      hi[q] = skip ? -kInf : (proven ? __fadd_rn(a, delta) : kInf);
+      reach[q] = skip ? -kInf : (proven ? __fadd_rn(r2, delta) : kInf);
+      skip_all &= skip;
+    }
+    if (__all_sync(0xffffffffu, skip_all)) continue;  // warp-uniform
+
+    // the screen: a bit a pair, the sign of t = fma(ax, x, fma(ay, y, fma(az, z,
+    // fl(rr - thr_hi)))) shifted in, so row e of a word is its bit 31 - e
+    for (int w = 0; w < nw; ++w) {
+      unsigned bits[kM6Q];
+      // a word whose box is beyond every query's reach has no row that counts
+      const float4 blo = box_lo_s[br * nw + w], bhi = box_hi_s[br * nw + w];
+      bool beyond = true;
+#pragma unroll
+      for (int q = 0; q < kM6Q; ++q) {
+        bits[q] = 0u;
+        const float qx = -0.5f * ax[q], qy = -0.5f * ay[q], qz = -0.5f * az[q];  // exact
+        const float dx = fmaxf(fmaxf(__fsub_rn(blo.x, qx), __fsub_rn(qx, bhi.x)), 0.f);
+        const float dy = fmaxf(fmaxf(__fsub_rn(blo.y, qy), __fsub_rn(qy, bhi.y)), 0.f);
+        const float dz = fmaxf(fmaxf(__fsub_rn(blo.z, qz), __fsub_rn(qz, bhi.z)), 0.f);
+        const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
+        beyond &= !(d2 <= reach[q]);
+      }
+      if (!__all_sync(0xffffffffu, beyond)) {  // warp-uniform
+#pragma unroll
+        for (int e = 0; e < kM6Group; ++e) {
+          const float4 r = rs[w * kM6Group + e];  // a broadcast over the tile's threads
+#pragma unroll
+          for (int q = 0; q < kM6Q; ++q) {
+            const float t =
+                m6_screen(ax[q], ay[q], az[q], make_float4(r.x, r.y, r.z, __fsub_rn(r.w, hi[q])));
+            bits[q] = __funnelshift_l(__float_as_uint(t), bits[q], 1);
+          }
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kM6Q; ++q) hit_s[w][q][threadIdx.x] = bits[q];
+    }
+    // the hits: each pass takes the next set bit of every query of the
+    // thread (a stage's words as two 64-bit masks a query), so their loads
+    // and sums overlap, and a warp makes as many passes as its lanes' most
+    // hits of one query in the stage
+    unsigned long long b_lo[kM6Q], b_hi[kM6Q];
+#pragma unroll
+    for (int q = 0; q < kM6Q; ++q) {
+      const unsigned w0 = hit_s[0][q][threadIdx.x];
+      const unsigned w1 = nw > 1 ? hit_s[1][q][threadIdx.x] : 0u;
+      const unsigned w2 = nw > 2 ? hit_s[2][q][threadIdx.x] : 0u;
+      const unsigned w3 = nw > 3 ? hit_s[3][q][threadIdx.x] : 0u;
+      b_lo[q] = static_cast<unsigned long long>(w0) << 32 | w1;  // row e: bit 63 - e
+      b_hi[q] = static_cast<unsigned long long>(w2) << 32 | w3;
+    }
+    for (bool more = true; more;) {
+      more = false;
+#pragma unroll
+      for (int q = 0; q < kM6Q; ++q) {
+        if (b_lo[q] | b_hi[q]) {
+          const bool low = b_lo[q] != 0ull;
+          const unsigned long long bq = low ? b_lo[q] : b_hi[q];
+          const int lead = __clzll(bq);
+          const unsigned long long rest = bq & ~(0x8000000000000000ull >> lead);
+          if (low) {
+            b_lo[q] = rest;
+          } else {
+            b_hi[q] = rest;
+          }
+          const float4 r = rs[(low ? 0 : 64) + lead];
+          bool h = m6_screen(ax[q], ay[q], az[q], r) <= lo[q];  // counts for certain
+          if (!h)  // the band: the contract's direct form decides
+            h = sqdist_rn(-0.5f * ax[q], -0.5f * ay[q], -0.5f * az[q], r.x, r.y, r.z) <= r2;
+          if (h) {
+            m[q][0] += 1.f;
+            m[q][1] += r.x;
+            m[q][2] += r.y;
+            m[q][3] += r.z;
+            m[q][4] = __fmaf_rn(r.x, r.x, m[q][4]);
+            m[q][5] = __fmaf_rn(r.x, r.y, m[q][5]);
+            m[q][6] = __fmaf_rn(r.x, r.z, m[q][6]);
+            m[q][7] = __fmaf_rn(r.y, r.y, m[q][7]);
+            m[q][8] = __fmaf_rn(r.y, r.z, m[q][8]);
+            m[q][9] = __fmaf_rn(r.z, r.z, m[q][9]);
+          }
+          more |= (b_lo[q] | b_hi[q]) != 0ull;
+        }
+      }
+    }
+  }
+
+  // count, mean (de-centred), c00, c01, c02, c11, c12, c22 a query
+  float res[10][kM6Q];
+  const float cc[3] = {c.x, c.y, c.z};
+#pragma unroll
+  for (int q = 0; q < kM6Q; ++q) {
+    const float inv = __frcp_rn(fmaxf(m[q][0], 1.f));
+    float mc[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      mc[i] = __fmul_rn(m[q][1 + i], inv);
+      res[1 + i][q] = __fadd_rn(mc[i], cc[i]);
+    }
+    res[0][q] = m[q][0];
+    res[4][q] = __fsub_rn(__fmul_rn(m[q][4], inv), __fmul_rn(mc[0], mc[0]));
+    res[5][q] = __fsub_rn(__fmul_rn(m[q][5], inv), __fmul_rn(mc[0], mc[1]));
+    res[6][q] = __fsub_rn(__fmul_rn(m[q][6], inv), __fmul_rn(mc[0], mc[2]));
+    res[7][q] = __fsub_rn(__fmul_rn(m[q][7], inv), __fmul_rn(mc[1], mc[1]));
+    res[8][q] = __fsub_rn(__fmul_rn(m[q][8], inv), __fmul_rn(mc[1], mc[2]));
+    res[9][q] = __fsub_rn(__fmul_rn(m[q][9], inv), __fmul_rn(mc[2], mc[2]));
+  }
+  float* o = out + (int64_t)tile * sq + q_first;
+  if (kM6Q == 2 && in == 3u && sq % 2 == 0) {  // 8-byte aligned: n and the offset are even
+#pragma unroll
+    for (int f = 0; f < 10; ++f)
+      *reinterpret_cast<float2*>(o + f * n) = make_float2(res[f][0], res[f][1]);
+  } else {
+#pragma unroll
+    for (int q = 0; q < kM6Q; ++q) {
+      if ((in >> q) & 1u) {
+#pragma unroll
+        for (int f = 0; f < 10; ++f) o[f * n + q] = res[f][q];
+      }
+    }
   }
 }
 
@@ -1339,29 +1648,46 @@ fold7_kernel(const float* __restrict__ query, const float* __restrict__ tiles,
   }
 }
 
-int threads_for(int sq) {
-  const int t = ((sq + 31) / 32) * 32;
-  return t < 32 ? 32 : (t > 256 ? 256 : t);
-}
-
 }  // namespace
 
 extern "C" {
 
+// moments6's shape: threads a block, queries a thread, rows a mask word,
+// lanes a stage holds, packed rows a stage. The wrapper plans from these
+// (moments6_plan).
+void icpx_moments6_shape(int* threads, int* queries_per_thread, int* group, int* stage_lanes,
+                         int* stage_rows) {
+  *threads = kM6Threads;
+  *queries_per_thread = kM6Q;
+  *group = kM6Group;
+  *stage_lanes = kM6StageLanes;
+  *stage_rows = kM6StageRows;
+}
+
 // query (tq, sq, 3), tiles (t, s, 3), q_cent (tq, 3) and r2 (1,) f32; cand
-// (tq, k) i32; out (10, tq * sq) f32. All contiguous, on `device`. Launches on
-// `stream`, does not synchronise, and returns cudaGetLastError().
+// (tq, k) i32; out (10, tq * sq) f32. All contiguous, on `device`. tpb query
+// tiles a block (parts of one tile a block where its queries need more than
+// kM6Threads threads, then tpb = 1) and lc lanes a stage, as moments6_plan
+// gives them; a plan that does not fit the kernel is refused with
+// cudaErrorInvalidValue. Launches on `stream`, does not synchronise, and
+// returns cudaGetLastError().
 int icpx_moments6_forward(const void* query, const void* tiles, const void* cand,
                           const void* q_cent, const void* r2, int tq, int sq, int s, int k,
-                          void* out, int device, void* stream) {
+                          int tpb, int lc, void* out, int device, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
+  const int nqt = (sq + kM6Q - 1) / kM6Q;
+  const int nqs = nqt < kM6Threads ? nqt : kM6Threads;
+  const int lcp = (lc + kM6Group - 1) / kM6Group * kM6Group;
+  if (s < 1 || k < 1 || tpb < 1 || lc < 1 || lc > s || lc > kM6StageLanes ||
+      lcp * tpb > kM6StageRows || (nqs > 0 && tpb * nqs > kM6Threads))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (tq > 0 && sq > 0) {
-    const size_t smem = sizeof(float4) * (size_t)k * s;
-    moments6_kernel<<<tq, threads_for(sq), smem, static_cast<cudaStream_t>(stream)>>>(
+    const dim3 grid((tq + tpb - 1) / tpb, (nqt + nqs - 1) / nqs);
+    moments6_kernel<<<grid, kM6Threads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(query), static_cast<const float*>(tiles),
         static_cast<const int*>(cand), static_cast<const float*>(q_cent),
-        static_cast<const float*>(r2), sq, s, k, static_cast<float*>(out),
+        static_cast<const float*>(r2), tq, sq, s, k, tpb, lc, static_cast<float*>(out),
         (int64_t)tq * sq);
   }
   return static_cast<int>(cudaGetLastError());

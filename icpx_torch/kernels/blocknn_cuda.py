@@ -9,7 +9,10 @@ each beside its plain PyTorch version with the same contract:
   within radius r, over its query tile's k candidate tiles, everything
   centred on the query-tile centroid. `block_radius_moments_fused6` wraps it
   as the reference's wrapper does (candidates from `_candidate_tiles`,
-  covariance as six SoA component vectors).
+  covariance as six SoA component vectors). The kernel screens pairs by a
+  centred expansion against a proven margin (`moments6_screen_margin`) and
+  decides the pairs within it in the direct form, so its counts are the
+  plain version's, bit for bit (`moments6_plan` is its launch shape).
 * `fold6` replaces `blocknn_pallas._fold6_kernel`: each query's nearest row
   among its tile's k frozen candidate tiles, its d2, and that row of a
   `(T*S, D)` payload table copied exactly. `fold6_prepare` runs once per
@@ -68,11 +71,20 @@ from icpx_torch.kernels.blocknn import _VALID_ABS, TileIndex, _candidate_tiles, 
 LAUNCHES = {"moments6": 0, "fold6": 0, "fold7": 0, "select": 0, "fused4": 0, "moments_fused": 0}
 
 _MISS_D2 = 1.0e15  # a fold d2 at or beyond this is a miss
-_MAX_ROWS = 3072  # k * S candidate rows a block stages (48 KB of float4)
 # Query tiles (fused4: groups) per step of the plain versions: bounds their
 # (chunk, Sq, k*S) temporaries (~200 MB each at the flagship's fold shapes;
 # fused4's (chunk, G*Sq, U*S) ~128 MB at U = 32).
 _PLAIN_CHUNK = {"moments6": 512, "fold6": 1024, "fold7": 1024, "fused4": 32, "moments_fused": 8}
+
+
+class Moments6Shape(NamedTuple):
+    """The moments6 kernel's constants, as the built library reports them."""
+
+    threads: int  # threads of a block
+    queries_per_thread: int
+    group: int  # rows a mask word covers
+    stage_lanes: int  # lanes of one candidate tile a stage holds, at most
+    stage_rows: int  # packed rows a stage holds, over the block's query tiles
 
 
 class Fold6Shape(NamedTuple):
@@ -96,6 +108,7 @@ class Fused4Shape(NamedTuple):
 
 
 _lib: Optional[ctypes.CDLL] = None
+_moments6_shape: Optional[Moments6Shape] = None
 _fold6_shape: Optional[Fold6Shape] = None
 _fold7_shape: Optional[Fold6Shape] = None
 _fused4_shape: Optional[Fused4Shape] = None
@@ -114,12 +127,12 @@ def _read_shape(lib: ctypes.CDLL, name: str, kind=Fused4Shape):
 def build() -> ctypes.CDLL:
     """Compile (if the cache misses) and load the kernel library, and read
     the shapes of the kernels that plan from them."""
-    global _lib, _fold6_shape, _fold7_shape, _fused4_shape, _moments_fused_shape
+    global _lib, _moments6_shape, _fold6_shape, _fold7_shape, _fused4_shape, _moments_fused_shape
     if _lib is not None:
         return _lib
     lib = cuda_build.load("blocknn")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.icpx_moments6_forward.argtypes = [p, p, p, p, p, i, i, i, i, p, i, p]
+    lib.icpx_moments6_forward.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p, i, p]
     lib.icpx_moments6_forward.restype = i
     lib.icpx_fold6_forward.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, p, p, i, p]
     lib.icpx_fold6_forward.restype = i
@@ -131,12 +144,19 @@ def build() -> ctypes.CDLL:
     lib.icpx_fused4_forward.restype = i
     lib.icpx_moments_fused_forward.argtypes = [p, p, p, p, p, i, i, i, i, p, i, p]
     lib.icpx_moments_fused_forward.restype = i
+    _moments6_shape = _read_shape(lib, "icpx_moments6_shape", Moments6Shape)
     _fold6_shape = _read_shape(lib, "icpx_fold6_shape", Fold6Shape)
     _fold7_shape = _read_shape(lib, "icpx_fold7_shape", Fold6Shape)
     _fused4_shape = _read_shape(lib, "icpx_fused4_shape")
     _moments_fused_shape = _read_shape(lib, "icpx_moments_fused_shape")
     _lib = lib
     return lib
+
+
+def moments6_shape() -> Moments6Shape:
+    """The built moments6 kernel's shape."""
+    build()
+    return _moments6_shape
 
 
 def fold6_shape() -> Fold6Shape:
@@ -178,23 +198,6 @@ def _check(name: str, x: torch.Tensor, dtype, ndim: int, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_launch(query_tiles, tiles, cand) -> None:
-    dev = query_tiles.device
-    if not query_tiles.is_cuda:
-        raise ValueError("the block-NN kernels need CUDA tensors")
-    _check("query_tiles", query_tiles, torch.float32, 3, dev)
-    _check("tiles", tiles, torch.float32, 3, dev)
-    _check("cand", cand, torch.int32, 2, dev)
-    tq, k = cand.shape
-    if query_tiles.shape[0] != tq or query_tiles.shape[2] != 3 or tiles.shape[2] != 3:
-        raise ValueError(f"shapes do not fit: query {tuple(query_tiles.shape)}, "
-                         f"tiles {tuple(tiles.shape)}, cand {tuple(cand.shape)}")
-    if k * tiles.shape[1] > _MAX_ROWS:
-        raise ValueError(f"k * S = {k * tiles.shape[1]} candidate rows exceed {_MAX_ROWS}")
-    if tiles.numel() >= 2**31 or query_tiles.numel() >= 2**31:
-        raise ValueError("too many rows for the kernels' int32 tile ids")
-
-
 def _sqdist(q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     """(..., A, 3) x (..., B, 3) -> (..., A, B), ((dx^2 + dy^2) + dz^2) with
     each step rounded, as the kernels compute it."""
@@ -207,21 +210,66 @@ def _sqdist(q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
 # ---- kernel #2: radius moments ----------------------------------------------
 
 
+def moments6_screen_margin(qq: torch.Tensor, big_r: torch.Tensor, r2: torch.Tensor) -> torch.Tensor:
+    """delta of the moments6 kernel's screen, in float32 as the kernel
+    computes it: 2^-18 ((|qc| + R)^2 + |r2|) + 2^-100, from |qc|^2 (the
+    centred query's, rounded), R (the root of the stage's largest rr) and
+    r2. Four times a bound (15 u W, u = 2^-24, W = (|qc| + R)^2 + |r2|, to
+    first order) on |(s - fl(r2 - qq)) - (d - r2)| over every valid pair, s
+    the centred fp32 screen score and d the direct form, with room for
+    rounding the thresholds; the source note of the kernel in
+    `csrc/blocknn.cu` gives the argument."""
+    total = torch.sqrt(qq.to(torch.float32)) + big_r.to(torch.float32)
+    w = total * total + torch.abs(r2.to(torch.float32))
+    return (2.0 ** -18) * w + 2.0 ** -100
+
+
+def moments6_plan(tq: int, sq: int, s: int, k: int, shape: Moments6Shape) -> Dict[str, int]:
+    """How the moments6 kernel of `shape` covers tq query tiles of sq queries
+    against k candidate tiles of s lanes: query tiles a block (a tile's
+    queries take ceil(sq / queries_per_thread) threads; above a block's
+    threads, parts of one tile a block), lanes a stage (at most
+    stage_lanes), padded to whole mask words, mask words a query a stage,
+    stages (candidates x runs of lanes) and the grid. The C entry refuses a
+    plan that does not fit the kernel."""
+    nqt = -(-sq // shape.queries_per_thread)
+    nqs = max(1, min(nqt, shape.threads))
+    lanes = max(1, min(s, shape.stage_lanes))
+    padded = -(-lanes // shape.group) * shape.group
+    tpb = max(1, min(shape.threads // nqs, shape.stage_rows // padded))
+    return dict(tiles_per_block=tpb, lanes_per_stage=lanes, padded_lanes=padded,
+                words=padded // shape.group, stages=k * -(-s // lanes),
+                blocks=(-(-tq // tpb), -(-nqt // nqs)))
+
+
 def moments6_cuda(query_tiles, tiles, cand, q_cent, r2) -> torch.Tensor:
     """Launch the moments kernel: (10, Tq*Sq) f32 rows count, mean x/y/z,
     c00, c01, c02, c11, c12, c22 (see `moments6_reference`)."""
-    _check_launch(query_tiles, tiles, cand)
     dev = query_tiles.device
+    if not query_tiles.is_cuda:
+        raise ValueError("the block-NN kernels need CUDA tensors")
+    _check("query_tiles", query_tiles, torch.float32, 3, dev)
+    _check("tiles", tiles, torch.float32, 3, dev)
+    _check("cand", cand, torch.int32, 2, dev)
     _check("q_cent", q_cent, torch.float32, 2, dev)
     _check("r2", r2, torch.float32, 1, dev)
     tq, sq, _ = query_tiles.shape
     k, s = cand.shape[1], tiles.shape[1]
+    if (cand.shape[0] != tq or q_cent.shape != (tq, 3) or query_tiles.shape[2] != 3
+            or tiles.shape[2] != 3 or r2.shape != (1,)):
+        raise ValueError(f"shapes do not fit: query {tuple(query_tiles.shape)}, tiles "
+                         f"{tuple(tiles.shape)}, cand {tuple(cand.shape)}, q_cent "
+                         f"{tuple(q_cent.shape)}, r2 {tuple(r2.shape)}")
+    if max(tiles.numel(), query_tiles.numel(), 10 * tq * sq) >= 2**31:
+        raise ValueError("too many rows for the kernel's int32 indices")
     lib = build()
+    plan = moments6_plan(tq, sq, s, k, _moments6_shape)
     out = torch.empty((10, tq * sq), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.icpx_moments6_forward(
         query_tiles.data_ptr(), tiles.data_ptr(), cand.data_ptr(), q_cent.data_ptr(),
-        r2.data_ptr(), tq, sq, s, k, out.data_ptr(), dev.index, stream,
+        r2.data_ptr(), tq, sq, s, k, plan["tiles_per_block"], plan["lanes_per_stage"],
+        out.data_ptr(), dev.index, stream,
     )
     cuda_build.check(lib, rc, "moments6 kernel")
     LAUNCHES["moments6"] += 1

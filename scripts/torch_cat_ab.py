@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """A/B of two checkouts of the port on one card: the cat pair's wall, `nn`,
-and the `fold6`, `fold7`, `fused4`, `sort` and `moments_fused` kernels.
+and the `moments6`, `fold6`, `fold7`, `fused4`, `sort` and `moments_fused`
+kernels.
 
     python3 scripts/torch_cat_ab.py PARENT CHANGE [--pairs 12] [--out FILE]
 
@@ -12,7 +13,9 @@ is the wall of one cat-pair registration (chip_smoke's golden config;
 median of 5 after 2 warm calls, host clock around torch.cuda.synchronize()
 fences), the event time of one `nn` call at the cat shape (3,456 x 3,456,
 56 pad rows on both sides; median of 5), and the device time (a CUDA graph
-of 20 calls) and the event time of one `fold6` call at the 1M flagship's
+of 20 calls) and the event time of one `moments6` call at the 1M normals
+shape (the flagship target's 8,192 x 128 self-query, k 2) and at GICP's
+covariance shape (k 8), of one `fold6` call at the 1M flagship's
 refine shape with the 6-wide payload table and with GICP's 12-wide one, of
 one `fold7` call likewise (and the event time of one `fold7_prepare`, once
 a phase, with the 6-wide table; each checkout makes its own operands
@@ -20,7 +23,7 @@ through the public signatures), of one `fused4` call at the same shape, of
 the tile-128 KD build's four level sorts (summed) and of one
 `moments_fused` call at the 1M covariance index. After the readings each
 worker holds `nn` to its plain version bit for bit at the cat shape and at
-65,536 x 65,536, and `fold6` and `fold7` (d2 and payload, both tables),
+65,536 x 65,536, `moments6`'s counts at both shapes, and `fold6` and `fold7` (d2 and payload, both tables),
 `fused4` and every level sort likewise, and `moments_fused`'s counts; and
 times `nn` there. Prints each side's median, min and max of
 every reading, and one JSON line with all of it (also written to FILE).
@@ -31,7 +34,9 @@ seeds 2 and 3, fold7 centred on the query tiles' centroids; fused4's groups
 of 4, unions of 32), the sorts on
 `_sort_operands`, `moments_fused` on the flagship target's KD index of
 128-point tiles, each its own query tile (`_cov_radius(target, 15)`, k 8,
-groups of 4, unions of 32), as `_phase_moments_fused` has it.
+groups of 4, unions of 32), as `_phase_moments_fused` has it, and
+`moments6` on the trimmed target index with the registration's radius and
+on that covariance index with its radius, as `_phase_moments6` has them.
 """
 
 import argparse
@@ -73,6 +78,7 @@ def worker(root: str) -> None:
     from icpx_torch.kernels.blocknn import (_candidate_tiles, build_kd_index, fused_payload_table,
                                             trim_index)
     from icpx_torch.kernels.knn import nearest_neighbor_reference
+    from icpx_torch.kernels.voxel import auto_cell_size
     from icpx_torch.registration.icp import ICPConfig, register
 
     smoke = _load_smoke()
@@ -109,6 +115,12 @@ def worker(root: str) -> None:
     cov_unions = blocknn_cuda.group_unions(_candidate_tiles(cov_idx.tiles, cov_idx, 8)[0], 4, 32)
     cov_cent = blocknn_cuda.group_centroids(cov_idx.tiles, 4)
     cov_args = (cov_idx.tiles, cov_idx.tiles, cov_unions.to(torch.int32), cov_cent)
+    # moments6 at the 1M normals shape and at the covariance index, k 8
+    radius = auto_cell_size(tgt_index.tiles.reshape(-1, 3), tgt_index.order >= 0, scale=3.0)
+    m6_args = {}
+    for label, idx, rad, k in (("moments6", tgt_index, radius, 2), ("moments6_k8", cov_idx, cov_radius, 8)):
+        c6, cent6 = _candidate_tiles(idx.tiles, idx, k)
+        m6_args[label] = (idx.tiles, idx.tiles, c6, cent6, (rad * rad).reshape(1).to(torch.float32))
     del f_src, f_tgt
     levels = [smoke._sort_operands(dev, c, m, i)
               for i, (c, m) in enumerate(((64, 16384), (256, 4096), (1024, 1024), (4096, 256)))]
@@ -119,19 +131,26 @@ def worker(root: str) -> None:
     def moments():
         return blocknn_cuda.moments_fused_cuda(*cov_args, cov_r2, 4)
 
+    def moments6(label):
+        q, tl, c6, cent6, r2 = m6_args[label]
+        return blocknn_cuda.moments6_cuda(q, tl, c6.to(torch.int32), cent6, r2)
+
     def reading():
         wall = smoke._sync_time(lambda: register(src, tgt, cfg), reps=5, warmup=2)[0]
-        folds = {}
+        timed = {}
         for fold, all_ops in (("fold6", fold6_ops), ("fold7", fold7_ops)):
             launch = getattr(blocknn_cuda, f"{fold}_cuda")
             for label, ops in all_ops.items():
-                folds[f"{label}_device_ms"] = smoke._graph_ms(lambda: launch(query, ops))
-                folds[f"{label}_event_ms"] = smoke._event_ms(lambda: launch(query, ops))
-        folds["fold7_prepare_event_ms"] = smoke._event_ms(
+                timed[f"{label}_device_ms"] = smoke._graph_ms(lambda: launch(query, ops))
+                timed[f"{label}_event_ms"] = smoke._event_ms(lambda: launch(query, ops))
+        for label in m6_args:
+            timed[f"{label}_device_ms"] = smoke._graph_ms(lambda: moments6(label))
+            timed[f"{label}_event_ms"] = smoke._event_ms(lambda: moments6(label))
+        timed["fold7_prepare_event_ms"] = smoke._event_ms(
             lambda: blocknn_cuda.fold7_prepare(cand, q_cent, tgt_index, tables[""]))
         return {"cat_wall_ms": 1e3 * wall,
                 "nn_3456_event_ms": smoke._event_ms(lambda: nn_cuda.nn_cuda(qc, rc, mc)),
-                **folds,
+                **timed,
                 "fused4_device_ms": smoke._graph_ms(fused4),
                 "fused4_event_ms": smoke._event_ms(fused4),
                 "sort4_device_ms": sum(smoke._graph_ms(lambda: sort_cuda.sort_cuda(k, [x, o]))
@@ -150,6 +169,9 @@ def worker(root: str) -> None:
             out[label] = {"bit_equal": bool(equal),
                           "device_ms": smoke._graph_ms(lambda: nn_cuda.nn_cuda(q, r, m)),
                           "event_ms": smoke._event_ms(lambda: nn_cuda.nn_cuda(q, r, m))}
+        for label, (q, tl, c6, cent6, r2) in m6_args.items():
+            want = blocknn_cuda.moments6_reference(q, tl, c6, cent6, r2[0])
+            out[label] = {"bit_equal": bool(torch.equal(moments6(label)[0], want[0]))}  # the counts
         for fold, all_ops in (("fold6", fold6_ops), ("fold7", fold7_ops)):
             equal = True
             for ops in all_ops.values():

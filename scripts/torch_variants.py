@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Design variants of one CUDA kernel of `icpx_torch/csrc/blocknn.cu` on one card.
 
-    python3 scripts/torch_variants.py {fold6,fold7,moments_fused} [--parent ROOT] [--reps 2] [--out FILE]
+    python3 scripts/torch_variants.py {moments6,moments6_k8,fold6,fold7,moments_fused} [--parent ROOT]
+        [--reps 2] [--out FILE]
 
 Each variant is a text edit of this checkout's `icpx_torch/csrc/blocknn.cu`
 ("committed" is the source unedited; "parent" is ROOT's source, when
@@ -17,6 +18,17 @@ reading, and one JSON line (also written to FILE).
 
 The kernels (`KERNELS`):
 
+* moments6: chip_smoke.py's 1M normals shape (the `_gt_pair` flagship
+  target's trimmed KD index of 128-point tiles, each its own query tile,
+  k 2, the registration's radius); moments6_k8: GICP's covariance shape
+  (the target's covariance index, k 8, `_cov_radius(target, 15)`). Each
+  variant with the plan `moments6_plan` makes from the shape its own
+  library reports (the parent's one-query-a-thread kernel takes none);
+  held to `moments6_reference`'s counts, and its means within 1e-5.
+  "count" counts a warp's rows screened, those with a bit in some lane
+  (the row steps a branch a row would take), the pairs with a bit and in
+  the band, the walk's passes, and the warp stages and words skipped as far
+  or by their boxes.
 * fold6: chip_smoke.py's 1M refine shape (`_refine_operands` of the
   `_gt_pair` flagship, 16,384 x 64 queries, k 6 candidate tiles of 128
   lanes, the 6-wide payload table), each variant with the plan
@@ -397,6 +409,230 @@ def _f7_setup(smoke, dev, libs):
                 and torch.equal(out_pl, want[1]), report)
 
 
+# ---- moments6 -------------------------------------------------------------------------
+
+M6_BOUNDS = "__global__ void __launch_bounds__(kM6Threads, 8)\nmoments6_kernel("
+M6_QUERIES = "constexpr int kM6Q = 2; "
+M6_SKIP = "    if (__all_sync(0xffffffffu, skip_all)) continue;  // warp-uniform\n"
+M6_SCREEN_START = "    // the screen: a bit a pair, the sign of t = fma(ax, x, fma(ay, y, fma(az, z,\n"
+M6_WORDS = "      for (int q = 0; q < kM6Q; ++q) hit_s[w][q][threadIdx.x] = bits[q];\n"
+M6_HITS_START = "    // the hits: each pass takes the next set bit of every query of the\n"
+M6_HITS_END = "  // count, mean (de-centred), c00, c01, c02, c11, c12, c22 a query\n"
+M6_BAND = "          if (!h)  // the band: the contract's direct form decides\n"
+M6_BEYOND = "      if (!__all_sync(0xffffffffu, beyond)) {  // warp-uniform\n"
+M6_PASS = "    for (bool more = true; more;) {\n      more = false;\n"
+# The first screen: FSETP on s <= thr_hi and a select and an add a pair.
+M6_FSETP_EDITS = (
+    ("            const float t =\n                m6_screen(ax[q], ay[q], az[q], make_float4(r.x, r.y, r.z, "
+     "__fsub_rn(r.w, hi[q])));\n            bits[q] = __funnelshift_l(__float_as_uint(t), bits[q], 1);\n",
+     "            bits[q] |= m6_screen(ax[q], ay[q], az[q], r) <= hi[q] ? 0x80000000u >> e : 0u;\n"),
+)
+# A branch a row step: the compares of a row branch once; inside, each
+# query adds h in {0, 1} times the row's features by FMA (moments_fused's
+# mf_row), against the same thresholds.
+M6_ROW_BRANCH = """    for (int j = 0; j < lcp; ++j) {
+      const float4 r = rs[j];  // a broadcast over the tile's threads
+      float sc[kM6Q];
+      bool any = false;
+#pragma unroll
+      for (int q = 0; q < kM6Q; ++q) {
+        sc[q] = m6_screen(ax[q], ay[q], az[q], r);
+        any |= sc[q] <= hi[q];
+      }
+      if (any) {
+        const float f[9] = {r.x, r.y, r.z, r.x * r.x, r.x * r.y, r.x * r.z, r.y * r.y, r.y * r.z,
+                            r.z * r.z};
+#pragma unroll
+        for (int q = 0; q < kM6Q; ++q) {
+          bool h = sc[q] <= lo[q];
+          if (!h && sc[q] <= hi[q])
+            h = sqdist_rn(-0.5f * ax[q], -0.5f * ay[q], -0.5f * az[q], r.x, r.y, r.z) <= r2;
+          const float wt = h ? 1.f : 0.f;
+          m[q][0] += wt;
+#pragma unroll
+          for (int i = 0; i < 9; ++i) m[q][i + 1] = __fmaf_rn(wt, f[i], m[q][i + 1]);
+        }
+      }
+    }
+  }
+
+"""
+# The first walk: one query at a time, so a warp makes as many passes as its
+# lanes' most hits, summed over the queries.
+M6_PER_QUERY = """    // the hits, a query at a time
+#pragma unroll
+    for (int q = 0; q < kM6Q; ++q) {
+      int w = 0;
+      unsigned bits = hit_s[0][q][threadIdx.x];
+      for (;;) {
+        while (bits == 0u && ++w < nw) bits = hit_s[w][q][threadIdx.x];
+        if (bits == 0u) break;
+        const int e = __clz(bits);
+        bits &= ~(0x80000000u >> e);
+        const float4 r = rs[w * kM6Group + e];
+        bool h = m6_screen(ax[q], ay[q], az[q], r) <= lo[q];
+        if (!h) h = sqdist_rn(-0.5f * ax[q], -0.5f * ay[q], -0.5f * az[q], r.x, r.y, r.z) <= r2;
+        if (h) {
+          m[q][0] += 1.f;
+          m[q][1] += r.x;
+          m[q][2] += r.y;
+          m[q][3] += r.z;
+          m[q][4] = __fmaf_rn(r.x, r.x, m[q][4]);
+          m[q][5] = __fmaf_rn(r.x, r.y, m[q][5]);
+          m[q][6] = __fmaf_rn(r.x, r.z, m[q][6]);
+          m[q][7] = __fmaf_rn(r.y, r.y, m[q][7]);
+          m[q][8] = __fmaf_rn(r.y, r.z, m[q][8]);
+          m[q][9] = __fmaf_rn(r.z, r.z, m[q][9]);
+        }
+      }
+    }
+  }
+
+"""
+def _m6_between(start, end, new):
+    def edit(text):
+        a, b = text.index(start), text.index(end)
+        return text[:a] + new + text[b:]
+    return edit
+
+
+def _m6_no_hits(text):
+    """Diagnostic: the screen alone; each query's count is its bits."""
+    return _m6_between(M6_HITS_START, M6_HITS_END, """#pragma unroll
+    for (int q = 0; q < kM6Q; ++q)
+      for (int w = 0; w < nw; ++w) m[q][0] += __popc(hit_s[w][q][threadIdx.x]);
+  }
+
+""")(text)
+
+
+def _m6_count(text):
+    """Counters: a warp's rows screened, those with a bit in some lane (the
+    row steps a branch a row would take), the pairs with a bit, the pairs in
+    the band, the walk's passes (a warp's), and the warp stages skipped as
+    far, and the warp words skipped by their boxes."""
+    text = _replace(text, "namespace {\n", "namespace {\n__device__ unsigned long long g_m6_count[7];\n")
+    text = _replace(text, M6_BEYOND, "      if (__all_sync(0xffffffffu, beyond) && (threadIdx.x & 31) == 0)\n"
+                    "        atomicAdd(&g_m6_count[6], 1ull);\n" + M6_BEYOND)
+    text = _replace(text, M6_WORDS, M6_WORDS + """      {
+        unsigned any = 0u, set = 0u;
+#pragma unroll
+        for (int q = 0; q < kM6Q; ++q) {
+          any |= bits[q];
+          set += __popc(bits[q]);
+        }
+        any = __reduce_or_sync(0xffffffffu, any);
+        set = __reduce_add_sync(0xffffffffu, set);
+        if ((threadIdx.x & 31) == 0) {
+          atomicAdd(&g_m6_count[0], 32ull);
+          atomicAdd(&g_m6_count[1], static_cast<unsigned long long>(__popc(any)));
+          atomicAdd(&g_m6_count[2], static_cast<unsigned long long>(set));
+        }
+      }
+""")
+    text = _replace(text, M6_BAND, "          if (!h) atomicAdd(&g_m6_count[3], 1ull);\n" + M6_BAND)
+    text = _replace(text, M6_PASS, M6_PASS + "      if ((threadIdx.x & 31) == __ffs(__activemask()) - 1) "
+                    "atomicAdd(&g_m6_count[4], 1ull);\n")
+    text = _replace(text, M6_SKIP, "    if (__all_sync(0xffffffffu, skip_all)) {\n"
+                    "      if ((threadIdx.x & 31) == 0) atomicAdd(&g_m6_count[5], 1ull);\n"
+                    "      continue;\n    }\n")
+    return text + _counters("m6", 7)
+
+
+def _m6_config(queries=2, blocks=8):
+    """queries a thread; a register cap for `blocks` blocks an SM (None: uncapped)."""
+    bound = f", {blocks})" if blocks else ")"
+    return _edits((M6_QUERIES, M6_QUERIES.replace("2", str(queries))),
+                  (M6_BOUNDS, M6_BOUNDS.replace(", 8)", bound)))
+
+
+def _m6_then(*edits):
+    def edit(text):
+        for e in edits:
+            text = e(text)
+        return text
+    return edit
+
+
+M6_VARIANTS = {
+    "uncapped": (_m6_config(blocks=None), True),
+    "6 blocks an SM": (_m6_config(blocks=6), True),
+    "4 queries a thread, 6 blocks an SM": (_m6_config(queries=4, blocks=6), True),
+    "FSETP screen": (_edits(*M6_FSETP_EDITS), True),
+    "no word boxes": (_edits((M6_BEYOND, "      if (true) {\n")), True),
+    "a walk a query": (_m6_between(M6_HITS_START, M6_HITS_END, M6_PER_QUERY), True),
+    "a branch a row": (_m6_between(M6_SCREEN_START, M6_HITS_END, M6_ROW_BRANCH), True),
+    "a branch a row, 4 queries a thread, 6 blocks an SM":
+        (_m6_then(_m6_between(M6_SCREEN_START, M6_HITS_END, M6_ROW_BRANCH),
+                  _m6_config(queries=4, blocks=6)), True),
+    "no hits (diagnostic)": (_m6_no_hits, False),
+    "no screen, no hits (diagnostic)": (_m6_then(_edits((M6_BEYOND, "      if (false) {\n")), _m6_no_hits),
+                                        False),
+    "count": (_m6_count, True),
+}
+
+
+def _m6_setup(smoke, dev, libs, k=2):
+    """The 1M normals shape (the target index's 8,192 x 128 self-query, the
+    registration's radius) at k = 2, or GICP's covariance shape (the
+    covariance index, the radius for k = 15) at k = 8."""
+    from icpx_torch.kernels import blocknn_cuda
+    from icpx_torch.kernels.blocknn import _candidate_tiles, build_kd_index, trim_index
+    from icpx_torch.kernels.voxel import auto_cell_size
+
+    _, f_tgt, _ = smoke._gt_pair(smoke.N_FLAG, 0, dev)
+    if k == 2:
+        idx = trim_index(build_kd_index(f_tgt.xyz, f_tgt.mask, tile_size=128), f_tgt.capacity, multiple=64)
+        radius = auto_cell_size(idx.tiles.reshape(-1, 3), idx.order >= 0, scale=3.0)
+    else:
+        idx = build_kd_index(f_tgt.xyz, f_tgt.mask, tile_size=128)
+        radius = smoke._cov_radius(f_tgt, 15)
+    cand, q_cent = _candidate_tiles(idx.tiles, idx, k)
+    cand32 = cand.to(torch.int32)
+    r2 = (radius * radius).reshape(1).to(torch.float32)
+    want = blocknn_cuda.moments6_reference(idx.tiles, idx.tiles, cand, q_cent, r2[0])
+    tq, sq, _ = idx.tiles.shape
+    s = idx.tile_size
+    out = torch.empty((10, tq * sq), device=dev)
+    plans = {}
+    for name, lib in libs.items():
+        if hasattr(lib, "icpx_moments6_shape"):  # the staged kernel: plans from its shape
+            shape = blocknn_cuda._read_shape(lib, "icpx_moments6_shape", blocknn_cuda.Moments6Shape)
+            plans[name] = blocknn_cuda.moments6_plan(tq, sq, s, k, shape)
+            lib.icpx_moments6_forward.argtypes = [P, P, P, P, P, I, I, I, I, I, I, P, I, P]
+        else:  # the one-query-a-thread kernel before it
+            lib.icpx_moments6_forward.argtypes = [P, P, P, P, P, I, I, I, I, P, I, P]
+    print(f"plans: {json.dumps(plans)}")
+
+    def launch(name, lib):
+        st = torch.cuda.current_stream().cuda_stream
+        args = (idx.tiles.data_ptr(), idx.tiles.data_ptr(), cand32.data_ptr(), q_cent.data_ptr(),
+                r2.data_ptr(), tq, sq, s, k)
+        if name in plans:
+            return lib.icpx_moments6_forward(*args, plans[name]["tiles_per_block"],
+                                             plans[name]["lanes_per_stage"], out.data_ptr(), 0, st)
+        return lib.icpx_moments6_forward(*args, out.data_ptr(), 0, st)
+
+    def report(counts):
+        rows, branch, bits, band, passes, far, boxed = counts
+        pairs = tq * sq * k * s
+        return (f"k={k}: warp rows screened {rows}, with a bit in some lane {branch} "
+                f"({branch / max(rows, 1):.4f}: the row steps a branch a row would take); pairs with "
+                f"a bit {bits} ({bits / pairs:.5f} of {pairs}), in the band {band} "
+                f"({band / pairs:.3g}); the walk's warp passes {passes} "
+                f"({passes / (tq * sq / 128):.1f} a 128-query tile); warp stages skipped as far {far}; "
+                f"warp words skipped by their boxes {boxed} ({boxed * 32 / max(rows, 1):.4f} "
+                "of the warp rows)",
+                {"plans": plans, "rows": rows, "rows_with_a_bit": branch, "bits": bits, "band": band,
+                 "walk_passes": passes, "far_warp_stages": far, "boxed_warp_words": boxed,
+                 "pairs": pairs})
+
+    def equal():
+        return torch.equal(out[0], want[0]) and bool((out[1:4] - want[1:4]).abs().max() <= 1e-5)
+
+    return Case(launch, equal, report)
+
+
 # ---- moments_fused --------------------------------------------------------------------
 
 MF_TEST = "(s1[0] <= nc[0]) | (s1[1] <= nc[1]) | (s1[2] <= nc[2]) | (s1[3] <= nc[3])"
@@ -549,6 +785,9 @@ def _mf_setup(smoke, dev, libs):
 
 
 KERNELS = {
+    "moments6": Kernel("moments6_kernel", M6_VARIANTS, 7, "m6_counts", _m6_setup),
+    "moments6_k8": Kernel("moments6_kernel", M6_VARIANTS, 7, "m6_counts",
+                          lambda smoke, dev, libs: _m6_setup(smoke, dev, libs, k=8)),
     "fold6": Kernel("fold6_kernel", F6_VARIANTS, 4, "f6_counts", _f6_setup),
     "fold7": Kernel("fold7_kernel", F7_VARIANTS, 2, "f7_counts", _f7_setup),
     "moments_fused": Kernel("moments_fused_kernel", MF_VARIANTS, 2, "mf_counts", _mf_setup),

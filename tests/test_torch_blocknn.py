@@ -57,6 +57,10 @@ from icpx_torch.kernels.knn import nearest_neighbor_reference
 from icpx_torch.kernels.normals import estimate_normals
 from icpx_torch.kernels.voxel import auto_cell_size
 import chip_smoke
+from test_torch_cuda import (F4_SHAPE, F6_FIXTURE_SHAPES, F6_FIXTURES, F6_SHAPE, F7_FIXTURE_SHAPES,
+                             F7_FIXTURES, F7_SHAPE, M6_FIXTURE_SHAPES, M6_FIXTURES, M6_SHAPE,
+                             MF_SHAPE, RADIUS_U, _cov_tol, _fused4_tie_case, _slot_weights_fixture,
+                             _table_view, _tie_fixture)
 from torch_parity import clouds, to_np
 
 GAP = 1e-4
@@ -272,17 +276,6 @@ def _moments_case():
     return ji, valid, radius
 
 
-def _cov_tol(mean, comps, q_cent, sq):
-    """Per-row tolerance of the six covariance components: 1e-4 of the row's
-    trace (they are ~r^2/4 in the plane and far smaller along the normal,
-    below any fixed atol), plus 1e-5 of |mean - q_cent|^2 for the fp32
-    cancellation in E[rr^T] - m m^T, which grows with the mean's offset from
-    the query tile's centroid. A zero or swapped component fails it."""
-    q_rows = np.repeat(np.asarray(q_cent, np.float64), sq, axis=0)
-    mean, comps = np.asarray(mean, np.float64), [np.asarray(c, np.float64) for c in comps]
-    return 1e-4 * (comps[0] + comps[3] + comps[5]) + 1e-5 * ((mean - q_rows) ** 2).sum(-1)
-
-
 def _check_moments(cnt_t, mean_t, comps_t, cnt_j, mean_j, comps_j, valid, ji, centred=None):
     """`centred`: (centres, rows a centre) the moments were centred on; by
     default each query tile's centroid."""
@@ -383,23 +376,6 @@ def test_fold6_plain_matches_pallas_interpret():
     assert np.isfinite(pl_t).all()
 
 
-def _tie_fixture():
-    """One query tile over 4 index tiles of 8 rows, integer coordinates (every
-    d2 exact under either scoring form). Rows carry their flat position as
-    payload. Query 0 sits on a point held at lane 3 of tile 0 and lane 1 of
-    tile 1; query 1 on a point at lane 2 of tiles 2 and 3."""
-    tiles = np.arange(4 * 8 * 3, dtype=np.float32).reshape(4, 8, 3) * 10.0 + 100.0
-    p, p2 = np.float32([1, 2, 3]), np.float32([-4, 5, -6])
-    tiles[0, 3] = tiles[1, 1] = p
-    tiles[2, 2] = tiles[3, 2] = p2
-    query = np.full((1, 8, 3), 50.0, np.float32)
-    query[0, 0], query[0, 1] = p, p2
-    payload = np.repeat(np.arange(32, dtype=np.float32)[:, None], 6, axis=1)
-    fields = SimpleNamespace(tiles=tiles, box_lo=tiles.min(1), box_hi=tiles.max(1),
-                             centroids=tiles.mean(1), order=np.arange(32, dtype=np.int32))
-    return query, payload, fields
-
-
 @pytest.mark.parametrize("cand", [[0, 1, 2, 3], [3, 2, 1, 0]])
 def test_fold6_tie_rule_lane_then_candidate(cand):
     """Least d2, then the lowest lane, then the earliest candidate, as the
@@ -447,11 +423,10 @@ def test_fold6_all_sentinel_candidates_miss():
 
 # ---- the fold6 kernel's screen: emulation, margin, plan ------------------------------
 
-# The constants of csrc/blocknn.cu's fold6 kernel, which the wrapper reads
-# from the built library; and one with short stages, so that a candidate
-# tile's lanes span several stages and a block holds fewer tiles.
-F6_SHAPE = blocknn_cuda.Fold6Shape(threads=128, queries_per_thread=4, group=8, stage_rows=1024)
-F6_SHORT = blocknn_cuda.Fold6Shape(threads=128, queries_per_thread=4, group=8, stage_rows=48)
+# The fold6 kernel's shape (F6_SHAPE, test_torch_cuda.py) with short stages,
+# so that a candidate tile's lanes span several stages and a block holds
+# fewer tiles.
+F6_SHORT = F6_SHAPE._replace(stage_rows=48)
 F6_DIRECT_D2 = np.float32(1e11)
 F6_FAR_ABS = np.float32(5e5)
 
@@ -586,12 +561,6 @@ def _fold6_fixture(name, tq=6, sq=20, s=32, k=4, n_tiles=12):
     return to_np(query), index, to_np(cand), to_np(payload)
 
 
-F6_FIXTURES = list(chip_smoke.FOLD6_FIXTURES)
-# chip_smoke's fixture shapes, (tq, sq, s, k), by test id
-F6_FIXTURE_SHAPES = dict(zip(["sq20", "sq64-s100", "sq3", "sq600-s2000", "sq128", "sq64-8tiles"],
-                             chip_smoke.FOLD6_FIXTURE_SHAPES))
-
-
 @pytest.mark.parametrize("shape", [F6_SHAPE, F6_SHORT], ids=["kernel", "short stages"])
 @pytest.mark.parametrize("name", F6_FIXTURES)
 @pytest.mark.parametrize("tq,sq,s,k", list(F6_FIXTURE_SHAPES.values()), ids=list(F6_FIXTURE_SHAPES))
@@ -717,6 +686,228 @@ def test_fold6_plan_of_the_kernel_shape(tq, sq, s, k, want):
     assert plan["tiles_per_block"] * nqs <= F6_SHAPE.threads
 
 
+# ---- the moments6 kernel's screen: emulation, margin, plan -------------------------
+
+
+def emulate_moments6(query_tiles, tiles, cand, q_cent, r2, shape):
+    """csrc/blocknn.cu's moments6 in numpy float32, step for step, a query
+    tile at a time (its queries' results depend on nothing else): stages in
+    order (candidate slot, run of `moments6_plan`'s lanes), each packed
+    centred on the tile's c with rr, sentinel rows and the padding to a
+    whole mask word (NaN, NaN, NaN, +inf); the stage's R from its largest
+    valid rr (as bits); each query's thresholds A -/+ delta and far test in
+    float32; no bit in a mask word whose box of valid rows is beyond the
+    query's reach r2 + delta; the screen's bit, the sign of the FMA chain on fl(rr - thr_hi)
+    (a NaN's sign bit clear, as the card's canonical NaN), then each hit
+    either under thr_lo (the FMA chain on rr) or decided by the direct
+    form. The sums are taken in
+    float64 (the kernel's order of fp32 sums is not the point here); the
+    finish is the kernel's, with one reciprocal a query. Returns ((10,
+    Tq*Sq) float32, counts: pairs screened, hit and in the band, far query
+    stages, query words beyond their reach)."""
+    tq, sq, _ = query_tiles.shape
+    s, k = tiles.shape[1], cand.shape[1]
+    plan = blocknn_cuda.moments6_plan(tq, sq, s, k, shape)
+    lc, lcp = plan["lanes_per_stage"], plan["padded_lanes"]
+    chunks = -(-s // lc)
+    r2 = np.float32(r2)
+    f32 = np.float32
+    out = np.empty((10, tq * sq), np.float32)
+    counts = {"screened": 0, "hit": 0, "band": 0, "far": 0, "beyond": 0}
+    for t in range(tq):
+        c = q_cent[t]
+        qc = query_tiles[t] - c
+        a = f32(-2.0) * qc
+        qq = (qc[:, 0] * qc[:, 0] + qc[:, 1] * qc[:, 1]) + qc[:, 2] * qc[:, 2]
+        qn = np.sqrt(qq)
+        sums = np.zeros((sq, 10), np.float64)
+        for st in range(k * chunks):
+            ci, l0 = st // chunks, (st % chunks) * lc
+            raw = tiles[cand[t, ci], l0:l0 + min(lc, s - l0)]
+            valid = (np.abs(raw) < 1e6).all(1)
+            rc = raw - c
+            rr = (rc[:, 0] * rc[:, 0] + rc[:, 1] * rc[:, 1]) + rc[:, 2] * rc[:, 2]
+            rows = np.full((lcp, 4), np.nan, np.float32)
+            rows[:, 3] = np.inf
+            rows[:len(raw)][valid] = np.concatenate([rc, rr[:, None]], 1)[valid]
+            big_r = np.sqrt(rr[valid].view(np.uint32).max(initial=0).view(np.float32))
+            with np.errstate(invalid="ignore", over="ignore"):
+                total = qn + big_r
+                w = total * total + np.abs(r2)
+                delta = f32(2.0 ** -18) * w + f32(2.0 ** -100)
+                a_thr = r2 - qq
+                g = qn - big_r
+                proven = w < f32(2.0 ** 100)
+                far = proven & (g > 0) & (g * g > r2 + delta)
+                lo = np.where(proven, a_thr - delta, -np.inf).astype(np.float32)
+                hi = np.where(far, -np.inf, np.where(proven, a_thr + delta, np.inf)).astype(np.float32)
+                shifted = rows[None, :, 3] - hi[:, None]  # (Sq, lcp) fl(rr - thr_hi)
+                t_hi = _fma32(a[:, None, 0], rows[None, :, 0], _fma32(
+                    a[:, None, 1], rows[None, :, 1], _fma32(a[:, None, 2], rows[None, :, 2], shifted)))
+                hit = np.signbit(t_hi) & ~np.isnan(t_hi)
+                # a mask word whose box of valid rows is beyond the query's
+                # reach fl(r2 + delta) sets no bit (the kernel skips it when
+                # every query of the warp is beyond it)
+                word = rows[:, :3].reshape(-1, 32, 3)
+                has = ~np.isnan(word[..., 0])
+                box_lo = np.where(has[..., None], word, np.inf).min(1)
+                box_hi = np.where(has[..., None], word, -np.inf).max(1)
+                gap = np.maximum(np.maximum(box_lo[None] - qc[:, None], qc[:, None] - box_hi[None]),
+                                 np.float32(0))  # (Sq, words, 3)
+                box_d2 = (gap[..., 0] * gap[..., 0] + gap[..., 1] * gap[..., 1]) + gap[..., 2] * gap[..., 2]
+                reach = np.where(far, -np.inf, np.where(proven, r2 + delta, np.inf)).astype(np.float32)
+                beyond = ~(box_d2 <= reach[:, None])
+                counts["beyond"] += int(beyond.sum())
+                hit &= ~np.repeat(beyond, 32, axis=1)
+                sc = _f6_score(a, rows)  # (Sq, lcp), the FMA chain on rr
+                inside = hit & (sc <= lo[:, None])
+                d = _f6_direct(qc, rows[:, :3])
+            band = hit & ~inside
+            count = inside | (band & (d <= r2))
+            counts["screened"] += int((~far).sum()) * lcp
+            counts["far"] += int(far.sum())
+            counts["hit"] += int(hit.sum())
+            counts["band"] += int(band.sum())
+            x = np.nan_to_num(rows[:, :3].astype(np.float64))
+            feat = np.stack([np.ones(lcp), x[:, 0], x[:, 1], x[:, 2], x[:, 0] * x[:, 0],
+                             x[:, 0] * x[:, 1], x[:, 0] * x[:, 2], x[:, 1] * x[:, 1],
+                             x[:, 1] * x[:, 2], x[:, 2] * x[:, 2]], 1)
+            sums += count.astype(np.float64) @ feat
+        m = sums.astype(np.float32)
+        inv = f32(1.0) / np.maximum(m[:, 0], f32(1.0))
+        mc = m[:, 1:4] * inv[:, None]
+        res = np.empty((sq, 10), np.float32)
+        res[:, 0] = m[:, 0]
+        res[:, 1:4] = mc + c
+        for f, (i, j) in enumerate(((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))):
+            res[:, 4 + f] = m[:, 4 + f] * inv - mc[:, i] * mc[:, j]
+        out[:, t * sq:(t + 1) * sq] = res.T
+    return out, counts
+
+
+def _check_moments6(out_e, out_p, q_cent, sq):
+    """Counts bit-equal on every row, and rows that count nothing equal
+    (count 0, the centroid, zeros); means within 1e-5 and covariances
+    within `_cov_tol` on every row."""
+    out_p = to_np(out_p)
+    np.testing.assert_array_equal(out_e[0], out_p[0])
+    none = out_p[0] == 0
+    np.testing.assert_array_equal(out_e[:, none], out_p[:, none])
+    np.testing.assert_allclose(out_e[1:4], out_p[1:4], rtol=0, atol=1e-5)
+    tol = _cov_tol(out_p[1:4].T, out_p[4:], q_cent, sq)
+    assert (np.abs(out_e[4:].astype(np.float64) - out_p[4:]) <= tol).all()
+
+
+@pytest.mark.parametrize("name", M6_FIXTURES)
+@pytest.mark.parametrize("tq,sq,s,k", list(M6_FIXTURE_SHAPES.values()), ids=list(M6_FIXTURE_SHAPES))
+def test_emulated_moments6_equals_reference(name, tq, sq, s, k):
+    """The kernel's staging, centred packing, per-stage R, thresholds, far
+    test, screen and direct decisions in the band give moments6_reference's
+    counts bit for bit and its moments within tolerance, on each fixture at
+    each of chip_smoke's shapes (every kind of `moments6_plan`: the 1M plan,
+    k = 8, Sq not a multiple of 4, a tile over two blocks with S over three
+    stages, S padded to a mask word)."""
+    query, tiles, cand, q_cent, r2 = (to_np(x) for x in chip_smoke.moments6_fixture(
+        name, tq, sq, s, k, n_tiles=max(12, k + 2)))
+    out_e, counts = emulate_moments6(query, tiles, cand, q_cent, r2, M6_SHAPE)
+    out_p = moments6_reference(*(torch.as_tensor(x) for x in (query, tiles, cand, q_cent, r2)))
+    _check_moments6(out_e, out_p, q_cent, sq)
+    if name == "near the radius" or (name == "far tile" and tq * sq >= 64):
+        assert counts["band"] > 0  # the direct form decided some pairs
+    if name in ("far queries", "pad queries"):
+        assert counts["far"] > 0
+    if name == "far queries":
+        assert counts["hit"] == 0 and (out_e[0] == 0).all()
+    if name == "random":
+        assert counts["band"] < counts["hit"] < counts["screened"] // 4
+
+
+def test_emulated_moments6_on_a_surface_index():
+    """The 1M normals shape at test size: the KD index of a 12,000-point
+    surface cloud, each tile its own query tile, k_tiles = 2, the
+    registration's radius; counts bit for bit, ~15 neighbours a row."""
+    x, _ = _cloud(12000, seed=10, surface=True)
+    ti = tb.build_kd_index(torch.as_tensor(x), tile_size=128)
+    radius = float(auto_cell_size(ti.tiles.reshape(-1, 3), ti.order >= 0, scale=3.0))
+    cand, q_cent = tb._candidate_tiles(ti.tiles, ti, 2)
+    r2 = torch.tensor(radius * radius, dtype=torch.float32)
+    out_e, counts = emulate_moments6(to_np(ti.tiles), to_np(ti.tiles), to_np(cand), to_np(q_cent),
+                                     float(r2), M6_SHAPE)
+    _check_moments6(out_e, moments6_reference(ti.tiles, ti.tiles, cand, q_cent, r2), to_np(q_cent),
+                    ti.tile_size)
+    assert out_e[0][to_np(ti.order) >= 0].mean() > 5 and counts["hit"] > 0
+
+
+@pytest.mark.parametrize("scale", [1.0, 1000.0])
+@pytest.mark.parametrize("name", ["uniform", "box corners", "ulp neighbours", "on the radius"])
+def test_moments6_margin_bounds_the_screen(name, scale):
+    """For every valid pair, the fp32 score s (the FMA chain on rc, rr =
+    fl(|rc|^2), a = -2 qc) plus the exact |qc|^2 is within delta / 4 of the
+    fp32 direct form d, with delta from moments6_screen_margin at the pair's
+    stage R (the root of its largest rr): the source note's bound E, which
+    delta is four times; and the screen's t (the chain on fl(rr - thr_hi))
+    plus thr_hi and |qc|^2 is within delta / 2 of d. Rows and queries centred near the origin
+    (scale 1) and centred on a point 1,000 units away (so |qc| and R are
+    large), uniform, on the far corners of the rows' box, one ulp from
+    the queries, and on the radius."""
+    rng = np.random.default_rng(int(scale) + len(name))
+    rows = rng.uniform(-1, 1, (512, 3)).astype(np.float32) * np.float32(0.05)
+    query = rng.uniform(-1, 1, (64, 3)).astype(np.float32) * np.float32(0.05)
+    if name == "box corners":
+        lo, hi = rows.min(0), rows.max(0)
+        query = np.where(rng.integers(0, 2, (64, 3)).astype(bool), lo, hi).astype(np.float32)
+    elif name == "ulp neighbours":
+        rows[:64] = query
+        rows[64:128] = np.nextafter(query, np.float32(np.inf))
+    elif name == "on the radius":
+        u = rng.normal(size=(64, 3))
+        rows[:64] = (query + 0.02 * u / np.linalg.norm(u, axis=1, keepdims=True)).astype(np.float32)
+    c = np.float32(scale) * np.float32([1, -1, 1]) if scale > 1 else np.zeros(3, np.float32)
+    qc, rc = query - c, rows - c  # the contract's centred floats
+    rr = (rc[:, 0] * rc[:, 0] + rc[:, 1] * rc[:, 1]) + rc[:, 2] * rc[:, 2]
+    qq32 = (qc[:, 0] * qc[:, 0] + qc[:, 1] * qc[:, 1]) + qc[:, 2] * qc[:, 2]
+    r2 = torch.tensor(0.02 * 0.02, dtype=torch.float32)
+    delta = blocknn_cuda.moments6_screen_margin(torch.as_tensor(qq32), torch.tensor(np.sqrt(rr.max())),
+                                                r2).numpy().astype(np.float64)
+    s = _f6_score(np.float32(-2.0) * qc, np.concatenate([rc, rr[:, None]], 1)).astype(np.float64)
+    qq = (qc.astype(np.float64) ** 2).sum(1)
+    d = _f6_direct(qc, rc).astype(np.float64)
+    err = np.abs(s + qq[:, None] - d)
+    worst = float((err / (delta[:, None] / 4)).max())
+    assert worst <= 1.0, f"the screen's error reaches {worst:.3f} x delta / 4"
+    # the screen's bit: the sign of t = fma chain on fl(rr - thr_hi), within
+    # delta / 2 of d - |qc|^2 - thr_hi (the note's 11 u W and the direct
+    # form's 5 u W)
+    hi = ((np.float32(r2) - qq32) + delta.astype(np.float32)).astype(np.float32)
+    shifted = (rr[None, :] - hi[:, None]).astype(np.float32)
+    a = np.float32(-2.0) * qc
+    t = _fma32(a[:, None, 0], rc[None, :, 0], _fma32(a[:, None, 1], rc[None, :, 1],
+                                                     _fma32(a[:, None, 2], rc[None, :, 2], shifted)))
+    err_t = np.abs(t.astype(np.float64) + hi[:, None] + qq[:, None] - d)
+    worst_t = float((err_t / (delta[:, None] / 2)).max())
+    assert worst_t <= 1.0, f"the sign screen's error reaches {worst_t:.3f} x delta / 2"
+
+
+@pytest.mark.parametrize("tq,sq,s,k,want", [
+    (8192, 128, 128, 2, (2, 128, 128, 4, 2, (4096, 1))),  # the 1M normals shape
+    (8192, 128, 128, 8, (2, 128, 128, 4, 8, (4096, 1))),  # GICP's covariance shape
+    (6, 128, 128, 8, (2, 128, 128, 4, 8, (3, 1))),  # k = 8
+    (5, 22, 32, 4, (11, 32, 32, 1, 4, (1, 1))),  # 11 threads a tile, 11 tiles a block
+    (3, 3, 8, 3, (16, 8, 32, 1, 3, (1, 1))),  # Sq odd; S padded to a mask word
+    (2, 600, 300, 2, (1, 128, 128, 4, 6, (2, 3))),  # a tile over three blocks, S over 3 stages
+    (7, 64, 100, 3, (4, 100, 128, 4, 3, (2, 1))),  # S not a multiple of 4: padded lanes
+    (9, 5, 130, 2, (4, 128, 128, 4, 4, (3, 1))),  # Sq odd, a last stage of 2 lanes
+])
+def test_moments6_plan_of_the_kernel_shape(tq, sq, s, k, want):
+    plan = blocknn_cuda.moments6_plan(tq, sq, s, k, M6_SHAPE)
+    assert (plan["tiles_per_block"], plan["lanes_per_stage"], plan["padded_lanes"], plan["words"],
+            plan["stages"], plan["blocks"]) == want
+    nqs = min(-(-sq // M6_SHAPE.queries_per_thread), M6_SHAPE.threads)
+    assert plan["tiles_per_block"] * plan["padded_lanes"] <= M6_SHAPE.stage_rows
+    assert plan["tiles_per_block"] * nqs <= M6_SHAPE.threads
+    assert plan["lanes_per_stage"] <= M6_SHAPE.stage_lanes and plan["padded_lanes"] % M6_SHAPE.group == 0
+
+
 # ---- in-fold payload selection ("infold", plain torch) ------------------------------
 
 
@@ -817,13 +1008,6 @@ def test_select_duplicate_candidates_and_misses():
                          interpret=True)
         np.testing.assert_array_equal(to_np(got_t), want)
         np.testing.assert_array_equal(np.asarray(got_j), want)
-
-
-def _table_view(rows, d, offset, device="cpu"):
-    """A contiguous (rows, d) float32 view that starts `offset` floats into
-    its storage (the storage itself is aligned to 16 bytes or more)."""
-    flat = torch.arange(rows * d + offset, dtype=torch.float32, device=device)
-    return flat[offset:].view(rows, d)
 
 
 @pytest.mark.parametrize("d,offset,width", [
@@ -961,15 +1145,9 @@ def test_fold7_operands_hold_no_per_candidate_copy():
     assert ops.cand.dtype == torch.int32 and ops.q_cent.dtype == torch.float32
 
 
-# The constants of csrc/blocknn.cu's fold7 kernel, which the wrapper reads
-# from the built library, and step 1's range of its source note.
-F7_SHAPE = blocknn_cuda.Fold6Shape(threads=128, queries_per_thread=4, group=8, stage_rows=1024)
+# Step 1's range of the fold7 kernel's source note.
 F7_RANGE_A = (np.uint32(0x20000000), np.uint32(0x5F000000))  # [2^-63, 2^63)
 F7_RANGE_B = (np.uint32(0x20800000), np.uint32(0x5F800000))  # [2^-62, 2^64)
-F7_FIXTURES = list(chip_smoke.FOLD7_FIXTURES)
-# chip_smoke's fold7 fixture shapes, (tq, sq, s, k), by test id
-F7_FIXTURE_SHAPES = dict(zip(["1M plan", "25 a block", "sq30-s100", "k8-s512", "sq600-s2000",
-                              "sq3-s13", "k200", "sq128"], chip_smoke.FOLD7_FIXTURE_SHAPES))
 
 
 @pytest.mark.parametrize("tq,sq,s,k,want", [
@@ -1222,13 +1400,9 @@ def test_fused4_group_must_divide_query_tiles():
         blocknn_cuda.block_nn_fused4(qt, _same_index(ji), group=4)
 
 
-# The constants of csrc/blocknn.cu's fused4 kernel, which the wrapper reads
-# from the built library; and one with short chunks, so that a union's
-# lanes span several chunks.
-F4_SHAPE = blocknn_cuda.Fused4Shape(threads=256, queries_per_thread=4, lane_threads=4,
-                                    chunk_rows=512)
-F4_SHORT = blocknn_cuda.Fused4Shape(threads=256, queries_per_thread=4, lane_threads=4,
-                                    chunk_rows=32)
+# The fused4 kernel's shape (F4_SHAPE, test_torch_cuda.py) with short chunks,
+# so that a union's lanes span several chunks.
+F4_SHORT = F4_SHAPE._replace(chunk_rows=32)
 
 
 def _take(best, key, b, k):
@@ -1282,32 +1456,6 @@ def emulate_fused4(query_tiles, tiles, unions, group, shape):
         d_out[gi * gq:(gi + 1) * gq] = np.where(dd < 1e15, dd, np.inf)
         pos_out[gi * gq:(gi + 1) * gq] = un[key[0] // s].astype(np.int64) * s + key[0] % s
     return d_out, pos_out
-
-
-def _fused4_tie_case(name):
-    """Integer coordinates (every score exact) in tiles of 32 lanes, tile 4
-    all sentinel. "lanes and slots": the query's point p sits at tile 0
-    lane 3, tile 1 lane 1, tile 2 lane 3 again (a later slot of the same
-    lane) and tile 3 lane 6, so lane 3 keeps slot 0 and the largest key is
-    tile 3's lane 6 (slot 3); the unions are padded (4 of 8 slots). "all
-    sentinel": one group's union is tile 4 alone, padded: every score ties,
-    the earliest slot in each lane, then the last lane. Returns (query
-    tiles (4, 8, 3), tiles (5, 32, 3), unions (2, 8), group 2, wanted
-    position of query 0 or None)."""
-    rng = np.random.default_rng(33)
-    tiles = rng.integers(-20, 21, size=(5, 32, 3)).astype(np.float32)
-    tiles[4] = PAD_COORD
-    query = rng.integers(-20, 21, size=(4, 8, 3)).astype(np.float32)
-    query[3, 5:] = PAD_COORD  # padded query rows
-    p = np.float32([50, 50, 50])
-    tiles[0, 3] = tiles[1, 1] = tiles[2, 3] = tiles[3, 6] = p
-    query[0, 0] = p + np.float32([0, 0, 1])
-    cand = torch.tensor([[0, 1], [2, 3], [3, 1], [0, 2]])
-    want = 3 * 32 + 6
-    if name == "all sentinel":
-        cand = torch.tensor([[0, 1], [2, 3], [4, 4], [4, 4]])
-    unions = blocknn_cuda.group_unions(cand, 2, 8)
-    return query, tiles, unions, 2, want
 
 
 @pytest.mark.parametrize("shape", [F4_SHAPE, F4_SHORT], ids=["kernel", "short chunks"])
@@ -1373,9 +1521,6 @@ def test_select_takes_candidates_converted_once():
 # ---- the union radius moments (kernel #7) -------------------------------------------
 
 
-RADIUS_U = 0.15
-
-
 @pytest.fixture(scope="module")
 def union_moments_case():
     """tests/test_blocknn.py::test_fused_moments_superset_of_jnp's case: 8,000
@@ -1438,19 +1583,6 @@ def test_moments_fused_counts_padded_slots_again(union_moments_case):
     assert (cnt_t >= to_np(cnt_x)[valid]).all()  # the union holds every tile's candidates
 
 
-def _slot_weights_fixture():
-    """Query tiles (8, 16, 3) in 2 groups of 4, tiles (8, 16, 3) with sentinel
-    rows in tile 7 and padded queries in tile 5, and one padded union (3 of
-    8 slots) beside a full one."""
-    unions = torch.tensor([[1, 2, 5, 1, 1, 1, 1, 1], [3, 0, 4, 6, 2, 7, 5, 1]])
-    rng = np.random.default_rng(21)
-    tiles = rng.uniform(-1, 1, (8, 16, 3)).astype(np.float32)
-    tiles[7, 10:] = PAD_COORD
-    query = rng.uniform(-1, 1, (8, 16, 3)).astype(np.float32)
-    query[5, 12:] = PAD_COORD
-    return query, tiles, unions
-
-
 def test_moments_fused_slot_weights_equal_summing_every_slot():
     """The plain version (and the kernel) score slot 0's tile once and weigh
     it by 1 + the padded slots; summing every slot as the TPU kernel does
@@ -1484,13 +1616,10 @@ def test_moments_fused_slot_weights_equal_summing_every_slot():
     np.testing.assert_allclose(out[1:], want[1:], rtol=1e-5, atol=1e-5)
 
 
-# The constants of csrc/blocknn.cu's moments_fused kernel, which the wrapper
-# reads from the built library; and one with chunks of 32 rows (unions of
-# up to 8 slots), so that a union's lanes span several chunks.
-MF_SHAPE = blocknn_cuda.Fused4Shape(threads=256, queries_per_thread=4, lane_threads=4,
-                                    chunk_rows=512)
-MF_SHORT = blocknn_cuda.Fused4Shape(threads=256, queries_per_thread=4, lane_threads=4,
-                                    chunk_rows=32)
+# The moments_fused kernel's shape (MF_SHAPE, test_torch_cuda.py) with chunks
+# of 32 rows (unions of up to 8 slots), so that a union's lanes span several
+# chunks.
+MF_SHORT = MF_SHAPE._replace(chunk_rows=32)
 
 
 def emulate_moments_fused(query_tiles, tiles, unions, q_cent, r2, group, shape):
@@ -1666,208 +1795,3 @@ def test_block_normals_match_jax():
     dots = np.abs(np.sum(jn * tn, axis=1))[has]
     assert (dots > 0.99).mean() >= 0.999, float((dots > 0.99).mean())
     assert (tn[~np.asarray(jc.mask)] == 0).all()
-
-
-# ---- the kernels on the card -----------------------------------------------------
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-def test_cuda_moments6_matches_plain(cuda_device):
-    ji, valid, radius = _moments_case()
-    ti = interop.tile_index_from_numpy(ji, device=cuda_device)
-    cand, q_cent = tb._candidate_tiles(ti.tiles, ti, 2)
-    r2 = torch.tensor(radius * radius, device=cuda_device)
-    before = blocknn_cuda.LAUNCHES["moments6"]
-    out_k = blocknn_cuda.moments6_cuda(ti.tiles, ti.tiles, cand.to(torch.int32), q_cent, r2.reshape(1))
-    out_p = moments6_reference(ti.tiles, ti.tiles, cand, q_cent, r2)
-    torch.cuda.synchronize()
-    assert blocknn_cuda.LAUNCHES["moments6"] == before + 1
-    assert torch.equal(out_k[0], out_p[0])  # the same d2 bits: the same counts
-    assert torch.isfinite(out_k).all()
-    torch.testing.assert_close(out_k[1:4], out_p[1:4], rtol=0, atol=1e-5)
-    k_np, p_np = to_np(out_k).astype(np.float64), to_np(out_p)
-    tol = _cov_tol(p_np[1:4].T, p_np[4:], to_np(q_cent), ti.tile_size)
-    assert (np.abs(k_np[4:] - p_np[4:]) <= tol).all()
-
-
-@pytest.mark.cuda
-def test_cuda_fold6_matches_plain(cuda_device):
-    jq, ji, table, cand = _fold_case()
-    ti = interop.tile_index_from_numpy(ji, device=cuda_device)
-    ops = fold6_prepare(torch.as_tensor(cand, device=cuda_device), ti,
-                        torch.as_tensor(table, device=cuda_device))
-    q = torch.as_tensor(np.asarray(jq.tiles), device=cuda_device)
-    d_k, pl_k = blocknn_cuda.fold6_cuda(q, ops)
-    d_p, pl_p = fold6_reference(q, ops)
-    torch.cuda.synchronize()
-    assert torch.equal(d_k, d_p) and torch.equal(pl_k, pl_p)  # bit for bit
-    query, payload, fields = _tie_fixture()
-    index = interop.tile_index_from_numpy(fields, device=cuda_device)
-    ops = fold6_prepare(torch.tensor([[0, 1, 2, 3]], device=cuda_device), index,
-                        torch.as_tensor(payload, device=cuda_device))
-    _, pl = blocknn_cuda.fold6_cuda(torch.as_tensor(query, device=cuda_device), ops)
-    assert float(pl[0, 0]) == 9 and float(pl[1, 0]) == 18
-
-
-@pytest.mark.cuda
-def test_cuda_fold6_library_shape(cuda_device):
-    """The built library reports the shape the plan and emulation tests
-    above assume."""
-    assert blocknn_cuda.fold6_shape() == F6_SHAPE
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("name", F6_FIXTURES)
-@pytest.mark.parametrize("tq,sq,s,k", list(F6_FIXTURE_SHAPES.values()), ids=list(F6_FIXTURE_SHAPES))
-def test_cuda_fold6_fixtures_match_plain(cuda_device, name, tq, sq, s, k):
-    """The kernel on each screen fixture at each of chip_smoke's shapes
-    (among them a tile over two blocks with S over two stages, and whole
-    blocks), d2 bits and payload equal to fold6_reference's."""
-    query, index, cand, payload = chip_smoke.fold6_fixture(name, tq, sq, s, k, n_tiles=max(12, k + 2),
-                                                           device=cuda_device)
-    ops = fold6_prepare(cand, index, payload)
-    before = blocknn_cuda.LAUNCHES["fold6"]
-    d_k, pl_k = blocknn_cuda.fold6_cuda(query, ops)
-    d_p, pl_p = fold6_reference(query, ops)
-    torch.cuda.synchronize()
-    assert blocknn_cuda.LAUNCHES["fold6"] == before + 1
-    assert torch.equal(d_k.view(torch.int32), d_p.view(torch.int32)) and torch.equal(pl_k, pl_p)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("name,shape", [("fold case", None)] + [
-    (name, shape) for shape in chip_smoke.FOLD7_FIXTURE_SHAPES for name in F7_FIXTURES])
-def test_cuda_fold7_matches_plain(cuda_device, name, shape):
-    """The kernel on the fold case of seed 18 and on each fold7 fixture at
-    each of chip_smoke's shapes, which reach every kind of plan (S over
-    stages, k x S above 3,072, Sq not a multiple of 4, a block not full, a
-    tile over two blocks, k capping a block; ties, all-sentinel tiles, pad
-    queries, subnormal products): d2 bits and payload equal to
-    fold7_reference's."""
-    if shape is None:
-        jq, ji, table, cand = _fold_case(seed=18)
-        index = interop.tile_index_from_numpy(ji, device=cuda_device)
-        query = torch.as_tensor(np.asarray(jq.tiles), device=cuda_device)
-        cand = torch.as_tensor(cand, device=cuda_device)
-        q_cent = tb._candidate_tiles(query, index, 6)[1]
-        payload = torch.as_tensor(table, device=cuda_device)
-    else:
-        query, index, cand, q_cent, payload = chip_smoke.fold7_fixture(
-            name, *shape, n_tiles=max(12, shape[3] + 2), device=cuda_device)
-    ops = blocknn_cuda.fold7_prepare(cand, q_cent, index, payload)
-    before = blocknn_cuda.LAUNCHES["fold7"]
-    d_k, pl_k = blocknn_cuda.fold7_cuda(query, ops)
-    d_p, pl_p = blocknn_cuda.fold7_reference(query, ops)
-    torch.cuda.synchronize()
-    assert blocknn_cuda.LAUNCHES["fold7"] == before + 1
-    assert torch.equal(d_k.view(torch.int32), d_p.view(torch.int32)) and torch.equal(pl_k, pl_p)
-
-
-@pytest.mark.cuda
-def test_cuda_fold7_library_shape(cuda_device):
-    """The built library reports the shape the plan and emulation tests
-    above assume."""
-    assert blocknn_cuda.fold7_shape() == F7_SHAPE
-
-
-@pytest.mark.cuda
-def test_cuda_select_matches_plain(cuda_device):
-    jq, ji, table, cand = _fold_case(seed=17)
-    ti = interop.tile_index_from_numpy(ji, device=cuda_device)
-    cand_t = torch.as_tensor(cand, device=cuda_device)
-    _, pos = tb.block_nn(torch.as_tensor(np.asarray(jq.tiles), device=cuda_device), ti,
-                         return_pos=True, cand_tiles=cand_t)
-    pos = pos.reshape(jq.n_tiles, jq.tile_size)
-    pl = torch.as_tensor(table, device=cuda_device)
-    out_k = blocknn_cuda.select_cuda(pos, cand_t.to(torch.int32), pl, ji.tile_size)
-    out_p = blocknn_cuda.select_reference(pos, cand_t, pl, ji.tile_size)
-    torch.cuda.synchronize()
-    assert torch.equal(out_k, out_p) and torch.equal(out_k, pl[pos.reshape(-1).long()])
-    dup = torch.tensor([[1, 1, 2, 3]], dtype=torch.int32, device=cuda_device)
-    p4 = torch.tensor([[9, 3, 17, 30]], dtype=torch.int32, device=cuda_device)
-    torch.testing.assert_close(blocknn_cuda.select_cuda(p4, dup, pl, ji.tile_size),
-                               blocknn_cuda.select_reference(p4, dup, pl, ji.tile_size),
-                               rtol=0, atol=0)
-    # every chunk width: D = 12 (float4), 7 (scalar), and a view 4 bytes off
-    # 16-byte alignment (scalar)
-    for d, offset, width in ((12, 0, 4), (7, 0, 1), (12, 1, 1)):
-        wide = _table_view(pl.shape[0], d, offset, cuda_device)
-        assert blocknn_cuda.select_width(wide) == width
-        for pp, c in ((pos, cand_t.to(torch.int32)), (p4, torch.cat([dup, dup[:, :2]], 1))):
-            got = blocknn_cuda.select_cuda(pp, c, wide, ji.tile_size)
-            assert torch.equal(got, blocknn_cuda.select_reference(pp, c, wide, ji.tile_size)), (d, offset)
-
-
-@pytest.mark.cuda
-def test_cuda_fused4_matches_plain(cuda_device):
-    """Query tiles of 32 (k 12) and the flagship's 64 (k 6), groups of 4,
-    unions of 32 slots and of 8 (overflowing), and the tie fixtures."""
-    rng = np.random.default_rng(20)
-    r = rng.uniform(-1, 1, (8000, 3)).astype(np.float32)
-    q = rng.uniform(-1, 1, (8000, 3)).astype(np.float32)
-    ti = tb.build_kd_index(torch.as_tensor(r, device=cuda_device), tile_size=128)
-    for sq, k in ((32, 12), (64, 6)):
-        qt = tb.build_kd_index(torch.as_tensor(q, device=cuda_device), tile_size=sq).tiles
-        cand, _ = tb._candidate_tiles(qt, ti, k)
-        for u_max in (32, 8):  # 8: overflowing unions
-            unions = blocknn_cuda.group_unions(cand, 4, u_max)
-            d_k, pos_k = blocknn_cuda.fused4_cuda(qt, ti.tiles, unions, 4)
-            d_p, pos_p = blocknn_cuda.fused4_reference(qt, ti.tiles, unions, 4)
-            torch.cuda.synchronize()
-            assert torch.equal(d_k, d_p) and torch.equal(pos_k, pos_p)  # bit for bit
-    for name in ("lanes and slots", "all sentinel"):
-        query, tiles, unions, group, _ = _fused4_tie_case(name)
-        args = (torch.as_tensor(query, device=cuda_device), torch.as_tensor(tiles, device=cuda_device),
-                unions.to(cuda_device), group)
-        d_k, pos_k = blocknn_cuda.fused4_cuda(*args)
-        d_p, pos_p = blocknn_cuda.fused4_reference(*args)
-        assert torch.equal(d_k, d_p) and torch.equal(pos_k, pos_p), name
-
-
-@pytest.mark.cuda
-def test_cuda_fused4_library_shape(cuda_device):
-    """The built library reports the shape the plan tests above assume."""
-    assert blocknn_cuda.fused4_shape() == F4_SHAPE
-
-
-@pytest.mark.cuda
-def test_cuda_moments_fused_matches_plain(cuda_device):
-    """Unions of 32, 8 (overflowing) and the kernel's largest, 128; the
-    slot-weights fixture; and a union above the largest refused."""
-    r = np.random.default_rng(0).uniform(-1, 1, (8000, 3)).astype(np.float32)
-    ti = tb.build_kd_index(torch.as_tensor(r, device=cuda_device), tile_size=128)
-    cand, _ = tb._candidate_tiles(ti.tiles, ti, 8)
-    q_cent = blocknn_cuda.group_centroids(ti.tiles, 4)
-    r2 = torch.tensor([RADIUS_U * RADIUS_U], dtype=torch.float32, device=cuda_device)
-    for u_max in (32, 8, 128):
-        unions = blocknn_cuda.group_unions(cand, 4, u_max)
-        before = blocknn_cuda.LAUNCHES["moments_fused"]
-        out_k = blocknn_cuda.moments_fused_cuda(ti.tiles, ti.tiles, unions.to(torch.int32), q_cent, r2, 4)
-        out_p = blocknn_cuda.moments_fused_reference(ti.tiles, ti.tiles, unions, q_cent, r2[0], 4)
-        torch.cuda.synchronize()
-        assert blocknn_cuda.LAUNCHES["moments_fused"] == before + 1
-        assert torch.equal(out_k[0], out_p[0]), u_max  # the same verdicts: the same counts
-        torch.testing.assert_close(out_k[1:], out_p[1:], rtol=1e-5, atol=1e-4)
-    query, tiles, unions = _slot_weights_fixture()
-    qt = torch.as_tensor(query, device=cuda_device)
-    fq_cent = blocknn_cuda.group_centroids(qt, 4)
-    args = (qt, torch.as_tensor(tiles, device=cuda_device), unions.to(cuda_device, torch.int32), fq_cent,
-            torch.tensor([0.6], device=cuda_device), 4)
-    assert torch.equal(blocknn_cuda.moments_fused_cuda(*args)[0],
-                       blocknn_cuda.moments_fused_reference(*args[:4], args[4][0], 4)[0])
-    wide = blocknn_cuda.group_unions(cand, 4, 129).to(torch.int32)
-    with pytest.raises(ValueError, match="exceed the kernel's 128"):
-        blocknn_cuda.moments_fused_cuda(ti.tiles, ti.tiles, wide, q_cent, r2, 4)
-
-
-@pytest.mark.cuda
-def test_cuda_moments_fused_library_shape(cuda_device):
-    """The built library reports the shape the plan tests above assume."""
-    assert blocknn_cuda.moments_fused_shape() == MF_SHAPE

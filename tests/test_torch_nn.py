@@ -13,7 +13,7 @@ The CUDA kernel's screen is held on the CPU: its margin (`screen_margin`)
 bounds the expansion error of every pair of six fixtures, and a numpy
 emulation of the kernel's algorithm (screen, resolve, split combine) equals
 the plain version bit for bit; the kernel itself is held bit for bit to the
-plain version by the card-only test and `chip_smoke.py`.
+plain version on the card by `tests/test_torch_cuda.py` and `chip_smoke.py`.
 """
 
 import jax.numpy as jnp
@@ -24,20 +24,13 @@ import torch
 from icpx.kernels.knn import _nearest_neighbor_jnp
 from icpx.kernels.knn import knn as j_knn
 from icpx.kernels.knn_pallas import nn_pallas
-from icpx_torch.cloud import PAD_COORD
 from icpx_torch.kernels import nn_cuda
 from icpx_torch.kernels.knn import knn, nearest_neighbor, nearest_neighbor_reference
+from test_torch_cuda import CSRC_SHAPE, SCREEN_FIXTURES, duplicate_fixture, screen_fixture
+from test_torch_cuda import _nn_inputs as _inputs
 from torch_parity import to_np
 
 GAP = 1e-4
-
-
-def _inputs(nq, nr, seed, masked_frac=0.0):
-    rng = np.random.default_rng(seed)
-    q = rng.uniform(-1.0, 1.0, size=(nq, 3)).astype(np.float32)
-    r = rng.uniform(-1.0, 1.0, size=(nr, 3)).astype(np.float32)
-    mask = rng.uniform(size=nr) >= masked_frac
-    return q, r, mask
 
 
 def _separated(q, r, mask, k=1):
@@ -100,19 +93,6 @@ def test_all_masked_refs_give_inf_and_index_zero():
     assert (to_np(i_t) == 0).all()
 
 
-def duplicate_fixture():
-    """Refs with exact duplicates at several indices; queries sit exactly on
-    some of them. Coordinates are small integers, so every squared distance
-    is exact in fp32 under either scoring formula."""
-    base = np.array([[0, 0, 0], [3, 1, 2], [-2, 4, 1], [5, -3, 0]], np.float32)
-    ref = np.concatenate([base[[1, 2]], base, base[[0, 1]], base], axis=0)
-    query = np.concatenate([base, base + np.float32([0, 0, 1])], axis=0)
-    # expected: the first occurrence of the exact match / nearest copy
-    d = ((query[:, None, :] - ref[None]) ** 2).sum(-1)
-    expect = d.argmin(1)  # numpy: first index among ties
-    return query, ref, expect
-
-
 def test_duplicate_points_lowest_index_wins():
     q, r, expect = duplicate_fixture()
     mask = np.ones(len(r), bool)
@@ -167,54 +147,7 @@ def test_cpu_dispatch_uses_plain_version_and_kernel_refuses_cpu():
         nn_cuda.nn_cuda(torch.as_tensor(q), torch.as_tensor(r))
 
 
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
-    return torch.device("cuda")
-
-
 # ---- the kernel's screen: margin, emulation, plan ------------------------------------
-
-
-def screen_fixture(name):
-    """(query, ref, ref_mask) float32 / bool numpy arrays, made from a seed."""
-    rng = np.random.default_rng(sum(map(ord, name)))
-
-    def uniform(n, lo=-1.0, hi=1.0):
-        return rng.uniform(lo, hi, size=(n, 3)).astype(np.float32)
-
-    if name == "uniform":
-        return uniform(2000), uniform(5000), np.ones(5000, bool)
-    if name == "coords at 100":  # far from the origin: the expansion cancels
-        c = np.float32([100, -100, 100])
-        return uniform(500) + c, uniform(2000) + c, np.ones(2000, bool)
-    if name == "exact duplicates":  # small integers: many exact copies and exact ties
-        r = rng.integers(-3, 4, size=(700, 3)).astype(np.float32)
-        q = np.concatenate([r[:200], rng.integers(-6, 7, size=(200, 3)) * np.float32(0.5)])
-        return q.astype(np.float32), r, np.ones(len(r), bool)
-    if name == "ulp neighbours":  # second neighbours one ulp from the first
-        q = uniform(400)
-        r1 = q + rng.normal(scale=1e-3, size=q.shape).astype(np.float32)
-        r2, r3 = r1.copy(), r1.copy()
-        r2[:, 0] = np.nextafter(r1[:, 0], np.float32(np.inf))
-        r3[:, 1] = np.nextafter(r1[:, 1], np.float32(-np.inf))
-        r = np.concatenate([r1, r2, r3, uniform(1000)])[rng.permutation(2200)]
-        return q, r, np.ones(len(r), bool)
-    if name == "PAD_COORD queries":  # capacity rows at PAD_COORD on both sides
-        q, r = uniform(340), uniform(520)
-        q[300:] = PAD_COORD
-        r[500:] = PAD_COORD
-        return q, r, np.arange(520) < 500
-    if name == "half masked":
-        return uniform(1000), uniform(3001), rng.uniform(size=3001) < 0.5
-    if name == "all masked":
-        return uniform(300), uniform(700), np.zeros(700, bool)
-    raise KeyError(name)
-
-
-SCREEN_FIXTURES = ["uniform", "coords at 100", "exact duplicates", "ulp neighbours",
-                   "PAD_COORD queries", "half masked"]
 
 
 def _sqnorm(x):
@@ -325,10 +258,6 @@ def test_emulated_screen_equals_reference_bit_for_bit(name, splits):
         assert np.isinf(d_e).all() and (i_e == 0).all()
 
 
-# the constants of csrc/nn.cu, which the wrapper reads from the built library
-CSRC_SHAPE = nn_cuda.KernelShape(threads=256, queries_per_thread=4, group=8, tile_r=256)
-
-
 @pytest.mark.parametrize("nq,nr,sms,per_sm,want", [
     (65536, 65536, 132, 4, (64, 8, 32)),  # the 65k pair: one wave of 512 blocks
     (3456, 3456, 132, 4, (4, 14, 1)),  # the cat pair: a split a tile
@@ -340,44 +269,3 @@ def test_plan_fills_one_wave(nq, nr, sms, per_sm, want):
     assert (q_blocks, splits, per_split) == want
     tiles = max(1, -(-nr // CSRC_SHAPE.tile_r))
     assert (splits - 1) * per_split < tiles <= splits * per_split
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize(
-    "nq,nr,masked_frac", [(3456, 3456, 0.0), (1000, 70001, 0.5), (4099, 5000, 1.0)]
-)
-def test_cuda_kernel_matches_plain(cuda_device, nq, nr, masked_frac):
-    q, r, mask = _inputs(nq, nr, seed=nq, masked_frac=masked_frac)
-    qc, rc, mc = (torch.as_tensor(x, device=cuda_device) for x in (q, r, mask))
-    d_k, i_k = nn_cuda.nn_cuda(qc, rc, mc)
-    d_p, i_p = nearest_neighbor_reference(qc, rc, ref_mask=mc)
-    torch.cuda.synchronize()
-    assert torch.equal(d_k, d_p) and torch.equal(i_k, i_p)  # bit for bit
-    if masked_frac == 1.0:
-        assert (i_k == 0).all() and torch.isinf(d_k).all()
-    for name in SCREEN_FIXTURES:
-        q, r, mask = (torch.as_tensor(x, device=cuda_device) for x in screen_fixture(name))
-        d_k, i_k = nn_cuda.nn_cuda(q, r, mask)
-        d_p, i_p = nearest_neighbor_reference(q, r, ref_mask=mask)
-        assert torch.equal(d_k, d_p) and torch.equal(i_k, i_p), name
-    qd, rd, expect = duplicate_fixture()
-    _, i_d = nn_cuda.nn_cuda(torch.as_tensor(qd, device=cuda_device),
-                             torch.as_tensor(rd, device=cuda_device))
-    np.testing.assert_array_equal(to_np(i_d), expect)
-
-
-@pytest.mark.cuda
-def test_cuda_library_shape_and_scratch_check(cuda_device):
-    """The built library reports the shape the plan tests above assume, and
-    refuses a scratch smaller than its own layout."""
-    assert nn_cuda.kernel_shape() == CSRC_SHAPE
-    lib = nn_cuda.build()
-    q = torch.zeros((10, 3), device=cuda_device)
-    need = lib.icpx_nn_scratch_bytes(10, 10)
-    scratch = torch.empty((need,), dtype=torch.uint8, device=cuda_device)
-    d = torch.empty((10,), device=cuda_device)
-    i = torch.empty((10,), dtype=torch.int32, device=cuda_device)
-    rc = lib.icpx_nn_forward(q.data_ptr(), q.data_ptr(), None, 10, 10, scratch.data_ptr(),
-                             need - 1, 1, d.data_ptr(), i.data_ptr(), q.device.index,
-                             torch.cuda.current_stream(cuda_device).cuda_stream)
-    assert rc != 0

@@ -191,7 +191,10 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
     device = {"device_ms", "library_device_ms"}
     extras = {"nn": {"ms_3456", "plain_ms_3456", "library_ms_3456", "bound_ms_3456", "splits",
                      "splits_3456", "device_ms", "device_ms_3456", "library_device_ms_3456"},
-              "moments6": {"cov_max_abs_err", "cov_err_over_tol", "device_ms"},
+              "moments6": {"cov_max_abs_err", "cov_err_over_tol", "device_ms", "bytes_ms", "band_pairs",
+                           "screened_pairs", "mean_count", "ms_k8", "device_ms_k8", "plain_ms_k8",
+                           "bound_ms_k8", "bytes_ms_k8", "band_pairs_k8", "screened_pairs_k8",
+                           "mean_count_k8"},
               "fold6": {"device_ms", "ms_d12", "plain_ms_d12", "device_ms_d12", "bound_ms_d12",
                         "prepare_ms"},
               "fold7": {"device_ms", "ms_d12", "plain_ms_d12", "device_ms_d12", "bound_ms_d12",

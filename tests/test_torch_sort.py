@@ -24,21 +24,9 @@ from icpx.kernels.sort_pallas import sort_segments as j_sort_segments
 import icpx_torch.kernels.blocknn as tb
 from icpx_torch.kernels import sort_cuda
 from icpx_torch.kernels.sort_cuda import sort_segments, sort_segments_reference
+from test_torch_cuda import SORT_SHAPE
+from test_torch_cuda import _sort_keys as _keys
 from torch_parity import to_np
-
-
-def _keys(c, m, seed):
-    """Duplicate-heavy keys with a PAD_COORD tail in every other segment
-    and signed zeros scattered through them; payloads a, b (f32), o (i32)."""
-    rng = np.random.default_rng(seed)
-    key = (rng.integers(-m // 16, m // 16, size=(c, m)) * 0.5).astype(np.float32)
-    zeros = rng.uniform(size=(c, m)) < 0.05
-    key[zeros] = np.where(rng.uniform(size=int(zeros.sum())) < 0.5, -0.0, 0.0)
-    key[::2, ::3] = PAD_COORD
-    a = rng.normal(size=(c, m)).astype(np.float32)
-    b = rng.normal(size=(c, m)).astype(np.float32)
-    o = rng.permutation(c * m).reshape(c, m).astype(np.int32)
-    return key, a, b, o
 
 
 def _assert_bits_equal(got, want):
@@ -107,10 +95,6 @@ def test_kd_index_through_the_sort_matches_jax(s, monkeypatch):
     np.testing.assert_array_equal(to_np(ti.box_hi), np.asarray(ji.box_hi))
     assert calls and calls[-1] == (16384 // (2 * s), 2 * s)
     assert all(c * m_ == 16384 for c, m_ in calls)
-
-
-# the constants of csrc/sort.cu, which the wrapper reads from the built library
-SORT_SHAPE = sort_cuda.KernelShape(max_payloads=4, block_elems=8192, threads=512)
 
 
 @pytest.mark.parametrize("c,m,want", [
@@ -240,35 +224,3 @@ def test_emulated_sort_network_equals_stable_sort(e_n, t_n, c, m):
     want = np.take_along_axis(_pack(key).reshape(c, m), stable, axis=1)
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal((got & 0xFFFFFFFF).astype(np.int64), stable)
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("c,m", [(3, 2), (64, 128), (4, 16384), (2, 65536), (64, 16384),
-                                 (256, 4096), (1024, 1024), (4096, 256), (8192, 128),
-                                 (16, 65536)])
-def test_cuda_sort_matches_plain(cuda_device, c, m):
-    """Every level shape of the 1M flagship's KD builds among them."""
-    key, a, _, o = _keys(c, m, seed=7)
-    args = [torch.as_tensor(x, device=cuda_device) for x in (key, a, o)]
-    xyz = torch.randn((c, m, 3), device=cuda_device)
-    before = sort_cuda.LAUNCHES["sort"]
-    got = sort_cuda.sort_cuda(args[0], [args[1], args[2], xyz])
-    want = sort_segments_reference(args[0], [args[1], args[2], xyz])
-    torch.cuda.synchronize()
-    assert sort_cuda.LAUNCHES["sort"] == before + 1
-    for g, w in zip(got, want):
-        assert torch.equal(g.view(torch.int32) if g.dtype == torch.float32 else g,
-                           w.view(torch.int32) if w.dtype == torch.float32 else w)
-
-
-@pytest.mark.cuda
-def test_cuda_sort_library_shape(cuda_device):
-    """The built library reports the shape the plan tests above assume."""
-    assert sort_cuda.kernel_shape() == SORT_SHAPE
