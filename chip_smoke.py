@@ -131,6 +131,12 @@ def _bound(bytes_moved: float, flops: float):
     return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops else "operations")
 
 
+def _input_bytes(*tensors) -> int:
+    """Bytes of 4-byte inputs, each read once: a tensor passed twice (tiles
+    that query themselves) counts once."""
+    return 4 * sum({(t.data_ptr(), t.numel()): t.numel() for t in tensors}.values())
+
+
 def _max_err(a, b) -> float:
     """max |a - b| over the rows where b is finite (0 where there are none)."""
     fin = torch.isfinite(b)
@@ -577,7 +583,7 @@ def _phase_moments6(dev, index, radius, fixtures, f_tgt):
         screened, band, pad = _moments6_work(idx.tiles, idx.tiles, cand, q_cent, r2)
         inside = float(out[0].sum())
         n_ops = tq * k * s * 8.0 + screened * 7.0 + band * 8.0 + inside * 16.0
-        bytes_moved = n * 12 + idx.tiles.numel() * 4 + cand.numel() * 4 + tq * 12 + 4 + n * 40
+        bytes_moved = _input_bytes(idx.tiles, idx.tiles, cand32, q_cent, r2) + n * 40
         bound_ms, bound_by = _bound(bytes_moved, n_ops)
         timed.update({f"ms{suffix}": ms, f"device_ms{suffix}": device_ms, f"plain_ms{suffix}": plain_ms,
                       f"bound_ms{suffix}": bound_ms, f"bytes_ms{suffix}": bytes_moved / HBM_BYTES_PER_S * 1e3,
@@ -1324,7 +1330,7 @@ def _phase_moments_fused(dev, f_tgt, group=4, u_max=32, k_tiles=8):
     n = idx.tiles.shape[0] * idx.tile_size
     pairs = float(sizes.sum()) * idx.tile_size * gq  # the distinct union rows, as scored
     inside = float(out_k[0].sum())  # pairs within the radius (slot 0 weighted): 20 more flops each
-    bytes_moved = n * 12 + idx.tiles.numel() * 4 + unions.numel() * 4 + q_cent.numel() * 4 + n * 40
+    bytes_moved = _input_bytes(idx.tiles, idx.tiles, unions, q_cent) + n * 40
     bound_ms, bound_by = _bound(bytes_moved, pairs * 8.0 + inside * 20.0)
     print(f"moments_fused kernel vs plain {tuple(idx.tiles.shape)} k={k_tiles} group={group} "
           f"radius {float(radius):.4e}: counts equal on all {n} rows (mean {float(cnt[valid].mean()):.2f}), "
@@ -1428,7 +1434,8 @@ def main(dev=None, n_pair: int = N_PAIR, n_flag: int = N_FLAG, n_small: int = N_
           f"{blocknn_cuda.library_path().name}, {sort_cuda.library_path().name}")
     for stem in cuda_build.STEMS:
         for line in cuda_build.build_log(stem).splitlines():
-            if any(w in line for w in ("entry function", "registers", "spill", "smem")):
+            if any(w in line for w in ("entry function", "Function properties", "registers", "spill",
+                                       "smem")):
                 print(f"  ptxas {stem}: {line.strip()}")
 
     # 3. Kernels against their plain versions -----------------------------------

@@ -654,8 +654,10 @@ moments_fused_kernel(const float* __restrict__ query, const float* __restrict__ 
 // pair at ~60% issue) and ~0.053 the walk: a warp makes ~11 passes a stage,
 // the most hits any of its 64 queries has there, against 5.4 on average, at
 // ~110 instructions a pass, a third of them finding and clearing the next
-// bit of two 128-bit masks. 4 queries a thread (sums in 40 registers, 80 a thread, and
-// spills) ran 0.200 ms; uncapped registers 0.132; 6 blocks an SM 0.134.
+// bit of two 128-bit masks. Capped at 8 blocks an SM (64 registers), ptxas spills 28
+// bytes to a 32-byte stack (52 bytes of reloads); uncapped (72 registers, no spill) it
+// ran 0.131 ms, and at 6 blocks an SM (79 registers, 12 bytes spilled) 0.134, so the cap
+// stays. 4 queries a thread (sums in 40 registers, spills at 80) ran 0.200 ms.
 constexpr int kM6Threads = 128;
 constexpr int kM6Q = 2;              // queries a thread
 constexpr int kM6Group = 32;         // rows a mask word covers

@@ -57,10 +57,10 @@ from icpx_torch.kernels.knn import nearest_neighbor_reference
 from icpx_torch.kernels.normals import estimate_normals
 from icpx_torch.kernels.voxel import auto_cell_size
 import chip_smoke
-from test_torch_cuda import (F4_SHAPE, F6_FIXTURE_SHAPES, F6_FIXTURES, F6_SHAPE, F7_FIXTURE_SHAPES,
-                             F7_FIXTURES, F7_SHAPE, M6_FIXTURE_SHAPES, M6_FIXTURES, M6_SHAPE,
-                             MF_SHAPE, RADIUS_U, _cov_tol, _fused4_tie_case, _slot_weights_fixture,
-                             _table_view, _tie_fixture)
+from torch_fixtures import (F4_SHAPE, F6_FIXTURE_SHAPES, F6_FIXTURES, F6_SHAPE, F7_FIXTURE_SHAPES,
+                            F7_FIXTURES, F7_SHAPE, M6_FIXTURE_SHAPES, M6_FIXTURES, M6_SHAPE,
+                            MF_SHAPE, RADIUS_U, _cov_tol, _fused4_tie_case, _slot_weights_fixture,
+                            _table_view, _tie_fixture)
 from torch_parity import clouds, to_np
 
 GAP = 1e-4
@@ -423,7 +423,7 @@ def test_fold6_all_sentinel_candidates_miss():
 
 # ---- the fold6 kernel's screen: emulation, margin, plan ------------------------------
 
-# The fold6 kernel's shape (F6_SHAPE, test_torch_cuda.py) with short stages,
+# The fold6 kernel's shape (F6_SHAPE, torch_fixtures.py) with short stages,
 # so that a candidate tile's lanes span several stages and a block holds
 # fewer tiles.
 F6_SHORT = F6_SHAPE._replace(stage_rows=48)
@@ -1400,7 +1400,7 @@ def test_fused4_group_must_divide_query_tiles():
         blocknn_cuda.block_nn_fused4(qt, _same_index(ji), group=4)
 
 
-# The fused4 kernel's shape (F4_SHAPE, test_torch_cuda.py) with short chunks,
+# The fused4 kernel's shape (F4_SHAPE, torch_fixtures.py) with short chunks,
 # so that a union's lanes span several chunks.
 F4_SHORT = F4_SHAPE._replace(chunk_rows=32)
 
@@ -1616,7 +1616,7 @@ def test_moments_fused_slot_weights_equal_summing_every_slot():
     np.testing.assert_allclose(out[1:], want[1:], rtol=1e-5, atol=1e-5)
 
 
-# The moments_fused kernel's shape (MF_SHAPE, test_torch_cuda.py) with chunks
+# The moments_fused kernel's shape (MF_SHAPE, torch_fixtures.py) with chunks
 # of 32 rows (unions of up to 8 slots), so that a union's lanes span several
 # chunks.
 MF_SHORT = MF_SHAPE._replace(chunk_rows=32)

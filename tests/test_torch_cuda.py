@@ -13,13 +13,9 @@ plain version on the same card tensors: bit for bit, but for the moments
 kernels, whose counts are bit for bit and whose sums are held to
 tolerances stated at each test.
 
-The fixtures, the fixture lists and the copies of the kernels' shapes live
-here, JAX-free; the CPU tests (`test_torch_nn.py`, `test_torch_sort.py`,
-`test_torch_blocknn.py`) import them from this file for their emulations
-and plan checks.
+The fixtures, the fixture lists and the copies of the kernels' shapes are
+`torch_fixtures.py`'s, which the CPU tests share.
 """
-
-from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -28,13 +24,17 @@ import torch
 import chip_smoke
 import icpx_torch.kernels.blocknn as tb
 from icpx_torch import interop
-from icpx_torch.cloud import PAD_COORD
 from icpx_torch.io.loaders import synthetic_surface
 from icpx_torch.kernels import blocknn_cuda, nn_cuda, sort_cuda
 from icpx_torch.kernels.blocknn_cuda import fold6_prepare, fold6_reference, moments6_reference
 from icpx_torch.kernels.knn import nearest_neighbor_reference
 from icpx_torch.kernels.sort_cuda import sort_segments_reference
 from icpx_torch.kernels.voxel import auto_cell_size
+from torch_fixtures import (CSRC_SHAPE, F4_SHAPE, F6_FIXTURE_SHAPES, F6_FIXTURES, F6_SHAPE,
+                            F7_FIXTURES, F7_SHAPE, M6_FIXTURE_SHAPES, M6_FIXTURES, M6_SHAPE,
+                            MF_SHAPE, RADIUS_U, SCREEN_FIXTURES, SORT_SHAPE, _cov_tol,
+                            _fused4_tie_case, _nn_inputs, _slot_weights_fixture, _sort_keys,
+                            _table_view, _tie_fixture, duplicate_fixture, screen_fixture)
 
 
 def _np(x) -> np.ndarray:
@@ -48,126 +48,7 @@ def cuda_device():
     return torch.device("cuda")
 
 
-# ---- the kernels' shapes, as csrc/ defines them -----------------------------------------
-# The wrappers read these from the built library; the plan and emulation
-# tests run on copies, and the card tests below hold the library to them.
-
-M6_SHAPE = blocknn_cuda.Moments6Shape(threads=128, queries_per_thread=2, group=32, stage_lanes=128,
-                                     stage_rows=512)
-CSRC_SHAPE = nn_cuda.KernelShape(threads=256, queries_per_thread=4, group=8, tile_r=256)
-SORT_SHAPE = sort_cuda.KernelShape(max_payloads=4, block_elems=8192, threads=512)
-F6_SHAPE = blocknn_cuda.Fold6Shape(threads=128, queries_per_thread=4, group=8, stage_rows=1024)
-F7_SHAPE = blocknn_cuda.Fold6Shape(threads=128, queries_per_thread=4, group=8, stage_rows=1024)
-F4_SHAPE = blocknn_cuda.Fused4Shape(threads=256, queries_per_thread=4, lane_threads=4,
-                                    chunk_rows=512)
-MF_SHAPE = blocknn_cuda.Fused4Shape(threads=256, queries_per_thread=4, lane_threads=4,
-                                    chunk_rows=512)
-
-# chip_smoke's fixture kinds and shapes, (tq, sq, s, k), by test id
-M6_FIXTURES = list(chip_smoke.MOMENTS6_FIXTURES)
-M6_FIXTURE_SHAPES = dict(zip(["1M plan", "k8", "sq22", "sq3-s8", "sq600-s300", "s100", "sq5-s130"],
-                             chip_smoke.MOMENTS6_FIXTURE_SHAPES))
-F6_FIXTURES = list(chip_smoke.FOLD6_FIXTURES)
-F6_FIXTURE_SHAPES = dict(zip(["sq20", "sq64-s100", "sq3", "sq600-s2000", "sq128", "sq64-8tiles"],
-                             chip_smoke.FOLD6_FIXTURE_SHAPES))
-F7_FIXTURES = list(chip_smoke.FOLD7_FIXTURES)
-F7_FIXTURE_SHAPES = dict(zip(["1M plan", "25 a block", "sq30-s100", "k8-s512", "sq600-s2000",
-                              "sq3-s13", "k200", "sq128"], chip_smoke.FOLD7_FIXTURE_SHAPES))
-
-
-# ---- brute NN fixtures (kernel #1) --------------------------------------------------------
-
-
-def _nn_inputs(nq, nr, seed, masked_frac=0.0):
-    rng = np.random.default_rng(seed)
-    q = rng.uniform(-1.0, 1.0, size=(nq, 3)).astype(np.float32)
-    r = rng.uniform(-1.0, 1.0, size=(nr, 3)).astype(np.float32)
-    mask = rng.uniform(size=nr) >= masked_frac
-    return q, r, mask
-
-
-def duplicate_fixture():
-    """Refs with exact duplicates at several indices; queries sit exactly on
-    some of them. Coordinates are small integers, so every squared distance
-    is exact in fp32 under either scoring formula."""
-    base = np.array([[0, 0, 0], [3, 1, 2], [-2, 4, 1], [5, -3, 0]], np.float32)
-    ref = np.concatenate([base[[1, 2]], base, base[[0, 1]], base], axis=0)
-    query = np.concatenate([base, base + np.float32([0, 0, 1])], axis=0)
-    # expected: the first occurrence of the exact match / nearest copy
-    d = ((query[:, None, :] - ref[None]) ** 2).sum(-1)
-    expect = d.argmin(1)  # numpy: first index among ties
-    return query, ref, expect
-
-
-def screen_fixture(name):
-    """(query, ref, ref_mask) float32 / bool numpy arrays, made from a seed."""
-    rng = np.random.default_rng(sum(map(ord, name)))
-
-    def uniform(n, lo=-1.0, hi=1.0):
-        return rng.uniform(lo, hi, size=(n, 3)).astype(np.float32)
-
-    if name == "uniform":
-        return uniform(2000), uniform(5000), np.ones(5000, bool)
-    if name == "coords at 100":  # far from the origin: the expansion cancels
-        c = np.float32([100, -100, 100])
-        return uniform(500) + c, uniform(2000) + c, np.ones(2000, bool)
-    if name == "exact duplicates":  # small integers: many exact copies and exact ties
-        r = rng.integers(-3, 4, size=(700, 3)).astype(np.float32)
-        q = np.concatenate([r[:200], rng.integers(-6, 7, size=(200, 3)) * np.float32(0.5)])
-        return q.astype(np.float32), r, np.ones(len(r), bool)
-    if name == "ulp neighbours":  # second neighbours one ulp from the first
-        q = uniform(400)
-        r1 = q + rng.normal(scale=1e-3, size=q.shape).astype(np.float32)
-        r2, r3 = r1.copy(), r1.copy()
-        r2[:, 0] = np.nextafter(r1[:, 0], np.float32(np.inf))
-        r3[:, 1] = np.nextafter(r1[:, 1], np.float32(-np.inf))
-        r = np.concatenate([r1, r2, r3, uniform(1000)])[rng.permutation(2200)]
-        return q, r, np.ones(len(r), bool)
-    if name == "PAD_COORD queries":  # capacity rows at PAD_COORD on both sides
-        q, r = uniform(340), uniform(520)
-        q[300:] = PAD_COORD
-        r[500:] = PAD_COORD
-        return q, r, np.arange(520) < 500
-    if name == "half masked":
-        return uniform(1000), uniform(3001), rng.uniform(size=3001) < 0.5
-    if name == "all masked":
-        return uniform(300), uniform(700), np.zeros(700, bool)
-    raise KeyError(name)
-
-
-SCREEN_FIXTURES = ["uniform", "coords at 100", "exact duplicates", "ulp neighbours",
-                   "PAD_COORD queries", "half masked"]
-
-
-# ---- sort fixtures (kernel #8) ------------------------------------------------------------
-
-
-def _sort_keys(c, m, seed):
-    """Duplicate-heavy keys with a PAD_COORD tail in every other segment
-    and signed zeros scattered through them; payloads a, b (f32), o (i32)."""
-    rng = np.random.default_rng(seed)
-    key = (rng.integers(-m // 16, m // 16, size=(c, m)) * 0.5).astype(np.float32)
-    zeros = rng.uniform(size=(c, m)) < 0.05
-    key[zeros] = np.where(rng.uniform(size=int(zeros.sum())) < 0.5, -0.0, 0.0)
-    key[::2, ::3] = PAD_COORD
-    a = rng.normal(size=(c, m)).astype(np.float32)
-    b = rng.normal(size=(c, m)).astype(np.float32)
-    o = rng.permutation(c * m).reshape(c, m).astype(np.int32)
-    return key, a, b, o
-
-
-# ---- block-NN fixtures (kernels #2-#7) -----------------------------------------------------
-
-
-def _cov_tol(mean, comps, q_cent, sq):
-    """Per-row tolerance of the six covariance components: 1e-4 of the row's
-    trace (they are ~r^2/4 in the plane and far smaller along the normal,
-    below any fixed atol), plus 1e-5 of |mean - q_cent|^2 for the fp32
-    cancellation in E[rr^T] - m m^T, which grows with the mean's offset from
-    the query tile's centroid. A zero or swapped component fails it."""
-    q_rows = np.repeat(np.asarray(q_cent, np.float64), sq, axis=0)
-    mean, comps = np.asarray(mean, np.float64), [np.asarray(c, np.float64) for c in comps]
-    return 1e-4 * (comps[0] + comps[3] + comps[5]) + 1e-5 * ((mean - q_rows) ** 2).sum(-1)
+# ---- inputs built on the card by the port's own index builders -------------------------
 
 
 def _moments_case(device):
@@ -194,72 +75,6 @@ def _fold_case(seed, device):
     table = tb.fused_payload_table(ti, torch.as_tensor(aux, device=device))
     cand, _ = tb._candidate_tiles(tq.tiles, ti, 6)
     return tq, ti, table, cand
-
-
-def _tie_fixture():
-    """One query tile over 4 index tiles of 8 rows, integer coordinates (every
-    d2 exact under either scoring form). Rows carry their flat position as
-    payload. Query 0 sits on a point held at lane 3 of tile 0 and lane 1 of
-    tile 1; query 1 on a point at lane 2 of tiles 2 and 3."""
-    tiles = np.arange(4 * 8 * 3, dtype=np.float32).reshape(4, 8, 3) * 10.0 + 100.0
-    p, p2 = np.float32([1, 2, 3]), np.float32([-4, 5, -6])
-    tiles[0, 3] = tiles[1, 1] = p
-    tiles[2, 2] = tiles[3, 2] = p2
-    query = np.full((1, 8, 3), 50.0, np.float32)
-    query[0, 0], query[0, 1] = p, p2
-    payload = np.repeat(np.arange(32, dtype=np.float32)[:, None], 6, axis=1)
-    fields = SimpleNamespace(tiles=tiles, box_lo=tiles.min(1), box_hi=tiles.max(1),
-                             centroids=tiles.mean(1), order=np.arange(32, dtype=np.int32))
-    return query, payload, fields
-
-
-def _table_view(rows, d, offset, device="cpu"):
-    """A contiguous (rows, d) float32 view that starts `offset` floats into
-    its storage (the storage itself is aligned to 16 bytes or more)."""
-    flat = torch.arange(rows * d + offset, dtype=torch.float32, device=device)
-    return flat[offset:].view(rows, d)
-
-
-def _fused4_tie_case(name):
-    """Integer coordinates (every score exact) in tiles of 32 lanes, tile 4
-    all sentinel. "lanes and slots": the query's point p sits at tile 0
-    lane 3, tile 1 lane 1, tile 2 lane 3 again (a later slot of the same
-    lane) and tile 3 lane 6, so lane 3 keeps slot 0 and the largest key is
-    tile 3's lane 6 (slot 3); the unions are padded (4 of 8 slots). "all
-    sentinel": one group's union is tile 4 alone, padded: every score ties,
-    the earliest slot in each lane, then the last lane. Returns (query
-    tiles (4, 8, 3), tiles (5, 32, 3), unions (2, 8), group 2, wanted
-    position of query 0 or None)."""
-    rng = np.random.default_rng(33)
-    tiles = rng.integers(-20, 21, size=(5, 32, 3)).astype(np.float32)
-    tiles[4] = PAD_COORD
-    query = rng.integers(-20, 21, size=(4, 8, 3)).astype(np.float32)
-    query[3, 5:] = PAD_COORD  # padded query rows
-    p = np.float32([50, 50, 50])
-    tiles[0, 3] = tiles[1, 1] = tiles[2, 3] = tiles[3, 6] = p
-    query[0, 0] = p + np.float32([0, 0, 1])
-    cand = torch.tensor([[0, 1], [2, 3], [3, 1], [0, 2]])
-    want = 3 * 32 + 6
-    if name == "all sentinel":
-        cand = torch.tensor([[0, 1], [2, 3], [4, 4], [4, 4]])
-    unions = blocknn_cuda.group_unions(cand, 2, 8)
-    return query, tiles, unions, 2, want
-
-
-RADIUS_U = 0.15  # the union moments' radius on 8,000 uniform points
-
-
-def _slot_weights_fixture():
-    """Query tiles (8, 16, 3) in 2 groups of 4, tiles (8, 16, 3) with sentinel
-    rows in tile 7 and padded queries in tile 5, and one padded union (3 of
-    8 slots) beside a full one."""
-    unions = torch.tensor([[1, 2, 5, 1, 1, 1, 1, 1], [3, 0, 4, 6, 2, 7, 5, 1]])
-    rng = np.random.default_rng(21)
-    tiles = rng.uniform(-1, 1, (8, 16, 3)).astype(np.float32)
-    tiles[7, 10:] = PAD_COORD
-    query = rng.uniform(-1, 1, (8, 16, 3)).astype(np.float32)
-    query[5, 12:] = PAD_COORD
-    return query, tiles, unions
 
 
 # ---- kernel #1: the brute 1-NN --------------------------------------------------------------

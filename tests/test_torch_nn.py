@@ -26,8 +26,8 @@ from icpx.kernels.knn import knn as j_knn
 from icpx.kernels.knn_pallas import nn_pallas
 from icpx_torch.kernels import nn_cuda
 from icpx_torch.kernels.knn import knn, nearest_neighbor, nearest_neighbor_reference
-from test_torch_cuda import CSRC_SHAPE, SCREEN_FIXTURES, duplicate_fixture, screen_fixture
-from test_torch_cuda import _nn_inputs as _inputs
+from torch_fixtures import CSRC_SHAPE, SCREEN_FIXTURES, duplicate_fixture, screen_fixture
+from torch_fixtures import _nn_inputs as _inputs
 from torch_parity import to_np
 
 GAP = 1e-4

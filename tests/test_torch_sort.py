@@ -24,8 +24,8 @@ from icpx.kernels.sort_pallas import sort_segments as j_sort_segments
 import icpx_torch.kernels.blocknn as tb
 from icpx_torch.kernels import sort_cuda
 from icpx_torch.kernels.sort_cuda import sort_segments, sort_segments_reference
-from test_torch_cuda import SORT_SHAPE
-from test_torch_cuda import _sort_keys as _keys
+from torch_fixtures import SORT_SHAPE
+from torch_fixtures import _sort_keys as _keys
 from torch_parity import to_np
 
 
