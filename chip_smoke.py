@@ -23,21 +23,39 @@ result against its ground truth:
 * GICP at the same flagship, covariances estimated inside the
   registration (3 reps, each held to the GT gate), then with covariances
   taken through the union moments kernel;
+* the rest of the registration layer at that size: the refine-stride mid
+  phase (stride 2 under "auto" and "vmem7", stride 4 under "auto"), the
+  feature-augmented metric (an intensity channel; then the degenerate
+  plane of 131,072 points, with and without it), NDT ("p2d" and "d2d",
+  cells of 64), `horn_align` on the source and its GT image, and
+  `voxel_nn` against the nn kernel's exact NN;
 * a 16,384-point pair on the card against the same pair on the CPU under
-  "vmem", "vmem7", "select" and block_fused "on", symmetric and GICP.
+  "vmem", "vmem7", "select" and block_fused "on", symmetric and GICP, and
+  the mid phase under "vmem" and "select";
+* batched pairs: `register_batch` on 8 scan-size pairs of 8,000 points and
+  `register_batch_block` on 4 pairs of 65,536, and `register_pyramid` on a
+  65,536-point pair at 0.9 rad (levels of 4,096, 16,384 and 65,536
+  points).
+
+Before the paths, fold6, fold7 and select are also held to their plain
+versions and timed at the mid phase's query tiles (16,384 x 32 and x 16).
 
 Every path's KD builds sort through the sort kernel. Launch counters are
-set to 0 just before each path and read just after. Every phase prints one
-line (or a few); any failure raises, so the exit code is non-zero. The SM
+set to 0 just before each path and read just after, and each path is held
+to the launches it must make (per pyramid level and per pair where it runs
+several registrations). Every phase prints one line (or a few) with its
+GT errors, launches, wall (median of 3) and peak memory; any failure
+raises, so the exit code is non-zero. The SM
 clock is sampled before and after the kernel phases. The last two lines
 are a JSON object per kernel and the verdict ``{"ok": true, "device":
 {...}}``. Without a CUDA device it refuses to run.
 
-    python3 chip_smoke.py --profile [--n 1048576]
+    python3 chip_smoke.py --profile [--n 1048576] [--paths new]
 
 runs none of that: it profiles one flagship registration under each of
 those block paths and GICP (`torch.profiler`) and prints where the device
-time goes.
+time goes; with `--paths new`, the mid phase, feat_nn, NDT, the batched
+paths and the pyramid instead.
 """
 
 import argparse
@@ -55,6 +73,8 @@ import torch
 N_PAIR = 65536  # one rotating-LiDAR sweep; the round-1 `bench.py --n 65536` point
 N_FLAG = 1048576  # bench.py's flagship pair
 N_SMALL = 16384  # the block pair run on the card and on the CPU
+N_BATCH = 8000  # register_batch's scan-size pairs, just under block_auto_threshold
+N_PLANE = 131072  # the degenerate plane of the feature phase
 
 # Peak rates of one H100 SXM (NVIDIA data sheet, at the 700 W limit): the
 # bound of a kernel is the larger of its bytes over the memory rate and its
@@ -166,18 +186,24 @@ def _duplicate_fixture():
     return query, ref, np.ones(len(ref), bool), expect
 
 
-def _gt_pair(n, seed, dev, angle=0.2, translation=(0.12, -0.06, 0.03)):
+def _gt_pair(n, seed, dev, angle=0.2, translation=(0.12, -0.06, 0.03), axis=(0.0, 0.0, 1.0)):
     """bench.py's construction: a synthetic surface, its rigid image under
-    the GT, shuffled with default_rng(1)."""
+    the GT, shuffled with default_rng(1) (`_pair_perm`)."""
     from icpx_torch.cloud import PointCloud
     from icpx_torch.geometry.transforms import make_rigid_perturbation
     from icpx_torch.io.loaders import synthetic_surface
 
     src = PointCloud.create(synthetic_surface(n, seed=seed), capacity=n, device=dev)
-    gt = make_rigid_perturbation(angle=angle, translation=translation, device=dev)
-    perm = torch.as_tensor(np.random.default_rng(1).permutation(n), device=dev)
+    gt = make_rigid_perturbation(axis=axis, angle=angle, translation=translation, device=dev)
+    perm = _pair_perm(n, dev)
     tgt = PointCloud.create(gt.apply(src.xyz)[perm], capacity=n, device=dev)
     return src, tgt.replace(mask=src.mask[perm]), gt
+
+
+def _pair_perm(n, dev):
+    """The target's row order in `_gt_pair`: row i of the target is the
+    image of source row perm[i]."""
+    return torch.as_tensor(np.random.default_rng(1).permutation(n), device=dev)
 
 
 def _flag_configs():
@@ -214,6 +240,14 @@ _FLAG_LAUNCHES = {
     "fused": {"moments6": 2, "fused4": "all", "sort": "builds"},
     "gicp": {"fold6": "refine", "sort": "gicp builds"},
     "gicp fused": {"fold6": "refine", "sort": "gicp builds", "moments_fused": 2},
+    # the refine-stride mid phase: the fold once an iteration of the mid
+    # phase and of the full-resolution tail ("refine" counts both)
+    "mid2": {"moments6": 2, "fold6": "refine", "sort": "builds"},
+    "mid2 vmem7": {"moments6": 2, "fold7": "refine", "sort": "builds"},
+    "mid4": {"moments6": 2, "fold6": "refine", "sort": "builds"},
+    # a feature channel: the plain fold and a row gather in both phases, no
+    # fold kernel, as in the reference
+    "feat": {"moments6": 2, "sort": "builds"},
 }
 # The flagship path whose launches the kernels line reports for each kernel.
 _LAUNCHES_FROM = {"moments6": "kernels", "fold6": "kernels", "fold7": "vmem7",
@@ -635,7 +669,7 @@ FOLD6_FIXTURES = ("random", "exact ties", "near ties", "mixed sentinel", "all se
 # blocks with S over two stages (600, 2000), whole blocks of one and of
 # eight tiles (128 and 64 queries)
 FOLD6_FIXTURE_SHAPES = ((6, 20, 32, 4), (3, 64, 100, 6), (9, 3, 8, 2), (5, 600, 2000, 1),
-                        (4, 128, 128, 6), (8, 64, 128, 6))
+                        (4, 128, 128, 6), (8, 64, 128, 6), (8, 32, 128, 6), (8, 16, 128, 6))
 
 
 def fold6_fixture(name, tq=6, sq=20, s=32, k=4, n_tiles=12, device="cpu"):
@@ -696,6 +730,49 @@ def fold6_fixture(name, tq=6, sq=20, s=32, k=4, n_tiles=12, device="cpu"):
             torch.as_tensor(payload, device=device))
 
 
+def _fold6_bound(query, o):
+    """(bound ms, "bytes" or "operations", operations, far queries) of one
+    fold6 call on `query` with operands `o`. The operations this run's data
+    needs of the kernel's method: each staged row packed (8 a row a query
+    tile); for a query below the far limit, every pair screened (3 FFMA =
+    6, and a min) and at least its least group of 8 rows rescored in the
+    direct form (8 a row); for a far (pad) query, the direct scan (8 a
+    pair). The second groups (<1% of the queries) and the other direct
+    scans are left out: a lower bound. The bytes: queries, index tiles,
+    candidates and boxes read once, d2 and payload rows written once."""
+    tq, sq, _ = query.shape
+    n, k, s = tq * sq, o.cand.shape[1], o.tiles.shape[1]
+    far = int((query.abs().amax(-1) >= 5e5).sum())
+    n_ops = tq * k * s * 8.0 + (n - far) * (k * s * 7.0 + 8 * 8.0) + far * k * s * 8.0
+    bytes_moved = (n * 12 + o.tiles.numel() * 4 + tq * k * 4 + o.box_lo.numel() * 8
+                   + o.payload.numel() * 4 + n * (4 + 4 * o.payload.shape[1]))
+    return (*_bound(bytes_moved, n_ops), n_ops, far)
+
+
+def _fold7_bound(query, o):
+    """(bound ms, "bytes" or "operations", operations) of one fold7 call:
+    every pair scored (FMUL, 2 FFMA and FADD = 6, and a min), each staged
+    row's operands made (3 FSUB, 3 FMUL and 2 FADD for rr, 3 doublings:
+    11), and each query's winning group of 8 rows made and scored again (8
+    x 17). The direct scans are left out: a lower bound."""
+    tq, sq, _ = query.shape
+    n, k, s = tq * sq, o.cand.shape[1], o.tiles.shape[1]
+    n_ops = n * k * s * 7.0 + tq * k * s * 11.0 + n * 8 * 17.0
+    bytes_moved = (n * 12 + o.tiles.numel() * 4 + tq * k * 4 + tq * 12
+                   + o.payload.numel() * 4 + n * (4 + 4 * o.payload.shape[1]))
+    return (*_bound(bytes_moved, n_ops), n_ops)
+
+
+def _select_bound(pos, cand, table):
+    """(bound ms, "bytes" or "operations") of one select call: positions and
+    candidates read once, each table row the positions name read once (the
+    rest of the table is not needed), the rows written once; one compare a
+    candidate slot."""
+    n, (tq, k), d_pl = pos.numel(), cand.shape, table.shape[1]
+    rows = torch.unique(pos).numel()
+    return _bound(n * 4 + tq * k * 4 + rows * d_pl * 4 + n * d_pl * 4, float(n * k))
+
+
 def _phase_fold6(dev, query, cand, tgt_index, table, table12, fixtures):
     """Kernel #3 against its plain version at the shapes of one flagship
     refine iteration (16,384 x 64 queries, k = 6 frozen candidates, the
@@ -736,20 +813,9 @@ def _phase_fold6(dev, query, cand, tgt_index, table, table12, fixtures):
             fx_err = max(fx_err, e)
     tq, sq, _ = query.shape
     n, k, s = tq * sq, cand.shape[1], tgt_index.tile_size
-    # The operations this run's data needs of the kernel's method: each
-    # staged row packed (8 a row a query tile); for a query below the far
-    # limit, every pair screened (3 FFMA = 6, and a min) and at least its
-    # least group of 8 rows rescored in the direct form (8 a row); for a far
-    # (pad) query, the direct scan (8 a pair). The second groups (<1% of
-    # the queries) and the other direct scans are left out: a lower bound.
-    far = int((query.abs().amax(-1) >= 5e5).sum())
-    n_ops = tq * k * s * 8.0 + (n - far) * (k * s * 7.0 + 8 * 8.0) + far * k * s * 8.0
     timed = {}
     for suffix, o in (("", ops), ("_d12", ops12)):
-        d_pl = o.payload.shape[1]
-        bytes_moved = (n * 12 + tgt_index.tiles.numel() * 4 + tq * k * 4 + o.box_lo.numel() * 8
-                       + o.payload.numel() * 4 + n * (4 + 4 * d_pl))
-        bound_ms, bound_by = _bound(bytes_moved, n_ops)
+        bound_ms, bound_by, n_ops, far = _fold6_bound(query, o)
         timed.update({f"ms{suffix}": _event_ms(lambda: blocknn_cuda.fold6_cuda(query, o)),
                       f"device_ms{suffix}": _graph_ms(lambda: blocknn_cuda.fold6_cuda(query, o)),
                       f"plain_ms{suffix}": _event_ms(lambda: blocknn_cuda.fold6_reference(query, o)),
@@ -788,9 +854,12 @@ FOLD7_FIXTURES = ("random", "exact ties", "near ties", "mixed sentinel", "all se
 # multiple of 4 with S over 13 stages; k x S above 3,072 rows (32 stages);
 # a tile over two blocks with S over two stages; one query a tile, S not a
 # multiple of 4 (4-byte copies) and stages of 2 lanes; k = 200, which caps a
-# block at 5 tiles of one lane a stage; 4 tiles a block of 40 lanes a stage
+# block at 5 tiles of one lane a stage; 4 tiles a block of 40 lanes a stage;
+# and the refine-stride mid phase's query tiles (32 and 16 queries, blocks
+# of 16 and 32 tiles that these 8 do not fill)
 FOLD7_FIXTURE_SHAPES = ((12, 64, 128, 6), (9, 20, 32, 4), (3, 30, 100, 6), (2, 64, 512, 8),
-                        (5, 600, 2000, 1), (9, 3, 13, 3), (4, 8, 8, 200), (4, 128, 128, 6))
+                        (5, 600, 2000, 1), (9, 3, 13, 3), (4, 8, 8, 200), (4, 128, 128, 6),
+                        (8, 32, 128, 6), (8, 16, 128, 6))
 
 
 def fold7_fixture(name, tq=6, sq=20, s=32, k=4, n_tiles=12, device="cpu"):
@@ -866,18 +935,9 @@ def _phase_fold7(dev, query, cand, q_cent, tgt_index, table, table12, fixtures):
             fx_err = max(fx_err, e)
     tq, sq, _ = query.shape
     n, k, s = tq * sq, cand.shape[1], tgt_index.tile_size
-    # The operations of the kernel's method on this run's data: every pair
-    # scored (FMUL, 2 FFMA and FADD = 6, and a min), each staged row's
-    # operands made (3 FSUB, 3 FMUL and 2 FADD for rr, 3 doublings: 11), and
-    # each query's winning group of 8 rows made and scored again (8 x 17).
-    # The direct scans (none at this shape) are left out: a lower bound.
-    n_ops = n * k * s * 7.0 + tq * k * s * 11.0 + n * 8 * 17.0
     timed = {}
     for suffix, o in (("", ops), ("_d12", ops12)):
-        d_pl = o.payload.shape[1]
-        bytes_moved = (n * 12 + tgt_index.tiles.numel() * 4 + tq * k * 4 + tq * 12
-                       + o.payload.numel() * 4 + n * (4 + 4 * d_pl))
-        bound_ms, bound_by = _bound(bytes_moved, n_ops)
+        bound_ms, bound_by, n_ops = _fold7_bound(query, o)
         timed.update({f"ms{suffix}": _event_ms(lambda: blocknn_cuda.fold7_cuda(query, o)),
                       f"device_ms{suffix}": _graph_ms(lambda: blocknn_cuda.fold7_cuda(query, o)),
                       f"plain_ms{suffix}": _event_ms(lambda: blocknn_cuda.fold7_reference(query, o)),
@@ -953,12 +1013,10 @@ def _phase_select(dev, query, cand, tgt_index, table, table12, fixtures):
         _fail("select fixtures: hits, misses or a quadrupled candidate tile came out wrong")
     err = max(err, _max_err(fx_k, fx_p))
     flat = pos.reshape(-1).long()
-    n, k = tq * sq, cand.shape[1]
+    n = tq * sq
     timed = {}
     for suffix, t in (("", table), ("_d12", table12)):
-        d_pl = t.shape[1]
-        bytes_moved = n * 4 + tq * k * 4 + t.numel() * 4 + n * d_pl * 4
-        bound_ms, bound_by = _bound(bytes_moved, float(n * k))  # one compare a candidate slot
+        bound_ms, bound_by = _select_bound(pos, cand, t)
         timed.update({f"ms{suffix}": _event_ms(lambda: blocknn_cuda.select_cuda(pos, cand32, t, s)),
                       f"plain_ms{suffix}": _event_ms(lambda: blocknn_cuda.select_reference(pos, cand, t, s)),
                       f"library_ms{suffix}": _event_ms(lambda: t[flat]),
@@ -1355,6 +1413,440 @@ def _phase_moments_fused(dev, f_tgt, group=4, u_max=32, k_tiles=8):
                 rows_below_xla=below, margin_used=used)
 
 
+def _phase_mid_kernels(dev, query, cand, q_cent, tgt_index, table, kernels):
+    """Kernels #3-#5 at the refine-stride mid phase's shapes of the 1M
+    flagship: every 2nd (16,384 x 32) and every 4th (16,384 x 16) row of
+    each query tile against the same frozen candidates, fold7 centred on the
+    full tiles' centroids as the mid phase runs it. fold6 and fold7 bit for
+    bit against their plain versions, select against its plain version and
+    the row gather on the plain fold's positions; each kernel's times and
+    bound at these shapes go into its JSON fields under *_sq32 and *_sq16."""
+    from icpx_torch.kernels import blocknn_cuda
+    from icpx_torch.kernels.blocknn import block_nn
+
+    s = tgt_index.tile_size
+    folds = {"fold6": (blocknn_cuda.fold6_cuda, blocknn_cuda.fold6_reference, _fold6_bound,
+                       blocknn_cuda.fold6_prepare(cand, tgt_index, table)),
+             "fold7": (blocknn_cuda.fold7_cuda, blocknn_cuda.fold7_reference, _fold7_bound,
+                       blocknn_cuda.fold7_prepare(cand, q_cent, tgt_index, table))}
+    cand32 = cand.to(torch.int32)
+    lines = []
+    for stride in (2, 4):
+        qm = query[:, ::stride].contiguous()
+        tq, sq, _ = qm.shape
+        suffix = f"_sq{sq}"
+        parts = []
+        for name, (run, plain, bound, ops) in folds.items():
+            d_k, pl_k = run(qm, ops)
+            d_p, pl_p = plain(qm, ops)
+            torch.cuda.synchronize()
+            if not (torch.equal(d_k.view(torch.int32), d_p.view(torch.int32)) and torch.equal(pl_k, pl_p)):
+                _fail(f"{name} {tuple(qm.shape)}: kernel and plain differ on "
+                      f"{int(((d_k != d_p) | (pl_k != pl_p).any(1)).sum())} rows")
+            k = kernels[name]
+            k["max_abs_err"] = max(k["max_abs_err"], _max_err(d_k, d_p))
+            k.update({f"ms{suffix}": _event_ms(lambda: run(qm, ops)),
+                      f"device_ms{suffix}": _graph_ms(lambda: run(qm, ops)),
+                      f"plain_ms{suffix}": _event_ms(lambda: plain(qm, ops)),
+                      f"bound_ms{suffix}": bound(qm, ops)[0]})
+            parts.append(f"{name} device {k['device_ms' + suffix]:.4f} ms, event "
+                         f"{k['ms' + suffix]:.4f}, plain {k['plain_ms' + suffix]:.3f}, bound "
+                         f"{k['bound_ms' + suffix]:.4f}")
+        _, pos = block_nn(qm, tgt_index, return_pos=True, cand_tiles=cand)
+        pos = pos.reshape(tq, sq)
+        flat = pos.reshape(-1).long()
+        out_k = blocknn_cuda.select_cuda(pos, cand32, table, s)
+        out_p = blocknn_cuda.select_reference(pos, cand, table, s)
+        gathered = table[flat]
+        torch.cuda.synchronize()
+        if not (torch.equal(out_k, out_p) and torch.equal(out_k, gathered)):
+            _fail(f"select {tuple(pos.shape)}: kernel, plain version and row gather differ on "
+                  f"{int(((out_k != out_p) | (out_k != gathered)).any(1).sum())} rows")
+        k = kernels["select"]
+        k.update({f"ms{suffix}": _event_ms(lambda: blocknn_cuda.select_cuda(pos, cand32, table, s)),
+                  f"device_ms{suffix}": _graph_ms(lambda: blocknn_cuda.select_cuda(pos, cand32, table, s)),
+                  f"plain_ms{suffix}": _event_ms(lambda: blocknn_cuda.select_reference(pos, cand, table, s)),
+                  f"library_ms{suffix}": _event_ms(lambda: table[flat]),
+                  f"library_device_ms{suffix}": _graph_ms(lambda: table[flat]),
+                  f"bound_ms{suffix}": _select_bound(pos, cand, table)[0]})
+        parts.append(f"select device {k['device_ms' + suffix]:.4f} ms, event {k['ms' + suffix]:.4f}, "
+                     f"plain {k['plain_ms' + suffix]:.3f}, table[pos] device "
+                     f"{k['library_device_ms' + suffix]:.4f}, bound {k['bound_ms' + suffix]:.4f}")
+        lines.append(f"{tuple(qm.shape)}: " + "; ".join(parts))
+    print("mid-phase shapes, kernel vs plain (d2 and payload bit-equal on every row; device time "
+          "from a CUDA graph, event time around one call, median of 5), D=6: " + " | ".join(lines))
+
+
+def _check_counts(label, counts, want):
+    """Fail unless each kernel launched `want[kernel]` times (0 where not
+    named)."""
+    for name, n in counts.items():
+        if n != want.get(name, 0):
+            _fail(f"{label}: {name} launched {n} times, want {want.get(name, 0)} ({counts})")
+
+
+def _register_launches(cfg, res, n_src, n_tgt, normals=True, fold="fold6", extra_sorts=0):
+    """What one register() call launches: on the block path the level
+    sorts of its two KD builds (and `extra_sorts` from builds around it),
+    moments6 twice where it estimates both clouds' normals and the fold
+    `fold` once a refine iteration; on the brute path the nn kernel once an
+    iteration."""
+    from icpx_torch.kernels.blocknn import kd_level_sorts
+
+    if cfg.resolve_nn(n_tgt) != "block":
+        return {"nn": res.iters, "sort": extra_sorts}
+    want = {"sort": extra_sorts + kd_level_sorts(n_src, cfg.resolve_q_tile(n_src))
+            + kd_level_sorts(n_tgt, cfg.block_tile)}
+    if normals:
+        want["moments6"] = 2
+    if fold:
+        want[fold] = _refine_iters(res)
+    return want
+
+
+def _gated(label, fn, gt, rot_tol=5e-3, t_tol=5e-3):
+    """Run fn (a registration) counted, hold it to the GT gate, then time it:
+    (result, launches, rot, t, wall s (median of 3), peak MiB)."""
+    res, counts = _counted(fn)
+    rot, terr = (float(x) for x in res.transform.distance_to(gt))
+    if not (math.isfinite(float(res.final_rmse)) and rot < rot_tol and terr < t_tol):
+        _fail(f"{label}: GT not recovered (rot {rot:.3e}, t {terr:.3e})")
+    torch.cuda.reset_peak_memory_stats()
+    wall, _ = _sync_time(fn, reps=3)
+    return res, counts, rot, terr, wall, torch.cuda.max_memory_allocated() / 2**20
+
+
+def _mid_configs():
+    """The flagship config with the refine-stride mid phase: stride 2
+    through fold6 and through fold7, stride 4 through fold6."""
+    base = _flag_configs()
+    return {"mid2": dataclasses.replace(base["kernels"], refine_stride=2),
+            "mid2 vmem7": dataclasses.replace(base["vmem7"], refine_stride=2),
+            "mid4": dataclasses.replace(base["kernels"], refine_stride=4)}
+
+
+def _phase_mid(f_src, f_tgt, f_gt, shapes, kernels):
+    """The 1M flagship with the refine-stride mid phase: stride 2 under
+    "auto" (fold6 at 16,384 x 32) and "vmem7" (fold7), stride 4 under "auto"
+    (Sq 16). Each run passes the GT gate, launches the fold once an
+    iteration of the mid phase and of the tail, counts no more refine
+    iterations than max_iters, and its histories hold their finite entries
+    first."""
+    from icpx_torch.registration.icp import register
+
+    launches = {"fold6": 0, "fold7": 0}
+    for label, cfg in _mid_configs().items():
+        res, counts, rot, terr, wall, peak = _gated(
+            f"flagship ({label})", lambda: register(f_src, f_tgt, cfg), f_gt)
+        refine = _check_launches(label, counts, res, shapes)
+        if refine > cfg.max_iters or refine <= cfg.refine_full_iters:
+            _fail(f"flagship ({label}): {refine} refine iterations of max_iters {cfg.max_iters}")
+        for h in (res.diff_history, res.rmse_history):
+            fin = torch.isfinite(h)
+            if not bool(fin[: int(fin.sum())].all()):
+                _fail(f"flagship ({label}): a history's finite entries are not contiguous from the "
+                      f"front ({h.tolist()})")
+        for name in launches:
+            launches[name] += counts[name]
+        print(f"flagship 1M ({label}): refine_stride {cfg.refine_stride}, iters={res.iters} "
+              f"(coarse {res.iters - refine}, mid and tail {refine}) rmse={float(res.final_rmse):.3e} "
+              f"rot_err={rot:.3e} t_err={terr:.3e} launches={counts}; wall {wall * 1e3:.2f} ms "
+              f"(median of 3, normals included); peak {peak:.0f} MiB")
+    for name, n in launches.items():
+        kernels[name]["launches_mid"] = n
+
+
+def _intensity(xyz):
+    """A smooth payload channel of a point's position: sin(3x) + y / 2."""
+    return torch.sin(3.0 * xyz[:, 0]) + 0.5 * xyz[:, 1]
+
+
+def _feature_run(f_src, f_tgt):
+    """(src, tgt, config) of the flagship with an "intensity" channel: each
+    source point's `_intensity`, carried to its image in the target."""
+    f = _intensity(f_src.xyz)
+    src = f_src.replace(feats=f[:, None], feat_names=("intensity",))
+    tgt = f_tgt.replace(feats=f[_pair_perm(f_src.capacity, f_src.device)][:, None],
+                        feat_names=("intensity",))
+    cfg = dataclasses.replace(_flag_configs()["kernels"], feat_nn="intensity", feat_nn_weight=1.0)
+    return src, tgt, cfg
+
+
+def _plane_pair(n, dev):
+    """tests/test_registration.py::test_feature_matching_pins_degenerate_plane
+    at n points: a flat square with an intensity gradient along x, shifted
+    0.15 along x (an in-plane motion geometry cannot observe)."""
+    from icpx_torch.cloud import PointCloud
+
+    rng = np.random.default_rng(11)
+    xy = rng.uniform(-1, 1, (n, 2)).astype(np.float32)
+    xyz = np.concatenate([xy, np.zeros((n, 1), np.float32)], 1)
+    inten = 3.0 * xy[:, 0]
+    shift = np.asarray([0.15, 0.0, 0.0], np.float32)
+    make = lambda x: PointCloud.create(x, feats=inten, feat_names=("intensity",), device=dev)  # noqa: E731
+    return make(xyz), make(xyz + shift), shift
+
+
+def _phase_features(dev, f_src, f_tgt, f_gt, shapes, n_plane):
+    """Feature-augmented matching. The 1M flagship with an "intensity"
+    channel carried from each source point to its image (feat_nn weight 1):
+    the GT gate, moments6 twice and the KD builds' sorts, no fold kernel
+    (the plain fold in both phases, as in the reference). Then the
+    degenerate plane at n_plane points: the in-plane shift recovered to
+    0.02 with the feature, and geometry alone more than 3x off that."""
+    from icpx_torch.registration.icp import ICPConfig, register
+
+    src, tgt, cfg = _feature_run(f_src, f_tgt)
+    res, counts, rot, terr, wall, peak = _gated("flagship (feat)", lambda: register(src, tgt, cfg), f_gt)
+    refine = _check_launches("feat", counts, res, shapes)
+    print(f"flagship 1M (feat): feat_nn intensity, weight 1; iters={res.iters} (coarse "
+          f"{res.iters - refine}, refine {refine}) rmse={float(res.final_rmse):.3e} rot_err={rot:.3e} "
+          f"t_err={terr:.3e} launches={counts}; wall {wall * 1e3:.2f} ms (median of 3); peak "
+          f"{peak:.0f} MiB")
+    p_src, p_tgt, shift = _plane_pair(n_plane, dev)
+    base = ICPConfig(objective="p2p", max_iters=25, diff_threshold=0.0, rmse_change_tol=1e-7,
+                     nn_method="block")
+    cfg_f = dataclasses.replace(base, feat_nn="intensity", feat_nn_weight=1.0)
+    out = {}
+    for label, c in (("geometry", base), ("feature", cfg_f)):
+        r, counts = _counted(lambda: register(p_src, p_tgt, c))
+        _check_counts(f"plane ({label})", counts, _register_launches(
+            c, r, n_plane, n_plane, normals=False, fold=None if c.feat_nn else "fold6"))
+        torch.cuda.reset_peak_memory_stats()
+        wall, _ = _sync_time(lambda: register(p_src, p_tgt, c), reps=3)
+        t_err = float(torch.linalg.vector_norm(r.transform.t.cpu() - torch.as_tensor(shift)))
+        out[label] = t_err
+        print(f"plane {n_plane} ({label}): iters={r.iters} t_err={t_err:.3e} launches={counts}; wall "
+              f"{wall * 1e3:.2f} ms (median of 3); peak "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+    if not (out["feature"] < 0.02 and out["geometry"] > 3.0 * out["feature"]):
+        _fail(f"plane: the feature must pin the in-plane shift (t {out['feature']:.3e} with it, "
+              f"{out['geometry']:.3e} without)")
+
+
+# NDT's source covariance in "p2d": sigma 1 mm, half the 1M cloud's point
+# spacing. register_ndt's default 1e-4 (sigma 1 cm) fits the ~20,000-point
+# clouds of the reference's tests, where it is a tenth of a cell; at 1M it
+# is five spacings and swamps the cells' shape (a nearly isotropic metric
+# to the cell means), and 30 iterations leave rot ~1e-2.
+NDT_POINT_COV = 1e-6
+
+
+def _ndt_run(src, tgt, mode):
+    """register_ndt on cells of 64 with its default config, "p2d" at
+    NDT_POINT_COV: (config, a callable)."""
+    from icpx_torch.registration.icp import ICPConfig
+    from icpx_torch.registration.ndt import register_ndt
+
+    cfg = ICPConfig(max_iters=30, diff_threshold=0.0, rmse_change_tol=1e-6, robust="huber")
+    return cfg, lambda: register_ndt(src, tgt, cfg, cell_size=64, mode=mode, point_cov=NDT_POINT_COV)
+
+
+def _phase_ndt(f_src, f_tgt, f_gt):
+    """NDT on the 1M flagship, cells of 64 points (its target's 16,384 cell
+    means), point-to-distribution (at NDT_POINT_COV) then distribution-to-
+    distribution: the reference's NDT gate (rot < 5e-3, t < 2e-2), fold6
+    on the 12-wide GICP table once a refine iteration, and the sorts of
+    every KD build (the cells' and register()'s)."""
+    from icpx_torch.kernels.blocknn import _kd_tile_count, kd_level_sorts
+
+    n = f_tgt.capacity
+    n_cells = _kd_tile_count(n, 64)[1]  # a cell a KD tile
+    for mode in ("p2d", "d2d"):
+        cfg, run = _ndt_run(f_src, f_tgt, mode)
+        res, counts, rot, terr, wall, peak = _gated(f"ndt ({mode})", run, f_gt, t_tol=2e-2)
+        cell_builds = 2 if mode == "d2d" else 1
+        n_src = n_cells if mode == "d2d" else n
+        _check_counts(f"ndt ({mode})", counts, _register_launches(
+            cfg, res, n_src, n_cells, normals=False, extra_sorts=cell_builds * kd_level_sorts(n, 64)))
+        print(f"ndt 1M ({mode}): {n_cells} cells of 64{', point_cov %g' % NDT_POINT_COV if mode == 'p2d' else ''}; iters={res.iters} rmse={float(res.final_rmse):.3e} "
+              f"rot_err={rot:.3e} t_err={terr:.3e} launches={counts}; wall {wall * 1e3:.2f} ms "
+              f"(median of 3, cells included); peak {peak:.0f} MiB")
+
+
+def _phase_horn_voxel(f_src, f_tgt, f_gt, n_q):
+    """`horn_align` on the flagship's source and its GT image (within 1e-5
+    of the GT, the angle from the float64 skew part), then `voxel_nn` over
+    the flagship's target at `auto_cell_size` for n_q queries near it
+    (source points at the GT pose, moved by a tenth of a cell): recall of
+    at least 99.9% against the nn kernel's exact NN, and the same d2 bits
+    wherever both return the same row."""
+    from icpx_torch.kernels.knn import nearest_neighbor
+    from icpx_torch.kernels.voxel import auto_cell_size, build_voxel_grid, voxel_nn
+    from icpx_torch.registration.horn import horn_align
+
+    src = f_src.xyz[f_src.mask]
+    dst = f_gt.apply(src)
+    est = horn_align(src, dst)
+    d_rot, d_t = _transform_diff(est, f_gt)
+    det = float(torch.linalg.det(est.R.double()))
+    if not (d_rot < 1e-5 and d_t < 1e-5 and abs(det - 1.0) < 1e-5):
+        _fail(f"horn: {d_rot:.2e} rad, {d_t:.2e} from the GT (det {det:.6f})")
+    wall_horn, _ = _sync_time(lambda: horn_align(src, dst), reps=3)
+    print(f"horn_align {src.shape[0]} points: rot {d_rot:.2e}, t {d_t:.2e} from the GT; wall "
+          f"{wall_horn * 1e3:.3f} ms (median of 3)")
+
+    cell = auto_cell_size(f_tgt.xyz, f_tgt.mask)
+    grid = build_voxel_grid(f_tgt.xyz, cell, f_tgt.mask)
+    gen = torch.Generator(device=src.device).manual_seed(5)
+    q = dst[:n_q] + 0.1 * cell * torch.randn(dst[:n_q].shape, generator=gen, device=src.device)
+    d_v, i_v = voxel_nn(q, grid)
+    d_n, i_n = nearest_neighbor(q, f_tgt.xyz, ref_mask=f_tgt.mask)
+    torch.cuda.synchronize()
+    recall = float(((i_v == i_n) | (d_v <= d_n)).float().mean())
+    same = i_v == i_n
+    if recall < 0.999 or not torch.equal(d_v[same].view(torch.int32), d_n[same].view(torch.int32)):
+        _fail(f"voxel_nn: recall {recall:.5f}, d2 differs on "
+              f"{int((d_v[same] != d_n[same]).sum())} rows with the same index")
+    build_ms = _event_ms(lambda: build_voxel_grid(f_tgt.xyz, cell, f_tgt.mask), reps=3)
+    query_ms = _event_ms(lambda: voxel_nn(q, grid), reps=3)
+    print(f"voxel_nn {n_q} queries over {f_tgt.capacity} points (cell {float(cell):.4g}, "
+          f"{grid.n_buckets} buckets of {grid.bucket_size}): recall {100 * recall:.3f}% against the nn "
+          f"kernel, d2 bit-equal on the {int(same.sum())} rows with the same index; build "
+          f"{build_ms:.3f} ms, query {query_ms:.3f} ms (CUDA events, median of 3)")
+
+
+def _batch_run(dev, n, b):
+    """b pairs of n points with normals (brute kNN), stacked for
+    `register_batch`: (pairs, its tensor arguments, config)."""
+    from icpx_torch.kernels.normals import estimate_normals
+    from icpx_torch.registration.icp import ICPConfig
+
+    pairs = [_gt_pair(n, 40 + i, dev, angle=0.1 + 0.02 * i, translation=(0.05, -0.01 * i, 0.02))
+             for i in range(b)]
+    pairs = [(estimate_normals(s, k=10), estimate_normals(t, k=10), g) for s, t, g in pairs]
+    cfg = ICPConfig(objective="symmetric", max_iters=15, diff_threshold=0.0, rmse_change_tol=1e-6,
+                    nn_method="brute")
+    stack = lambda i, f: torch.stack([getattr(p[i], f) for p in pairs])  # noqa: E731
+    return pairs, [stack(i, f) for i in (0, 1) for f in ("xyz", "mask", "normals")], cfg
+
+
+def _phase_batch(dev, n, b):
+    """`register_batch` on b pairs of n points, scan-size clouds as
+    loop-closure verification batches them, normals estimated first: each
+    pair's GT gate, each pair within 1e-6 of register() on that pair with
+    the same normals, and the nn kernel once a pair's iteration."""
+    from icpx_torch.geometry.se3 import SE3
+    from icpx_torch.registration.icp import register, register_batch
+
+    pairs, args, cfg = _batch_run(dev, n, b)
+    res, counts = _counted(lambda: register_batch(*args, cfg))
+    _check_counts("register_batch", counts, {"nn": int(res.iters.sum())})
+    worst = [0.0, 0.0, 0.0]
+    for i, (s, t, g) in enumerate(pairs):
+        one = SE3(R=res.transform.R[i], t=res.transform.t[i])
+        rot, terr = (float(x) for x in one.distance_to(g))
+        alone = register(s, t, cfg)
+        d_rot, d_t = _transform_diff(one, alone.transform)
+        if not (rot < 5e-3 and terr < 5e-3) or d_rot > 1e-6 or d_t > 1e-6 or alone.iters != int(res.iters[i]):
+            _fail(f"register_batch pair {i}: GT rot {rot:.2e}, t {terr:.2e}; against register() "
+                  f"rot {d_rot:.2e}, t {d_t:.2e}, iters {int(res.iters[i])} vs {alone.iters}")
+        worst = [max(worst[0], rot), max(worst[1], terr), max(worst[2], d_rot, d_t)]
+    torch.cuda.reset_peak_memory_stats()
+    wall, _ = _sync_time(lambda: register_batch(*args, cfg), reps=3)
+    print(f"register_batch {b} x {n}: iters {res.iters.tolist()}; GT rot <= {worst[0]:.2e}, t <= "
+          f"{worst[1]:.2e}; each pair within {worst[2]:.1e} of register() alone; launches={counts}; "
+          f"wall {wall * 1e3:.2f} ms (median of 3) = {b * n / wall:.4g} points/s; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+
+
+def _calls_counted(module, name, fn):
+    """Run fn with module.name wrapped so that each of its calls records
+    the launches made inside it: (fn's result, [(args, launches)])."""
+    from icpx_torch.kernels import blocknn_cuda, nn_cuda, sort_cuda
+
+    def now():
+        return dict(nn=nn_cuda.LAUNCHES, **blocknn_cuda.LAUNCHES, **sort_cuda.LAUNCHES)
+
+    real, calls = getattr(module, name), []
+
+    def recording(*a, **kw):
+        before = now()
+        out = real(*a, **kw)
+        torch.cuda.synchronize()
+        calls.append((a, out, {k: v - before[k] for k, v in now().items()}))
+        return out
+
+    setattr(module, name, recording)
+    try:
+        return fn(), calls
+    finally:
+        setattr(module, name, real)
+
+
+def _batch_block_run(dev, n, b):
+    """b pairs of n points stacked for `register_batch_block`, the
+    flagship's config: (pairs, its tensor arguments, config)."""
+    pairs = [_gt_pair(n, 50 + i, dev, angle=0.12 + 0.02 * i, translation=(0.06, 0.02 * i, -0.03))
+             for i in range(b)]
+    stack = lambda i, f: torch.stack([getattr(p[i], f) for p in pairs])  # noqa: E731
+    return pairs, [stack(i, f) for i in (0, 1) for f in ("xyz", "mask")], _flag_configs()["kernels"]
+
+
+def _phase_batch_block(dev, n, b):
+    """`register_batch_block` on b pairs of n points (the reference's "B x
+    65k" batch): each pair's GT gate and, pair by pair, moments6 twice, the
+    fold once a refine iteration and its two KD builds' sorts."""
+    from icpx_torch.geometry.se3 import SE3
+    from icpx_torch.registration import icp
+
+    pairs, args, cfg = _batch_block_run(dev, n, b)
+    res, calls = _calls_counted(icp, "_register_block", lambda: icp.register_batch_block(*args, cfg))
+    if len(calls) != b:
+        _fail(f"register_batch_block: {len(calls)} pair registrations for {b} pairs")
+    worst = [0.0, 0.0]
+    for i, ((_, one, counts), (_, _, g)) in enumerate(zip(calls, pairs)):
+        _check_counts(f"register_batch_block pair {i}", counts, _register_launches(cfg, one, n, n))
+        est = SE3(R=res.transform.R[i], t=res.transform.t[i])
+        rot, terr = (float(x) for x in est.distance_to(g))
+        if not (rot < 5e-3 and terr < 5e-3):
+            _fail(f"register_batch_block pair {i}: GT not recovered (rot {rot:.3e}, t {terr:.3e})")
+        worst = [max(worst[0], rot), max(worst[1], terr)]
+    torch.cuda.reset_peak_memory_stats()
+    wall, _ = _sync_time(lambda: icp.register_batch_block(*args, cfg), reps=3)
+    print(f"register_batch_block {b} x {n}: iters {res.iters.tolist()}; GT rot <= {worst[0]:.2e}, "
+          f"t <= {worst[1]:.2e}; launches a pair {[c for _, _, c in calls]}; wall {wall * 1e3:.2f} ms "
+          f"(median of 3, normals included) = {b * n / wall:.4g} points/s; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+
+
+def _pyramid_run(dev, n):
+    """tests/test_pyramid.py's case at n points: (src, tgt, gt, config)."""
+    from icpx_torch.registration.icp import ICPConfig
+    from icpx_torch.registration.pyramid import PyramidConfig
+
+    src, tgt, gt = _gt_pair(n, 0, dev, angle=0.9, translation=(0.8, -0.5, 0.3), axis=(0.2, -0.1, 0.97))
+    cfg = PyramidConfig(levels=3, subsample=4, base=ICPConfig(
+        objective="symmetric", max_iters=15, diff_threshold=1e-5, robust="tukey"))
+    return src, tgt, gt, cfg
+
+
+def _phase_pyramid(dev, n):
+    """`register_pyramid` on an n-point pair at 0.9 rad and (0.8, -0.5, 0.3)
+    (tests/test_pyramid.py's case), 3 levels, subsample 4: the GT gate and
+    each level's launches (the nn kernel on a brute level, moments6, fold6
+    and the sorts on a block level)."""
+    from icpx_torch.registration import pyramid
+
+    src, tgt, gt, cfg = _pyramid_run(dev, n)
+    (res, levels), calls = _calls_counted(pyramid, "register",
+                                          lambda: pyramid.register_pyramid(src, tgt, cfg))
+    rot, terr = (float(x) for x in res.transform.distance_to(gt))
+    if not (rot < 5e-3 and terr < 5e-3):
+        _fail(f"pyramid: GT not recovered (rot {rot:.3e}, t {terr:.3e})")
+    text = []
+    for lvl, (a, r, counts) in enumerate(calls):
+        cap_s, cap_t, cfg_l = a[0].capacity, a[1].capacity, a[2]
+        _check_counts(f"pyramid level {lvl}", counts, _register_launches(cfg_l, r, cap_s, cap_t))
+        text.append(f"level {lvl}: {cap_t} points, {cfg_l.resolve_nn(cap_t)}, iters {r.iters}, "
+                    f"launches {counts}")
+    torch.cuda.reset_peak_memory_stats()
+    wall, _ = _sync_time(lambda: pyramid.register_pyramid(src, tgt, cfg), reps=3)
+    print(f"register_pyramid {n} points, 0.9 rad: rot_err={rot:.3e} t_err={terr:.3e}; "
+          + "; ".join(text) + f"; wall {wall * 1e3:.2f} ms (median of 3); peak "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+
+
 def _gicp_config():
     """The flagship config with the GICP objective; payload "auto" is fold6
     on the card, its table 12 wide (xyz and the flattened covariance)."""
@@ -1396,9 +1888,12 @@ def _refine_iters(res) -> int:
     return int(torch.isfinite(res.rmse_history).sum())
 
 
-def main(dev=None, n_pair: int = N_PAIR, n_flag: int = N_FLAG, n_small: int = N_SMALL) -> None:
+def main(dev=None, n_pair: int = N_PAIR, n_flag: int = N_FLAG, n_small: int = N_SMALL,
+         n_batch: int = N_BATCH, n_scan: int = N_PAIR, n_plane: int = N_PLANE, b_batch: int = 8,
+         b_block: int = 4) -> None:
     """`dev` and the sizes exist for rehearsing the script's control flow off
-    the card; run as a program it always takes the first CUDA device."""
+    the card; run as a program it always takes the first CUDA device.
+    n_scan sizes the block-path batch and the pyramid."""
     if dev is None:
         if not torch.cuda.is_available():
             _fail("torch.cuda.is_available() is false: this check needs an NVIDIA GPU")
@@ -1464,6 +1959,7 @@ def main(dev=None, n_pair: int = N_PAIR, n_flag: int = N_FLAG, n_small: int = N_
     kernels["fold7"] = _phase_fold7(dev, query, cand, q_cent, tgt_index, table, table12, fixtures)
     kernels["select"] = _phase_select(dev, query, cand, tgt_index, table, table12, fixtures)
     kernels["fused4"] = _phase_fused4(dev, query, tgt_index, fixtures)
+    _phase_mid_kernels(dev, query, cand, q_cent, tgt_index, table, kernels)
     del tgt_index, flat, table, aux, table12, aux12, query, cand, q_cent
     _sample_clocks("after the kernel phases")
 
@@ -1604,9 +2100,18 @@ def main(dev=None, n_pair: int = N_PAIR, n_flag: int = N_FLAG, n_small: int = N_
           f"on {100 * close:.2f}% of rows; one cloud's covariances {wall_cov[False] * 1e3:.2f} ms "
           f"through the default branch, {wall_cov[True] * 1e3:.2f} ms through the fused one "
           "(median of 3)")
-    del f_src, f_tgt, cov_f, cov_x
+    del cov_f, cov_x
 
-    # 8. A 16,384-point block pair: the kernels on the card, their plain
+    # 8. The rest of the registration layer at the flagship's size: the
+    #    refine-stride mid phase, feature-augmented matching, NDT, Horn and
+    #    the voxel-hash NN -------------------------------------------------------
+    _phase_mid(f_src, f_tgt, f_gt, shapes, kernels)
+    _phase_features(dev, f_src, f_tgt, f_gt, shapes, n_plane)
+    _phase_ndt(f_src, f_tgt, f_gt)
+    _phase_horn_voxel(f_src, f_tgt, f_gt, min(65536, n_flag))
+    del f_src, f_tgt
+
+    # 9. A 16,384-point block pair: the kernels on the card, their plain
     #    versions on the CPU, under each kernel-served mode -------------------------
     #    The new modes run a fixed 3 refine iterations: on this pair their
     #    converged RMSE moves by ~1e-6 from one iteration to the next (the
@@ -1622,7 +2127,10 @@ def main(dev=None, n_pair: int = N_PAIR, n_flag: int = N_FLAG, n_small: int = N_
              "gicp": ("fold6", dict(payload_mode="vmem", objective="gicp")),
              "gicp vmem7": ("fold7", dict(payload_mode="vmem7", objective="gicp", **fixed)),
              "gicp select": ("select", dict(payload_mode="select", objective="gicp", **fixed)),
-             "gicp fused": ("fused4", dict(block_fused="on", objective="gicp", **fixed))}
+             "gicp fused": ("fused4", dict(block_fused="on", objective="gicp", **fixed)),
+             # the mid phase (1 iteration at Sq 32 of the 3) through fold6 and select
+             "mid vmem": ("fold6", dict(payload_mode="vmem", refine_stride=2, **fixed)),
+             "mid select": ("select", dict(payload_mode="select", refine_stride=2, **fixed))}
     for label, (name, change) in small.items():
         cfg_small = dataclasses.replace(flag_cfgs["kernels"], moments_mode="vmem", **change)
         res, counts = _counted(lambda: register(src, tgt, cfg_small))
@@ -1640,6 +2148,12 @@ def main(dev=None, n_pair: int = N_PAIR, n_flag: int = N_FLAG, n_small: int = N_
         print(f"16k block pair ({label}): iters={res.iters} on the card, {res_cpu.iters} on "
               f"the CPU; transforms within rot {d_rot:.1e}, t {d_t:.1e}; GT rot {rot:.2e}, "
               f"t {terr:.2e}; launches={counts}")
+    del src, tgt
+
+    # 10. Batched pairs and the pyramid at scan size ---------------------------------
+    _phase_batch(dev, n_batch, b_batch)
+    _phase_batch_block(dev, n_scan, b_block)
+    _phase_pyramid(dev, n_scan)
 
     cu = "icpx_torch/csrc/blocknn.cu"
     sources = {"nn": "icpx_torch/csrc/nn.cu", "moments6": cu, "fold6": cu, "fold7": cu,
@@ -1669,12 +2183,36 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def profile_flagship(n: int = N_FLAG, top: int = 12) -> None:
-    """Where the flagship's time goes: for each block path of
-    `_flag_configs` the unprofiled wall (median of 3 after 2 warm calls),
-    then one call under `torch.profiler` (CPU and CUDA activity): its device
-    time, that time's share of the wall (the device-busy share), and the
-    kernels and aten ops with the most device time."""
+def _new_path_runs(dev, n):
+    """The paths the rest of the registration layer adds, as chip_smoke's
+    phases drive them, for `--profile --paths new`: {label: (callable, GT
+    or None)}."""
+    from icpx_torch.registration import icp
+    from icpx_torch.registration.pyramid import register_pyramid
+
+    src, tgt, gt = _gt_pair(n, 0, dev)
+    runs = {label: ((lambda c=cfg: icp.register(src, tgt, c)), gt)
+            for label, cfg in _mid_configs().items()}
+    f_src, f_tgt, f_cfg = _feature_run(src, tgt)
+    runs["feat"] = (lambda: icp.register(f_src, f_tgt, f_cfg), gt)
+    for mode in ("p2d", "d2d"):
+        runs[f"ndt {mode}"] = (_ndt_run(src, tgt, mode)[1], gt)
+    _, args, cfg_b = _batch_run(dev, N_BATCH, 8)
+    runs[f"register_batch 8 x {N_BATCH}"] = (lambda: icp.register_batch(*args, cfg_b), None)
+    _, args_bb, cfg_bb = _batch_block_run(dev, N_PAIR, 4)
+    runs[f"register_batch_block 4 x {N_PAIR}"] = (lambda: icp.register_batch_block(*args_bb, cfg_bb), None)
+    p_src, p_tgt, p_gt, cfg_p = _pyramid_run(dev, N_PAIR)
+    runs[f"register_pyramid {N_PAIR}"] = (lambda: register_pyramid(p_src, p_tgt, cfg_p)[0], p_gt)
+    return runs
+
+
+def profile_flagship(n: int = N_FLAG, top: int = 12, paths: str = "flagship") -> None:
+    """Where the time goes: for each block path of `_flag_configs` and GICP
+    (`paths="flagship"`), or each path of `_new_path_runs` (`paths="new"`),
+    the unprofiled wall (median of 3 after 2 warm calls), then one call
+    under `torch.profiler` (CPU and CUDA activity): its device time, that
+    time's share of the wall (the device-busy share), and the kernels and
+    aten ops with the most device time."""
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is false: this check needs an NVIDIA GPU")
     dev = torch.device("cuda", 0)
@@ -1684,16 +2222,25 @@ def profile_flagship(n: int = N_FLAG, top: int = 12) -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip())
     cuda_build.compile_all()
-    src, tgt, gt = _gt_pair(n, 0, dev)
+    if paths == "new":
+        runs = _new_path_runs(dev, n)
+    else:
+        src, tgt, gt = _gt_pair(n, 0, dev)
+        runs = {label: ((lambda c=cfg: register(src, tgt, c)), gt)
+                for label, cfg in {**_flag_configs(), "gicp": _gicp_config()}.items()}
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    for label, cfg in {**_flag_configs(), "gicp": _gicp_config()}.items():
-        wall, _ = _sync_time(lambda: register(src, tgt, cfg), reps=3, warmup=2)
+    for label, (run, gt) in runs.items():
+        wall, _ = _sync_time(run, reps=3, warmup=2)
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()
-            res = register(src, tgt, cfg)
+            res = run()
             torch.cuda.synchronize()
             prof_ms = (time.perf_counter() - t0) * 1e3
-        rot, terr = (float(x) for x in res.transform.distance_to(gt))
+        if gt is None:
+            result = f"iters {res.iters.tolist()}"
+        else:
+            rot, terr = (float(x) for x in res.transform.distance_to(gt))
+            result = f"iters {res.iters}, rot {rot:.2e}, t {terr:.2e}"
         avgs = [e for e in prof.key_averages() if _device_us(e) > 0]
         # device kernels (and copies) alone; the CPU ops that launched them
         # report the same time again
@@ -1702,7 +2249,7 @@ def profile_flagship(n: int = N_FLAG, top: int = 12) -> None:
         busy_ms = sum(_device_us(e) for e in kernels) / 1e3
         print(f"\n{label}: wall {wall * 1e3:.2f} ms (median of 3, unprofiled); device time "
               f"{busy_ms:.2f} ms = {100 * busy_ms / (wall * 1e3):.1f}% busy; profiled call "
-              f"{prof_ms:.2f} ms; iters {res.iters}, rot {rot:.2e}, t {terr:.2e}")
+              f"{prof_ms:.2f} ms; {result}")
         for title, rows in (("kernels", kernels), ("ops", ops)):
             print(f"  {title} by device time:")
             for e in sorted(rows, key=_device_us, reverse=True)[:top]:
@@ -1715,9 +2262,12 @@ if __name__ == "__main__":
     ap.add_argument("--profile", action="store_true",
                     help="only profile the 1M flagship under each block path (torch.profiler) and exit")
     ap.add_argument("--n", type=int, default=N_FLAG, help="points per cloud under --profile")
+    ap.add_argument("--paths", choices=("flagship", "new"), default="flagship",
+                    help="under --profile: the flagship's block paths and GICP, or the mid phase, "
+                         "feat_nn, NDT, the batched paths and the pyramid")
     args = ap.parse_args()
     if args.profile:
-        profile_flagship(args.n)
+        profile_flagship(args.n, paths=args.paths)
     else:
         main()
     sys.stdout.flush()

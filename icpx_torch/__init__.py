@@ -5,19 +5,25 @@ same relative path and keeps the same public names. It imports `torch` and
 numpy only; `icpx` (JAX) is the reference it is tested against, never a
 runtime dependency.
 
-Ported so far: single-pair registration (`registration.icp.register`),
-symmetric, point-to-plane, point-to-point and GICP, on the brute-force NN
-path (targets below `ICPConfig.block_auto_threshold`, or
-`nn_method="brute"`) and on the block-NN path (KD tile indexes,
-in-registration normals or GICP covariances, coarse and frozen-candidate
-refine phases: the 1M flagship). Its hand-written CUDA kernels, one for
+Ported so far: the registration layer. Single-pair registration
+(`registration.icp.register`, `register_xyz`), symmetric, point-to-plane,
+point-to-point and GICP, on the brute-force NN path (targets below
+`ICPConfig.block_auto_threshold`, or `nn_method="brute"`) and on the
+block-NN path (KD tile indexes, in-registration normals or GICP
+covariances, coarse, refine-stride mid and frozen-candidate refine phases,
+the feature-augmented metric: the 1M flagship); batched pairs
+(`register_batch` on the brute path, `register_batch_block` on the block
+path); Horn/Umeyama (`registration.horn`); the coarse-to-fine pyramid
+(`registration.pyramid`); NDT (`registration.ndt`); the voxel-hash NN
+(`kernels.voxel`) and the tile-index k-NN (`kernels.blocknn.block_knn`);
+payload features on `PointCloud`. Its hand-written CUDA kernels, one for
 each Pallas kernel of the reference: the exact 1-NN search
 (`kernels/nn_cuda.py` + `csrc/nn.cu`), the block path's radius moments,
 folds, payload selection, union fold and union moments
 (`kernels/blocknn_cuda.py` + `csrc/blocknn.cu`), and the KD build's
 segmented sort (`kernels/sort_cuda.py` + `csrc/sort.cu`). Entry points
 create tensors on the first CUDA device unless given `device="cpu"`. Paths
-that need later slices (feature-augmented NN, compressed PCD, ...) raise
+that need later slices (compressed PCD, other cloud formats, ...) raise
 `NotImplementedError` naming their ROADMAP item.
 """
 
@@ -35,7 +41,9 @@ _torch.set_float32_matmul_precision("highest")
 from icpx_torch.cloud import PointCloud  # noqa: E402
 from icpx_torch.geometry.se3 import SE3  # noqa: E402
 from icpx_torch.io.loaders import load_cloud, save_cloud  # noqa: E402
+from icpx_torch.registration.horn import horn_align  # noqa: E402
 from icpx_torch.registration.icp import ICPConfig, ICPResult, register  # noqa: E402
+from icpx_torch.registration.pyramid import PyramidConfig, register_pyramid  # noqa: E402
 
 __version__ = "0.1.0"
 
@@ -45,6 +53,9 @@ __all__ = [
     "ICPConfig",
     "ICPResult",
     "register",
+    "horn_align",
+    "PyramidConfig",
+    "register_pyramid",
     "load_cloud",
     "save_cloud",
     "__version__",

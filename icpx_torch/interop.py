@@ -18,13 +18,16 @@ from icpx_torch.cloud import DEFAULT_DEVICE, PointCloud
 from icpx_torch.geometry.se3 import SE3
 from icpx_torch.kernels.blocknn import TileIndex
 from icpx_torch.registration.icp import ICPConfig, ICPResult
+from icpx_torch.registration.pyramid import PyramidConfig
 
 _INDEX_FIELDS = ("tiles", "box_lo", "box_hi", "centroids", "order")
 
 
-def cloud_from_numpy(xyz, mask, normals=None, covs=None, *, device=DEFAULT_DEVICE) -> PointCloud:
-    """A cloud from padded arrays (normals (N, 3) and GICP covariances
-    (N, 3, 3) optional), taken as they are (no re-padding)."""
+def cloud_from_numpy(xyz, mask, normals=None, covs=None, feats=None, feat_names=None, *,
+                     device=DEFAULT_DEVICE) -> PointCloud:
+    """A cloud from padded arrays (normals (N, 3), GICP covariances
+    (N, 3, 3) and payload features (N, F) with their names optional), taken
+    as they are (no re-padding)."""
     xyz = torch.tensor(np.asarray(xyz, dtype=np.float32), device=device)
     mask = torch.tensor(np.asarray(mask, dtype=bool), device=device)
     if xyz.ndim != 2 or xyz.shape[1] != 3 or tuple(mask.shape) != (xyz.shape[0],):
@@ -39,14 +42,24 @@ def cloud_from_numpy(xyz, mask, normals=None, covs=None, *, device=DEFAULT_DEVIC
         cov = torch.tensor(np.asarray(covs, dtype=np.float32), device=device)
         if tuple(cov.shape) != (xyz.shape[0], 3, 3):
             raise ValueError(f"covs must be ({xyz.shape[0]}, 3, 3), got {tuple(cov.shape)}")
-    return PointCloud(xyz=xyz, mask=mask, normals=nrm, covs=cov)
+    ft = None
+    if feats is not None:
+        ft = torch.tensor(np.asarray(feats, dtype=np.float32), device=device)
+        if ft.ndim != 2 or ft.shape[0] != xyz.shape[0]:
+            raise ValueError(f"feats must be ({xyz.shape[0]}, F), got {tuple(ft.shape)}")
+        if feat_names is not None and len(feat_names) != ft.shape[1]:
+            raise ValueError(f"{len(feat_names)} feat_names for {ft.shape[1]} feature columns")
+    return PointCloud(xyz=xyz, mask=mask, normals=nrm, covs=cov, feats=ft,
+                      feat_names=tuple(feat_names) if feat_names else None)
 
 
-def cloud_to_numpy(cloud: PointCloud) -> Dict[str, np.ndarray]:
+def cloud_to_numpy(cloud: PointCloud) -> Dict[str, Any]:
     """Every field of a port cloud as host numpy (None where it has none):
-    xyz, mask, normals, covs, padded as they are."""
-    return {f: None if getattr(cloud, f) is None else getattr(cloud, f).detach().cpu().numpy()
-            for f in ("xyz", "mask", "normals", "covs")}
+    xyz, mask, normals, covs, feats, padded as they are, and feat_names."""
+    out = {f: None if getattr(cloud, f) is None else getattr(cloud, f).detach().cpu().numpy()
+           for f in ("xyz", "mask", "normals", "covs", "feats")}
+    out["feat_names"] = cloud.feat_names
+    return out
 
 
 def se3_from_numpy(R, t, *, device=DEFAULT_DEVICE) -> SE3:
@@ -80,15 +93,32 @@ def config_from_dict(d: Dict[str, Any]) -> ICPConfig:
     return ICPConfig(**d)
 
 
+def pyramid_config_from_dict(d: Dict[str, Any]) -> PyramidConfig:
+    """A PyramidConfig from `dataclasses.asdict` of the JAX package's (its
+    `base` an ICPConfig dict, `iters_per_level` a tuple); unknown keys
+    raise, as in `config_from_dict`."""
+    names = {f.name for f in dataclasses.fields(PyramidConfig)}
+    extra = set(d) - names
+    if extra:
+        raise ValueError(f"unknown PyramidConfig fields: {sorted(extra)}")
+    d = dict(d)
+    if "base" in d:
+        d["base"] = config_from_dict(d["base"])
+    if "iters_per_level" in d:
+        d["iters_per_level"] = tuple(d["iters_per_level"])
+    return PyramidConfig(**d)
+
+
 def result_to_numpy(res: ICPResult) -> Dict[str, np.ndarray]:
-    """Every field of a result as host numpy (R and t for the transform)."""
+    """Every field of a result as host numpy (R and t for the transform); a
+    batched result's fields keep their leading (B,) dimension."""
     def host(x) -> np.ndarray:
         return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
 
     return {
         "R": host(res.transform.R),
         "t": host(res.transform.t),
-        "iters": np.asarray(res.iters),
+        "iters": host(res.iters),
         "converged": host(res.converged),
         "diff_history": host(res.diff_history),
         "rmse_history": host(res.rmse_history),

@@ -24,8 +24,8 @@ changes a result:
   pattern over the entry's index), so ties go to the lower index as in
   `lax.top_k`; `torch.topk` alone promises no tie order;
 * chunking over query tiles is a Python loop instead of `lax.map` over
-  sentinel-padded chunks;
-* the feature-augmented metric (`query_feat`) is not ported yet and raises.
+  sentinel-padded chunks (a chunk's candidates and query features are
+  sliced with it).
 """
 
 from __future__ import annotations
@@ -155,6 +155,30 @@ def _kd_tile_count(n: int, s: int) -> Tuple[int, int]:
     return 1, 1 << (t - 1).bit_length()
 
 
+def _kd_schedule(n: int, s: int) -> Tuple[int, int, int, Tuple[int, ...]]:
+    """(q0, t2, c0, fans) of a KD build of n points in tiles of s: the
+    padded tile count t2 = q0 * 2^k, the Morton segments c0 the median
+    phase starts from, and each median level's fan-out (4 while a node has
+    enough tiles below it, then 2): one level sort a fan."""
+    q0, t2 = _kd_tile_count(n, s)
+    total = t2 * s
+    c0 = q0
+    while total // c0 > _KD_SEG and c0 < t2:
+        c0 *= 2
+    fans, c = [], c0
+    min4 = _FAN4_MIN if t2 >= _FAN4_DEEP else 16
+    while c < t2:
+        fans.append(4 if t2 // c >= min4 else 2)
+        c *= fans[-1]
+    return q0, t2, c0, tuple(fans)
+
+
+def kd_level_sorts(n: int, tile_size: int) -> int:
+    """How many level sorts (sort kernel launches on the card) a KD build of
+    n points in tiles of `tile_size` runs."""
+    return len(_kd_schedule(n, tile_size)[3])
+
+
 def build_kd_index(xyz: torch.Tensor, mask: Optional[torch.Tensor] = None, *,
                    tile_size: int = 256) -> TileIndex:
     """Median-cut (KD-split) partition into compact, balanced tiles.
@@ -169,7 +193,7 @@ def build_kd_index(xyz: torch.Tensor, mask: Optional[torch.Tensor] = None, *,
     dev = xyz.device
     mask = _full_mask(xyz, mask)
     s = tile_size
-    q0, t2 = _kd_tile_count(n, s)
+    q0, t2, c0, fans = _kd_schedule(n, s)
     total = t2 * s
     pad = total - n
 
@@ -178,10 +202,6 @@ def build_kd_index(xyz: torch.Tensor, mask: Optional[torch.Tensor] = None, *,
     if pad:
         pts = torch.cat([pts, torch.full((pad, 3), PAD_COORD, device=dev)])
         orig = torch.cat([orig, torch.full((pad,), -1, dtype=torch.int32, device=dev)])
-
-    c0 = q0
-    while total // c0 > _KD_SEG and c0 < t2:
-        c0 *= 2
 
     if c0 > 1:
         # one segment, an int32 key: a plain stable torch.sort, as the
@@ -194,9 +214,7 @@ def build_kd_index(xyz: torch.Tensor, mask: Optional[torch.Tensor] = None, *,
         pts, orig = pts[perm], orig[perm]
 
     c = c0
-    min4 = _FAN4_MIN if t2 >= _FAN4_DEEP else 16
-    while c < t2:
-        fan = 4 if t2 // c >= min4 else 2
+    for fan in fans:
         m = total // c
         seg = pts.reshape(c, m, 3)
         v = (orig >= 0).reshape(c, m)
@@ -372,6 +390,35 @@ def _chunk_size(tq: int, max_chunk: int) -> int:
     return max_chunk
 
 
+def _query_operand(q_cen: torch.Tensor, query_feat: Optional[torch.Tensor], feat_weight: float):
+    """The score's query operand [-2 q, 1] (Tq, Sq, 4), with a feature
+    channel [-2 q, 1, -2 w^2 f_q] (Tq, Sq, 5); and w^2 in fp32."""
+    tq, sq, _ = q_cen.shape
+    lam2 = torch.tensor(feat_weight, dtype=torch.float32) ** 2
+    ops = [-2.0 * q_cen, torch.ones((tq, sq, 1), dtype=torch.float32, device=q_cen.device)]
+    if query_feat is not None:
+        ops.append((-2.0 * lam2.to(q_cen.device) * query_feat)[..., None])
+    return torch.cat(ops, dim=2), lam2.to(q_cen.device)
+
+
+def _ref_operand(r: torch.Tensor, f_r: Optional[torch.Tensor], lam2: torch.Tensor) -> torch.Tensor:
+    """The reference operand [r, |r|^2] (Tq, S, 4), with a feature channel
+    [r, |r|^2 + w^2 f_r^2, f_r] (Tq, S, 5)."""
+    rr = (r * r).sum(2)
+    if f_r is None:
+        return torch.cat([r, rr[..., None]], dim=2)
+    return torch.cat([r, (rr + lam2 * f_r * f_r)[..., None], f_r[..., None]], dim=2)
+
+
+def _query_norm(q_cen: torch.Tensor, query_feat: Optional[torch.Tensor],
+                lam2: torch.Tensor) -> torch.Tensor:
+    """|q|^2 (Tq, Sq), plus w^2 f_q^2 with a feature channel."""
+    qq = (q_cen * q_cen).sum(2)
+    if query_feat is not None:
+        qq = qq + lam2 * query_feat * query_feat
+    return qq
+
+
 def block_nn(
     query_tiles: torch.Tensor,
     index: TileIndex,
@@ -381,6 +428,8 @@ def block_nn(
     return_pos: bool = False,
     cand_tiles: Optional[torch.Tensor] = None,
     query_feat: Optional[torch.Tensor] = None,
+    feat_tiles: Optional[torch.Tensor] = None,
+    feat_weight: float = 1.0,
     score_prec: str = "highest",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """NN of spatially coherent query tiles (Tq, Sq, 3) into the index.
@@ -394,12 +443,16 @@ def block_nn(
     Ties go to the earliest candidate, then the lowest lane. Above
     `max_chunk` query tiles the work runs in chunks so the (chunk, Sq, S)
     score stays bounded.
+
+    Feature-augmented matching: with `query_feat` (Tq, Sq) and `feat_tiles`
+    (T, S) scalar channels, the NN runs in the 4D metric ||p - q||^2 +
+    feat_weight^2 (f_p - f_q)^2. The feature rides the same contraction as
+    one more lane ([..., -2 w^2 f_q] against [..., f_r], w^2 f_r^2 in the
+    rr lane), while candidate ranking stays spatial; the returned squared
+    distances are in the augmented metric.
     """
-    if query_feat is not None:
-        raise NotImplementedError(
-            "feature-augmented block NN (query_feat / feat_nn) is not ported yet "
-            "(ROADMAP queue 1 step 6)"
-        )
+    if (query_feat is None) != (feat_tiles is None):
+        raise ValueError("the feature metric needs both query_feat and feat_tiles")
     tq, sq, _ = query_tiles.shape
     if tq > max_chunk:
         chunk = _chunk_size(tq, max_chunk)
@@ -407,7 +460,8 @@ def block_nn(
             block_nn(query_tiles[t0:t0 + chunk], index, k_tiles=k_tiles,
                      max_chunk=max_chunk, return_pos=return_pos,
                      cand_tiles=None if cand_tiles is None else cand_tiles[t0:t0 + chunk],
-                     score_prec=score_prec)
+                     query_feat=None if query_feat is None else query_feat[t0:t0 + chunk],
+                     feat_tiles=feat_tiles, feat_weight=feat_weight, score_prec=score_prec)
             for t0 in range(0, tq, chunk)
         ]
         return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
@@ -418,8 +472,7 @@ def block_nn(
 
     qc = _query_boxes(query_tiles)[2] if score_prec == "bf16" else None  # tile centroid
     q_cen = query_tiles - qc[:, None, :] if qc is not None else query_tiles
-    ones = torch.ones((tq, sq, 1), dtype=torch.float32, device=query_tiles.device)
-    q4 = torch.cat([-2.0 * q_cen, ones], dim=2)
+    q4, lam2 = _query_operand(q_cen, query_feat, feat_weight)
 
     best_s = torch.full((tq, sq), float("inf"), device=query_tiles.device)
     best_p = torch.zeros((tq, sq), dtype=torch.int64, device=query_tiles.device)
@@ -428,13 +481,13 @@ def block_nn(
         r = index.tiles[tid]  # (Tq, S, 3) contiguous-row gather
         if qc is not None:
             r = r - qc[:, None, :]
-        r4 = torch.cat([r, (r * r).sum(2, keepdim=True)], dim=2)
+        r4 = _ref_operand(r, None if feat_tiles is None else feat_tiles[tid], lam2)
         smin, sarg = _score_einsum(q4, r4, score_prec).min(dim=2)  # first lane among ties
         better = smin < best_s
         best_s = torch.where(better, smin, best_s)
         best_p = torch.where(better, tid[:, None] * s + sarg, best_p)
 
-    qq = (q_cen * q_cen).sum(2)
+    qq = _query_norm(q_cen, query_feat, lam2)
     d = torch.clamp(best_s + qq, min=0.0).reshape(-1)
     best_p = best_p.reshape(-1)
     if return_pos:
@@ -452,6 +505,8 @@ def block_nn_payload(
     max_chunk: int = 32768,
     cand_tiles: Optional[torch.Tensor] = None,
     query_feat: Optional[torch.Tensor] = None,
+    feat_tiles: Optional[torch.Tensor] = None,
+    feat_weight: float = 1.0,
     score_prec: str = "highest",
     payload_prec: str = "high",
     payload_xyz: int = 0,
@@ -467,14 +522,12 @@ def block_nn_payload(
     one-hot product on its matrix unit); "bf16" rounds the payload values
     to bf16, with the first `payload_xyz` channels centred on the
     query-tile centroid first and un-centred in fp32 after (this needs
-    `score_prec="bf16"`, which provides the centroid). `cand_tiles` and
-    chunking behave as in `block_nn`.
+    `score_prec="bf16"`, which provides the centroid). `cand_tiles`, the
+    feature metric (`query_feat`, `feat_tiles`, `feat_weight`) and chunking
+    behave as in `block_nn`.
     """
-    if query_feat is not None:
-        raise NotImplementedError(
-            "feature-augmented block NN (query_feat / feat_nn) is not ported yet "
-            "(ROADMAP queue 1 step 6)"
-        )
+    if (query_feat is None) != (feat_tiles is None):
+        raise ValueError("the feature metric needs both query_feat and feat_tiles")
     tq, sq, _ = query_tiles.shape
     if tq > max_chunk:
         chunk = _chunk_size(tq, max_chunk)
@@ -482,6 +535,8 @@ def block_nn_payload(
             block_nn_payload(query_tiles[t0:t0 + chunk], index, payload_tiles, k_tiles=k_tiles,
                              max_chunk=max_chunk,
                              cand_tiles=None if cand_tiles is None else cand_tiles[t0:t0 + chunk],
+                             query_feat=None if query_feat is None else query_feat[t0:t0 + chunk],
+                             feat_tiles=feat_tiles, feat_weight=feat_weight,
                              score_prec=score_prec, payload_prec=payload_prec,
                              payload_xyz=payload_xyz)
             for t0 in range(0, tq, chunk)
@@ -500,8 +555,7 @@ def block_nn_payload(
     if center_pl and qc is None:
         raise ValueError("payload_prec='bf16' with payload_xyz needs bf16 scoring "
                          "(the query-tile centroid that makes centring available)")
-    ones = torch.ones((tq, sq, 1), dtype=torch.float32, device=dev)
-    q4 = torch.cat([-2.0 * q_cen, ones], dim=2)
+    q4, lam2 = _query_operand(q_cen, query_feat, feat_weight)
 
     best_s = torch.full((tq, sq), float("inf"), device=dev)
     best_pl = torch.zeros((tq, sq, d_pl), dtype=torch.float32, device=dev)
@@ -516,7 +570,7 @@ def block_nn_payload(
         rvalid = r.abs().amax(2) < _VALID_ABS
         if qc is not None:
             r = r - qc[:, None, :]
-        r4 = torch.cat([r, (r * r).sum(2, keepdim=True)], dim=2)
+        r4 = _ref_operand(r, None if feat_tiles is None else feat_tiles[tid], lam2)
         score = torch.where(rvalid[:, None, :], _score_einsum(q4, r4, score_prec), float("inf"))
         smin, win = score.min(dim=2)  # the lowest lane among ties
         cand_pl = torch.take_along_dim(pl, win[..., None], dim=1)  # (Tq, Sq, D)
@@ -531,9 +585,49 @@ def block_nn_payload(
         xyz = torch.where(best_valid[..., None],
                           best_pl[..., :payload_xyz] + qc[:, None, :payload_xyz], 0.0)
         best_pl = torch.cat([xyz, best_pl[..., payload_xyz:]], dim=2)
-    qq = (q_cen * q_cen).sum(2)
+    qq = _query_norm(q_cen, query_feat, lam2)
     d = torch.where(best_valid, torch.clamp(best_s + qq, min=0.0), float("inf"))
     return d.reshape(-1), best_pl.reshape(tq * sq, d_pl)
+
+
+def _smallest_k_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(values, indices) of the k smallest entries along the last dim,
+    ascending, ties to the lower index (`lax.top_k(-x, k)`) for any values,
+    inf included: a stable sort."""
+    vals, idx = torch.sort(x, dim=-1, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def block_knn(query_tiles: torch.Tensor, index: TileIndex, k: int, *,
+              k_tiles: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
+    """k nearest neighbours through the tile index: (sqdists (Tq*Sq, k)
+    ascending, original reference indices (Tq*Sq, k)), with `block_nn`'s
+    candidate tiles. Two stages a candidate tile, as in the reference: the
+    tile's own k best by the expansion score, then the k best of those and
+    the running list (the running list first among ties). Rows that end on
+    a pad row, or on no row at all, get (inf, 0)."""
+    tq, sq, _ = query_tiles.shape
+    s = index.tile_size
+    dev = query_tiles.device
+    cand_tiles, _ = _candidate_tiles(query_tiles, index, k_tiles)
+    cand_tiles = cand_tiles.to(torch.int64)
+    q4, _ = _query_operand(query_tiles, None, 1.0)
+
+    best_s = torch.full((tq, sq, k), float("inf"), device=dev)
+    best_p = torch.zeros((tq, sq, k), dtype=torch.int64, device=dev)
+    for kk in range(cand_tiles.shape[1]):
+        tid = cand_tiles[:, kk]
+        r = index.tiles[tid]
+        score = _score_einsum(q4, _ref_operand(r, None, None), "highest")  # (Tq, Sq, S)
+        cs, cloc = _smallest_k_stable(score, min(k, s))
+        cpos = tid[:, None, None] * s + cloc
+        best_s, sel = _smallest_k_stable(torch.cat([best_s, cs], dim=2), k)
+        best_p = torch.take_along_dim(torch.cat([best_p, cpos], dim=2), sel, dim=2)
+
+    qq = (query_tiles * query_tiles).sum(2)[..., None]
+    d = torch.clamp(best_s + qq, min=0.0).reshape(tq * sq, k)
+    ridx = index.order[best_p.reshape(tq * sq, k)]
+    return torch.where(ridx >= 0, d, float("inf")), torch.clamp(ridx, min=0)
 
 
 def tile_payload(index: TileIndex, payload: torch.Tensor) -> torch.Tensor:

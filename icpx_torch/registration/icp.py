@@ -2,19 +2,21 @@
 
 Mirrors `icpx/registration/icp.py`: `ICPConfig` (every field, default and
 validation, so a JAX config converts field for field), `ICPResult`,
-`register`, the iteration core `_icp_scan`, and both branches of
-`_register_jit`: brute-force NN (`_register_brute`) and block NN
-(`_register_block`: KD tile indexes, in-registration normals, a coarse
-phase, frozen candidates and the refine phase), for every objective of the
-reference: symmetric, point-to-plane, point-to-point and GICP (whose
-per-point auxiliary channel is the flattened (N, 9) covariance instead of
-the normal). The JAX `lax.while_loop` becomes a Python `while` loop that
-syncs the stop flag to the host once per iteration; everything else stays
-on the clouds' device. The block path runs every `payload_mode` ("gather",
-"infold", "select", "vmem", "vmem7") and `block_fused` value of the
-reference. What the port lacks raises `NotImplementedError` naming its
-ROADMAP item: the feature-augmented metric and the refine-stride mid
-phase.
+`register`, `register_xyz`, the batched `register_batch` (brute NN) and
+`register_batch_block` (block NN), the iteration core `_icp_scan`, and both
+branches of `_register_jit`: brute-force NN (`_register_brute`) and block
+NN (`_register_block`: KD tile indexes, in-registration normals, a coarse
+phase, frozen candidates, the optional refine-stride mid phase and the
+refine phase, with the optional feature-augmented metric), for every
+objective of the reference: symmetric, point-to-plane, point-to-point and
+GICP (whose per-point auxiliary channel is the flattened (N, 9) covariance
+instead of the normal). The JAX `lax.while_loop` becomes a Python `while`
+loop that syncs the stop flag to the host once per iteration; everything
+else stays on the clouds' device. The block path runs every `payload_mode`
+("gather", "infold", "select", "vmem", "vmem7") and `block_fused` value of
+the reference. The batched entry points run their pairs one after another
+through the single-pair path and stack the results: each pair's result is
+what it would be alone, as under the reference's `vmap`.
 """
 
 from __future__ import annotations
@@ -198,6 +200,10 @@ class ICPConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ICPResult:
+    """A registration's result. The batched entry points return one with a
+    leading (B,) dimension on every field: `iters` a (B,) int32 tensor,
+    the histories (B, max_iters), the transform a (B,) SE3."""
+
     transform: SE3  # accumulated src -> tgt
     iters: int  # number of iterations applied
     converged: torch.Tensor  # 0-d bool
@@ -210,19 +216,10 @@ class ICPResult:
         return dataclasses.replace(self, **changes)
 
 
-def _check_supported(config: ICPConfig, tgt_capacity: int) -> None:
-    block = config.resolve_nn(tgt_capacity) == "block"
-    if config.feat_nn and config.feat_nn_weight > 0:
-        if not block:
-            raise ValueError(
-                "feature-augmented matching (feat_nn) needs the block NN "
-                "path; set nn_method='block'"
-            )
-        raise NotImplementedError(
-            "feature-augmented block NN (feat_nn) is not ported yet (ROADMAP queue 1 step 6)")
-    if block and config.resolve_refine_stride(0, tgt_capacity) > 1:
-        raise NotImplementedError(
-            "refine_stride > 1 (the mid phase) is not ported yet (ROADMAP queue 1 step 6)")
+def result_struct() -> ICPResult:
+    """Shape-only ICPResult skeleton, every field 0, as in the reference."""
+    return ICPResult(transform=SE3(R=0, t=0), iters=0, converged=0, diff_history=0,
+                     rmse_history=0, final_rmse=0, inlier_count=0)
 
 
 def _effective_payload_mode(config: ICPConfig, tgt_capacity: int, device, *,
@@ -256,7 +253,11 @@ def register(
     target centroid, as in the JAX package.
     """
     dev = tgt.device
-    _check_supported(config, tgt.capacity)
+    if config.feat_nn and config.feat_nn_weight > 0 and config.resolve_nn(tgt.capacity) != "block":
+        raise ValueError(
+            "feature-augmented matching (feat_nn) needs the block NN "
+            "path; set nn_method='block'"
+        )
     if init is None:
         init = SE3.identity(device=dev)
 
@@ -386,8 +387,17 @@ def _register_block(
     ("gather"), or the plain in-fold payload selection ("infold") in both
     phases. `block_fused="on"` freezes nothing and runs the fused4 kernel
     in both phases. The payload rows are `[xyz || aux]`: 6 wide with
-    normals, 12 with GICP covariances. `iters` counts the coarse iterations
-    too; `diff_history` and `rmse_history` hold the refine phase's.
+    normals, 12 with GICP covariances.
+
+    With `refine_stride` > 1 a mid phase runs first on every
+    `refine_stride`-th row of each query tile (the same tiles and frozen
+    candidates, `max_iters - refine_full_iters` iterations), then the full
+    resolution tail for `refine_full_iters`. With `feat_nn` the NN runs in
+    the feature-augmented metric: the plain fold (or in-fold selection) in
+    every phase, as in the reference, no fold kernel and no fused4.
+
+    `iters` counts every phase's iterations; `diff_history` and
+    `rmse_history` hold the mid phase's and then the refine phase's.
     """
     dev = tgt.device
     q_tile = config.resolve_q_tile(src.capacity)
@@ -403,11 +413,16 @@ def _register_block(
     src_mask = valid
     if src_w is not None:
         src_w = torch.where(valid, src_w[safe], 0.0)
+    use_feat = bool(config.feat_nn) and config.feat_nn_weight > 0
+    # the source's feature column in tile order, 0 on pad rows
+    src_f = torch.where(valid, src.feat(config.feat_nn)[safe], 0.0) if use_feat else None
     tgt_index = trim_index(
         config.tile_builder()(tgt.xyz, tgt.mask, tile_size=config.block_tile),
         tgt.capacity,
         multiple=_SUPER_G,  # hierarchical ranking needs T % 64 == 0
     )
+    tgt_f_tiles = (tile_payload(tgt_index, tgt.feat(config.feat_nn)[:, None])[..., 0]
+                   if use_feat else None)
 
     if "src" in normals_for:
         # self-query at parent tiles: coarsen the fine source tiling to the
@@ -440,19 +455,19 @@ def _register_block(
         and tq >= 8
         and (4 * sq) % config.coarse_stride == 0
     )
-    fused = config.resolve_fused()
+    fused = config.resolve_fused() and not use_feat
     group = config.block_group if tq % config.block_group == 0 else 1
     # the fused fold ranks its own candidates every iteration: nothing freezes
     will_freeze = coarse and not fused and config.freeze_refine_candidates
-    pmode = _effective_payload_mode(config, tgt.capacity, dev, use_feat=False, fused=fused,
+    pmode = _effective_payload_mode(config, tgt.capacity, dev, use_feat=use_feat, fused=fused,
                                     will_freeze=will_freeze)
     infold = not fused and pmode == "infold"
     select = not fused and pmode == "select"
-    vmem_fold = not fused and pmode in ("vmem", "vmem7")
+    vmem_fold = not fused and not use_feat and pmode in ("vmem", "vmem7")
     score_prec = config.resolve_score_prec()
     tgt_pl_tiles = tgt_pl.reshape(tgt_index.n_tiles, tgt_index.tile_size, tgt_pl.shape[1])
 
-    def make_nn(n_tiles, tile_rows, k_tiles, cand=None, qcent=None):
+    def make_nn(n_tiles, tile_rows, k_tiles, cand=None, qcent=None, qfeat=None):
         # "vmem"/"vmem7" and "select" engage on frozen-candidate phases;
         # elsewhere they fall back to the row gather, as in the reference
         if vmem_fold and cand is not None:
@@ -474,6 +489,9 @@ def _register_block(
 
         # the frozen candidates as the select kernel takes them, once a phase
         cand32 = cand.to(torch.int32).contiguous() if select and cand is not None else None
+        qf = None if qfeat is None else qfeat.reshape(n_tiles, tile_rows)
+        feat = dict(query_feat=qf, feat_tiles=None if qf is None else tgt_f_tiles,
+                    feat_weight=config.feat_nn_weight)
 
         def nn_fn(p):
             ptiles = p.reshape(n_tiles, tile_rows, 3)
@@ -484,12 +502,12 @@ def _register_block(
                 d2, pl = block_nn_payload(ptiles, tgt_index, tgt_pl_tiles, k_tiles=k_tiles,
                                           cand_tiles=cand, score_prec=score_prec,
                                           payload_prec=config.resolve_payload_prec(),
-                                          payload_xyz=3)
+                                          payload_xyz=3, **feat)
                 # miss/pad rows: d2 = inf with a zero payload, zero weight downstream
                 return pl[:, :3], pl[:, 3:], torch.sqrt(d2)
             else:
                 d2, pos = block_nn(ptiles, tgt_index, k_tiles=k_tiles, return_pos=True,
-                                   cand_tiles=cand, score_prec=score_prec)
+                                   cand_tiles=cand, score_prec=score_prec, **feat)
                 if select and cand is not None:
                     pl = payload_select_fused(pos.reshape(n_tiles, tile_rows), cand32, tgt_pl_tiles)
                     return pl[:, :3], pl[:, 3:], torch.sqrt(d2)
@@ -514,8 +532,9 @@ def _register_block(
         cfg_c = dataclasses.replace(config, max_iters=config.coarse_iters, diff_threshold=0.0)
         res_c = _icp_scan(
             cfg_c, sub(src_xyz, 3), sub(src_mask), sub(src_n_s, dn), init,
-            make_nn(tq // 4, 4 * sq // stride, config.block_k), aux_rot=aux_rot,
-            src_w=None if src_w is None else sub(src_w),
+            make_nn(tq // 4, 4 * sq // stride, config.block_k,
+                    qfeat=None if src_f is None else sub(src_f)),
+            aux_rot=aux_rot, src_w=None if src_w is None else sub(src_w),
         )
         init = res_c.transform
         k_ref = config.block_k_refine if config.block_k_refine > 0 else config.block_k
@@ -528,12 +547,60 @@ def _register_block(
         cand_ref, qcent_ref = _candidate_tiles(init.apply(src_xyz).reshape(tq, sq, 3),
                                                tgt_index, k_ref)
 
-    res = _icp_scan(config, src_xyz, src_mask, src_n_s, init,
-                    make_nn(tq, sq, k_ref, cand=cand_ref, qcent=qcent_ref), aux_rot=aux_rot,
-                    prev_rmse0=prev_rmse0, src_w=src_w)
+    # the mid phase: every stride_r-th row of each query tile, against the
+    # same tiles and frozen candidates, for all but the last
+    # refine_full_iters iterations; its stop threshold scales with its rows
+    stride_r = config.resolve_refine_stride(src.capacity, tgt.capacity)
+    mid = (stride_r > 1 and sq % stride_r == 0 and sq // stride_r >= 8 and not fused
+           and config.max_iters > config.refine_full_iters)
+    cfg_r = config
+    if mid:
+        sq_m = sq // stride_r
+
+        def substride(x, d=None):
+            rows = x.reshape((tq, sq) + ((d,) if d else ()))[:, ::stride_r]
+            return rows.reshape((-1, d) if d else (-1,))
+
+        cfg_m = dataclasses.replace(config, max_iters=config.max_iters - config.refine_full_iters,
+                                    diff_threshold=config.diff_threshold / stride_r)
+        res_m = _icp_scan(
+            cfg_m, substride(src_xyz, 3), substride(src_mask), substride(src_n_s, dn), init,
+            make_nn(tq, sq_m, k_ref, cand=cand_ref, qcent=qcent_ref,
+                    qfeat=None if src_f is None else substride(src_f)),
+            aux_rot=aux_rot, prev_rmse0=prev_rmse0,
+            src_w=None if src_w is None else substride(src_w),
+        )
+        init = res_m.transform
+        prev_rmse0 = res_m.final_rmse
+        cfg_r = dataclasses.replace(config, max_iters=config.refine_full_iters)
+
+    res = _icp_scan(cfg_r, src_xyz, src_mask, src_n_s, init,
+                    make_nn(tq, sq, k_ref, cand=cand_ref, qcent=qcent_ref, qfeat=src_f),
+                    aux_rot=aux_rot, prev_rmse0=prev_rmse0, src_w=src_w)
+    if mid:
+        # the mid phase's histories first, then the tail's, NaN past the
+        # work done; a mid phase that met its stop counts as converged
+        res = res.replace(
+            iters=res.iters + res_m.iters,
+            converged=res.converged | res_m.converged,
+            diff_history=_merge_history(res_m.diff_history, res.diff_history, res_m.iters,
+                                        res.iters, config.max_iters),
+            rmse_history=_merge_history(res_m.rmse_history, res.rmse_history, res_m.iters,
+                                        res.iters, config.max_iters),
+        )
     if coarse:
         res = res.replace(iters=res.iters + res_c.iters)
     return res
+
+
+def _merge_history(mid_h: torch.Tensor, tail_h: torch.Tensor, mid_iters: int, tail_iters: int,
+                   total: int) -> torch.Tensor:
+    """A (total,) history: the mid phase's first `mid_iters` entries, the
+    tail's first `tail_iters` after them, NaN past the work done."""
+    out = torch.full((total,), float("nan"), dtype=mid_h.dtype, device=mid_h.device)
+    out[:mid_iters] = mid_h[:mid_iters]
+    out[mid_iters:mid_iters + tail_iters] = tail_h[:tail_iters]
+    return out
 
 
 def _icp_scan(
@@ -621,6 +688,116 @@ def _icp_scan(
         final_rmse=prev_rmse,
         inlier_count=last.to(torch.int32),
     )
+
+
+def _centre_pair(sx, sm, tx, tm, init: SE3):
+    """A pair shifted by its target's masked centroid (valid rows only),
+    the initial guess in that frame, and the shift back: (sx, tx, init_c,
+    shift, unshift), as the reference's batched entry points do it."""
+    denom = torch.clamp(tm.sum(), min=1).to(torch.float32)
+    center = torch.where(tm[:, None], tx, 0.0).sum(0) / denom
+    sx = torch.where(sm[:, None], sx - center[None, :], sx)
+    tx = torch.where(tm[:, None], tx - center[None, :], tx)
+    eye = torch.eye(3, dtype=torch.float32, device=tx.device)
+    shift, unshift = SE3(R=eye, t=-center), SE3(R=eye, t=center)
+    return sx, tx, shift @ init @ unshift, shift, unshift
+
+
+def _stack_results(results) -> ICPResult:
+    """B single-pair results as one batched ICPResult: (B,) tensors for
+    iters, converged, final_rmse and inlier_count, (B, max_iters)
+    histories and a (B,) SE3."""
+    dev = results[0].final_rmse.device
+    stack = lambda f: torch.stack([getattr(r, f) for r in results])  # noqa: E731
+    return ICPResult(
+        transform=SE3(R=torch.stack([r.transform.R for r in results]),
+                      t=torch.stack([r.transform.t for r in results])),
+        iters=torch.tensor([r.iters for r in results], dtype=torch.int32, device=dev),
+        converged=stack("converged"),
+        diff_history=stack("diff_history"),
+        rmse_history=stack("rmse_history"),
+        final_rmse=stack("final_rmse"),
+        inlier_count=stack("inlier_count"),
+    )
+
+
+def register_batch(
+    src_xyz: torch.Tensor,  # (B, N, 3)
+    src_mask: torch.Tensor,  # (B, N)
+    src_normals: torch.Tensor,  # (B, N, 3)
+    tgt_xyz: torch.Tensor,
+    tgt_mask: torch.Tensor,
+    tgt_normals: torch.Tensor,
+    config: ICPConfig = ICPConfig(),
+    init: Optional[SE3] = None,  # batched (B,) initial guesses
+) -> ICPResult:
+    """Register B independent pairs on the brute-force path; normals must
+    be given. Each pair is solved in its target-centroid frame (valid rows
+    shifted) through `nearest_neighbor` (the `nn` kernel on the card), with
+    the shift composed back, as the reference's vmapped version does. The
+    pairs run one after another and their results are stacked into one
+    batched ICPResult; each equals the pair's result run alone."""
+    b = src_xyz.shape[0]
+    if init is None:
+        init = SE3.identity((b,), device=tgt_xyz.device)
+    results = []
+    for i in range(b):
+        tm, tn = tgt_mask[i], tgt_normals[i]
+        sx, tx, init_c, shift, unshift = _centre_pair(
+            src_xyz[i], src_mask[i], tgt_xyz[i], tm, SE3(R=init.R[i], t=init.t[i]))
+
+        def nn_fn(p, tx=tx, tm=tm, tn=tn):
+            d2, idx = nearest_neighbor(p, tx, ref_mask=tm, tile_q=config.tile_q,
+                                       tile_r=config.tile_r)
+            return tx.index_select(0, idx), tn.index_select(0, idx), torch.sqrt(d2)
+
+        res = _icp_scan(config, sx, src_mask[i], src_normals[i], init_c, nn_fn)
+        results.append(res.replace(transform=unshift @ res.transform @ shift))
+    return _stack_results(results)
+
+
+def register_batch_block(
+    src_xyz: torch.Tensor,  # (B, N, 3)
+    src_mask: torch.Tensor,  # (B, N)
+    tgt_xyz: torch.Tensor,  # (B, N, 3)
+    tgt_mask: torch.Tensor,  # (B, N)
+    config: ICPConfig = ICPConfig(),
+    init: Optional[SE3] = None,  # batched (B,) initial guesses
+) -> ICPResult:
+    """Register B independent pairs through the full block-NN pipeline
+    (per-pair KD indexes, normals estimated off them, coarse and refine
+    phases). Each pair is solved in its target-centroid frame, as in
+    `register_batch`; the pairs run one after another through
+    `_register_block` with both clouds' normals estimated, and their
+    results are stacked."""
+    b = src_xyz.shape[0]
+    if config.resolve_nn(tgt_xyz.shape[1]) != "block":
+        raise ValueError(
+            "register_batch_block needs the block NN path (clouds above "
+            "block_auto_threshold or nn_method='block'); use "
+            "register_batch for brute-NN scan-scale pairs"
+        )
+    if config.objective == "gicp":
+        raise ValueError("gicp needs covariances (estimate_covariances first)")
+    if init is None:
+        init = SE3.identity((b,), device=tgt_xyz.device)
+    results = []
+    for i in range(b):
+        sx, tx, init_c, shift, unshift = _centre_pair(
+            src_xyz[i], src_mask[i], tgt_xyz[i], tgt_mask[i], SE3(R=init.R[i], t=init.t[i]))
+        res = _register_block(PointCloud(xyz=sx, mask=src_mask[i]),
+                              PointCloud(xyz=tx, mask=tgt_mask[i]), init_c, config,
+                              normals_for=("src", "tgt"))
+        results.append(res.replace(transform=unshift @ res.transform @ shift))
+    return _stack_results(results)
+
+
+def register_xyz(src_xyz, tgt_xyz, config: ICPConfig = ICPConfig(),
+                 init: Optional[SE3] = None, *, device=None) -> ICPResult:
+    """Register raw (N, 3) arrays (padding handled here); they land on
+    `device` as `PointCloud.create` puts them."""
+    return register(PointCloud.create(src_xyz, device=device),
+                    PointCloud.create(tgt_xyz, device=device), config, init)
 
 
 def format_trace(result: ICPResult) -> str:

@@ -1,6 +1,7 @@
 """Port parity: `register()` on the block-NN path, against `icpx`, plus the
-block path's resolution rules, its unported options, the default device
-of the entry points, and a run with JAX and `icpx` blocked.
+block path's resolution rules, the options it refuses, the refine-stride
+mid phase, `register_batch_block`, the default device of the entry points,
+and a run with JAX and `icpx` blocked.
 
 The slice as a whole: a 16,384-point `synthetic_surface` pair (the
 construction of tests/test_blocknn.py::test_register_payload_modes_
@@ -219,15 +220,130 @@ def test_block_modes_route_through_their_wrappers(mode, wrapper, phases, monkeyp
     assert not any(calls[n] for n in others), calls
 
 
-@pytest.mark.parametrize("change,where", [
-    (dict(feat_nn="intensity", feat_nn_weight=1.0), "queue 1 step 6"),
-    (dict(refine_stride=2), "queue 1 step 6"),
+@pytest.mark.parametrize("change,error,where", [
+    (dict(feat_nn="intensity", feat_nn_weight=1.0, nn_method="brute"), ValueError,
+     "needs the block NN path"),
+    (dict(feat_nn="intensity", feat_nn_weight=1.0), KeyError, "no payload features"),
+    (dict(refine_stride=-1), ValueError, "refine_stride must be >= 0"),
 ])
-def test_unported_block_options_raise(change, where):
+def test_unported_block_options_raise(change, error, where):
+    """The block options that once raised as unported (feat_nn, the
+    refine-stride mid phase) now run; what still raises is what the
+    reference refuses: feat_nn off the block path or without the named
+    channel, and a negative refine_stride."""
     src, tgt, _ = _pair()
-    cfg = dataclasses.replace(ICPConfig(nn_method="block"), **change)
-    with pytest.raises(NotImplementedError, match=where):
+    with pytest.raises(error, match=where):
+        cfg = dataclasses.replace(ICPConfig(nn_method="block"), **change)
         register(torch_cloud(src), torch_cloud(tgt), cfg)
+
+
+def _mid_cfg(mode):
+    """`_cfg` with the refine-stride mid phase: up to 6 iterations on every
+    other row of each 64-row query tile (Sq 32), then up to 2 at full
+    resolution. One coarse iteration leaves the mid phase real work, and
+    the stop is a diff threshold (0.1, the mid phase's 0.05) that each
+    phase's diff sums cross by orders of magnitude, so both packages stop
+    at the same iteration: the RMSE test would compare noise, as the pair
+    converges to an RMSE of ~2e-6 that moves by ~1e-6 an iteration."""
+    return dataclasses.replace(_cfg(mode), refine_stride=2, coarse_iters=1, diff_threshold=0.1,
+                               rmse_change_tol=0.0)
+
+
+@pytest.mark.parametrize("mode", ("gather", "vmem"))
+def test_refine_stride_mid_phase_matches_jax(mode):
+    """refine_stride=2 on the 16k pair under "gather" and "vmem" (the plain
+    fold6 here, the Pallas fold in interpret mode in the reference): pose
+    within 1e-5, the same iteration count, NaN at the same places of the
+    merged histories and the same `converged`."""
+    src, tgt, gt = _pair()
+    jcfg = _mid_cfg(mode)
+    jres = j_register(src, tgt, jcfg)
+    res = register(torch_cloud(src), torch_cloud(tgt), torch_config(jcfg))
+    np.testing.assert_allclose(to_np(res.transform.R), np.asarray(jres.transform.R), atol=1e-5)
+    np.testing.assert_allclose(to_np(res.transform.t), np.asarray(jres.transform.t), atol=1e-5)
+    assert res.iters == int(jres.iters)
+    for h in ("diff_history", "rmse_history"):
+        np.testing.assert_array_equal(np.isnan(to_np(getattr(res, h))),
+                                      np.isnan(np.asarray(getattr(jres, h))), err_msg=h)
+    assert bool(res.converged) == bool(jres.converged)
+    # the mid phase ran: more refine entries than the tail's 2
+    assert int(torch.isfinite(res.rmse_history).sum()) > jcfg.refine_full_iters
+    rot, t = (float(x) for x in res.transform.distance_to(torch_se3(gt)))
+    assert rot < 5e-3 and t < 5e-3
+
+
+@pytest.mark.parametrize("mode,wrapper", [("vmem", "block_fold_fused_pre"),
+                                          ("vmem7", "block_fold7_pre"),
+                                          ("select", "payload_select_fused")])
+def test_mid_phase_routes_through_its_wrapper(mode, wrapper, monkeypatch):
+    """Under the mid phase each frozen-candidate mode's wrapper runs once an
+    iteration of the mid phase and of the tail, on query tiles of Sq 32 and
+    then 64."""
+    from icpx_torch.registration import icp
+
+    rows = []
+    real = getattr(icp, wrapper)
+
+    def counting(*a, **kw):
+        rows.append(a[0].shape[1])
+        return real(*a, **kw)
+
+    monkeypatch.setattr(icp, wrapper, counting)
+    src, tgt, gt = _pair()
+    res = register(torch_cloud(src), torch_cloud(tgt), torch_config(_mid_cfg(mode)))
+    refine = int(torch.isfinite(res.rmse_history).sum())
+    assert len(rows) == refine == res.iters - 1
+    mid = rows.count(32)
+    assert mid >= 1 and rows == [32] * mid + [64] * (refine - mid) and 1 <= refine - mid <= 2
+    rot, t = (float(x) for x in res.transform.distance_to(torch_se3(gt)))
+    assert rot < 5e-3 and t < 5e-3
+
+
+def test_register_batch_block_matches_jax():
+    """`register_batch_block` on two 16k pairs (the second its own GT): pose
+    within 1e-5 of the reference's vmapped run, pair by pair, and each pair
+    equal to the port's single-pair block registration in its target frame."""
+    from icpx.geometry.se3 import SE3 as JSE3
+    from icpx.registration.icp import register_batch_block as j_batch_block
+    from icpx_torch.registration.icp import register_batch_block
+
+    src, tgt, gt = _pair()
+    src2, tgt2, gt2 = _pair_seeded(5, 0.1, (-0.05, 0.08, 0.0))
+    stack = lambda f: np.stack([np.asarray(f(c)) for c in (src, src2)])  # noqa: E731
+    stack_t = lambda f: np.stack([np.asarray(f(c)) for c in (tgt, tgt2)])  # noqa: E731
+    cfg = JConfig(max_iters=6, diff_threshold=0.0, rmse_change_tol=1e-6, payload_mode="gather")
+    jres = j_batch_block(jnp_(stack(lambda c: c.xyz)), jnp_(stack(lambda c: c.mask)),
+                         jnp_(stack_t(lambda c: c.xyz)), jnp_(stack_t(lambda c: c.mask)), cfg)
+    t = lambda a: torch.as_tensor(np.asarray(a))  # noqa: E731
+    res = register_batch_block(t(stack(lambda c: c.xyz)), t(stack(lambda c: c.mask)),
+                               t(stack_t(lambda c: c.xyz)), t(stack_t(lambda c: c.mask)),
+                               torch_config(cfg))
+    assert tuple(res.transform.R.shape) == (2, 3, 3) and tuple(res.iters.shape) == (2,)
+    assert tuple(res.rmse_history.shape) == (2, cfg.max_iters)
+    np.testing.assert_allclose(to_np(res.transform.R), np.asarray(jres.transform.R), atol=1e-5)
+    np.testing.assert_allclose(to_np(res.transform.t), np.asarray(jres.transform.t), atol=1e-5)
+    for i, g in enumerate((gt, gt2)):
+        est = JSE3(R=jres.transform.R[i], t=jres.transform.t[i])
+        assert all(float(x) < 5e-3 for x in est.distance_to(g))
+        assert abs(int(res.iters[i]) - int(jres.iters[i])) <= 1
+    with pytest.raises(ValueError, match="block NN path"):
+        register_batch_block(t(stack(lambda c: c.xyz)), t(stack(lambda c: c.mask)),
+                             t(stack_t(lambda c: c.xyz)), t(stack_t(lambda c: c.mask)),
+                             ICPConfig(nn_method="brute"))
+
+
+def jnp_(a):
+    return jax.numpy.asarray(a)
+
+
+def _pair_seeded(seed, angle, translation):
+    xyz = synthetic_surface(N, seed=seed)
+    src = JCloud.create(xyz, capacity=N)
+    gt = j_perturb(angle=angle, translation=translation)
+    tgt_np = np.asarray(gt.apply(src.xyz))[:N]
+    perm = np.random.default_rng(seed).permutation(N)
+    tgt = JCloud.create(tgt_np[perm], capacity=N).replace(mask=src.mask[perm])
+    return src, tgt, gt
 
 
 def _entry_points():

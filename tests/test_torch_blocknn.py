@@ -245,10 +245,14 @@ def test_block_nn_recall_default_operating_point():
 
 
 def test_block_nn_feature_metric_raises():
+    """The feature metric needs both its operands: a query feature without
+    the reference's feature tiles, or the reverse, raises."""
     _, jq, ji = _query_and_index(n=4096, seed=8)
     qt = torch.as_tensor(np.asarray(jq.tiles))
-    with pytest.raises(NotImplementedError, match="step 6"):
+    with pytest.raises(ValueError, match="both query_feat and feat_tiles"):
         tb.block_nn(qt, _same_index(ji), query_feat=torch.zeros(qt.shape[:2]))
+    with pytest.raises(ValueError, match="both query_feat and feat_tiles"):
+        tb.block_nn(qt, _same_index(ji), feat_tiles=torch.zeros(ji.tiles.shape[:2]))
 
 
 def test_payload_tables_match_jax():
@@ -966,7 +970,7 @@ def test_block_nn_payload_feature_metric_raises():
     _, jq, ji = _query_and_index(n=4096, seed=8)
     qt = torch.as_tensor(np.asarray(jq.tiles))
     pl = torch.zeros(ji.tiles.shape)
-    with pytest.raises(NotImplementedError, match="step 6"):
+    with pytest.raises(ValueError, match="both query_feat and feat_tiles"):
         tb.block_nn_payload(qt, _same_index(ji), pl, query_feat=torch.zeros(qt.shape[:2]))
     with pytest.raises(ValueError, match="bf16 scoring"):
         tb.block_nn_payload(qt, _same_index(ji), pl, payload_prec="bf16", payload_xyz=3)

@@ -384,3 +384,122 @@ def test_cuda_moments_fused_matches_plain(cuda_device):
 def test_cuda_moments_fused_library_shape(cuda_device):
     """The built library reports the shape the plan tests assume."""
     assert blocknn_cuda.moments_fused_shape() == MF_SHAPE
+
+
+# ---- the refine-stride mid phase's shapes (kernels #3-#5) --------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stride", [2, 4])
+def test_cuda_mid_phase_folds_match_plain(cuda_device, stride):
+    """fold6, fold7 and select on every stride-th row of the fold case's
+    query tiles (Sq 32 and 16) against the same frozen candidates, fold7
+    centred on the full tiles' centroids as the mid phase runs it: d2 bits
+    and payload equal to the plain versions', select's also to the row
+    gather."""
+    tq, ti, table, cand = _fold_case(19, cuda_device)
+    q_cent = tb._candidate_tiles(tq.tiles, ti, 6)[1]
+    qm = tq.tiles[:, ::stride].contiguous()
+    for run, plain, ops in (
+            (blocknn_cuda.fold6_cuda, fold6_reference, fold6_prepare(cand, ti, table)),
+            (blocknn_cuda.fold7_cuda, blocknn_cuda.fold7_reference,
+             blocknn_cuda.fold7_prepare(cand, q_cent, ti, table))):
+        d_k, pl_k = run(qm, ops)
+        d_p, pl_p = plain(qm, ops)
+        torch.cuda.synchronize()
+        assert torch.equal(d_k.view(torch.int32), d_p.view(torch.int32)) and torch.equal(pl_k, pl_p)
+    _, pos = tb.block_nn(qm, ti, return_pos=True, cand_tiles=cand)
+    pos = pos.reshape(qm.shape[0], qm.shape[1])
+    out_k = blocknn_cuda.select_cuda(pos, cand.to(torch.int32), table, ti.tile_size)
+    out_p = blocknn_cuda.select_reference(pos, cand, table, ti.tile_size)
+    torch.cuda.synchronize()
+    assert torch.equal(out_k, out_p) and torch.equal(out_k, table[pos.reshape(-1).long()])
+
+
+# ---- the rest of the registration layer, card against CPU --------------------------------------
+
+
+def _index_to(index, device):
+    return tb.TileIndex(**{f: getattr(index, f).to(device) for f in
+                           ("tiles", "box_lo", "box_hi", "centroids", "order")})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_chunk", [32768, 5])
+def test_cuda_feature_block_nn_matches_cpu(cuda_device, max_chunk):
+    """`block_nn` and `block_nn_payload` with a feature channel (weight
+    0.7) on the card against the same calls on the CPU, unchunked and in
+    chunks of 5 query tiles: d2 within 1e-6 of the score's scale (the
+    largest |q|^2 + w^2 f_q^2: the two devices round the expansion in
+    different orders), winners equal but at near-ties, where their d2 agree
+    within that."""
+    rng = np.random.default_rng(31)
+    r = rng.uniform(-1, 1, (4096, 3)).astype(np.float32)
+    f_r = (np.sin(3 * r[:, 0]) + r[:, 1]).astype(np.float32)
+    pick = rng.permutation(4096)[:2048]
+    q = (r[pick] + rng.normal(0, 0.01, (2048, 3))).astype(np.float32)
+    ti = tb.build_kd_index(torch.as_tensor(r), tile_size=128)
+    qi = tb.build_kd_index(torch.as_tensor(q), tile_size=64)
+    order = qi.order.long()
+    qf = torch.where(order >= 0, torch.as_tensor(f_r[pick])[order.clamp(min=0)], 0.0)
+    qf = qf.reshape(qi.n_tiles, qi.tile_size)
+    ft = tb.tile_payload(ti, torch.as_tensor(f_r)[:, None])[..., 0]
+    pl = tb.tile_payload(ti, torch.as_tensor(rng.normal(size=(4096, 4)).astype(np.float32)))
+    kw = dict(k_tiles=4, max_chunk=max_chunk, feat_weight=0.7)
+    scale = (qi.tiles.reshape(-1, 3) ** 2).sum(1) + 0.49 * qf.reshape(-1) ** 2
+    tol = 1e-6 * float(scale[qi.order >= 0].max())
+    on = lambda x: x.to(cuda_device)  # noqa: E731
+    for fn, extra in ((tb.block_nn, dict(return_pos=True)), (tb.block_nn_payload, {})):
+        args = (qi.tiles, ti) + ((pl,) if fn is tb.block_nn_payload else ())
+        d_c, w_c = fn(*args, query_feat=qf, feat_tiles=ft, **kw, **extra)
+        d_g, w_g = fn(*(on(a) if torch.is_tensor(a) else _index_to(a, cuda_device) for a in args),
+                      query_feat=on(qf), feat_tiles=on(ft), **kw, **extra)
+        d_g, w_g = d_g.cpu(), w_g.cpu()
+        assert torch.equal(torch.isfinite(d_g), torch.isfinite(d_c))
+        fin = torch.isfinite(d_c)
+        assert float((d_g[fin] - d_c[fin]).abs().max()) <= tol
+        differ = (w_g != w_c) if w_c.ndim == 1 else (w_g != w_c).any(1)
+        assert float(differ.float().mean()) < 1e-2
+        assert bool(((d_g[differ] - d_c[differ]).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+def test_cuda_voxel_nn_matches_cpu(cuda_device):
+    """The voxel grid and its 27-cell NN on the card against the CPU: the
+    same table, and on every query (all valid) the same index and d2
+    bits."""
+    from icpx_torch.kernels.voxel import build_voxel_grid, voxel_nn
+
+    r = torch.as_tensor(synthetic_surface(20000, seed=0))
+    q = torch.as_tensor(synthetic_surface(5000, seed=1))
+    cell = auto_cell_size(r)
+    g_c = build_voxel_grid(r, cell)
+    g_g = build_voxel_grid(r.to(cuda_device), cell.to(cuda_device))
+    assert torch.equal(g_g.table.cpu(), g_c.table)
+    d_c, i_c = voxel_nn(q, g_c)
+    d_g, i_g = voxel_nn(q.to(cuda_device), g_g)
+    assert torch.equal(i_g.cpu(), i_c)
+    assert torch.equal(d_g.cpu().view(torch.int32), d_c.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_cuda_horn_planar_is_a_proper_rotation(cuda_device):
+    """Coplanar points (a rank-2 cross-covariance): cuSOLVER's singular
+    vectors may differ in sign from LAPACK's, and the det fix keeps R
+    proper; R and t within 1e-5 of the CPU's."""
+    from icpx_torch.registration.horn import horn_align
+
+    rng = np.random.default_rng(7)
+    src = rng.normal(size=(50, 3)).astype(np.float32) * np.float32([1.0, 1.0, 0.0])
+    a = 1.2
+    R = np.array([[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0], [0, 0, 1]], np.float32)
+    R = R @ np.array([[1, 0, 0], [0, np.cos(0.4), -np.sin(0.4)], [0, np.sin(0.4), np.cos(0.4)]],
+                     np.float32)
+    dst = src @ R.T + np.float32([0.3, -0.2, 0.5])
+    est_c = horn_align(torch.as_tensor(src), torch.as_tensor(dst))
+    est_g = horn_align(torch.as_tensor(src, device=cuda_device), torch.as_tensor(dst, device=cuda_device))
+    assert est_g.R.device.type == "cuda"
+    assert abs(float(torch.linalg.det(est_g.R.double())) - 1.0) < 1e-4
+    torch.testing.assert_close(est_g.R.cpu(), est_c.R, rtol=0, atol=1e-5)
+    torch.testing.assert_close(est_g.t.cpu(), est_c.t, rtol=0, atol=1e-5)
+    torch.testing.assert_close(est_g.R.cpu(), torch.as_tensor(R), rtol=0, atol=1e-4)

@@ -179,7 +179,8 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
     ):
         monkeypatch.setattr(torch.cuda, name, value)
 
-    chip_smoke.main(dev=torch.device("cpu"), n_pair=2048, n_flag=8192, n_small=8192)
+    chip_smoke.main(dev=torch.device("cpu"), n_pair=2048, n_flag=8192, n_small=8192, n_batch=1000,
+                    n_scan=8192, n_plane=8192, b_batch=3, b_block=2)
     lines = capsys.readouterr().out.strip().splitlines()
     assert json.loads(lines[-1]) == {
         "ok": True, "device": {"platform": "gpu", "kind": "Fake GPU", "count": 1}}
@@ -189,6 +190,8 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms"}
     device = {"device_ms", "library_device_ms"}
+    # the refine-stride mid phase's shapes: every 2nd and every 4th query row
+    mid = {f"{k}_sq{q}" for k in ("ms", "device_ms", "plain_ms", "bound_ms") for q in (32, 16)}
     extras = {"nn": {"ms_3456", "plain_ms_3456", "library_ms_3456", "bound_ms_3456", "splits",
                      "splits_3456", "device_ms", "device_ms_3456", "library_device_ms_3456"},
               "moments6": {"cov_max_abs_err", "cov_err_over_tol", "device_ms", "bytes_ms", "band_pairs",
@@ -196,11 +199,12 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
                            "bound_ms_k8", "bytes_ms_k8", "band_pairs_k8", "screened_pairs_k8",
                            "mean_count_k8"},
               "fold6": {"device_ms", "ms_d12", "plain_ms_d12", "device_ms_d12", "bound_ms_d12",
-                        "prepare_ms"},
+                        "prepare_ms", "launches_mid"} | mid,
               "fold7": {"device_ms", "ms_d12", "plain_ms_d12", "device_ms_d12", "bound_ms_d12",
-                        "prepare_ms"},
+                        "prepare_ms", "launches_mid"} | mid,
               "select": {"ms_d12", "plain_ms_d12", "library_ms_d12", "bound_ms_d12", "device_ms_d12",
-                         "library_device_ms_d12"} | device,
+                         "library_device_ms_d12"} | device | mid | {
+                             f"library{k}{q}" for k in ("_ms", "_device_ms") for q in ("_sq32", "_sq16")},
               "fused4": {"union_mean", "union_max", "device_ms"},
               "moments_fused": {"cov_err_over_tol", "union_mean", "union_max", "padded_share",
                                 "rows_below_xla", "margin_used", "device_ms"},
@@ -234,6 +238,10 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
     assert nn["launches"] >= 2 and nn["max_abs_err"] == 0.0 and nn["library_ms"] > 0
     assert nn["splits_3456"] == 14 and nn["bound_ms_3456"] > 0 and nn["library_ms_3456"] > 0
     assert mom["launches"] >= 2 and fold["launches"] >= 1
+    # the mid phase: the fold once an iteration of stride 2 and stride 4 (fold6), stride 2 (fold7)
+    assert fold["launches_mid"] >= 2 and fold7["launches_mid"] >= 1
+    for k in (fold, fold7, select):
+        assert all(k[f"{f}_sq{q}"] > 0 for f in ("device_ms", "bound_ms") for q in (32, 16))
     assert mom["library_ms"] is None and fold["library_ms"] is None
     assert "Fake GPU, 700.00 W" in lines
     prefixes = ["cat: ", "65k pair: ", "nn kernel vs plain 3456x3456 (56 pad rows): d2 and index "
@@ -246,7 +254,13 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
     prefixes += [f"flagship 1M ({m}): " for m in chip_smoke._flag_configs()]
     prefixes += [f"flagship 1M (gicp) rep {r}: " for r in (1, 2, 3)]
     prefixes += [f"16k block pair ({m}): " for m in (
-        "vmem", "vmem7", "select", "fused", "gicp", "gicp vmem7", "gicp select", "gicp fused")]
+        "vmem", "vmem7", "select", "fused", "gicp", "gicp vmem7", "gicp select", "gicp fused",
+        "mid vmem", "mid select")]
+    prefixes += [f"flagship 1M ({m}): " for m in ("mid2", "mid2 vmem7", "mid4", "feat")]
+    prefixes += ["mid-phase shapes, kernel vs plain", "plane 8192 (geometry): ",
+                 "plane 8192 (feature): ", "ndt 1M (p2d): ", "ndt 1M (d2d): ", "horn_align 8192 points",
+                 "voxel_nn 8192 queries", "register_batch 3 x 1000: ", "register_batch_block 2 x 8192: ",
+                 "register_pyramid 8192 points"]
     for prefix in prefixes:
         assert any(line.startswith(prefix) for line in lines), prefix
 

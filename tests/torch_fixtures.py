@@ -38,11 +38,12 @@ M6_FIXTURES = list(chip_smoke.MOMENTS6_FIXTURES)
 M6_FIXTURE_SHAPES = dict(zip(["1M plan", "k8", "sq22", "sq3-s8", "sq600-s300", "s100", "sq5-s130"],
                              chip_smoke.MOMENTS6_FIXTURE_SHAPES))
 F6_FIXTURES = list(chip_smoke.FOLD6_FIXTURES)
-F6_FIXTURE_SHAPES = dict(zip(["sq20", "sq64-s100", "sq3", "sq600-s2000", "sq128", "sq64-8tiles"],
-                             chip_smoke.FOLD6_FIXTURE_SHAPES))
+F6_FIXTURE_SHAPES = dict(zip(["sq20", "sq64-s100", "sq3", "sq600-s2000", "sq128", "sq64-8tiles",
+                              "mid sq32", "mid sq16"], chip_smoke.FOLD6_FIXTURE_SHAPES))
 F7_FIXTURES = list(chip_smoke.FOLD7_FIXTURES)
 F7_FIXTURE_SHAPES = dict(zip(["1M plan", "25 a block", "sq30-s100", "k8-s512", "sq600-s2000",
-                              "sq3-s13", "k200", "sq128"], chip_smoke.FOLD7_FIXTURE_SHAPES))
+                              "sq3-s13", "k200", "sq128", "mid sq32", "mid sq16"],
+                             chip_smoke.FOLD7_FIXTURE_SHAPES))
 
 
 # ---- brute NN fixtures (kernel #1) --------------------------------------------------------

@@ -33,10 +33,12 @@ def clouds(xyz, normals=None, capacity=None):
 
 
 def torch_cloud(jc, device="cpu"):
-    nrm = None if jc.normals is None else np.asarray(jc.normals)
-    cov = None if jc.covs is None else np.asarray(jc.covs)
+    def host(x):
+        return None if x is None else np.asarray(x)
+
     return interop.cloud_from_numpy(
-        np.asarray(jc.xyz), np.asarray(jc.mask), nrm, cov, device=device
+        np.asarray(jc.xyz), np.asarray(jc.mask), host(jc.normals), host(jc.covs),
+        host(jc.feats), jc.feat_names, device=device
     )
 
 
@@ -46,3 +48,17 @@ def torch_se3(js, device="cpu"):
 
 def torch_config(jcfg):
     return interop.config_from_dict(dataclasses.asdict(jcfg))
+
+
+def torch_pyramid_config(jcfg):
+    return interop.pyramid_config_from_dict(dataclasses.asdict(jcfg))
+
+
+def rotation(rng, max_angle=3.0) -> np.ndarray:
+    """A float32 rotation matrix of a random axis and an angle up to
+    `max_angle`, from numpy (Rodrigues)."""
+    axis = rng.normal(size=3)
+    axis /= np.linalg.norm(axis)
+    a = rng.uniform(-max_angle, max_angle)
+    K = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]], [-axis[1], axis[0], 0]])
+    return (np.eye(3) + np.sin(a) * K + (1 - np.cos(a)) * K @ K).astype(np.float32)
