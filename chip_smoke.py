@@ -66,6 +66,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -773,13 +774,38 @@ def _select_bound(pos, cand, table):
     return _bound(n * 4 + tq * k * 4 + rows * d_pl * 4 + n * d_pl * 4, float(n * k))
 
 
+# the refine-stride mid phase's strides (`_mid_configs`): every 2nd and every
+# 4th row of each query tile
+MID_STRIDES = (2, 4)
+
+
+def _mid_views(query):
+    """The refine-stride mid phase's query tiles: every MID_STRIDES-th row
+    of each tile of `query` (16,384 x 32 and x 16 on the 1M flagship), keyed
+    by the JSON suffix of their times (_sq32, _sq16)."""
+    return {f"_sq{query.shape[1] // st}": query[:, ::st].contiguous() for st in MID_STRIDES}
+
+
+def _mid_text(timed, views, library=False):
+    """The mid phase's shapes' times for a kernel's line."""
+    parts = []
+    for sfx, q in views.items():
+        lib = f", table[pos] device {timed['library_device_ms' + sfx]:.4f}" if library else ""
+        parts.append(f"{tuple(q.shape)}: device {timed['device_ms' + sfx]:.4f} ms, event "
+                     f"{timed['ms' + sfx]:.4f}, plain {timed['plain_ms' + sfx]:.3f}{lib}, bound "
+                     f"{timed['bound_ms' + sfx]:.4f}")
+    return "; ".join(parts)
+
+
 def _phase_fold6(dev, query, cand, tgt_index, table, table12, fixtures):
     """Kernel #3 against its plain version at the shapes of one flagship
     refine iteration (16,384 x 64 queries, k = 6 frozen candidates, the
     fused (T*S, 6) table of the symmetric objective and GICP's (T*S, 12)
-    one), bit for bit on every row, plus the tie and miss fixtures and each
-    screen fixture (`fold6_fixture`) at each of FOLD6_FIXTURE_SHAPES; times
-    at D = 6 and D = 12 (the latter's under *_d12); returns its JSON
+    one) and at the mid phase's strided query tiles (`_mid_views`, the
+    same candidates), bit for bit on every row, plus the tie and miss
+    fixtures and each screen fixture (`fold6_fixture`) at each of
+    FOLD6_FIXTURE_SHAPES; times at D = 6, at D = 12 (under *_d12) and at
+    the mid phase's shapes (under *_sq32, *_sq16); returns its JSON
     fields."""
     from icpx_torch.kernels import blocknn_cuda
 
@@ -797,6 +823,9 @@ def _phase_fold6(dev, query, cand, tgt_index, table, table12, fixtures):
     ops12 = blocknn_cuda.fold6_prepare(cand, tgt_index, table12)
     d, _, err = compare(f"{tuple(query.shape)} k=6", query, ops)
     _, _, err12 = compare(f"{tuple(query.shape)} k=6 D=12", query, ops12)
+    views = _mid_views(query)
+    for q in views.values():
+        err = max(err, compare(f"{tuple(q.shape)} k=6", q, ops)[2])
     fq, f_index, f_cand, f_payload = fixtures
     f_ops = blocknn_cuda.fold6_prepare(f_cand, f_index, f_payload)
     fd, fpl, fx_err = compare("fixtures", fq, f_ops)
@@ -813,13 +842,14 @@ def _phase_fold6(dev, query, cand, tgt_index, table, table12, fixtures):
             fx_err = max(fx_err, e)
     tq, sq, _ = query.shape
     n, k, s = tq * sq, cand.shape[1], tgt_index.tile_size
-    timed = {}
-    for suffix, o in (("", ops), ("_d12", ops12)):
-        bound_ms, bound_by, n_ops, far = _fold6_bound(query, o)
-        timed.update({f"ms{suffix}": _event_ms(lambda: blocknn_cuda.fold6_cuda(query, o)),
-                      f"device_ms{suffix}": _graph_ms(lambda: blocknn_cuda.fold6_cuda(query, o)),
-                      f"plain_ms{suffix}": _event_ms(lambda: blocknn_cuda.fold6_reference(query, o)),
-                      f"bound_ms{suffix}": bound_ms})
+    timed, bounds = {}, {}
+    for suffix, q, o in (("", query, ops), ("_d12", query, ops12), *((x, q, ops) for x, q in views.items())):
+        bounds[suffix] = _fold6_bound(q, o)
+        timed.update({f"ms{suffix}": _event_ms(lambda: blocknn_cuda.fold6_cuda(q, o)),
+                      f"device_ms{suffix}": _graph_ms(lambda: blocknn_cuda.fold6_cuda(q, o)),
+                      f"plain_ms{suffix}": _event_ms(lambda: blocknn_cuda.fold6_reference(q, o)),
+                      f"bound_ms{suffix}": bounds[suffix][0]})
+    _, bound_by, n_ops, far = bounds[""]
     prepare_ms = _event_ms(lambda: blocknn_cuda.fold6_prepare(cand, tgt_index, table))
     # the kernel's shape lives in the built library; a rehearsal off the card has none
     if dev.type == "cuda":
@@ -840,7 +870,8 @@ def _phase_fold6(dev, query, cand, tgt_index, table, table12, fixtures):
           f"{timed['device_ms']:.4f} ms, bound {timed['bound_ms']:.4f} ms ({bound_by}: {n_ops:.6g} "
           f"operations, {far} far queries); D=12: kernel "
           f"{timed['ms_d12']:.4f} ms, plain {timed['plain_ms_d12']:.3f} ms, device time kernel "
-          f"{timed['device_ms_d12']:.4f} ms, bound {timed['bound_ms_d12']:.4f} ms; fold6_prepare "
+          f"{timed['device_ms_d12']:.4f} ms, bound {timed['bound_ms_d12']:.4f} ms; the mid phase's "
+          f"shapes, D=6, bit-equal too: {_mid_text(timed, views)}; fold6_prepare "
           f"{prepare_ms:.4f} ms (events, once a phase); {shape_text}")
     return dict(max_abs_err=max(err, err12, fx_err), bound_by=bound_by, library_ms=None,
                 prepare_ms=prepare_ms, **timed)
@@ -899,10 +930,13 @@ def _phase_fold7(dev, query, cand, q_cent, tgt_index, table, table12, fixtures):
     """Kernel #4 against its plain version at the shapes of one flagship
     refine iteration (operands centred on the query tiles' own centroids, as
     the frozen phase gives them; the fused (T*S, 6) table of the symmetric
-    objective and GICP's (T*S, 12) one), bit for bit on every row, plus the
-    tie and miss fixtures and each fold7 fixture (`fold7_fixture`) at each
-    of FOLD7_FIXTURE_SHAPES, which reach every kind of plan; times at D = 6
-    and D = 12 (the latter's under *_d12); returns its JSON fields."""
+    objective and GICP's (T*S, 12) one) and at the mid phase's strided
+    query tiles (`_mid_views`, centred on the full tiles' centroids as the
+    mid phase runs them), bit for bit on every row, plus the tie and miss
+    fixtures and each fold7 fixture (`fold7_fixture`) at each of
+    FOLD7_FIXTURE_SHAPES, which reach every kind of plan; times at D = 6,
+    at D = 12 (under *_d12) and at the mid phase's shapes (under *_sq32,
+    *_sq16); returns its JSON fields."""
     from icpx_torch.kernels import blocknn_cuda
 
     def compare(name, query, ops):
@@ -919,6 +953,9 @@ def _phase_fold7(dev, query, cand, q_cent, tgt_index, table, table12, fixtures):
     ops12 = blocknn_cuda.fold7_prepare(cand, q_cent, tgt_index, table12)
     d, _, err = compare(f"{tuple(query.shape)} k=6", query, ops)
     _, _, err12 = compare(f"{tuple(query.shape)} k=6 D=12", query, ops12)
+    views = _mid_views(query)
+    for q in views.values():
+        err = max(err, compare(f"{tuple(q.shape)} k=6", q, ops)[2])
     fq, f_index, f_cand, f_payload = fixtures
     f_ops = blocknn_cuda.fold7_prepare(f_cand, torch.zeros((2, 3), device=dev), f_index, f_payload)
     fd, fpl, fx_err = compare("fixtures", fq, f_ops)
@@ -935,13 +972,14 @@ def _phase_fold7(dev, query, cand, q_cent, tgt_index, table, table12, fixtures):
             fx_err = max(fx_err, e)
     tq, sq, _ = query.shape
     n, k, s = tq * sq, cand.shape[1], tgt_index.tile_size
-    timed = {}
-    for suffix, o in (("", ops), ("_d12", ops12)):
-        bound_ms, bound_by, n_ops = _fold7_bound(query, o)
-        timed.update({f"ms{suffix}": _event_ms(lambda: blocknn_cuda.fold7_cuda(query, o)),
-                      f"device_ms{suffix}": _graph_ms(lambda: blocknn_cuda.fold7_cuda(query, o)),
-                      f"plain_ms{suffix}": _event_ms(lambda: blocknn_cuda.fold7_reference(query, o)),
-                      f"bound_ms{suffix}": bound_ms})
+    timed, bounds = {}, {}
+    for suffix, q, o in (("", query, ops), ("_d12", query, ops12), *((x, q, ops) for x, q in views.items())):
+        bounds[suffix] = _fold7_bound(q, o)
+        timed.update({f"ms{suffix}": _event_ms(lambda: blocknn_cuda.fold7_cuda(q, o)),
+                      f"device_ms{suffix}": _graph_ms(lambda: blocknn_cuda.fold7_cuda(q, o)),
+                      f"plain_ms{suffix}": _event_ms(lambda: blocknn_cuda.fold7_reference(q, o)),
+                      f"bound_ms{suffix}": bounds[suffix][0]})
+    _, bound_by, n_ops = bounds[""]
     prepare_ms = _event_ms(lambda: blocknn_cuda.fold7_prepare(cand, q_cent, tgt_index, table))
     # the kernel's shape lives in the built library; a rehearsal off the card has none
     if dev.type == "cuda":
@@ -961,7 +999,8 @@ def _phase_fold7(dev, query, cand, q_cent, tgt_index, table, table12, fixtures):
           f"(CUDA graph replay) kernel {timed['device_ms']:.4f} ms, bound {timed['bound_ms']:.4f} ms "
           f"({bound_by}: {n_ops:.6g} operations); D=12: kernel {timed['ms_d12']:.4f} ms, plain "
           f"{timed['plain_ms_d12']:.3f} ms, device time kernel {timed['device_ms_d12']:.4f} ms, bound "
-          f"{timed['bound_ms_d12']:.4f} ms; fold7_prepare {prepare_ms:.4f} ms (events, once a phase); "
+          f"{timed['bound_ms_d12']:.4f} ms; the mid phase's shapes, D=6, bit-equal too: "
+          f"{_mid_text(timed, views)}; fold7_prepare {prepare_ms:.4f} ms (events, once a phase); "
           f"{shape_text}")
     return dict(max_abs_err=max(err, err12, fx_err), bound_by=bound_by, library_ms=None,
                 prepare_ms=prepare_ms, **timed)
@@ -973,29 +1012,37 @@ def _phase_select(dev, query, cand, tgt_index, table, table12, fixtures):
     library yardstick) at the flagship's refine shapes, with the positions
     the plain frozen-candidate fold gives, at every chunk width: the 6-wide
     table (float2), GICP's 12-wide one (float4), a 7-wide one and a 12-wide
-    view 4 bytes off 16-byte alignment (both scalar); times at D = 6 and
-    12; plus the fixtures (a candidate tile listed four times quadruples
-    its row)."""
+    view 4 bytes off 16-byte alignment (both scalar), and with the 6-wide
+    table at the mid phase's strided query tiles (`_mid_views`); times at D
+    = 6, at D = 12 and at the mid phase's shapes (under *_sq32, *_sq16);
+    plus the fixtures (a candidate tile listed four times quadruples its
+    row)."""
     from icpx_torch.kernels import blocknn_cuda
     from icpx_torch.kernels.blocknn import block_nn
 
+    def positions(q):
+        _, p = block_nn(q, tgt_index, return_pos=True, cand_tiles=cand)
+        return p.reshape(q.shape[0], q.shape[1])
+
     tq, sq, _ = query.shape
-    _, pos = block_nn(query, tgt_index, return_pos=True, cand_tiles=cand)
-    pos = pos.reshape(tq, sq)
+    pos = positions(query)
+    views = _mid_views(query)
+    mids = {sfx: positions(q) for sfx, q in views.items()}
     cand32 = cand.to(torch.int32)
     s = tgt_index.tile_size
     n_rows = table.shape[0]
     shifted = torch.empty(n_rows * 12 + 1, dtype=torch.float32, device=dev)[1:].view(n_rows, 12)
     shifted.copy_(table12)
-    tables = {"D=6": (table, 2), "D=12": (table12, 4), "D=7": (table12[:, :7].contiguous(), 1),
-              "D=12, 4 bytes off alignment": (shifted, 1)}
+    tables = {"D=6": (pos, table, 2), "D=12": (pos, table12, 4),
+              "D=7": (pos, table12[:, :7].contiguous(), 1), "D=12, 4 bytes off alignment": (pos, shifted, 1)}
+    tables.update({f"D=6, {tuple(p.shape)}": (p, table, 2) for p in mids.values()})
     err = 0.0
-    for label, (t, width) in tables.items():
+    for label, (p, t, width) in tables.items():
         if blocknn_cuda.select_width(t) != width:
             _fail(f"select ({label}): chunks of {blocknn_cuda.select_width(t)} floats, want {width}")
-        out_k = blocknn_cuda.select_cuda(pos, cand32, t, s)
-        out_p = blocknn_cuda.select_reference(pos, cand, t, s)
-        gathered = t[pos.reshape(-1).long()]
+        out_k = blocknn_cuda.select_cuda(p, cand32, t, s)
+        out_p = blocknn_cuda.select_reference(p, cand, t, s)
+        gathered = t[p.reshape(-1).long()]
         torch.cuda.synchronize()
         if not (torch.equal(out_k, out_p) and torch.equal(out_k, gathered)):
             _fail(f"select ({label}): kernel, plain version and row gather differ on "
@@ -1012,17 +1059,18 @@ def _phase_select(dev, query, cand, tgt_index, table, table12, fixtures):
     if not (torch.equal(fx_k, fx_p) and torch.equal(fx_k, want)):
         _fail("select fixtures: hits, misses or a quadrupled candidate tile came out wrong")
     err = max(err, _max_err(fx_k, fx_p))
-    flat = pos.reshape(-1).long()
     n = tq * sq
-    timed = {}
-    for suffix, t in (("", table), ("_d12", table12)):
-        bound_ms, bound_by = _select_bound(pos, cand, t)
-        timed.update({f"ms{suffix}": _event_ms(lambda: blocknn_cuda.select_cuda(pos, cand32, t, s)),
-                      f"plain_ms{suffix}": _event_ms(lambda: blocknn_cuda.select_reference(pos, cand, t, s)),
+    timed, bounds = {}, {}
+    for suffix, p, t in (("", pos, table), ("_d12", pos, table12), *((x, p, table) for x, p in mids.items())):
+        flat = p.reshape(-1).long()
+        bounds[suffix] = _select_bound(p, cand, t)
+        timed.update({f"ms{suffix}": _event_ms(lambda: blocknn_cuda.select_cuda(p, cand32, t, s)),
+                      f"plain_ms{suffix}": _event_ms(lambda: blocknn_cuda.select_reference(p, cand, t, s)),
                       f"library_ms{suffix}": _event_ms(lambda: t[flat]),
-                      f"device_ms{suffix}": _graph_ms(lambda: blocknn_cuda.select_cuda(pos, cand32, t, s)),
+                      f"device_ms{suffix}": _graph_ms(lambda: blocknn_cuda.select_cuda(p, cand32, t, s)),
                       f"library_device_ms{suffix}": _graph_ms(lambda: t[flat]),
-                      f"bound_ms{suffix}": bound_ms})
+                      f"bound_ms{suffix}": bounds[suffix][0]})
+    bound_by = bounds[""][1]
     print(f"select kernel vs plain {tuple(pos.shape)} k=6: payload equal on all {n} rows and "
           "equal to table[pos] with the 6-wide (float2), 12-wide (float4), 7-wide and misaligned "
           "12-wide (scalar) tables; fixtures ok (misses, a tile listed 4 times); "
@@ -1032,7 +1080,9 @@ def _phase_select(dev, query, cand, tgt_index, table, table12, fixtures):
           f"{timed['library_device_ms']:.4f} ms, bound {timed['bound_ms']:.4f} ms ({bound_by}); "
           f"D=12: kernel {timed['ms_d12']:.4f} ms, plain {timed['plain_ms_d12']:.3f} ms, table[pos] "
           f"{timed['library_ms_d12']:.4f} ms, device time kernel {timed['device_ms_d12']:.4f} ms, "
-          f"table[pos] {timed['library_device_ms_d12']:.4f} ms, bound {timed['bound_ms_d12']:.4f} ms")
+          f"table[pos] {timed['library_device_ms_d12']:.4f} ms, bound {timed['bound_ms_d12']:.4f} ms; "
+          f"the mid phase's shapes, D=6, equal too: "
+          f"{_mid_text(timed, views, library=True)}")
     return dict(max_abs_err=err, bound_by=bound_by, **timed)
 
 
@@ -1413,70 +1463,6 @@ def _phase_moments_fused(dev, f_tgt, group=4, u_max=32, k_tiles=8):
                 rows_below_xla=below, margin_used=used)
 
 
-def _phase_mid_kernels(dev, query, cand, q_cent, tgt_index, table, kernels):
-    """Kernels #3-#5 at the refine-stride mid phase's shapes of the 1M
-    flagship: every 2nd (16,384 x 32) and every 4th (16,384 x 16) row of
-    each query tile against the same frozen candidates, fold7 centred on the
-    full tiles' centroids as the mid phase runs it. fold6 and fold7 bit for
-    bit against their plain versions, select against its plain version and
-    the row gather on the plain fold's positions; each kernel's times and
-    bound at these shapes go into its JSON fields under *_sq32 and *_sq16."""
-    from icpx_torch.kernels import blocknn_cuda
-    from icpx_torch.kernels.blocknn import block_nn
-
-    s = tgt_index.tile_size
-    folds = {"fold6": (blocknn_cuda.fold6_cuda, blocknn_cuda.fold6_reference, _fold6_bound,
-                       blocknn_cuda.fold6_prepare(cand, tgt_index, table)),
-             "fold7": (blocknn_cuda.fold7_cuda, blocknn_cuda.fold7_reference, _fold7_bound,
-                       blocknn_cuda.fold7_prepare(cand, q_cent, tgt_index, table))}
-    cand32 = cand.to(torch.int32)
-    lines = []
-    for stride in (2, 4):
-        qm = query[:, ::stride].contiguous()
-        tq, sq, _ = qm.shape
-        suffix = f"_sq{sq}"
-        parts = []
-        for name, (run, plain, bound, ops) in folds.items():
-            d_k, pl_k = run(qm, ops)
-            d_p, pl_p = plain(qm, ops)
-            torch.cuda.synchronize()
-            if not (torch.equal(d_k.view(torch.int32), d_p.view(torch.int32)) and torch.equal(pl_k, pl_p)):
-                _fail(f"{name} {tuple(qm.shape)}: kernel and plain differ on "
-                      f"{int(((d_k != d_p) | (pl_k != pl_p).any(1)).sum())} rows")
-            k = kernels[name]
-            k["max_abs_err"] = max(k["max_abs_err"], _max_err(d_k, d_p))
-            k.update({f"ms{suffix}": _event_ms(lambda: run(qm, ops)),
-                      f"device_ms{suffix}": _graph_ms(lambda: run(qm, ops)),
-                      f"plain_ms{suffix}": _event_ms(lambda: plain(qm, ops)),
-                      f"bound_ms{suffix}": bound(qm, ops)[0]})
-            parts.append(f"{name} device {k['device_ms' + suffix]:.4f} ms, event "
-                         f"{k['ms' + suffix]:.4f}, plain {k['plain_ms' + suffix]:.3f}, bound "
-                         f"{k['bound_ms' + suffix]:.4f}")
-        _, pos = block_nn(qm, tgt_index, return_pos=True, cand_tiles=cand)
-        pos = pos.reshape(tq, sq)
-        flat = pos.reshape(-1).long()
-        out_k = blocknn_cuda.select_cuda(pos, cand32, table, s)
-        out_p = blocknn_cuda.select_reference(pos, cand, table, s)
-        gathered = table[flat]
-        torch.cuda.synchronize()
-        if not (torch.equal(out_k, out_p) and torch.equal(out_k, gathered)):
-            _fail(f"select {tuple(pos.shape)}: kernel, plain version and row gather differ on "
-                  f"{int(((out_k != out_p) | (out_k != gathered)).any(1).sum())} rows")
-        k = kernels["select"]
-        k.update({f"ms{suffix}": _event_ms(lambda: blocknn_cuda.select_cuda(pos, cand32, table, s)),
-                  f"device_ms{suffix}": _graph_ms(lambda: blocknn_cuda.select_cuda(pos, cand32, table, s)),
-                  f"plain_ms{suffix}": _event_ms(lambda: blocknn_cuda.select_reference(pos, cand, table, s)),
-                  f"library_ms{suffix}": _event_ms(lambda: table[flat]),
-                  f"library_device_ms{suffix}": _graph_ms(lambda: table[flat]),
-                  f"bound_ms{suffix}": _select_bound(pos, cand, table)[0]})
-        parts.append(f"select device {k['device_ms' + suffix]:.4f} ms, event {k['ms' + suffix]:.4f}, "
-                     f"plain {k['plain_ms' + suffix]:.3f}, table[pos] device "
-                     f"{k['library_device_ms' + suffix]:.4f}, bound {k['bound_ms' + suffix]:.4f}")
-        lines.append(f"{tuple(qm.shape)}: " + "; ".join(parts))
-    print("mid-phase shapes, kernel vs plain (d2 and payload bit-equal on every row; device time "
-          "from a CUDA graph, event time around one call, median of 5), D=6: " + " | ".join(lines))
-
-
 def _check_counts(label, counts, want):
     """Fail unless each kernel launched `want[kernel]` times (0 where not
     named)."""
@@ -1628,7 +1614,9 @@ def _phase_features(dev, f_src, f_tgt, f_gt, shapes, n_plane):
 # spacing. register_ndt's default 1e-4 (sigma 1 cm) fits the ~20,000-point
 # clouds of the reference's tests, where it is a tenth of a cell; at 1M it
 # is five spacings and swamps the cells' shape (a nearly isotropic metric
-# to the cell means), and 30 iterations leave rot ~1e-2.
+# to the cell means), and 30 iterations leave rot ~1e-2. The JAX package
+# loses accuracy the same way as a cloud gets denser at a fixed point_cov
+# (`python tests/test_torch_pyramid_ndt.py N POINT_COV` runs both).
 NDT_POINT_COV = 1e-6
 
 
@@ -1750,28 +1738,20 @@ def _phase_batch(dev, n, b):
           f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
 
 
-def _calls_counted(module, name, fn):
-    """Run fn with module.name wrapped so that each of its calls records
-    the launches made inside it: (fn's result, [(args, launches)])."""
-    from icpx_torch.kernels import blocknn_cuda, nn_cuda, sort_cuda
+def _summed_launches(wants):
+    """The launches of several register() calls: {kernel: the sum of each
+    call's `_register_launches`}."""
+    total = {}
+    for want in wants:
+        for name, n in want.items():
+            total[name] = total.get(name, 0) + n
+    return total
 
-    def now():
-        return dict(nn=nn_cuda.LAUNCHES, **blocknn_cuda.LAUNCHES, **sort_cuda.LAUNCHES)
 
-    real, calls = getattr(module, name), []
-
-    def recording(*a, **kw):
-        before = now()
-        out = real(*a, **kw)
-        torch.cuda.synchronize()
-        calls.append((a, out, {k: v - before[k] for k, v in now().items()}))
-        return out
-
-    setattr(module, name, recording)
-    try:
-        return fn(), calls
-    finally:
-        setattr(module, name, real)
+def _pair_result(res, i):
+    """Pair i of a batched ICPResult, with the fields `_register_launches`
+    reads."""
+    return types.SimpleNamespace(iters=int(res.iters[i]), rmse_history=res.rmse_history[i])
 
 
 def _batch_block_run(dev, n, b):
@@ -1785,18 +1765,18 @@ def _batch_block_run(dev, n, b):
 
 def _phase_batch_block(dev, n, b):
     """`register_batch_block` on b pairs of n points (the reference's "B x
-    65k" batch): each pair's GT gate and, pair by pair, moments6 twice, the
-    fold once a refine iteration and its two KD builds' sorts."""
+    65k" batch): each pair's GT gate, and the launches of b register()
+    calls: for each pair moments6 twice, the fold once a refine iteration
+    (its row of the batched histories) and its two KD builds' sorts."""
     from icpx_torch.geometry.se3 import SE3
     from icpx_torch.registration import icp
 
     pairs, args, cfg = _batch_block_run(dev, n, b)
-    res, calls = _calls_counted(icp, "_register_block", lambda: icp.register_batch_block(*args, cfg))
-    if len(calls) != b:
-        _fail(f"register_batch_block: {len(calls)} pair registrations for {b} pairs")
+    res, counts = _counted(lambda: icp.register_batch_block(*args, cfg))
+    per_pair = [_register_launches(cfg, _pair_result(res, i), n, n) for i in range(b)]
+    _check_counts("register_batch_block", counts, _summed_launches(per_pair))
     worst = [0.0, 0.0]
-    for i, ((_, one, counts), (_, _, g)) in enumerate(zip(calls, pairs)):
-        _check_counts(f"register_batch_block pair {i}", counts, _register_launches(cfg, one, n, n))
+    for i, (_, _, g) in enumerate(pairs):
         est = SE3(R=res.transform.R[i], t=res.transform.t[i])
         rot, terr = (float(x) for x in est.distance_to(g))
         if not (rot < 5e-3 and terr < 5e-3):
@@ -1805,7 +1785,7 @@ def _phase_batch_block(dev, n, b):
     torch.cuda.reset_peak_memory_stats()
     wall, _ = _sync_time(lambda: icp.register_batch_block(*args, cfg), reps=3)
     print(f"register_batch_block {b} x {n}: iters {res.iters.tolist()}; GT rot <= {worst[0]:.2e}, "
-          f"t <= {worst[1]:.2e}; launches a pair {[c for _, _, c in calls]}; wall {wall * 1e3:.2f} ms "
+          f"t <= {worst[1]:.2e}; launches={counts} (a pair {per_pair}); wall {wall * 1e3:.2f} ms "
           f"(median of 3, normals included) = {b * n / wall:.4g} points/s; peak "
           f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
 
@@ -1824,26 +1804,29 @@ def _pyramid_run(dev, n):
 def _phase_pyramid(dev, n):
     """`register_pyramid` on an n-point pair at 0.9 rad and (0.8, -0.5, 0.3)
     (tests/test_pyramid.py's case), 3 levels, subsample 4: the GT gate and
-    each level's launches (the nn kernel on a brute level, moments6, fold6
-    and the sorts on a block level)."""
+    the launches of one register() call a level, from the levels' results
+    (the nn kernel on a brute level, moments6, fold6 and the sorts on a
+    block level)."""
     from icpx_torch.registration import pyramid
 
     src, tgt, gt, cfg = _pyramid_run(dev, n)
-    (res, levels), calls = _calls_counted(pyramid, "register",
-                                          lambda: pyramid.register_pyramid(src, tgt, cfg))
+    caps = [(pyramid.morton_stratified_subsample(src, cfg.subsample ** (cfg.levels - 1 - lvl)).capacity,
+             pyramid.morton_stratified_subsample(tgt, cfg.subsample ** (cfg.levels - 1 - lvl)).capacity)
+            for lvl in range(cfg.levels)]
+    (res, levels), counts = _counted(lambda: pyramid.register_pyramid(src, tgt, cfg))
     rot, terr = (float(x) for x in res.transform.distance_to(gt))
     if not (rot < 5e-3 and terr < 5e-3):
         _fail(f"pyramid: GT not recovered (rot {rot:.3e}, t {terr:.3e})")
-    text = []
-    for lvl, (a, r, counts) in enumerate(calls):
-        cap_s, cap_t, cfg_l = a[0].capacity, a[1].capacity, a[2]
-        _check_counts(f"pyramid level {lvl}", counts, _register_launches(cfg_l, r, cap_s, cap_t))
-        text.append(f"level {lvl}: {cap_t} points, {cfg_l.resolve_nn(cap_t)}, iters {r.iters}, "
-                    f"launches {counts}")
+    # a level's config differs from the base only in its iterations, gate
+    # and robust kernel, none of which picks a path or a tile size
+    per_level = [_register_launches(cfg.base, r, cap_s, cap_t) for r, (cap_s, cap_t) in zip(levels, caps)]
+    _check_counts("pyramid", counts, _summed_launches(per_level))
+    text = [f"level {lvl}: {cap_t} points, {cfg.base.resolve_nn(cap_t)}, iters {r.iters}, launches {want}"
+            for lvl, (r, (_, cap_t), want) in enumerate(zip(levels, caps, per_level))]
     torch.cuda.reset_peak_memory_stats()
     wall, _ = _sync_time(lambda: pyramid.register_pyramid(src, tgt, cfg), reps=3)
     print(f"register_pyramid {n} points, 0.9 rad: rot_err={rot:.3e} t_err={terr:.3e}; "
-          + "; ".join(text) + f"; wall {wall * 1e3:.2f} ms (median of 3); peak "
+          + "; ".join(text) + f"; launches={counts}; wall {wall * 1e3:.2f} ms (median of 3); peak "
           f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
 
 
@@ -1959,7 +1942,6 @@ def main(dev=None, n_pair: int = N_PAIR, n_flag: int = N_FLAG, n_small: int = N_
     kernels["fold7"] = _phase_fold7(dev, query, cand, q_cent, tgt_index, table, table12, fixtures)
     kernels["select"] = _phase_select(dev, query, cand, tgt_index, table, table12, fixtures)
     kernels["fused4"] = _phase_fused4(dev, query, tgt_index, fixtures)
-    _phase_mid_kernels(dev, query, cand, q_cent, tgt_index, table, kernels)
     del tgt_index, flat, table, aux, table12, aux12, query, cand, q_cent
     _sample_clocks("after the kernel phases")
 

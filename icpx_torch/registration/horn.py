@@ -15,30 +15,37 @@ from typing import Optional, Tuple
 
 import torch
 
+from icpx_torch.cloud import DEFAULT_DEVICE
 from icpx_torch.geometry.se3 import SE3
 
 _EPS = 1e-12
 
 
-def horn_align(src, dst, weights: Optional[torch.Tensor] = None) -> SE3:
+def horn_align(src, dst, weights: Optional[torch.Tensor] = None, *, device=None) -> SE3:
     """Least-squares rigid fit: argmin_{R,t} sum_i w_i ||R p_i + t - q_i||^2.
 
     src, dst: (..., N, 3) corresponding points; weights: optional (..., N)
     nonnegative (0 drops a pair). Returns the SE3 mapping src into dst, on
-    src's device."""
-    R, t, _ = _weighted_kabsch(src, dst, weights, with_scale=False)
+    `device`; when that is None, on src's device for a tensor and on the
+    first CUDA device otherwise, as `PointCloud.create` places its input."""
+    R, t, _ = _weighted_kabsch(src, dst, weights, with_scale=False, device=device)
     return SE3(R=R, t=t)
 
 
-def umeyama_align(src, dst, weights: Optional[torch.Tensor] = None) -> Tuple[SE3, torch.Tensor]:
-    """Similarity fit (Umeyama): (SE3, scale) with q ~= s R p + t."""
-    R, t, s = _weighted_kabsch(src, dst, weights, with_scale=True)
+def umeyama_align(src, dst, weights: Optional[torch.Tensor] = None, *,
+                  device=None) -> Tuple[SE3, torch.Tensor]:
+    """Similarity fit (Umeyama): (SE3, scale) with q ~= s R p + t, placed as
+    by `horn_align`."""
+    R, t, s = _weighted_kabsch(src, dst, weights, with_scale=True, device=device)
     return SE3(R=R, t=t), s
 
 
-def _weighted_kabsch(src, dst, weights, *, with_scale: bool):
-    src = torch.as_tensor(src, dtype=torch.float32)
-    dst = torch.as_tensor(dst, dtype=torch.float32, device=src.device)
+def _weighted_kabsch(src, dst, weights, *, with_scale: bool, device):
+    if device is None and torch.is_tensor(src):
+        device = src.device
+    device = DEFAULT_DEVICE if device is None else torch.device(device)
+    src = torch.as_tensor(src, dtype=torch.float32, device=device)
+    dst = torch.as_tensor(dst, dtype=torch.float32, device=device)
     if weights is None:
         w = torch.ones(src.shape[:-1], dtype=torch.float32, device=src.device)
     else:

@@ -42,22 +42,27 @@ from icpx_torch.geometry.se3 import SE3
 from icpx_torch.geometry.transforms import make_rigid_perturbation
 from icpx_torch.io.loaders import load_cat_pair, load_cloud, reference_data_dir
 from icpx_torch.kernels import blocknn_cuda
-from icpx_torch.registration.icp import ICPConfig, _effective_payload_mode, register
+from icpx_torch.registration.horn import horn_align, umeyama_align
+from icpx_torch.registration.icp import ICPConfig, _effective_payload_mode, register, register_xyz
 from torch_parity import to_np, torch_cloud, torch_config, torch_se3
 
 ROOT = Path(__file__).resolve().parent.parent
 N = 16384
+# the mid phase's pair: the smallest the block path takes by itself
+# (block_auto_threshold), as the JAX runs' compiles and interpret-mode
+# folds dominate these tests' time
+N_SMALL = 8192
 CPU = torch.device("cpu")
 CUDA = torch.device("cuda")  # a device name only: nothing here allocates on it
 
 
-def _pair():
-    xyz = synthetic_surface(N, seed=3)
-    src = JCloud.create(xyz, capacity=N)
+def _pair(n=N):
+    xyz = synthetic_surface(n, seed=3)
+    src = JCloud.create(xyz, capacity=n)
     gt = j_perturb(angle=0.15, translation=(0.1, -0.05, 0.02))
-    tgt_np = np.asarray(gt.apply(src.xyz))[:N]
-    perm = np.random.default_rng(0).permutation(N)
-    tgt = JCloud.create(tgt_np[perm], capacity=N).replace(mask=src.mask[perm])
+    tgt_np = np.asarray(gt.apply(src.xyz))[:n]
+    perm = np.random.default_rng(0).permutation(n)
+    tgt = JCloud.create(tgt_np[perm], capacity=n).replace(mask=src.mask[perm])
     return src, tgt, gt
 
 
@@ -251,11 +256,11 @@ def _mid_cfg(mode):
 
 @pytest.mark.parametrize("mode", ("gather", "vmem"))
 def test_refine_stride_mid_phase_matches_jax(mode):
-    """refine_stride=2 on the 16k pair under "gather" and "vmem" (the plain
+    """refine_stride=2 on the 8k pair under "gather" and "vmem" (the plain
     fold6 here, the Pallas fold in interpret mode in the reference): pose
     within 1e-5, the same iteration count, NaN at the same places of the
     merged histories and the same `converged`."""
-    src, tgt, gt = _pair()
+    src, tgt, gt = _pair(N_SMALL)
     jcfg = _mid_cfg(mode)
     jres = j_register(src, tgt, jcfg)
     res = register(torch_cloud(src), torch_cloud(tgt), torch_config(jcfg))
@@ -289,7 +294,7 @@ def test_mid_phase_routes_through_its_wrapper(mode, wrapper, monkeypatch):
         return real(*a, **kw)
 
     monkeypatch.setattr(icp, wrapper, counting)
-    src, tgt, gt = _pair()
+    src, tgt, gt = _pair(N_SMALL)
     res = register(torch_cloud(src), torch_cloud(tgt), torch_config(_mid_cfg(mode)))
     refine = int(torch.isfinite(res.rmse_history).sum())
     assert len(rows) == refine == res.iters - 1
@@ -301,8 +306,8 @@ def test_mid_phase_routes_through_its_wrapper(mode, wrapper, monkeypatch):
 
 def test_register_batch_block_matches_jax():
     """`register_batch_block` on two 16k pairs (the second its own GT): pose
-    within 1e-5 of the reference's vmapped run, pair by pair, and each pair
-    equal to the port's single-pair block registration in its target frame."""
+    within 1e-5 of the reference's vmapped run, pair by pair, each pair's
+    GT gate, and the brute path refused."""
     from icpx.geometry.se3 import SE3 as JSE3
     from icpx.registration.icp import register_batch_block as j_batch_block
     from icpx_torch.registration.icp import register_batch_block
@@ -336,18 +341,19 @@ def jnp_(a):
     return jax.numpy.asarray(a)
 
 
-def _pair_seeded(seed, angle, translation):
-    xyz = synthetic_surface(N, seed=seed)
-    src = JCloud.create(xyz, capacity=N)
+def _pair_seeded(seed, angle, translation, n=N):
+    xyz = synthetic_surface(n, seed=seed)
+    src = JCloud.create(xyz, capacity=n)
     gt = j_perturb(angle=angle, translation=translation)
-    tgt_np = np.asarray(gt.apply(src.xyz))[:N]
-    perm = np.random.default_rng(seed).permutation(N)
-    tgt = JCloud.create(tgt_np[perm], capacity=N).replace(mask=src.mask[perm])
+    tgt_np = np.asarray(gt.apply(src.xyz))[:n]
+    perm = np.random.default_rng(seed).permutation(n)
+    tgt = JCloud.create(tgt_np[perm], capacity=n).replace(mask=src.mask[perm])
     return src, tgt, gt
 
 
 def _entry_points():
     cat = reference_data_dir() / "cat.pcd"
+    pts = np.random.default_rng(0).normal(size=(64, 3)).astype(np.float32)
     return {
         "PointCloud.create": lambda: PointCloud.create(np.zeros((5, 3), np.float32)),
         "load_cloud": lambda: load_cloud(cat),
@@ -356,6 +362,9 @@ def _entry_points():
         "make_rigid_perturbation": lambda: make_rigid_perturbation(),
         "cloud_from_numpy": lambda: interop.cloud_from_numpy(np.zeros((4, 3)), np.ones(4, bool)),
         "se3_from_numpy": lambda: interop.se3_from_numpy(np.eye(3), np.zeros(3)),
+        "horn_align": lambda: horn_align(pts, pts + 1.0),
+        "umeyama_align": lambda: umeyama_align(pts, 2.0 * pts),
+        "register_xyz": lambda: register_xyz(pts, pts, ICPConfig(max_iters=1)).transform,
     }
 
 

@@ -503,3 +503,24 @@ def test_cuda_horn_planar_is_a_proper_rotation(cuda_device):
     torch.testing.assert_close(est_g.R.cpu(), est_c.R, rtol=0, atol=1e-5)
     torch.testing.assert_close(est_g.t.cpu(), est_c.t, rtol=0, atol=1e-5)
     torch.testing.assert_close(est_g.R.cpu(), torch.as_tensor(R), rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_horn_numpy_input_lands_on_the_card(cuda_device):
+    """numpy arrays, as the reference's callers pass them, go to the first
+    CUDA device unless a device is given, and give the CPU's result."""
+    from icpx_torch.registration.horn import horn_align, umeyama_align
+    from icpx_torch.registration.icp import ICPConfig, register_xyz
+
+    rng = np.random.default_rng(8)
+    src = rng.normal(size=(200, 3)).astype(np.float32)
+    dst = (2.0 * src + np.float32([0.1, 0.2, -0.3])).astype(np.float32)
+    est = horn_align(src, 0.5 * dst)
+    est_s, s = umeyama_align(src, dst)
+    assert est.R.device == est_s.R.device == s.device == torch.device("cuda", 0)
+    est_c = horn_align(src, 0.5 * dst, device="cpu")
+    torch.testing.assert_close(est.R.cpu(), est_c.R, rtol=0, atol=1e-5)
+    torch.testing.assert_close(est.t.cpu(), est_c.t, rtol=0, atol=1e-5)
+    assert abs(float(s) - 2.0) < 1e-4
+    res = register_xyz(src, src, ICPConfig(max_iters=1))
+    assert res.transform.R.device == torch.device("cuda", 0)

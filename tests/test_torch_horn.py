@@ -74,3 +74,16 @@ def test_umeyama_unit_scale_matches_horn():
     h = horn_align(torch.as_tensor(src), torch.as_tensor(dst))
     assert abs(float(s) - 1.0) < 1e-5
     np.testing.assert_allclose(to_np(est.R), to_np(h.R), atol=1e-5)
+
+
+def test_numpy_input_lands_where_asked():
+    """numpy arrays, as the reference's callers pass them, land on `device`
+    (the card when it is not given, see test_entry_points_default_to_the_card)
+    and give what the same CPU tensors give."""
+    src, dst, w, _, _, _ = _case("weighted")
+    est = horn_align(src, dst, w, device="cpu")
+    ref = horn_align(torch.as_tensor(src), torch.as_tensor(dst), torch.as_tensor(w))
+    assert est.R.device == est.t.device == torch.device("cpu")
+    assert torch.equal(est.R, ref.R) and torch.equal(est.t, ref.t)
+    est_s, s = umeyama_align(src, dst, w, device="cpu")
+    assert s.device == torch.device("cpu") and torch.equal(est_s.R, ref.R)

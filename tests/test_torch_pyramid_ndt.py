@@ -124,3 +124,44 @@ def test_register_ndt_matches_jax(mode):
         assert rot < 5e-3 and t < 2e-2
     with pytest.raises(ValueError, match="p2d"):
         register_ndt(torch_cloud(src), torch_cloud(tgt), mode="icp")
+
+
+def ndt_point_cov_run(n, point_cov, packages=("jax", "torch")):
+    """NDT "p2d" on `chip_smoke._gt_pair`'s construction at n points (a
+    synthetic surface and its image under 0.2 rad about z and (0.12, -0.06,
+    0.03), shuffled by default_rng(1)), cells of 64, chip_smoke's config,
+    the source's covariance point_cov * I: {package: (iters, rot, t)}, both
+    on the CPU."""
+    from icpx_torch.registration.icp import ICPConfig
+
+    xyz = synthetic_surface(n, seed=0)
+    gt = j_perturb(axis=(0.0, 0.0, 1.0), angle=0.2, translation=(0.12, -0.06, 0.03))
+    perm = np.random.default_rng(1).permutation(n)
+    src = JCloud.create(xyz, capacity=n)
+    tgt = JCloud.create(np.asarray(gt.apply(src.xyz))[perm], capacity=n).replace(mask=src.mask[perm])
+    kw = dict(max_iters=30, diff_threshold=0.0, rmse_change_tol=1e-6, robust="huber")
+    out = {}
+    if "jax" in packages:
+        res = j_register_ndt(src, tgt, JConfig(**kw), cell_size=64, mode="p2d", point_cov=point_cov)
+        out["jax"] = (int(res.iters), *(float(x) for x in res.transform.distance_to(gt)))
+    if "torch" in packages:
+        res = register_ndt(torch_cloud(src), torch_cloud(tgt), ICPConfig(**kw), cell_size=64,
+                           mode="p2d", point_cov=point_cov)
+        est = JSE3(R=jnp.asarray(to_np(res.transform.R)), t=jnp.asarray(to_np(res.transform.t)))
+        out["torch"] = (res.iters, *(float(x) for x in est.distance_to(gt)))
+    return out
+
+
+if __name__ == "__main__":
+    # python tests/test_torch_pyramid_ndt.py N POINT_COV [jax|torch]: how NDT
+    # p2d's error grows with the cloud's density at a fixed point_cov, in
+    # both packages (chip_smoke.py's NDT_POINT_COV)
+    import sys
+
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    n, cov = int(sys.argv[1]), float(sys.argv[2])
+    which = tuple(sys.argv[3:]) or ("jax", "torch")
+    for pkg, (iters, rot, t) in ndt_point_cov_run(n, cov, which).items():
+        print(f"{pkg:5s} n={n} point_cov={cov:g}: iters={iters} rot={rot:.4e} t={t:.4e}", flush=True)

@@ -257,12 +257,15 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
         "vmem", "vmem7", "select", "fused", "gicp", "gicp vmem7", "gicp select", "gicp fused",
         "mid vmem", "mid select")]
     prefixes += [f"flagship 1M ({m}): " for m in ("mid2", "mid2 vmem7", "mid4", "feat")]
-    prefixes += ["mid-phase shapes, kernel vs plain", "plane 8192 (geometry): ",
+    prefixes += ["plane 8192 (geometry): ",
                  "plane 8192 (feature): ", "ndt 1M (p2d): ", "ndt 1M (d2d): ", "horn_align 8192 points",
                  "voxel_nn 8192 queries", "register_batch 3 x 1000: ", "register_batch_block 2 x 8192: ",
                  "register_pyramid 8192 points"]
     for prefix in prefixes:
         assert any(line.startswith(prefix) for line in lines), prefix
+    for kernel in ("fold6", "fold7", "select"):  # the mid phase's shapes on each kernel's line
+        assert any(line.startswith(f"{kernel} kernel vs plain") and "the mid phase's shapes" in line
+                   for line in lines), kernel
 
 
 @pytest.mark.parametrize("where", ("key", "xyz", "orig"))
