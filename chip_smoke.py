@@ -1830,6 +1830,344 @@ def _phase_pyramid(dev, n):
           f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
 
 
+# ---- odometry ----------------------------------------------------------------------------
+
+N_ODO = 65536  # bench.py --odometry --scan-points 65536: a 64-beam-class sweep
+N_ODO_BRUTE = 4096  # a scan under block_auto_threshold: the brute nn path
+N_ODO_SMALL = 8192  # the sequence run on the card and on the CPU, and the host frontend's scans
+ODO_FRAMES = 20  # bench.py's --frames
+ODO_ATE_BOUND = 0.5  # bench.py's gate, metres, unaligned
+
+
+def _odo_sequence(n, frames, dev):
+    """bench.py's odometry construction at n points a scan, on `dev`: (the
+    scans, the ground truth relative to the first pose)."""
+    from icpx_torch.odometry.kitti import make_trajectory, make_world, simulate_scans
+
+    world = make_world(n_points=300000, extent=50.0, seed=0, n_posts=300, ground_frac=0.5)
+    gt = make_trajectory(frames, speed=0.6, turn=0.02, device=dev)
+    scans = simulate_scans(world, gt, max_range=25.0, points_per_scan=n, noise=0.01, seed=1,
+                           device=dev)
+    return scans, [gt[0].inverse() @ g for g in gt]
+
+
+def _odo_config(nn_method="auto"):
+    from icpx_torch.registration.icp import ICPConfig
+
+    return ICPConfig(objective="symmetric", max_iters=10, diff_threshold=0.0, rmse_change_tol=1e-6,
+                     robust="huber", max_corr_dist=2.0, nn_method=nn_method)
+
+
+def _stacked(scans):
+    """The scans with normals (k = 10), stacked: (xyz, mask, normals)."""
+    from icpx_torch.kernels.normals import estimate_normals
+
+    with_n = [estimate_normals(f, k=10) for f in scans]
+    return tuple(torch.stack([getattr(f, a) for f in with_n]) for a in ("xyz", "mask", "normals"))
+
+
+def _pose_list(poses):
+    from icpx_torch.geometry.se3 import SE3
+
+    return [SE3(R=poses.R[i], t=poses.t[i]) for i in range(poses.t.shape[0])]
+
+
+def _device_profile(run):
+    """One call of `run` under torch.profiler (CPU and CUDA activity): (its
+    output, the profiled wall ms, device ms (kernel rows only; the aten ops
+    that launched them report the same time again), the kernel rows)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    avgs = [e for e in prof.key_averages() if _device_us(e) > 0]
+    kernels = [e for e in avgs if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(_device_us(e) for e in kernels) / 1e3
+    return out, wall_ms, busy_ms, sorted(kernels, key=_device_us, reverse=True)
+
+
+def _odo_report(label, res, gt, wall, n, counts, extra=""):
+    """Gate the trajectory (ATE < ODO_ATE_BOUND, unaligned) and print the
+    phase's line."""
+    from icpx_torch.odometry.evaluate import ate_rmse, rpe
+
+    poses = res.poses if isinstance(res.poses, list) else _pose_list(res.poses)
+    ate = ate_rmse(poses, gt, align=False)
+    rpe_t, rpe_r = rpe(poses, gt)
+    kf = (res.is_keyframe if isinstance(res.is_keyframe, list)
+          else res.is_keyframe.cpu().tolist())
+    if not (math.isfinite(ate) and ate < ODO_ATE_BOUND):
+        _fail(f"{label}: ATE {ate:.4f} m (gate {ODO_ATE_BOUND} m)")
+    f = len(poses)
+    print(f"{label}: ATE {ate:.4f} m (unaligned, gate {ODO_ATE_BOUND}), RPE {rpe_t:.4f} m / "
+          f"{rpe_r:.2e} rad; keyframes {sum(kf)} of {f}; launches={counts}; wall "
+          f"{wall * 1e3:.2f} ms (median of 3) = {wall * 1e3 / f:.3f} ms a frame = "
+          f"{f / wall:.2f} frames/s = {f * n / wall:.4g} points/s; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB{extra}")
+
+
+def _phase_compiled_odometry(dev, n, frames, kernels):
+    """`run_odometry_compiled` on bench.py's sequence of `frames` scans of n
+    points (the block path at 65,536: per-frame KD source indexes at the
+    q-tile ladder's 256, the keyframe's at 128 on each spawn, frozen
+    candidates and the refine-stride mid phase): the ATE gate, and the sort
+    kernel launched exactly as the frames' normals and both kinds of KD
+    build need (`kd_level_sorts`); no other kernel. Then the device time
+    and busy share of one profiled run."""
+    from icpx_torch.kernels.blocknn import kd_level_sorts
+    from icpx_torch.odometry.compiled import (resolve_odo_freeze, resolve_odo_q_tile,
+                                              resolve_odo_refine_stride, run_odometry_compiled)
+
+    cfg = _odo_config()
+    t0 = time.perf_counter()
+    scans, gt = _odo_sequence(n, frames, dev)
+    t_sim = time.perf_counter() - t0
+    kw = dict(velocity_damping=0.7)
+    stacked = {}
+
+    def run_all():
+        stacked["fx"] = _stacked(scans)
+        return run_odometry_compiled(*stacked["fx"], cfg, **kw)
+
+    res, counts = _counted(run_all)
+    spawns = int(res.is_keyframe[1:].sum())
+    q_tile = resolve_odo_q_tile(cfg, n)
+    want = {"sort": frames * kd_level_sorts(n, 128) + (frames - 1) * kd_level_sorts(n, q_tile)
+            + (1 + spawns) * kd_level_sorts(n, cfg.block_tile)}
+    _check_counts(f"compiled odometry {n} x {frames}", counts, want)
+    torch.cuda.reset_peak_memory_stats()
+    # the counted run warmed every path: no warm-up call before the timed ones
+    wall, _ = _sync_time(lambda: run_odometry_compiled(*stacked["fx"], cfg, **kw), reps=3, warmup=0)
+    wall_n, _ = _sync_time(lambda: _stacked(scans), reps=3, warmup=0)
+    extra = (f"; the simulator {t_sim:.2f} s; normals of the {frames} scans {wall_n * 1e3:.2f} ms "
+             f"(timed on their own); ladders: q_tile "
+             f"{q_tile}, freeze {resolve_odo_freeze(n)}, refine stride "
+             f"{resolve_odo_refine_stride(cfg, n)}; ICP iterations {res.iters.tolist()}")
+    _odo_report(f"compiled odometry {n} x {frames}", res, gt, wall, n, counts, extra)
+    kernels["sort"]["launches_odometry"] = counts["sort"]
+    _, prof_ms, busy_ms, rows = _device_profile(
+        lambda: run_odometry_compiled(*stacked["fx"], cfg, **kw))
+    top = "; ".join(f"{_device_us(e) / 1e3:.3f} ms x{e.count} {e.key[:60]}" for e in rows[:6])
+    print(f"compiled odometry {n} x {frames} profiled: device time {busy_ms:.2f} ms = "
+          f"{100 * busy_ms / (wall * 1e3):.1f}% of the unprofiled wall ({prof_ms:.2f} ms "
+          f"profiled); largest device items: {top}")
+
+
+def _phase_compiled_brute(dev, n, frames, kernels):
+    """The brute path of `run_odometry_compiled` (scans under
+    block_auto_threshold): the ATE gate, and the nn kernel once an ICP
+    iteration of every frame (the frames' `iters`), no other kernel."""
+    from icpx_torch.odometry.compiled import run_odometry_compiled
+
+    cfg = _odo_config()
+    scans, gt = _odo_sequence(n, frames, dev)
+    fx = _stacked(scans)
+    kw = dict(velocity_damping=0.7)
+    res, counts = _counted(lambda: run_odometry_compiled(*fx, cfg, **kw))
+    _check_counts(f"compiled odometry {n} x {frames} (brute)", counts,
+                  {"nn": int(res.iters.sum())})
+    torch.cuda.reset_peak_memory_stats()
+    wall, _ = _sync_time(lambda: run_odometry_compiled(*fx, cfg, **kw), reps=3, warmup=0)
+    _odo_report(f"compiled odometry {n} x {frames} (brute)", res, gt, wall, n, counts,
+                f"; ICP iterations {res.iters.tolist()}")
+    kernels["nn"]["launches_odometry"] = counts["nn"]
+
+
+ODO_POSE_TOL = 1e-3  # m and rad: the CPU parity tests' tolerance for the frontend and brute path
+
+
+def _worst_pose_gap(a, b):
+    """The largest (rotation, translation) gap between two runs' poses."""
+    worst = [0.0, 0.0]
+    for p, q in zip(_pose_list(a.poses), _pose_list(b.poses)):
+        d_rot, d_t = _transform_diff(p, q)
+        worst = [max(worst[0], d_rot), max(worst[1], d_t)]
+    return worst
+
+
+def _phase_compiled_card_vs_cpu(dev, n, frames):
+    """The same sequence through the port on the card and on the CPU (the
+    same normals, made on the card): equal keyframe flags and sources,
+    poses within ODO_POSE_TOL. Beside it, how far the card's own run moves
+    when every coordinate is scaled by 1 + 1e-7: registrations of these
+    scans are discontinuous at fp32 rounding (ROADMAP queue 3)."""
+    from icpx_torch.odometry.compiled import run_odometry_compiled
+
+    cfg = _odo_config()
+    scans, _ = _odo_sequence(n, frames, dev)
+    fx = _stacked(scans)
+    card = run_odometry_compiled(*fx, cfg, velocity_damping=0.7)
+    cpu = run_odometry_compiled(*(x.cpu() for x in fx), cfg, velocity_damping=0.7)
+    scaled = run_odometry_compiled(fx[0] * (1.0 + 1e-7), *fx[1:], cfg, velocity_damping=0.7)
+    same = (torch.equal(card.is_keyframe.cpu(), cpu.is_keyframe)
+            and torch.equal(card.edge_src.cpu(), cpu.edge_src))
+    worst = _worst_pose_gap(card, cpu)
+    own = _worst_pose_gap(card, scaled)
+    if not same or max(worst) > ODO_POSE_TOL:
+        _fail(f"compiled odometry {n} x {frames}: card and CPU differ (keyframes "
+              f"{card.is_keyframe.cpu().tolist()} vs {cpu.is_keyframe.tolist()}; rot "
+              f"{worst[0]:.2e}, t {worst[1]:.2e}, tolerance {ODO_POSE_TOL})")
+    print(f"compiled odometry {n} x {frames} card vs CPU: keyframes equal "
+          f"({int(card.is_keyframe.sum())}), poses within rot {worst[0]:.2e}, t {worst[1]:.2e} "
+          f"(tolerance {ODO_POSE_TOL}); the card's run against itself with coordinates x "
+          f"(1 + 1e-7): rot {own[0]:.2e}, t {own[1]:.2e}; ICP iterations card "
+          f"{card.iters.tolist()}, CPU {cpu.iters.tolist()}")
+
+
+def _host_launches(cfg_icp, n, tgt_capacity, regs):
+    """What `regs` register() calls of n-point scans against a target of
+    `tgt_capacity` rows launch on the block path with normals given: their
+    KD builds' sorts exactly; the fold once a refine iteration, so at least
+    once a call."""
+    from icpx_torch.kernels.blocknn import kd_level_sorts
+
+    return regs * (kd_level_sorts(n, cfg_icp.resolve_q_tile(n))
+                   + kd_level_sorts(tgt_capacity, cfg_icp.block_tile))
+
+
+def _phase_host_odometry(dev, n, frames, kernels, map_capacity=65536):
+    """`run_odometry` on 8,192-point scans (the block path with fold6 in
+    every refine iteration): scan_to_keyframe, then scan_to_map with the
+    sliding-window back end, each held to the ATE gate and its launches;
+    then a run resumed from an `OdometryCheckpoint` saved after frame
+    frames // 2 equals the uninterrupted scan_to_keyframe run bit for bit."""
+    from pathlib import Path
+
+    from icpx_torch.kernels.normals import estimate_normals
+    from icpx_torch.odometry.frontend import OdometryConfig, run_odometry
+    from icpx_torch.utils.checkpoint import OdometryCheckpoint
+
+    scans, gt = _odo_sequence(n, frames, dev)
+    scans = [estimate_normals(f, k=10) for f in scans]
+    icp = _odo_config()
+    runs = {"scan_to_keyframe": OdometryConfig(icp=icp, keyframe_trans=1.0, keyframe_rot=0.2,
+                                               velocity_damping=0.7),
+            "scan_to_map, sliding_window": OdometryConfig(
+                icp=icp, keyframe_trans=1.0, keyframe_rot=0.2, velocity_damping=0.7,
+                mode="scan_to_map", map_capacity=map_capacity, map_cell=0.1,
+                backend="sliding_window", window=5)}
+    results = {}
+    for label, cfg in runs.items():
+        res, counts = _counted(lambda: run_odometry(scans, cfg))
+        tgt = n if cfg.mode == "scan_to_keyframe" else map_capacity
+        sorts = _host_launches(icp, n, tgt, frames - 1)
+        if counts["sort"] != sorts or not (frames - 1 <= counts["fold6"] <= (frames - 1) * icp.max_iters) \
+                or any(counts[k] for k in counts if k not in ("sort", "fold6")):
+            _fail(f"host odometry ({label}): launches {counts}, want sort {sorts} and fold6 once "
+                  f"to {icp.max_iters} times a frame")
+        torch.cuda.reset_peak_memory_stats()
+        wall, _ = _sync_time(lambda: run_odometry(scans, cfg), reps=3, warmup=0)
+        _odo_report(f"host odometry {n} x {frames} ({label})", res, gt, wall, n, counts)
+        results[label] = res
+        if label == "scan_to_keyframe":
+            kernels["fold6"]["launches_odometry"] = counts["fold6"]
+
+    cfg = runs["scan_to_keyframe"]
+    full = results["scan_to_keyframe"]
+    path = Path(__file__).resolve().parent / "tests" / "_artifacts" / "odometry_checkpoint.npz"
+    OdometryCheckpoint.from_result(run_odometry(scans[: frames // 2], cfg)).save(path)
+    resumed = run_odometry(scans, cfg, resume=OdometryCheckpoint.load(path))
+    exact = (resumed.is_keyframe == full.is_keyframe and all(
+        torch.equal(a.R, b.R) and torch.equal(a.t, b.t)
+        for a, b in zip(full.poses + [e[2] for e in full.edges],
+                        resumed.poses + [e[2] for e in resumed.edges])))
+    if not exact:
+        _fail("host odometry: the run resumed from its checkpoint differs from the uninterrupted one")
+    t0 = time.perf_counter()
+    guarded = run_odometry(scans[:3], dataclasses.replace(cfg, stall_timeout_s=600.0))
+    t_guard = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run_odometry(scans[:3], dataclasses.replace(cfg, stall_timeout_s=0.0))
+    t_plain = time.perf_counter() - t0
+    print(f"host odometry resume: saved after frame {frames // 2 - 1}, resumed run equals the "
+          f"uninterrupted one bit for bit ({len(full.poses)} poses, {len(full.edges)} edges); "
+          f"3 frames {t_guard * 1e3:.2f} ms under the stall watchdog, {t_plain * 1e3:.2f} ms "
+          f"without (one run each, {len(guarded.poses)} poses)")
+
+
+def _loop_poses(n_frames, dev, radius=6.0, laps=2.0):
+    """tests/test_slam.py's two laps of a circle."""
+    from icpx_torch.geometry.se3 import SE3
+
+    out = []
+    for k in range(n_frames):
+        th = laps * 2 * np.pi * k / (n_frames - 1)
+        c, s = np.cos(th), np.sin(th)
+        out.append(SE3(R=torch.tensor([[c, -s, 0], [s, c, 0], [0, 0, 1]], dtype=torch.float32,
+                                      device=dev),
+                       t=torch.tensor([radius * np.sin(th), radius * (1 - np.cos(th)), 1.2],
+                                      dtype=torch.float32, device=dev)))
+    return out
+
+
+SLAM_REF_POINTS = 2048  # tests/test_slam.py's scans
+
+
+def _phase_slam(dev, n, frames=30, factor=0.7):
+    """tests/test_slam.py::test_loop_closure_pose_graph_reduces_ate at n
+    points a scan: scan_to_keyframe odometry around two laps, loop closures
+    verified among its keyframes (`register_batch`: the nn kernel), then
+    the odometry chain plus the closures through both pose-graph solvers,
+    each of which must bring the keyframes' ATE below `factor` x the
+    drifted one: the test's 0.7 at its own 2,048 points. At 8,192 points
+    the odometry drifts less and the JAX package itself verifies one
+    closure and cuts the ATE to 0.767 x (`python tests/test_torch_slam.py
+    8192 jax` on the CPU), so there the phase holds a closure found and
+    both solvers lowering the ATE (factor 1)."""
+    from icpx_torch.geometry.se3 import SE3
+    from icpx_torch.odometry.evaluate import ate_rmse
+    from icpx_torch.odometry.frontend import OdometryConfig, run_odometry
+    from icpx_torch.odometry.kitti import make_world, simulate_scans
+    from icpx_torch.odometry.loopclosure import LoopClosureConfig, detect_loop_closures
+    from icpx_torch.odometry.posegraph import (PoseGraph, optimize_pose_graph,
+                                              optimize_pose_graph_sparse)
+    from icpx_torch.registration.icp import ICPConfig
+
+    world = make_world(n_points=80000, extent=25.0, seed=2)
+    gt = _loop_poses(frames, dev)
+    scans = simulate_scans(world, gt, max_range=14.0, points_per_scan=n, noise=0.02, seed=3,
+                           device=dev)
+    gt = [gt[0].inverse() @ g for g in gt]
+    icp = dict(objective="symmetric", max_iters=15, diff_threshold=0.0, rmse_change_tol=1e-6,
+               robust="huber")
+    t0 = time.perf_counter()
+    res = run_odometry(scans, OdometryConfig(icp=ICPConfig(max_corr_dist=3.0, **icp),
+                                             keyframe_trans=1.5, keyframe_rot=0.3, pyramid_levels=2))
+    t_odo = time.perf_counter() - t0
+    kf = res.keyframe_indices
+    kf_poses = [res.poses[i] for i in kf]
+    lc_cfg = LoopClosureConfig(min_separation=4, max_candidate_dist=4.0, accept_rmse=0.12,
+                               icp=ICPConfig(max_corr_dist=2.0, **icp))
+    closures, counts = _counted(lambda: detect_loop_closures(kf_poses, [scans[i] for i in kf],
+                                                             lc_cfg))
+    if not closures or counts["nn"] < 1:
+        _fail(f"slam: no loop closure found on a closed loop (launches {counts})")
+    remap = {f: i for i, f in enumerate(kf)}
+    edges = [(remap[i], remap[j], T) for (i, j, T) in res.edges if i in remap and j in remap]
+    edges += [(i, j, T) for (i, j, T, _) in closures]
+    graph = PoseGraph.from_edge_list(SE3(R=torch.stack([p.R for p in kf_poses]),
+                                         t=torch.stack([p.t for p in kf_poses])), edges)
+    gt_kf = [gt[i] for i in kf]
+    before = ate_rmse(kf_poses, gt_kf, align=False)
+    after = {}
+    for solve in (optimize_pose_graph, optimize_pose_graph_sparse):
+        t0 = time.perf_counter()
+        opt, _ = solve(graph, iters=10)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        after[solve.__name__] = (ate_rmse(_pose_list(opt), gt_kf, align=False), ms)
+        if not after[solve.__name__][0] < factor * before:
+            _fail(f"slam {n}: {solve.__name__} did not cut the ATE below {factor} x ({before:.4f} "
+                  f"-> {after[solve.__name__][0]:.4f} m)")
+    print(f"slam {n} x {frames} (two laps): odometry {t_odo * 1e3:.2f} ms, {len(kf)} keyframes, "
+          f"keyframe ATE {before:.4f} m; {len(closures)} closures "
+          f"{[(i, j) for i, j, _, _ in closures]} (launches {counts}); after "
+          + ", ".join(f"{k} {v[0]:.4f} m = {v[0] / before:.3f} x ({v[1]:.2f} ms, one call)"
+                      for k, v in after.items()) + f" (gate {factor} x)")
+
+
 def _gicp_config():
     """The flagship config with the GICP objective; payload "auto" is fold6
     on the card, its table 12 wide (xyz and the flattened covariance)."""
@@ -1873,10 +2211,16 @@ def _refine_iters(res) -> int:
 
 def main(dev=None, n_pair: int = N_PAIR, n_flag: int = N_FLAG, n_small: int = N_SMALL,
          n_batch: int = N_BATCH, n_scan: int = N_PAIR, n_plane: int = N_PLANE, b_batch: int = 8,
-         b_block: int = 4) -> None:
+         b_block: int = 4, n_odo: int = N_ODO, n_odo_brute: int = N_ODO_BRUTE,
+         n_odo_small: int = N_ODO_SMALL, odo_frames: int = ODO_FRAMES, map_capacity: int = 65536,
+         n_slam: int = N_ODO_SMALL, n_slam_ref: int = SLAM_REF_POINTS) -> None:
     """`dev` and the sizes exist for rehearsing the script's control flow off
     the card; run as a program it always takes the first CUDA device.
-    n_scan sizes the block-path batch and the pyramid."""
+    n_scan sizes the block-path batch and the pyramid; n_odo the compiled
+    odometry's scans (odo_frames of them), n_odo_brute its brute-path
+    scans, n_odo_small the card-vs-CPU sequence's and the host frontend's,
+    n_slam and n_slam_ref the loop's (the latter held to the reference
+    test's 0.7 x)."""
     if dev is None:
         if not torch.cuda.is_available():
             _fail("torch.cuda.is_available() is false: this check needs an NVIDIA GPU")
@@ -2136,6 +2480,18 @@ def main(dev=None, n_pair: int = N_PAIR, n_flag: int = N_FLAG, n_small: int = N_
     _phase_batch(dev, n_batch, b_batch)
     _phase_batch_block(dev, n_scan, b_block)
     _phase_pyramid(dev, n_scan)
+
+    # 11. Odometry: the compiled whole-sequence path at bench.py's 65,536-point
+    #     scans and on the brute path, the card against the CPU, the host
+    #     frontend (both modes, the sliding window, resume) and SLAM on a loop
+    t_odo = time.perf_counter()
+    _phase_compiled_odometry(dev, n_odo, odo_frames, kernels)
+    _phase_compiled_brute(dev, n_odo_brute, odo_frames, kernels)
+    _phase_compiled_card_vs_cpu(dev, n_odo_small, max(odo_frames // 2, 3))
+    _phase_host_odometry(dev, n_odo_small, odo_frames, kernels, map_capacity)
+    _phase_slam(dev, n_slam_ref)
+    _phase_slam(dev, n_slam, factor=1.0)
+    print(f"odometry phases: {time.perf_counter() - t_odo:.1f} s")
 
     cu = "icpx_torch/csrc/blocknn.cu"
     sources = {"nn": "icpx_torch/csrc/nn.cu", "moments6": cu, "fold6": cu, "fold7": cu,

@@ -16,7 +16,14 @@ the feature-augmented metric: the 1M flagship); batched pairs
 path); Horn/Umeyama (`registration.horn`); the coarse-to-fine pyramid
 (`registration.pyramid`); NDT (`registration.ndt`); the voxel-hash NN
 (`kernels.voxel`) and the tile-index k-NN (`kernels.blocknn.block_knn`);
-payload features on `PointCloud`. Its hand-written CUDA kernels, one for
+payload features on `PointCloud`. Odometry (`odometry/`): the LiDAR
+simulator and KITTI ingest, ATE / RPE / the KITTI relative error, the
+whole-sequence path (`run_odometry_compiled`), the host frontend
+(`run_odometry`: scan-to-keyframe and scan-to-map over a voxel map, the
+motion gate, dynamic masking, the sliding-window back end, exact resume
+from `utils.checkpoint.OdometryCheckpoint`), the dense and sparse pose-graph
+solvers with Schur marginalization, place recognition and loop closure,
+and the stall watchdog (`distributed.fault`). Its hand-written CUDA kernels, one for
 each Pallas kernel of the reference: the exact 1-NN search
 (`kernels/nn_cuda.py` + `csrc/nn.cu`), the block path's radius moments,
 folds, payload selection, union fold and union moments
@@ -24,7 +31,8 @@ folds, payload selection, union fold and union moments
 segmented sort (`kernels/sort_cuda.py` + `csrc/sort.cu`). Entry points
 create tensors on the first CUDA device unless given `device="cpu"`. Paths
 that need later slices (compressed PCD, other cloud formats, ...) raise
-`NotImplementedError` naming their ROADMAP item.
+`NotImplementedError` naming their ROADMAP item; the sharded pose graph,
+`parallel_odometry` and the rest of `distributed/` wait for step 9.
 """
 
 import torch as _torch

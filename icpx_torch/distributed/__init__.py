@@ -1,3 +1,15 @@
-from icpx_torch.distributed.fault import degenerate_solve_guard
+from icpx_torch.distributed.fault import (
+    CollectiveStallError,
+    HeartbeatMonitor,
+    default_stall_timeout,
+    degenerate_solve_guard,
+    guarded_call,
+)
 
-__all__ = ["degenerate_solve_guard"]
+__all__ = [
+    "CollectiveStallError",
+    "HeartbeatMonitor",
+    "default_stall_timeout",
+    "degenerate_solve_guard",
+    "guarded_call",
+]

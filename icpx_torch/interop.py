@@ -2,8 +2,10 @@
 
 The JAX package's objects convert to numpy (`np.asarray(cloud.xyz)`,
 `dataclasses.asdict(config)`, ...) and these functions turn that into the
-port's objects, and a result back into numpy, so both packages can
-compute on identical bits. Nothing here imports JAX.
+port's objects (clouds, transforms, tile indexes, configs, pose graphs,
+voxel maps), and results back into numpy (ICP results, voxel maps,
+whole-sequence odometry), so both packages can compute on identical bits
+and carry state across. Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -17,6 +19,9 @@ import torch
 from icpx_torch.cloud import DEFAULT_DEVICE, PointCloud
 from icpx_torch.geometry.se3 import SE3
 from icpx_torch.kernels.blocknn import TileIndex
+from icpx_torch.odometry.compiled import CompiledOdometry
+from icpx_torch.odometry.mapping import VoxelMap
+from icpx_torch.odometry.posegraph import PoseGraph
 from icpx_torch.registration.icp import ICPConfig, ICPResult
 from icpx_torch.registration.pyramid import PyramidConfig
 
@@ -125,3 +130,66 @@ def result_to_numpy(res: ICPResult) -> Dict[str, np.ndarray]:
         "final_rmse": host(res.final_rmse),
         "inlier_count": host(res.inlier_count),
     }
+
+
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def pose_graph_from_numpy(graph, *, device=DEFAULT_DEVICE) -> PoseGraph:
+    """A port PoseGraph from any object with the JAX `PoseGraph` fields
+    (`poses` and `edge_meas` with R and t, `edge_i`, `edge_j`,
+    `edge_weight`), taken as they are."""
+    def i32(x):
+        return torch.tensor(np.asarray(x, np.int32), device=device)
+
+    return PoseGraph(
+        poses=se3_from_numpy(graph.poses.R, graph.poses.t, device=device),
+        edge_i=i32(graph.edge_i),
+        edge_j=i32(graph.edge_j),
+        edge_meas=se3_from_numpy(graph.edge_meas.R, graph.edge_meas.t, device=device),
+        edge_weight=torch.tensor(np.asarray(graph.edge_weight, np.float32), device=device),
+    )
+
+
+def voxel_map_from_numpy(vmap, *, device=DEFAULT_DEVICE) -> VoxelMap:
+    """A port VoxelMap from any object with the JAX `VoxelMap` fields,
+    taken as they are (a map the JAX package built continues in the port)."""
+    def f32(x):
+        return torch.tensor(np.asarray(x, np.float32), device=device)
+
+    return VoxelMap(
+        xyz=f32(vmap.xyz),
+        normals=f32(vmap.normals),
+        mask=torch.tensor(np.asarray(vmap.mask, bool), device=device),
+        age=torch.tensor(np.asarray(vmap.age, np.int32), device=device),
+        cell_size=f32(vmap.cell_size),
+        counter=torch.tensor(np.asarray(vmap.counter, np.int32), device=device),
+        feats=None if vmap.feats is None else f32(vmap.feats),
+        feat_names=tuple(vmap.feat_names) if vmap.feat_names else None,
+    )
+
+
+def voxel_map_to_numpy(vmap: VoxelMap) -> Dict[str, Any]:
+    """Every field of a port VoxelMap as host numpy (feats None where it has
+    none), and feat_names."""
+    out = {f: None if getattr(vmap, f) is None else _host(getattr(vmap, f))
+           for f in ("xyz", "normals", "mask", "age", "cell_size", "counter", "feats")}
+    out["feat_names"] = vmap.feat_names
+    return out
+
+
+def compiled_odometry_to_numpy(res: CompiledOdometry) -> Dict[str, np.ndarray]:
+    """Every field of a `CompiledOdometry` as host numpy, SE3 fields split
+    into `<name>_R` and `<name>_t` (as the JAX object converts with
+    `np.asarray` field by field)."""
+    out = {}
+    for f in dataclasses.fields(res):
+        v = getattr(res, f.name)
+        if v is None:
+            continue
+        if isinstance(v, SE3):
+            out[f"{f.name}_R"], out[f"{f.name}_t"] = _host(v.R), _host(v.t)
+        else:
+            out[f.name] = _host(v)
+    return out

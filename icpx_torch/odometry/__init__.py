@@ -1,0 +1,32 @@
+from icpx_torch.odometry.compiled import CompiledOdometry, run_odometry_compiled
+from icpx_torch.odometry.evaluate import ate_rmse, kitti_relative_error, rpe
+from icpx_torch.odometry.frontend import (
+    MotionState,
+    OdometryConfig,
+    OdometryResult,
+    blend_velocity,
+    run_odometry,
+)
+from icpx_torch.odometry.posegraph import (
+    PoseGraph,
+    SlidingWindowBackend,
+    optimize_pose_graph,
+    optimize_pose_graph_sparse,
+)
+
+__all__ = [
+    "CompiledOdometry",
+    "MotionState",
+    "OdometryConfig",
+    "OdometryResult",
+    "PoseGraph",
+    "SlidingWindowBackend",
+    "ate_rmse",
+    "kitti_relative_error",
+    "blend_velocity",
+    "optimize_pose_graph",
+    "optimize_pose_graph_sparse",
+    "rpe",
+    "run_odometry",
+    "run_odometry_compiled",
+]

@@ -23,7 +23,9 @@ import functools
 import os
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
+from types import SimpleNamespace
 
 import jax
 import numpy as np
@@ -42,8 +44,11 @@ from icpx_torch.geometry.se3 import SE3
 from icpx_torch.geometry.transforms import make_rigid_perturbation
 from icpx_torch.io.loaders import load_cat_pair, load_cloud, reference_data_dir
 from icpx_torch.kernels import blocknn_cuda
+from icpx_torch.odometry import kitti
+from icpx_torch.odometry.mapping import VoxelMap
 from icpx_torch.registration.horn import horn_align, umeyama_align
 from icpx_torch.registration.icp import ICPConfig, _effective_payload_mode, register, register_xyz
+from icpx_torch.utils.checkpoint import OdometryCheckpoint
 from torch_parity import to_np, torch_cloud, torch_config, torch_se3
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -365,7 +370,31 @@ def _entry_points():
         "horn_align": lambda: horn_align(pts, pts + 1.0),
         "umeyama_align": lambda: umeyama_align(pts, 2.0 * pts),
         "register_xyz": lambda: register_xyz(pts, pts, ICPConfig(max_iters=1)).transform,
+        "make_trajectory": lambda: kitti.make_trajectory(2)[0],
+        "simulate_scans": lambda: kitti.simulate_scans(
+            kitti.make_world(2000, 10.0), kitti.make_trajectory(1, device="cpu"),
+            points_per_scan=64)[0],
+        "load_kitti_sequence": lambda: kitti.load_kitti_sequence(_kitti_dir())[0],
+        "load_kitti_poses": lambda: kitti.load_kitti_poses(_kitti_dir().parent / "poses.txt")[0],
+        "VoxelMap.create": lambda: VoxelMap.create(64, 0.1),
+        "OdometryCheckpoint.poses": lambda: OdometryCheckpoint(
+            frame_index=0, poses_R=np.eye(3, dtype=np.float32)[None],
+            poses_t=np.zeros((1, 3), np.float32), keyframe_index=0, edges=[]).poses()[0],
+        "pose_graph_from_numpy": lambda: interop.pose_graph_from_numpy(SimpleNamespace(
+            poses=SimpleNamespace(R=np.eye(3)[None], t=np.zeros((1, 3))), edge_i=[0], edge_j=[0],
+            edge_meas=SimpleNamespace(R=np.eye(3)[None], t=np.zeros((1, 3))),
+            edge_weight=[1.0])).poses,
     }
+
+
+def _kitti_dir():
+    """A one-scan KITTI sequence written from CPU tensors, in a fresh
+    temporary directory: (velodyne dir; poses.txt beside it)."""
+    root = Path(tempfile.mkdtemp()) / "velodyne"
+    traj = kitti.make_trajectory(1, device="cpu")
+    scan = PointCloud.create(np.zeros((4, 3), np.float32), device="cpu")
+    kitti.write_kitti_sequence(root, [scan], traj)
+    return root
 
 
 @pytest.mark.parametrize("name", list(_entry_points()))
@@ -392,8 +421,8 @@ def test_create_follows_a_given_tensor_and_device():
 
 def test_block_path_runs_with_jax_and_icpx_blocked():
     """The port alone: with every `jax*` and `icpx*` module blocked in
-    sys.modules, import the port and run a block-path registration on the
-    CPU."""
+    sys.modules, import the port and run a block-path registration and a
+    block-path compiled odometry (8,192-point scans) on the CPU."""
     code = """
 import sys
 for name in [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "icpx", "flax")]:
@@ -411,6 +440,19 @@ tgt = PointCloud.create(gt.apply(src.xyz)[torch.randperm(8192)], device="cpu")
 res = register(src, tgt, ICPConfig(max_iters=6, diff_threshold=0.0, rmse_change_tol=1e-6))
 rot, t = (float(v) for v in res.transform.distance_to(gt))
 assert rot < 5e-3 and t < 5e-3, (rot, t)
+from icpx_torch.kernels.normals import estimate_normals
+from icpx_torch.odometry import ate_rmse, run_odometry_compiled
+from icpx_torch.odometry.kitti import make_trajectory, make_world, simulate_scans
+gt = make_trajectory(4, speed=0.6, turn=0.04, device="cpu")
+scans = [estimate_normals(f, k=10) for f in simulate_scans(
+    make_world(60000, 30.0), gt, max_range=18.0, points_per_scan=8192, seed=1, device="cpu")]
+odo = run_odometry_compiled(*(torch.stack([getattr(f, a) for f in scans])
+                              for a in ("xyz", "mask", "normals")), ICPConfig(
+    objective="symmetric", max_iters=6, diff_threshold=0.0, rmse_change_tol=1e-6, robust="huber",
+    max_corr_dist=2.0))
+poses = [type(gt[0])(R=odo.poses.R[i], t=odo.poses.t[i]) for i in range(4)]
+ate = ate_rmse(poses, [gt[0].inverse() @ g for g in gt], align=False)
+assert ate < 0.5, ate  # bench.py's odometry gate
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "icpx") and sys.modules[m]]
 print("ok", res.iters)
 """

@@ -524,3 +524,86 @@ def test_cuda_horn_numpy_input_lands_on_the_card(cuda_device):
     assert abs(float(s) - 2.0) < 1e-4
     res = register_xyz(src, src, ICPConfig(max_iters=1))
     assert res.transform.R.device == torch.device("cuda", 0)
+
+
+# ---- odometry on the card -------------------------------------------------------------------
+
+
+def _transform_gap(a, b):
+    """Largest (rotation, translation) gap between two batched SE3s in
+    float64 on the host (the angle from the skew part of Ra^T Rb)."""
+    Ra, Rb = a.R.detach().cpu().double(), b.R.detach().cpu().double()
+    M = Ra.transpose(-1, -2) @ Rb
+    w = torch.stack([M[..., 2, 1] - M[..., 1, 2], M[..., 0, 2] - M[..., 2, 0],
+                     M[..., 1, 0] - M[..., 0, 1]], -1) / 2.0
+    dt = (a.t.detach().cpu().double() - b.t.detach().cpu().double()).norm(dim=-1)
+    return float(torch.arcsin(w.norm(dim=-1).clamp(max=1.0)).max()), float(dt.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2048, 8192])
+def test_cuda_compiled_odometry_matches_cpu(cuda_device, n):
+    """`run_odometry_compiled` on the card (the nn kernel at 2,048 points,
+    the KD builds' sort kernel at 8,192) against the port on the CPU on the
+    same scans and normals: keyframe flags and sources equal, poses within
+    the CPU parity tests' tolerance (1e-3 brute, 1e-4 block)."""
+    from icpx_torch.odometry.compiled import run_odometry_compiled
+    from icpx_torch.registration.icp import ICPConfig
+    from torch_fixtures import odometry_frames
+
+    frames, _ = odometry_frames(n, 8, device="cpu")
+    fx = [torch.stack([getattr(f, a) for f in frames]) for a in ("xyz", "mask", "normals")]
+    cfg = ICPConfig(objective="symmetric", max_iters=12, diff_threshold=0.0, rmse_change_tol=1e-6,
+                    robust="huber", max_corr_dist=2.0)
+    cpu = run_odometry_compiled(*fx, cfg, keyframe_trans=1.0, keyframe_rot=0.2)
+    card = run_odometry_compiled(*(x.to(cuda_device) for x in fx), cfg, keyframe_trans=1.0,
+                                 keyframe_rot=0.2)
+    assert card.poses.t.device.type == "cuda"
+    assert torch.equal(card.is_keyframe.cpu(), cpu.is_keyframe)
+    assert torch.equal(card.edge_src.cpu(), cpu.edge_src)
+    tol = 1e-4 if cfg.resolve_nn(n) == "block" else 1e-3
+    d_rot, d_t = _transform_gap(card.poses, cpu.poses)
+    assert d_rot < tol and d_t < tol, (d_rot, d_t)
+
+
+@pytest.mark.cuda
+def test_cuda_insert_scan_matches_cpu(cuda_device):
+    """`insert_scan` on the card equals the CPU's bit for bit on identity
+    poses (the same cells, the same chained stable sorts)."""
+    from icpx_torch.cloud import PointCloud
+    from icpx_torch.geometry.se3 import SE3
+    from icpx_torch.kernels.normals import estimate_normals
+    from icpx_torch.odometry.mapping import VoxelMap, insert_scan
+
+    maps = {d: VoxelMap.create(2048, 0.05, device=d) for d in ("cpu", cuda_device)}
+    for k in range(3):
+        scan = estimate_normals(PointCloud.create(synthetic_surface(1024, seed=k), device="cpu"), k=8)
+        for d in maps:
+            maps[d] = insert_scan(maps[d], scan.to(d), SE3.identity(device=d))
+    a = interop.voxel_map_to_numpy(maps["cpu"])
+    b = interop.voxel_map_to_numpy(maps[cuda_device])
+    for f in ("xyz", "normals", "mask", "age", "counter"):
+        assert np.array_equal(a[f], b[f]), f
+
+
+@pytest.mark.cuda
+def test_cuda_odometry_entry_points_land_on_the_card(cuda_device, tmp_path):
+    """Without a device argument the odometry layer's entry points put
+    their tensors on the first CUDA device."""
+    from icpx_torch.odometry import kitti
+    from icpx_torch.odometry.mapping import VoxelMap
+    from icpx_torch.utils.checkpoint import OdometryCheckpoint
+
+    first = torch.device("cuda", 0)
+    world = kitti.make_world(n_points=5000, extent=10.0, seed=0)
+    traj = kitti.make_trajectory(2)
+    assert traj[0].R.device == first
+    scans = kitti.simulate_scans(world, traj, points_per_scan=256)
+    assert scans[0].xyz.device == first
+    kitti.write_kitti_sequence(tmp_path / "v", scans, traj)
+    assert kitti.load_kitti_sequence(tmp_path / "v")[0].xyz.device == first
+    assert kitti.load_kitti_poses(tmp_path / "poses.txt")[0].t.device == first
+    assert VoxelMap.create(128, 0.1).xyz.device == first
+    ck = OdometryCheckpoint(frame_index=0, poses_R=np.eye(3, dtype=np.float32)[None],
+                            poses_t=np.zeros((1, 3), np.float32), keyframe_index=0, edges=[])
+    assert ck.poses()[0].R.device == first

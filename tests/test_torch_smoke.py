@@ -16,6 +16,7 @@ import torch
 import chip_smoke
 import torch_parity  # noqa: F401  (pins torch's thread count per worker)
 from icpx_torch.kernels import blocknn, blocknn_cuda, cuda_build, nn_cuda, normals, sort_cuda
+from icpx_torch.odometry import compiled
 from icpx_torch.registration import icp
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -154,6 +155,9 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
     monkeypatch.setattr(icp, "payload_select_fused", select_wrapper)
     monkeypatch.setattr(icp, "block_nn_fused4", fused4_wrapper)
     monkeypatch.setattr(icp, "nearest_neighbor", dispatch)
+    monkeypatch.setattr(compiled, "nearest_neighbor", dispatch)
+    # no device to profile: the run itself, no device time
+    monkeypatch.setattr(chip_smoke, "_device_profile", lambda run: (run(), 1.0, 0.0, []))
     for name in ("resolve_payload", "resolve_moments"):
         monkeypatch.setattr(icp.ICPConfig, name, as_if_cuda(getattr(icp.ICPConfig, name)))
     monkeypatch.setattr(chip_smoke.subprocess, "run", fake_run)
@@ -180,7 +184,8 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
         monkeypatch.setattr(torch.cuda, name, value)
 
     chip_smoke.main(dev=torch.device("cpu"), n_pair=2048, n_flag=8192, n_small=8192, n_batch=1000,
-                    n_scan=8192, n_plane=8192, b_batch=3, b_block=2)
+                    n_scan=8192, n_plane=8192, b_batch=3, b_block=2, n_odo=8192, n_odo_brute=2048,
+                    n_odo_small=8192, odo_frames=4, map_capacity=16384, n_slam=2048)
     lines = capsys.readouterr().out.strip().splitlines()
     assert json.loads(lines[-1]) == {
         "ok": True, "device": {"platform": "gpu", "kind": "Fake GPU", "count": 1}}
@@ -193,13 +198,14 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
     # the refine-stride mid phase's shapes: every 2nd and every 4th query row
     mid = {f"{k}_sq{q}" for k in ("ms", "device_ms", "plain_ms", "bound_ms") for q in (32, 16)}
     extras = {"nn": {"ms_3456", "plain_ms_3456", "library_ms_3456", "bound_ms_3456", "splits",
-                     "splits_3456", "device_ms", "device_ms_3456", "library_device_ms_3456"},
+                     "splits_3456", "device_ms", "device_ms_3456", "library_device_ms_3456",
+                     "launches_odometry"},
               "moments6": {"cov_max_abs_err", "cov_err_over_tol", "device_ms", "bytes_ms", "band_pairs",
                            "screened_pairs", "mean_count", "ms_k8", "device_ms_k8", "plain_ms_k8",
                            "bound_ms_k8", "bytes_ms_k8", "band_pairs_k8", "screened_pairs_k8",
                            "mean_count_k8"},
               "fold6": {"device_ms", "ms_d12", "plain_ms_d12", "device_ms_d12", "bound_ms_d12",
-                        "prepare_ms", "launches_mid"} | mid,
+                        "prepare_ms", "launches_mid", "launches_odometry"} | mid,
               "fold7": {"device_ms", "ms_d12", "plain_ms_d12", "device_ms_d12", "bound_ms_d12",
                         "prepare_ms", "launches_mid"} | mid,
               "select": {"ms_d12", "plain_ms_d12", "library_ms_d12", "bound_ms_d12", "device_ms_d12",
@@ -208,7 +214,7 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
               "fused4": {"union_mean", "union_max", "device_ms"},
               "moments_fused": {"cov_err_over_tol", "union_mean", "union_max", "padded_share",
                                 "rows_below_xla", "margin_used", "device_ms"},
-              "sort": device}
+              "sort": device | {"launches_odometry"}}
     for k in ks:
         assert set(k) == keys | extras.get(k["name"], set())
         assert k["device_ms"] > 0  # every row of the kernel table has a device time
@@ -263,6 +269,20 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
                  "register_pyramid 8192 points"]
     for prefix in prefixes:
         assert any(line.startswith(prefix) for line in lines), prefix
+    # the odometry phases: each kernel of the path launched where it must be
+    # (the 8,192-point compiled run: 4 normals builds, 3 source builds at
+    # q-tile 128 and the keyframe builds at 128, 4 levels each)
+    assert nn["launches_odometry"] >= 3 and fold["launches_odometry"] >= 3
+    assert sort["launches_odometry"] >= 4 * 4 + 3 * 4 + 4
+    for prefix in ("compiled odometry 8192 x 4: ATE ", "compiled odometry 8192 x 4 profiled: ",
+                   "compiled odometry 2048 x 4 (brute): ATE ",
+                   "compiled odometry 8192 x 3 card vs CPU: keyframes equal",
+                   "host odometry 8192 x 4 (scan_to_keyframe): ATE ",
+                   "host odometry 8192 x 4 (scan_to_map, sliding_window): ATE ",
+                   "host odometry resume: ", "odometry phases: "):
+        assert any(line.startswith(prefix) for line in lines), prefix
+    slam = [line for line in lines if line.startswith("slam 2048 x 30 (two laps): ")]
+    assert len(slam) == 2 and slam[0].endswith("(gate 0.7 x)") and slam[1].endswith("(gate 1.0 x)")
     for kernel in ("fold6", "fold7", "select"):  # the mid phase's shapes on each kernel's line
         assert any(line.startswith(f"{kernel} kernel vs plain") and "the mid phase's shapes" in line
                    for line in lines), kernel

@@ -205,3 +205,32 @@ def _slot_weights_fixture():
     query = rng.uniform(-1, 1, (8, 16, 3)).astype(np.float32)
     query[5, 12:] = PAD_COORD
     return query, tiles, unions
+
+
+# ---- odometry -----------------------------------------------------------------------------
+
+
+def keyframe_margins(rel_R, rel_t, keyframe_trans, keyframe_rot) -> np.ndarray:
+    """Each frame's distance from flipping its keyframe decision, in float64:
+    min(| |rel.t| - keyframe_trans |, | angle(rel.R) - keyframe_rot |). A
+    decision within fp32 of its threshold could go either way on two
+    backends; every fixture must keep it far above that."""
+    R = np.asarray(rel_R, np.float64)
+    t = np.asarray(rel_t, np.float64)
+    cos = np.clip((np.trace(R, axis1=-2, axis2=-1) - 1.0) / 2.0, -1.0, 1.0)
+    return np.minimum(np.abs(np.linalg.norm(t, axis=-1) - keyframe_trans),
+                      np.abs(np.arccos(cos) - keyframe_rot))
+
+
+def odometry_frames(n_points, n_frames, *, world=(60000, 30.0, 0), speed=0.6, turn=0.04,
+                    max_range=18.0, seed=1, device="cpu"):
+    """The port's simulated scans of `n_points` with normals (k = 10), the
+    reference tests' construction: (frames, ground-truth poses)."""
+    from icpx_torch.kernels.normals import estimate_normals
+    from icpx_torch.odometry.kitti import make_trajectory, make_world, simulate_scans
+
+    w = make_world(n_points=world[0], extent=world[1], seed=world[2])
+    gt = make_trajectory(n_frames, speed=speed, turn=turn, device=device)
+    frames = simulate_scans(w, gt, max_range=max_range, points_per_scan=n_points, noise=0.01,
+                            seed=seed, device=device)
+    return [estimate_normals(f, k=10) for f in frames], gt

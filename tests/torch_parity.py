@@ -62,3 +62,12 @@ def rotation(rng, max_angle=3.0) -> np.ndarray:
     a = rng.uniform(-max_angle, max_angle)
     K = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]], [-axis[1], axis[0], 0]])
     return (np.eye(3) + np.sin(a) * K + (1 - np.cos(a)) * K @ K).astype(np.float32)
+
+
+def torch_odometry_config(jcfg):
+    """The port's OdometryConfig from the JAX package's, field for field."""
+    from icpx_torch.odometry.frontend import OdometryConfig
+
+    d = dataclasses.asdict(jcfg)
+    d["icp"] = interop.config_from_dict(d["icp"])
+    return OdometryConfig(**d)
