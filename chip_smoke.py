@@ -44,7 +44,17 @@ result against its ground truth:
   the stall watchdog on and off; scan_to_map with the sliding window; a
   resume from a checkpoint equal bit for bit), and tests/test_slam.py's
   loop at 2,048 and 8,192 points through loop closure and both pose-graph
-  solvers.
+  solvers;
+* the command line, `icpx_torch.cli`, over files (`_phase_cli`): the
+  native IO library on the 1M pair as binary_compressed PCD, the cat pair
+  through binary PLY, .xyz and compressed PCD (`info`, `convert`,
+  `register` at the golden gate, `perturb` then `horn`), `register` of the
+  1M files (the "auto" path's gate and launches, against a direct
+  `register()`), `odometry --compiled` over the 65k sequence written as a
+  KITTI velodyne directory (against a direct `run_odometry_compiled`),
+  `prefetch_kitti` against the serial load, `odometry --synthetic` with
+  loop closure, a checkpoint resume, and one `python3 -m icpx_torch.cli`
+  process.
 
 Before the paths, fold6, fold7 and select are also held to their plain
 versions and timed at the mid phase's query tiles (16,384 x 32 and x 16).
@@ -75,6 +85,7 @@ import argparse
 import dataclasses
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -90,11 +101,6 @@ N_SMALL = 16384  # the block pair run on the card and on the CPU
 N_BATCH = 8000  # register_batch's scan-size pairs, just under block_auto_threshold
 N_PLANE = 131072  # the degenerate plane of the feature phase
 
-# Peak rates of one H100 SXM (NVIDIA data sheet, at the 700 W limit): the
-# bound of a kernel is the larger of its bytes over the memory rate and its
-# fp32 operations (an FMA counts 2) over the non-tensor-core fp32 rate.
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12
 
 
 def _fail(msg: str) -> None:
@@ -160,7 +166,12 @@ def _graph_ms(fn, inner: int = 20, reps: int = 5) -> float:
 
 
 def _bound(bytes_moved: float, flops: float):
-    """(bound ms, "bytes" or "operations")."""
+    """(bound ms, "bytes" or "operations"): the larger of the bytes over the
+    memory rate and the fp32 operations (an FMA counts 2) over the
+    non-tensor-core fp32 rate, one H100 SXM's at 700 W
+    (`icpx_torch.utils.profiling`)."""
+    from icpx_torch.utils.profiling import FP32_FLOPS, HBM_BYTES_PER_S
+
     t_mem, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / FP32_FLOPS
     return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops else "operations")
 
@@ -645,7 +656,7 @@ def _phase_moments6(dev, index, radius, fixtures, f_tgt):
         bytes_moved = _input_bytes(idx.tiles, idx.tiles, cand32, q_cent, r2) + n * 40
         bound_ms, bound_by = _bound(bytes_moved, n_ops)
         timed.update({f"ms{suffix}": ms, f"device_ms{suffix}": device_ms, f"plain_ms{suffix}": plain_ms,
-                      f"bound_ms{suffix}": bound_ms, f"bytes_ms{suffix}": bytes_moved / HBM_BYTES_PER_S * 1e3,
+                      f"bound_ms{suffix}": bound_ms, f"bytes_ms{suffix}": _bound(bytes_moved, 0.0)[0],
                       f"band_pairs{suffix}": band, f"screened_pairs{suffix}": screened,
                       f"mean_count{suffix}": float(out[0].mean())})
         if not suffix:
@@ -2228,6 +2239,328 @@ def _phase_host_odometry(dev, n, frames, kernels, map_capacity=65536):
           f"uninterrupted one bit for bit ({len(full.poses)} poses, {len(full.edges)} edges)")
 
 
+# ---- the command line and file IO -----------------------------------------------------
+
+
+def _cli(argv):
+    """Run `icpx_torch.cli.main(argv)` in this process: (its stdout, wall s).
+    Fails unless it returns 0."""
+    import contextlib
+    import io
+
+    from icpx_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main([str(a) for a in argv])
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        _fail(f"icpx-torch {' '.join(map(str, argv))}: exit {rc}\n{buf.getvalue()}")
+    return buf.getvalue(), wall
+
+
+def _cli_rows(out, title, rows):
+    """The `rows` matrix rows the CLI printed under `title`."""
+    lines = out.splitlines()
+    i = lines.index(title)
+    return np.array([[float(v) for v in line.split()] for line in lines[i + 1:i + 1 + rows]])
+
+
+def _cli_transform(out, dev):
+    """The CLI's printed 4x4 transform as an SE3 on `dev` (6 decimals)."""
+    from icpx_torch.interop import se3_from_numpy
+
+    m = _cli_rows(out, "transform:", 4).astype(np.float32)
+    return se3_from_numpy(m[:3, :3], m[:3, 3], device=dev)
+
+
+def _cli_line(out, prefix):
+    return next(line for line in out.splitlines() if line.startswith(prefix))
+
+
+def _phase_cli(dev, n_flag, n_odo, odo_frames, n_synth, shapes):
+    """`icpx_torch.cli` (in this process, and once as `python3 -m
+    icpx_torch.cli`) over files of every format, each run held to what the
+    same work gives through the entry points:
+
+    1. the native IO library loaded; bench.py's flagship pair (n_flag
+       points) written and read back as binary_compressed PCD with an
+       intensity column, bit for bit, through native LZF;
+    2. the golden cat pair as binary PLY, .xyz and binary_compressed PCD:
+       `info` and `convert` of each (the same bits from every format),
+       `register` with the golden config (GT gate; nn launches equal a
+       direct register()'s), `perturb` then `horn` (the perturbation back);
+    3. `register` of the flagship files with `_flag_configs()["kernels"]`
+       as flags and `--config`: the GT gate, `_FLAG_LAUNCHES["kernels"]`,
+       its transform against a direct register() of the same loaded clouds;
+    4. bench.py --odometry's sequence (n_odo points, odo_frames scans) as a
+       KITTI velodyne directory and poses file: `odometry --compiled`, the
+       ATE gate, sort launches equal to its KD builds, its poses within
+       ODO_POSE_TOL of a direct run_odometry_compiled with the config the
+       CLI builds; prefetch_kitti against the serial load;
+    5. `odometry --synthetic` (the CLI's default, host frontend, n_synth
+       points) with --checkpoint and --loop-closure, and a resume from a
+       checkpoint equal to the uninterrupted run;
+    6. a fresh process, `python3 -m icpx_torch.cli --device ... info`."""
+    from pathlib import Path
+
+    from icpx_torch import cli
+    from icpx_torch.cloud import round_up
+    from icpx_torch.geometry.transforms import make_rigid_perturbation
+    from icpx_torch.io import load_cloud, native, prefetch_kitti, save_cloud
+    from icpx_torch.io.loaders import reference_data_dir
+    from icpx_torch.io.pcd import write_pcd
+    from icpx_torch.kernels.blocknn import kd_level_sorts
+    from icpx_torch.odometry.compiled import resolve_odo_q_tile, run_odometry_compiled
+    from icpx_torch.odometry.evaluate import ate_rmse
+    from icpx_torch.odometry.kitti import (load_kitti_poses, load_kitti_scan, load_kitti_sequence,
+                                           write_kitti_sequence)
+    from icpx_torch.registration.icp import ICPConfig, register
+    from icpx_torch.utils.checkpoint import OdometryCheckpoint
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    work = root / "tests" / "_artifacts" / "cli"
+    if work.exists():
+        shutil.rmtree(work)
+    work.mkdir(parents=True)
+    base = ["--device", str(dev)]
+
+    # 1. the native reader: the flagship pair through LZF both ways ------------------
+    if native.get_lib() is None:
+        _fail("cli: the native IO library did not load (g++ -O3 -fPIC -shared of native/icpx_io.cpp)")
+    f_src, f_tgt, f_gt = _gt_pair(n_flag, 0, dev)
+    flag = {}
+    native.reset_counts()
+    t0 = time.perf_counter()
+    for name, cloud in (("src", f_src), ("tgt", f_tgt)):
+        flag[name] = work / f"flag_{name}.pcd"
+        write_pcd(flag[name], cloud.to_numpy(), compressed=True,
+                  extra_fields={"intensity": _intensity(cloud.xyz)[cloud.mask].cpu().numpy()})
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = {name: load_cloud(path, device=dev) for name, path in flag.items()}
+    read_s = time.perf_counter() - t0
+    calls, falls = dict(native.CALLS), dict(native.FALLBACKS)
+    for name, cloud in (("src", f_src), ("tgt", f_tgt)):
+        got = loaded[name]
+        if not (torch.equal(got.xyz[got.mask], cloud.xyz[cloud.mask]) and got.feat_names == ("intensity",)):
+            _fail(f"cli: the flagship {name} read back from binary_compressed PCD differs")
+    if calls["lzf_compress"] != 2 or calls["lzf_decompress"] != 2 or any(falls.values()):
+        _fail(f"cli: LZF did not go through the native library (calls {calls}, fallbacks {falls})")
+    mb = sum(p.stat().st_size for p in flag.values()) / 2**20
+    print(f"cli native reader: {native.library_path().name}; the flagship pair ({n_flag} points "
+          f"a cloud, xyz + intensity) as binary_compressed PCD, {mb:.1f} MiB: written "
+          f"{write_s * 1e3:.2f} ms, read {read_s * 1e3:.2f} ms (both clouds, host clock, to the "
+          f"device), bit-equal; native calls {({k: v for k, v in calls.items() if v})}, python "
+          f"fallbacks {sum(falls.values())}")
+
+    # 2. the golden cat pair through every format -------------------------------------
+    data = reference_data_dir()
+    src_np = load_cloud(data / "cat.pcd", device="cpu").to_numpy()
+    tgt_np = load_cloud(data / "cat_out.pcd", device="cpu").to_numpy()
+    tgt_sh = tgt_np[np.random.default_rng(0).permutation(len(tgt_np))]
+    from icpx_torch.cloud import PointCloud
+
+    files = {}
+    for name, pts in (("cat", src_np), ("cat_out", tgt_sh)):
+        cloud = PointCloud.create(pts, device="cpu")
+        for ext, kw in ((".ply", {"binary": True}), (".xyz", {})):
+            files[name, ext] = work / f"{name}{ext}"
+            save_cloud(files[name, ext], cloud, **kw)
+        files[name, ".pcd"] = work / f"{name}.pcd"
+        write_pcd(files[name, ".pcd"], pts, compressed=True)
+    formats = []
+    for (name, ext), path in files.items():
+        out, _ = _cli(base + ["info", path])
+        if f"{len(src_np)} points" not in out:
+            _fail(f"cli info {path.name}: {out}")
+        conv = work / f"{name}{ext.replace('.', '_')}.pcd"
+        _cli(base + ["convert", path, conv, "--binary"])
+        want = src_np if name == "cat" else tgt_sh
+        for p in (path, conv):
+            if not np.array_equal(load_cloud(p, device=dev).to_numpy(), want):
+                _fail(f"cli convert: {p.name}'s xyz differ from the original's")
+        formats.append(path.name)
+    print(f"cli cat pair: info and convert of {', '.join(formats)}: every file and its converted "
+          f"PCD hold the original xyz bit for bit")
+    cfg_cat = ICPConfig(objective="symmetric", max_iters=20, diff_threshold=1.0,
+                        max_corr_dist=50.0, robust="huber")
+    argv = base + ["register", files["cat", ".ply"], files["cat_out", ".ply"], "--max-iters", 20,
+                   "--diff-threshold", 1.0, "--max-corr-dist", 50, "--robust", "huber",
+                   "--metrics", work / "cat.jsonl", "--out", work / "cat_aligned.pcd"]
+    if cli._icp_config(cli.build_parser().parse_args([str(a) for a in argv])) != cfg_cat:
+        _fail("cli register: its flags do not build the golden config")
+    (out, wall_cli), counts = _counted(lambda: _cli(argv))
+    src, tgt = (load_cloud(files[n, ".ply"], device=dev) for n in ("cat", "cat_out"))
+    res, direct = _counted(lambda: register(src, tgt, cfg_cat))
+    rot, terr = _transform_diff(_cli_transform(out, dev), make_rigid_perturbation(device=dev))
+    aligned = load_cloud(work / "cat_aligned.pcd", device="cpu").to_numpy()
+    true_rmse = float(np.sqrt(((aligned - tgt_np) ** 2).sum(1).mean()))
+    recs = [json.loads(line) for line in (work / "cat.jsonl").read_text().splitlines()]
+    if not (rot < 5e-3 and terr < 0.5 and true_rmse < 0.5):
+        _fail(f"cli cat register: GT not recovered (rot {rot:.3e}, t {terr:.3e}, rmse {true_rmse:.3e})")
+    if counts != direct or counts["nn"] < 1:
+        _fail(f"cli cat register: launches {counts}, a direct register() {direct}")
+    if recs[-1]["event"] != "icp_done" or len(recs) != int(res.iters) + 1:
+        _fail(f"cli cat register: {len(recs)} metrics records for {int(res.iters)} iterations")
+    print(f"cli cat register ({files['cat', '.ply'].name} onto {files['cat_out', '.ply'].name}, the "
+          f"golden config): rot_err={rot:.3e} t_err={terr:.3e} (printed to 6 decimals), aligned "
+          f"output's rmse to cat_out {true_rmse:.3e}; launches {counts} = a direct register()'s; "
+          f"{len(recs)} metrics records; wall {wall_cli * 1e3:.2f} ms (files read included)")
+    pert = dict(axis=(0.0, 0.6, 0.8), angle=0.4, translation=(0.3, -1.2, 2.0))
+    _cli(base + ["perturb", files["cat", ".pcd"], work / "cat_perturbed.pcd", "--angle", pert["angle"],
+                 "--axis", *pert["axis"], "--translate", *pert["translation"]])
+    out, _ = _cli(base + ["horn", files["cat", ".pcd"], work / "cat_perturbed.pcd"])
+    from icpx_torch.interop import se3_from_numpy
+
+    t_line = _cli_line(out, "t: ")
+    horn = se3_from_numpy(_cli_rows(out, "R:", 3).astype(np.float32),
+                          np.array(t_line.split()[1:], np.float32), device=dev)
+    h_rot, h_t = _transform_diff(horn, make_rigid_perturbation(**pert, device=dev))
+    if not (h_rot < 1e-4 and h_t < 1e-3):
+        _fail(f"cli perturb + horn: rot {h_rot:.3e}, t {h_t:.3e} from the perturbation")
+    print(f"cli perturb + horn: the perturbation ({pert['angle']} rad about {pert['axis']}, "
+          f"t={pert['translation']}) recovered within rot {h_rot:.2e}, t {h_t:.2e}")
+
+    # 3. the flagship through binary_compressed PCD files ------------------------------
+    cfg = _flag_configs()["kernels"]
+    cfg_file = work / "flag_config.json"
+    cfg_file.write_text(json.dumps({"rmse_change_tol": cfg.rmse_change_tol, "tile_q": cfg.tile_q,
+                                    "tile_r": cfg.tile_r}))
+    argv = base + ["register", flag["src"], flag["tgt"], "--objective", cfg.objective, "--max-iters",
+                   cfg.max_iters, "--diff-threshold", cfg.diff_threshold, "--k-normals",
+                   cfg.k_normals, "--config", cfg_file]
+    if cli._icp_config(cli.build_parser().parse_args([str(a) for a in argv])) != cfg:
+        _fail("cli flagship: its flags and --config do not build _flag_configs()['kernels']")
+    (out, wall_cli), counts = _counted(lambda: _cli(argv))
+    t_cli = _cli_transform(out, dev)
+    src, tgt = loaded["src"], loaded["tgt"]
+    res, direct = _counted(lambda: register(src, tgt, cfg))
+    refine = _check_launches("kernels", counts, res, shapes)
+    rot, terr = _transform_diff(t_cli, f_gt)
+    if not (rot < 5e-3 and terr < 5e-3):
+        _fail(f"cli flagship: GT not recovered (rot {rot:.3e}, t {terr:.3e})")
+    if counts != direct or f"iters={int(res.iters)} " not in out:
+        _fail(f"cli flagship: launches {counts} and trace {out.splitlines()[-6:]}; a direct "
+              f"register() {direct}, {int(res.iters)} iterations")
+    g_rot, g_t = _transform_diff(t_cli, res.transform)
+    wall_direct, _ = _sync_time(lambda: register(src, tgt, cfg), reps=3)
+    wall_cli2 = statistics.median([wall_cli] + [_cli(argv)[1] for _ in range(2)])
+    print(f"cli flagship {n_flag} (binary_compressed PCD with intensity, the 'kernels' config as "
+          f"flags and --config): rot_err={rot:.3e} t_err={terr:.3e}; iters={int(res.iters)} "
+          f"(refine {refine}); launches {counts} = a direct register()'s; its printed transform "
+          f"within rot {g_rot:.1e}, t {g_t:.1e} of the direct call's (6 printed decimals); wall "
+          f"{wall_cli2 * 1e3:.2f} ms through the CLI (median of 3, both files read), "
+          f"{wall_direct * 1e3:.2f} ms a direct register() of the loaded clouds (median of 3)")
+    del f_src, f_tgt, loaded, src, tgt
+
+    # 4. compiled odometry from a KITTI velodyne directory ----------------------------
+    scans, gt = _odo_sequence(n_odo, odo_frames, dev)
+    vel, poses_txt = work / "velodyne", work / "poses.txt"
+    write_kitti_sequence(vel, scans, gt, poses_path=poses_txt)
+    del scans
+    paths = sorted(vel.glob("*.bin"))
+    cap = round_up(max(p.stat().st_size // 16 for p in paths))  # load_kitti_sequence's capacity
+    argv = base + ["odometry", "--velodyne-dir", vel, "--poses", poses_txt, "--frames", odo_frames,
+                   "--compiled", "--max-iters", 10, "--max-corr-dist", 2, "--checkpoint",
+                   work / "odo.npz"]
+    args = cli.build_parser().parse_args([str(a) for a in argv])
+    icp = cli.odometry_icp_config(args)
+    if icp != _odo_config():
+        _fail(f"cli odometry: {icp} is not the sequence's ICP config")
+    native.reset_counts()
+    (out, wall_cli), counts = _counted(lambda: _cli(argv))
+    if native.CALLS["kitti_xyz"] != odo_frames or any(native.FALLBACKS.values()):
+        _fail(f"cli odometry: the .bin scans did not go through the native reader ({native.CALLS})")
+    ck = OdometryCheckpoint.load(work / "odo.npz")
+    poses = ck.poses(device=dev)
+    gt_file = load_kitti_poses(poses_txt, device=dev)
+    ate = ate_rmse(poses, gt_file, align=False)
+    spawns = int(ck.is_keyframe[1:].sum())
+    want = {"sort": odo_frames * kd_level_sorts(cap, 128)
+            + (odo_frames - 1) * kd_level_sorts(cap, resolve_odo_q_tile(icp, cap))
+            + (1 + spawns) * kd_level_sorts(cap, icp.block_tile)}
+    _check_counts("cli odometry --compiled", counts, want)
+    if not (math.isfinite(ate) and ate < ODO_ATE_BOUND):
+        _fail(f"cli odometry --compiled: ATE {ate:.4f} m (gate {ODO_ATE_BOUND} m)")
+    frames = load_kitti_sequence(vel, max_frames=odo_frames, device=dev)
+    kw = cli.compiled_kwargs(args)
+    comp = run_odometry_compiled(*cli.compiled_inputs(frames, icp), icp, **kw)
+    gaps = [_transform_diff(p, q) for p, q in zip(poses, _pose_list(comp.poses))]
+    gap = [max(g[0] for g in gaps), max(g[1] for g in gaps)]
+    kf_equal = comp.is_keyframe.cpu().tolist() == [bool(v) for v in ck.is_keyframe]
+    if not (kf_equal and max(gap) <= ODO_POSE_TOL):
+        _fail(f"cli odometry --compiled: keyframes equal {kf_equal}, poses within rot {gap[0]:.2e}, "
+              f"t {gap[1]:.2e} of a direct run_odometry_compiled (tolerance {ODO_POSE_TOL})")
+    wall_direct, _ = _sync_time(
+        lambda: run_odometry_compiled(*cli.compiled_inputs(frames, icp), icp, **kw), reps=3, warmup=0)
+    print(f"cli odometry --compiled ({odo_frames} x {n_odo}-point .bin scans and poses.txt): "
+          f"ATE {ate:.4f} m (unaligned, gate {ODO_ATE_BOUND}); printed: {_cli_line(out, 'ATE ')} "
+          f"(aligned); keyframes {1 + spawns}; launches {counts} = the KD builds'; a direct "
+          f"run_odometry_compiled on the loaded frames with the CLI's config and arguments: "
+          f"keyframes equal, poses within rot {gap[0]:.2e}, t {gap[1]:.2e}; wall {wall_cli:.3f} s "
+          f"through the CLI (files read, normals, odometry, ATE), {wall_direct:.3f} s direct "
+          f"(normals and odometry, median of 3)")
+    def load_serial():
+        return [PointCloud.create(load_kitti_scan(p)[:cap], capacity=cap, device=dev) for p in paths]
+
+    def load_prefetched():
+        return list(prefetch_kitti(vel, capacity=cap, depth=3, device=dev))
+
+    serial, streamed = load_serial(), load_prefetched()  # warm: the first of each is cold
+    if len(streamed) != len(serial) or not all(
+            torch.equal(a.xyz, b.xyz) and torch.equal(a.mask, b.mask) for a, b in zip(streamed, serial)):
+        _fail("cli prefetch_kitti: its clouds differ from the serial load's")
+    w_serial, w_pref = _ab_walls(load_serial, load_prefetched, 3)
+    print(f"cli prefetch_kitti: {len(paths)} scans in order, equal to the serial load bit for bit; "
+          f"{statistics.median(w_pref) * 1e3:.2f} ms with 3 loads in flight, "
+          f"{statistics.median(w_serial) * 1e3:.2f} ms serial (host clock to the device, median of "
+          f"3 after a warm call of each, ABBA; readings {[round(t * 1e3, 2) for t in w_pref]}, "
+          f"{[round(t * 1e3, 2) for t in w_serial]})")
+    del frames, serial, streamed, comp
+
+    # 5. the CLI's own odometry default: synthetic, host frontend, loop closure,
+    #    checkpoint and resume ------------------------------------------------------------
+    synth = base + ["odometry", "--synthetic", "--points-per-scan", n_synth]
+    (out, wall_cli), counts = _counted(lambda: _cli(
+        synth + ["--frames", odo_frames, "--loop-closure", "--checkpoint", work / "synth.npz"]))
+    ck = OdometryCheckpoint.load(work / "synth.npz")
+    if len(ck.poses_t) != odo_frames or not np.isfinite(ck.poses_t).all() or counts["fold6"] < 1:
+        _fail(f"cli odometry --synthetic: {len(ck.poses_t)} poses, launches {counts}")
+    lines = [line for line in out.splitlines() if line.startswith(("ATE", "loop", "pose graph"))]
+    print(f"cli odometry --synthetic ({odo_frames} x {n_synth}, host frontend, --loop-closure): "
+          f"{_cli_line(out, f'{odo_frames} frames')}; {'; '.join(lines)}; launches {counts}; "
+          f"wall {wall_cli:.3f} s")
+    full_n, part_n = min(8, odo_frames), min(5, odo_frames - 1)
+    _cli(synth + ["--frames", full_n, "--checkpoint", work / "full.npz"])
+    _cli(synth + ["--frames", part_n, "--checkpoint", work / "part.npz"])
+    out, _ = _cli(synth + ["--frames", full_n, "--resume", work / "part.npz", "--checkpoint",
+                           work / "resumed.npz"])
+    full, resumed = (OdometryCheckpoint.load(work / f"{n}.npz") for n in ("full", "resumed"))
+    same = (np.allclose(resumed.poses_t, full.poses_t, atol=1e-6, rtol=0)
+            and np.allclose(resumed.poses_R, full.poses_R, atol=1e-6, rtol=0)
+            and [e[:2] for e in resumed.edges] == [e[:2] for e in full.edges])
+    if "resuming from" not in out or not same:
+        _fail("cli odometry --resume: the resumed run differs from the uninterrupted one")
+    print(f"cli odometry --resume: {part_n} frames checkpointed, resumed to {full_n}: equal to the "
+          f"uninterrupted run (poses within 1e-6, {len(full.edges)} edges)")
+
+    # 6. a fresh process through the module entry ----------------------------------------
+    fresh = ["--device", "cuda" if dev.type == "cuda" else str(dev), "info", files["cat", ".pcd"]]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "icpx_torch.cli", *map(str, fresh)], cwd=root,
+                          capture_output=True, text=True, timeout=300)
+    fresh_s = time.perf_counter() - t0
+    if proc.returncode != 0 or f"{len(src_np)} points" not in proc.stdout:
+        _fail(f"cli fresh process: exit {proc.returncode}\n{proc.stdout}\n{proc.stderr[-2000:]}")
+    print(f"cli fresh process: python3 -m icpx_torch.cli {' '.join(fresh[:2])} info "
+          f"{files['cat', '.pcd'].name} -> {proc.stdout.strip()} ({fresh_s:.2f} s)")
+    shutil.rmtree(work)
+    print(f"cli phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def _loop_poses(n_frames, dev, radius=6.0, laps=2.0):
     """tests/test_slam.py's two laps of a circle."""
     from icpx_torch.geometry.se3 import SE3
@@ -2647,6 +2980,11 @@ def main(dev=None, n_pair: int = N_PAIR, n_flag: int = N_FLAG, n_small: int = N_
         odo_secs[label] = time.perf_counter() - t0
     print(f"odometry phases: {sum(odo_secs.values()):.1f} s ("
           + ", ".join(f"{k} {v:.1f}" for k, v in odo_secs.items()) + ")")
+
+    # 12. The command line over files of every format, through the native
+    #     reader: the cat pair, the 1M flagship, the 65k KITTI directory and
+    #     the CLI's own synthetic odometry ----------------------------------------
+    _phase_cli(dev, n_flag, n_odo, odo_frames, n_odo_small, shapes)
 
     cu = "icpx_torch/csrc/blocknn.cu"
     sources = {"nn": "icpx_torch/csrc/nn.cu", "moments6": cu, "fold6": cu, "fold7": cu,

@@ -23,16 +23,20 @@ whole-sequence path (`run_odometry_compiled`), the host frontend
 motion gate, dynamic masking, the sliding-window back end, exact resume
 from `utils.checkpoint.OdometryCheckpoint`), the dense and sparse pose-graph
 solvers with Schur marginalization, place recognition and loop closure,
-and the stall watchdog (`distributed.fault`). Its hand-written CUDA kernels, one for
+the stall watchdog and the fault injectors (`distributed.fault`). IO and
+the command line: PCD (ascii, binary, LZF binary_compressed), PLY, xyz text
+and KITTI .bin through the native reader (`io/native.py`, a ctypes binding
+of `native/icpx_io.cpp`), payload feature columns, scan prefetching,
+metrics, generic checkpoints, profiling, debug helpers, snapshots
+(`viz`) and `cli` (``python -m icpx_torch.cli``). Its hand-written CUDA kernels, one for
 each Pallas kernel of the reference: the exact 1-NN search
 (`kernels/nn_cuda.py` + `csrc/nn.cu`), the block path's radius moments,
 folds, payload selection, union fold and union moments
 (`kernels/blocknn_cuda.py` + `csrc/blocknn.cu`), and the KD build's
 segmented sort (`kernels/sort_cuda.py` + `csrc/sort.cu`). Entry points
-create tensors on the first CUDA device unless given `device="cpu"`. Paths
-that need later slices (compressed PCD, other cloud formats, ...) raise
-`NotImplementedError` naming their ROADMAP item; the sharded pose graph,
-`parallel_odometry` and the rest of `distributed/` wait for step 9.
+create tensors on the first CUDA device unless given `device="cpu"`. The
+sharded pose graph, `parallel_odometry`, the rest of `distributed/` and
+the HLO tooling wait for ROADMAP queue 1 step 9.
 """
 
 import torch as _torch

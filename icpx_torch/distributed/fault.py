@@ -1,9 +1,9 @@
-"""Degraded-mode guard for the ICP loop and the stall watchdog.
+"""Degraded-mode guard for the ICP loop, the stall watchdog and the fault
+injectors.
 
 Mirrors `degenerate_solve_guard`, `HeartbeatMonitor`,
-`CollectiveStallError`, `guarded_call` and `default_stall_timeout` of
-`icpx/distributed/fault.py`. The fault injectors (`drop_shard`,
-`corrupt_points`) wait for ROADMAP queue 1 step 8.
+`CollectiveStallError`, `guarded_call`, `default_stall_timeout`,
+`drop_shard` and `corrupt_points` of `icpx/distributed/fault.py`.
 """
 
 from __future__ import annotations
@@ -140,3 +140,28 @@ def default_stall_timeout(device=None, warmup: bool = False) -> float:
     if dev.type == "cpu":
         return 0.0
     return 1200.0 if warmup else 600.0
+
+
+# ---- fault injection (tests) -------------------------------------------------
+
+
+def drop_shard(mask: torch.Tensor, shard_index: int, n_shards: int) -> torch.Tensor:
+    """Simulate a host losing its data shard: clear the validity mask of
+    one contiguous 1/n_shards slice."""
+    n = mask.shape[0]
+    s = n // n_shards
+    idx = torch.arange(n, device=mask.device)
+    dead = (idx >= shard_index * s) & (idx < (shard_index + 1) * s)
+    return mask & ~dead
+
+
+def corrupt_points(xyz: torch.Tensor, generator: Optional[torch.Generator] = None,
+                   fraction: float = 0.05, magnitude: float = 100.0) -> torch.Tensor:
+    """Inject gross outliers: each row is hit with probability `fraction`
+    and moved by `magnitude` x a standard normal 3-vector. `generator`
+    (on xyz's device) seeds the draws; it stands in for the reference's
+    JAX key, so the rows hit are not the reference's."""
+    hit = torch.rand(xyz.shape[0], generator=generator, device=xyz.device) < fraction
+    noise = magnitude * torch.randn(xyz.shape, generator=generator, device=xyz.device,
+                                    dtype=xyz.dtype)
+    return torch.where(hit[:, None], xyz + noise, xyz)

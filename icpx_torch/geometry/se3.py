@@ -116,6 +116,14 @@ class SE3:
         Rt = self.R.transpose(-1, -2)
         return SE3(R=Rt, t=-_matvec(Rt, self.t))
 
+    def matrix(self) -> torch.Tensor:
+        """(..., 4, 4) homogeneous matrix."""
+        m = torch.zeros((*self.t.shape[:-1], 4, 4), dtype=self.R.dtype, device=self.R.device)
+        m[..., :3, :3] = self.R
+        m[..., :3, 3] = self.t
+        m[..., 3, 3] = 1.0
+        return m
+
     # ---- metrics -----------------------------------------------------------
 
     def rotation_angle(self) -> torch.Tensor:

@@ -1,19 +1,25 @@
-"""PCD v0.7 reader/writer for ``DATA ascii`` and ``DATA binary``, numpy only.
+"""PCD v0.7 reader/writer: ``DATA ascii``, ``binary`` and
+``binary_compressed`` (LZF, PCL's field-major layout).
 
 Mirrors `icpx/io/pcd.py`'s header grammar and field handling (including
 the multi-field `PointXYZLNormal` layout of the reference's
-`cat_out.pcd`). ``binary_compressed`` (LZF) and the ctypes binding to the
-native IO library wait for ROADMAP queue 1 step 2.
+`cat_out.pcd`). ASCII bodies are parsed and formatted, and LZF payloads
+compressed and decompressed, by the native IO library (`io/native.py`);
+without it ASCII falls back to numpy and LZF decompression to the pure
+Python decoder here, while a compressed write needs the library.
 """
 
 from __future__ import annotations
 
 import io as _io
 import os
+import struct
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Union
 
 import numpy as np
+
+from icpx_torch.io import native
 
 _TYPE_MAP = {
     ("F", 4): np.float32,
@@ -100,12 +106,17 @@ def _struct_dtype(hdr: PCDHeader) -> np.dtype:
 
 def _read_ascii(body: bytes, hdr: PCDHeader, dtype: np.dtype, n: int) -> np.ndarray:
     n_cols = sum(hdr.count)
-    mat = np.genfromtxt(
-        _io.StringIO(body.decode("ascii", errors="replace")),
-        dtype=np.float64,
-        max_rows=n,
-        invalid_raise=False,
-    )
+    # Wide integer fields (packed rgb, large labels) exceed float32's 2^24
+    # integer range: such files take the float64 numpy path, exact to 2^53.
+    wide_int = any(t in ("I", "U") and s >= 4 for t, s in zip(hdr.type, hdr.size))
+    mat = None if wide_int else native.parse_float_table(body, n, n_cols)
+    if mat is None:
+        mat = np.genfromtxt(
+            _io.StringIO(body.decode("ascii", errors="replace")),
+            dtype=np.float64,
+            max_rows=n,
+            invalid_raise=False,
+        )
     mat = np.atleast_2d(mat)
     if mat.shape[0] < n:
         raise ValueError(f"PCD: expected {n} rows, got {mat.shape[0]}")
@@ -150,9 +161,7 @@ def read_pcd(path_or_bytes: Union[str, os.PathLike, bytes]) -> Dict[str, np.ndar
                 )
             rec = np.frombuffer(buf, dtype=dtype, count=n).copy()
         elif hdr.data == "binary_compressed":
-            raise NotImplementedError(
-                "PCD binary_compressed (LZF) is not ported yet (ROADMAP queue 1 step 2)"
-            )
+            rec = _read_binary_compressed(stream, dtype, n)
         else:
             raise ValueError(f"PCD: unsupported DATA kind {hdr.data!r}")
 
@@ -167,6 +176,56 @@ def read_pcd(path_or_bytes: Union[str, os.PathLike, bytes]) -> Dict[str, np.ndar
     return out
 
 
+def _read_binary_compressed(stream, dtype: np.dtype, n: int) -> np.ndarray:
+    """An LZF payload: u32 compressed and raw sizes, then the compressed
+    bytes of the field-major (SoA) body, every x, then every y, ..."""
+    comp_size, raw_size = struct.unpack("<II", stream.read(8))
+    raw = _lzf_decompress(stream.read(comp_size), raw_size)
+    out = np.zeros(n, dtype=dtype)
+    offset = 0
+    for name in dtype.names:
+        sub = dtype[name]
+        base = sub.base if sub.shape else sub
+        cnt = int(np.prod(sub.shape)) if sub.shape else 1
+        nbytes = base.itemsize * n * cnt
+        arr = np.frombuffer(raw[offset:offset + nbytes], dtype=base)
+        out[name] = arr if cnt == 1 else arr.reshape(n, cnt)
+        offset += nbytes
+    return out
+
+
+def _lzf_decompress(data: bytes, expected: int) -> bytes:
+    """The native decoder, else the pure Python one."""
+    out = native.lzf_decompress(data, expected)
+    return out if out is not None else _lzf_decompress_py(data, expected)
+
+
+def _lzf_decompress_py(data: bytes, expected: int) -> bytes:
+    """Minimal LZF decompressor (liblzf's format)."""
+    out = bytearray()
+    i, n = 0, len(data)
+    while i < n:
+        ctrl = data[i]
+        i += 1
+        if ctrl < 32:  # a literal run of ctrl + 1 bytes
+            run = ctrl + 1
+            out += data[i:i + run]
+            i += run
+        else:  # a back reference
+            length = ctrl >> 5
+            if length == 7:
+                length += data[i]
+                i += 1
+            ref = len(out) - ((ctrl & 0x1F) << 8) - data[i] - 1
+            i += 1
+            for _ in range(length + 2):
+                out.append(out[ref])
+                ref += 1
+    if len(out) != expected:
+        raise ValueError(f"LZF: expected {expected} bytes, got {len(out)}")
+    return bytes(out)
+
+
 def write_pcd(
     path: Union[str, os.PathLike],
     xyz: np.ndarray,
@@ -177,11 +236,8 @@ def write_pcd(
     compressed: bool = False,
     viewpoint: Optional[List[float]] = None,
 ) -> None:
-    """Write a PCD v0.7 file: ascii (default) or binary."""
-    if compressed:
-        raise NotImplementedError(
-            "PCD binary_compressed (LZF) is not ported yet (ROADMAP queue 1 step 2)"
-        )
+    """Write a PCD v0.7 file: ascii (default), binary, or binary_compressed
+    (LZF, field-major: PCL's layout)."""
     xyz = np.asarray(xyz, dtype=np.float32)
     n = xyz.shape[0]
     names = ["x", "y", "z"]
@@ -199,6 +255,7 @@ def write_pcd(
 
     types, sizes = zip(*(_INV_TYPE_MAP.get(c.dtype, ("F", 4)) for c in cols))
     vp = viewpoint or _DEFAULT_VIEWPOINT
+    kind = "binary_compressed" if compressed else ("binary" if binary else "ascii")
     header = (
         "# .PCD v0.7 - Point Cloud Data file format\n"
         "VERSION 0.7\n"
@@ -210,11 +267,21 @@ def write_pcd(
         "HEIGHT 1\n"
         f"VIEWPOINT {' '.join(_fmt(v) for v in vp)}\n"
         f"POINTS {n}\n"
-        f"DATA {'binary' if binary else 'ascii'}\n"
+        f"DATA {kind}\n"
     )
     with open(path, "wb") as f:
         f.write(header.encode("ascii"))
-        if binary:
+        if compressed:
+            raw = b"".join(np.ascontiguousarray(c).tobytes() for c in cols)
+            comp = native.lzf_compress(raw)
+            if comp is None:
+                raise RuntimeError(
+                    "a binary_compressed write needs the native IO library "
+                    "(unset ICPX_NO_NATIVE, or install a C++ compiler)"
+                )
+            f.write(struct.pack("<II", len(comp), len(raw)))
+            f.write(comp)
+        elif binary:
             rec = np.zeros(
                 n,
                 dtype=np.dtype(
@@ -226,11 +293,16 @@ def write_pcd(
                 rec[nm] = c
             f.write(rec.tobytes())
         else:
-            body = _io.StringIO()
-            for i in range(n):
-                body.write(" ".join(_fmt(c[i]) for c in cols))
-                body.write("\n")
-            f.write(body.getvalue().encode("ascii"))
+            payload = None
+            if all(c.dtype == np.float32 for c in cols):
+                payload = native.format_float_table(np.stack(cols, axis=1))
+            if payload is None:
+                body = _io.StringIO()
+                for i in range(n):
+                    body.write(" ".join(_fmt(c[i]) for c in cols))
+                    body.write("\n")
+                payload = body.getvalue().encode("ascii")
+            f.write(payload)
 
 
 def _fmt(v) -> str:

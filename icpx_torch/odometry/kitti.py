@@ -25,12 +25,15 @@ from icpx_torch.interop import se3_from_numpy
 
 
 def load_kitti_scan(path) -> np.ndarray:
-    """One velodyne .bin -> (N, 3) float32 xyz.
+    """One velodyne .bin -> (N, 3) float32 xyz: the native reader
+    (`io/native.py`), else numpy."""
+    from icpx_torch.io import native
 
-    Decoded with numpy, as the reference does whenever its native reader
-    is absent; the native binding is ROADMAP queue 1 step 2."""
-    arr = np.frombuffer(Path(path).read_bytes(), dtype=np.float32)
-    return arr.reshape(-1, 4)[:, :3].copy()
+    raw = Path(path).read_bytes()
+    out = native.kitti_xyz(raw)
+    if out is not None:
+        return out
+    return np.frombuffer(raw, dtype=np.float32).reshape(-1, 4)[:, :3].copy()
 
 
 def load_kitti_scan_xyzi(path) -> np.ndarray:

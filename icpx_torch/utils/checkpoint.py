@@ -1,26 +1,69 @@
-"""Odometry checkpoint and resume.
+"""Checkpoint and resume.
 
-Mirrors `OdometryCheckpoint` of `icpx/utils/checkpoint.py`, with the same
-`.npz` keys, so a checkpoint either package saved loads in the other and
-resumes there. The generic pytree `save_checkpoint` / `load_checkpoint`
-wait for ROADMAP queue 1 step 8.
+Mirrors `icpx/utils/checkpoint.py`. `save_checkpoint` / `load_checkpoint`
+keep nested containers of tensors (dict, list, tuple, `SE3`, dataclasses;
+`utils/pytree.py`) in the reference's `.npz` layout: ``leaf_{i}`` arrays,
+leaves in JAX's order, so leaf i holds the same array in either package's
+file, plus a ``__manifest__`` with the structure and the leaf count.
+`OdometryCheckpoint` keeps the reference's `.npz` keys, so an odometry
+checkpoint either package saved loads in the other and resumes there.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from pathlib import Path
-from typing import List, Optional, Tuple
+from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from icpx_torch.cloud import DEFAULT_DEVICE
 from icpx_torch.geometry.se3 import SE3
+from icpx_torch.utils import pytree
 
 
 def _host(x) -> np.ndarray:
     return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def save_checkpoint(path, tree) -> None:
+    """Save a nested container of tensors (or numpy arrays, or scalars);
+    the file is written whole or not at all (a temporary, then a rename)."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    leaves, structure = pytree.flatten(tree)
+    arrays = {f"leaf_{i}": _host(v) for i, (_, v) in enumerate(leaves)}
+    manifest = {"treedef": structure, "n_leaves": len(leaves)}
+    tmp = path.with_suffix(path.suffix + ".tmp")
+    np.savez_compressed(tmp, __manifest__=json.dumps(manifest), **arrays)
+    # np.savez appends .npz to a name without it
+    tmp_real = tmp if tmp.exists() else tmp.with_suffix(tmp.suffix + ".npz")
+    os.replace(tmp_real, path)
+
+
+def load_checkpoint(path, like, *, device=DEFAULT_DEVICE) -> Any:
+    """Load a `save_checkpoint` file into the structure of `like` (an
+    example tree of the same structure), each leaf a tensor on `device`
+    (strings stay numpy). A file the JAX package saved loads too; its
+    structure string is JAX's, so only its leaf count is checked."""
+    with np.load(Path(path), allow_pickle=False) as z:
+        manifest = json.loads(str(z["__manifest__"]))
+        n = manifest["n_leaves"]
+        arrays = [z[f"leaf_{i}"] for i in range(n)]
+    template, structure = pytree.flatten(like)
+    if len(template) != n:
+        raise ValueError(f"checkpoint has {n} leaves, template has {len(template)}")
+    saved = manifest.get("treedef")
+    if saved is not None and not saved.startswith("PyTreeDef(") and saved != structure:
+        raise ValueError(
+            "checkpoint tree structure does not match the template:\n"
+            f"  saved:    {saved}\n  template: {structure}"
+        )
+    leaves = [a if a.dtype.kind in "US" else torch.as_tensor(a, device=device) for a in arrays]
+    return pytree.unflatten(like, leaves)
 
 
 @dataclasses.dataclass

@@ -42,13 +42,14 @@ from icpx_torch import interop
 from icpx_torch.cloud import PointCloud
 from icpx_torch.geometry.se3 import SE3
 from icpx_torch.geometry.transforms import make_rigid_perturbation
-from icpx_torch.io.loaders import load_cat_pair, load_cloud, reference_data_dir
+from icpx_torch.io.loaders import load_bunny, load_cat_pair, load_cloud, reference_data_dir
+from icpx_torch.io.prefetch import prefetch_kitti
 from icpx_torch.kernels import blocknn_cuda
 from icpx_torch.odometry import kitti
 from icpx_torch.odometry.mapping import VoxelMap
 from icpx_torch.registration.horn import horn_align, umeyama_align
 from icpx_torch.registration.icp import ICPConfig, _effective_payload_mode, register, register_xyz
-from icpx_torch.utils.checkpoint import OdometryCheckpoint
+from icpx_torch.utils.checkpoint import OdometryCheckpoint, load_checkpoint, save_checkpoint
 from torch_parity import to_np, torch_cloud, torch_config, torch_se3
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -384,7 +385,17 @@ def _entry_points():
             poses=SimpleNamespace(R=np.eye(3)[None], t=np.zeros((1, 3))), edge_i=[0], edge_j=[0],
             edge_meas=SimpleNamespace(R=np.eye(3)[None], t=np.zeros((1, 3))),
             edge_weight=[1.0])).poses,
+        "load_bunny": lambda: load_bunny(),
+        "prefetch_kitti": lambda: next(iter(prefetch_kitti(_kitti_dir(), capacity=128))),
+        "load_checkpoint": lambda: load_checkpoint(_checkpoint_file(), SE3.identity(device="cpu")),
     }
+
+
+def _checkpoint_file():
+    """A `save_checkpoint` file of one SE3, in a fresh temporary directory."""
+    path = Path(tempfile.mkdtemp()) / "se3.npz"
+    save_checkpoint(path, SE3.identity(device="cpu"))
+    return path
 
 
 def _kitti_dir():

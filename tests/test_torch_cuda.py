@@ -607,3 +607,59 @@ def test_cuda_odometry_entry_points_land_on_the_card(cuda_device, tmp_path):
     ck = OdometryCheckpoint(frame_index=0, poses_R=np.eye(3, dtype=np.float32)[None],
                             poses_t=np.zeros((1, 3), np.float32), keyframe_index=0, edges=[])
     assert ck.poses()[0].R.device == first
+
+
+@pytest.mark.cuda
+def test_cuda_io_entry_points_land_on_the_card(cuda_device, tmp_path):
+    """Without a device argument the IO layer's entry points put their
+    tensors on the first CUDA device, for every file format: `load_cloud`
+    (.pcd ascii / binary / binary_compressed, .ply, .xyz, .bin),
+    `load_bunny`, `prefetch_kitti` and `load_checkpoint`; the native reader
+    served every read."""
+    from icpx_torch.cloud import PointCloud
+    from icpx_torch.geometry.se3 import SE3
+    from icpx_torch.io import load_cloud, native, prefetch_kitti, save_cloud
+    from icpx_torch.io.loaders import load_bunny
+    from icpx_torch.io.pcd import write_pcd
+    from icpx_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+
+    first = torch.device("cuda", 0)
+    xyz = synthetic_surface(300, seed=3)
+    cloud = PointCloud.create(xyz, device="cpu")
+    files = {"a.pcd": {}, "b.pcd": {"binary": True}, "c.ply": {"binary": True}, "d.xyz": {}}
+    for name, kw in files.items():
+        save_cloud(tmp_path / name, cloud, **kw)
+    write_pcd(tmp_path / "e.pcd", xyz, compressed=True)
+    np.concatenate([xyz, xyz[:, :1]], axis=1).tofile(tmp_path / "000000.bin")
+    native.reset_counts()
+    for name in [*files, "e.pcd", "000000.bin"]:
+        got = load_cloud(tmp_path / name)
+        assert got.xyz.device == first, name
+        assert np.array_equal(_np(got.xyz[got.mask]), xyz), name
+    assert not any(native.FALLBACKS.values()), native.FALLBACKS
+    assert load_bunny().xyz.device == first
+    scan = next(iter(prefetch_kitti(tmp_path, capacity=384)))
+    assert scan.xyz.device == first and np.array_equal(_np(scan.xyz[scan.mask]), xyz)
+    save_checkpoint(tmp_path / "ck.npz", {"pose": SE3.identity(device=first), "n": torch.ones(3)})
+    back = load_checkpoint(tmp_path / "ck.npz", {"pose": SE3.identity(device="cpu"), "n": torch.ones(3)})
+    assert back["pose"].R.device == first and back["n"].device == first
+
+
+@pytest.mark.cuda
+def test_cuda_cli_register_matches_the_cpu(cuda_device, tmp_path, capsys):
+    """`icpx_torch.cli register` on the card (the default device) prints the
+    CPU run's transform to 1e-4 on the golden cat pair, through files."""
+    from icpx_torch import cli
+    from icpx_torch.io.loaders import reference_data_dir
+
+    data = reference_data_dir()
+    argv = ["register", str(data / "cat.pcd"), str(data / "cat_out.pcd"), "--max-iters", "20",
+            "--max-corr-dist", "50", "--robust", "huber"]
+    outs = []
+    for extra in ([], ["--device", "cpu"]):
+        capsys.readouterr()
+        assert cli.main(extra + argv) == 0
+        lines = capsys.readouterr().out.splitlines()
+        i = lines.index("transform:")
+        outs.append(np.array([[float(v) for v in ln.split()] for ln in lines[i + 1:i + 5]]))
+    assert np.abs(outs[0] - outs[1]).max() <= 1e-4, outs

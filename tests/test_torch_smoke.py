@@ -286,6 +286,13 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
                    "host odometry 8192 x 4 stall watchdog ", "host odometry resume: ",
                    "odometry phases: "):
         assert any(line.startswith(prefix) for line in lines), prefix
+    # the command line over files: every step of the CLI phase printed its line
+    for prefix in ("cli native reader: ", "cli cat pair: info and convert of cat.ply, cat.xyz, cat.pcd",
+                   "cli cat register (", "cli perturb + horn: ", "cli flagship 8192 (",
+                   "cli odometry --compiled (4 x 8192-point", "cli prefetch_kitti: 4 scans in order",
+                   "cli odometry --synthetic (4 x 8192", "cli odometry --resume: ",
+                   "cli fresh process: ", "cli phase: "):
+        assert any(line.startswith(prefix) for line in lines), prefix
     # n_slam at the reference test's 2,048 points: the loop runs once, at its gate
     slam = [line for line in lines if line.startswith("slam 2048 x 30 (two laps): ")]
     assert len(slam) == 1 and slam[0].endswith("(gate 0.7 x)")

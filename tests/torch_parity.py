@@ -71,3 +71,55 @@ def torch_odometry_config(jcfg):
     d = dataclasses.asdict(jcfg)
     d["icp"] = interop.config_from_dict(d["icp"])
     return OdometryConfig(**d)
+
+
+# ---- the two command lines -----------------------------------------------------------
+
+
+def run_both(capsys, make_argv, tmp_path):
+    """Run make_argv(out_dir) through `icpx.cli.main` and
+    `icpx_torch.cli.main` (on the CPU), each with its own output
+    directory: (JAX's stdout, the port's stdout, JAX's dir, the port's)."""
+    import icpx.cli as j_cli
+    import icpx_torch.cli as t_cli
+
+    outs = []
+    for name, main, extra in (("jax", j_cli.main, []), ("torch", t_cli.main, ["--device", "cpu"])):
+        d = tmp_path / name
+        d.mkdir(exist_ok=True)
+        capsys.readouterr()
+        assert main(extra + make_argv(d)) == 0
+        outs.append(capsys.readouterr().out)
+    return outs[0], outs[1], tmp_path / "jax", tmp_path / "torch"
+
+
+def cli_rows(out, title, rows):
+    """The matrix rows a CLI printed under the line `title`."""
+    lines = out.splitlines()
+    i = lines.index(title)
+    return np.array([[float(v) for v in line.split()] for line in lines[i + 1:i + 1 + rows]])
+
+
+def cli_transform(out):
+    return cli_rows(out, "transform:", 4)
+
+
+def cli_ate(out):
+    """The ATE the CLI printed ("ATE 0.0767 m   RPE ...")."""
+    return float(next(line for line in out.splitlines() if line.startswith("ATE ")).split()[1])
+
+
+def cli_counts_line(out):
+    return next(line for line in out.splitlines() if " frames, " in line)
+
+
+def cli_refuses(argv, match):
+    """Both CLIs exit on `argv` with a message matching `match`."""
+    import pytest
+
+    import icpx.cli as j_cli
+    import icpx_torch.cli as t_cli
+
+    for main, extra in ((j_cli.main, []), (t_cli.main, ["--device", "cpu"])):
+        with pytest.raises(SystemExit, match=match):
+            main(extra + argv)
