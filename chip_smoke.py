@@ -54,7 +54,17 @@ result against its ground truth:
   KITTI velodyne directory (against a direct `run_odometry_compiled`),
   `prefetch_kitti` against the serial load, `odometry --synthetic` with
   loop closure, a checkpoint resume, and one `python3 -m icpx_torch.cli`
-  process.
+  process;
+* the distributed layer, `icpx_torch.distributed` (`_phase_distributed`):
+  at one rank over NCCL, `sharded_register` brute (the 65k pair, against
+  `register()`), block and GICP (the 1M flagship), replicated and ring;
+  `sharded_register_pairs` (8 x 8,000, and as GICP pairs);
+  `parallel_odometry` on the 65k sequence; `sharded_map_register` of a
+  scan against the bench world; `pipelined_pyramid_register` (6 x 8,000);
+  `optimize_pose_graph_sharded` on 1,000 keyframes against the dense
+  solver. Then two ranks spawned over gloo on the same card (the flagship
+  ring, 2 map blocks, 2 stages, 2 edge shards), each against the one-rank
+  result; the line `distributed phase: T s` gives its seconds.
 
 Before the paths, fold6, fold7 and select are also held to their plain
 versions and timed at the mid phase's query tiles (16,384 x 32 and x 16).
@@ -1942,7 +1952,7 @@ def _device_profile(run):
 
 def _odo_report(label, res, gt, wall, n, counts, extra="", reps=3):
     """Gate the trajectory (ATE < ODO_ATE_BOUND, unaligned) and print the
-    phase's line (`wall`: the median of `reps` runs)."""
+    phase's line (`wall`: the median of `reps` runs); returns the ATE."""
     from icpx_torch.odometry.evaluate import ate_rmse, rpe
 
     poses = res.poses if isinstance(res.poses, list) else _pose_list(res.poses)
@@ -1958,6 +1968,7 @@ def _odo_report(label, res, gt, wall, n, counts, extra="", reps=3):
           f"{wall * 1e3:.2f} ms (median of {reps}) = {wall * 1e3 / f:.3f} ms a frame = "
           f"{f / wall:.2f} frames/s = {f * n / wall:.4g} points/s; peak "
           f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB{extra}")
+    return ate
 
 
 def _phase_compiled_odometry(dev, n, frames, kernels):
@@ -2018,7 +2029,7 @@ def _phase_compiled_odometry(dev, n, frames, kernels):
              f"normals of the {frames} scans {stacked['normals_s'] * 1e3:.2f} ms of it; ladders: q_tile "
              f"{q_tile}, freeze {resolve_odo_freeze(n)}, refine stride "
              f"{resolve_odo_refine_stride(cfg, n)}; ICP iterations {res.iters.tolist()}")
-    _odo_report(f"compiled odometry {n} x {frames}", res, gt, wall, n, counts, extra)
+    ate = _odo_report(f"compiled odometry {n} x {frames}", res, gt, wall, n, counts, extra)
     kernels["sort"]["launches_odometry"] = counts["sort"]
     _, prof_ms, busy_ms, rows, prof_s = _device_profile(
         lambda: run_odometry_compiled(*stacked["fx"], cfg, **kw))
@@ -2027,6 +2038,7 @@ def _phase_compiled_odometry(dev, n, frames, kernels):
           f"{100 * busy_ms / (wall * 1e3):.1f}% of the unprofiled wall ({prof_ms:.2f} ms "
           f"profiled; the profiler took {prof_s:.2f} s more to start, stop and read its "
           f"trace); largest device items: {top}")
+    return {"scans": scans, "gt": gt, "ate": ate}
 
 
 def _phase_compiled_brute(dev, n, frames, kernels):
@@ -2054,9 +2066,10 @@ def _phase_compiled_brute(dev, n, frames, kernels):
           f"({int(fin.sum())} finite)")
     torch.cuda.reset_peak_memory_stats()
     wall, _ = _sync_time(lambda: run_odometry_compiled(*fx, cfg, **kw), reps=3, warmup=0)
-    _odo_report(f"compiled odometry {n} x {frames} (brute)", res, gt, wall, n, counts,
-                f"; ICP iterations {res.iters.tolist()}")
+    ate = _odo_report(f"compiled odometry {n} x {frames} (brute)", res, gt, wall, n, counts,
+                      f"; ICP iterations {res.iters.tolist()}")
     kernels["nn"]["launches_odometry"] = counts["nn"]
+    return {"scans": scans, "gt": gt, "ate": ate}
 
 
 # m and rad. Not the block path's 1e-4 of the CPU parity tests: on this
@@ -2665,6 +2678,533 @@ def _fused_covariances(cloud, k, fused=True):
     return cloud.replace(covs=covs)
 
 
+# ---- the distributed layer ---------------------------------------------------------------
+
+N_GRAPH = 1000  # the pose graph's keyframes (tests/test_posegraph.py's scale test)
+N_PIPE = 8000  # the pipeline's pairs, scan-size clouds
+B_PIPE = 6
+N_MAP = 300000  # the bench world, one map block a rank
+DIST_TOL = 1e-5  # a distributed result against its single-device or W = 1 counterpart
+DIST_TOL_HIST = 1e-4  # ... where histogram quantiles decide the weights
+
+
+def _dist_open(rank: int, world: int, tmp: str, backend: str) -> None:
+    """Join a process group of `world` ranks over a FileStore in `tmp`."""
+    import datetime
+    import os
+
+    import torch.distributed as dist
+
+    dist.init_process_group(backend, store=dist.FileStore(os.path.join(tmp, "store"), world),
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=600))
+
+
+def _dist_counted(fn):
+    """`_counted` with its seconds: (result, {kernel: launches}, seconds)."""
+    t0 = time.perf_counter()
+    out, counts = _counted(fn)
+    return out, counts, time.perf_counter() - t0
+
+
+def _pose_chain(m, dev, seed=0):
+    """tests/test_posegraph.py's scale graph from numpy: m keyframes 0.3 m
+    apart with small turns, a loop edge every 100 nodes, the start poses
+    noised; (graph, GT translations (m, 3))."""
+    from icpx_torch.geometry.se3 import SE3
+    from icpx_torch.odometry.posegraph import PoseGraph
+
+    rng = np.random.default_rng(seed)
+    tw = np.concatenate([0.05 * rng.normal(size=(m - 1, 3)), 0.3 * np.ones((m - 1, 1)),
+                         np.zeros((m - 1, 2))], axis=1).astype(np.float32)
+    deltas = SE3.exp(torch.as_tensor(tw, device=dev))
+    poses = [SE3.identity(device=dev)]
+    for k in range(m - 1):
+        poses.append(poses[-1] @ SE3(R=deltas.R[k], t=deltas.t[k]))
+    gt = SE3(R=torch.stack([p.R for p in poses]), t=torch.stack([p.t for p in poses]))
+    edges = [(k, k + 1, SE3(R=deltas.R[k], t=deltas.t[k])) for k in range(m - 1)]
+    for a in range(0, m - 200, 100):
+        edges.append((a, a + 150, poses[a].inverse() @ poses[a + 150]))
+    noise = SE3.exp(torch.as_tensor(0.02 * rng.normal(size=(m, 6)).astype(np.float32), device=dev))
+    init = SE3(R=torch.cat([gt.R[:1], (gt.R @ noise.R)[1:]]),
+               t=torch.cat([gt.t[:1], (gt.t + noise.t)[1:]]))
+    return PoseGraph.from_edge_list(init, edges), gt.t
+
+
+def _map_case(dev, n_map, n_scan):
+    """(f)'s inputs: the bench world of n_map points with normals as one
+    cloud, and its first simulated scan of n_scan points (bench.py
+    --odometry's frame 0) at its pose, moved by the inverse of a small
+    rigid motion `delta`: (world cloud, scan cloud with normals, delta)."""
+    from icpx_torch.cloud import PointCloud
+    from icpx_torch.geometry.transforms import make_rigid_perturbation
+    from icpx_torch.kernels.normals import estimate_normals
+    from icpx_torch.odometry.kitti import make_trajectory, make_world, simulate_scans
+
+    world = make_world(n_points=n_map, extent=50.0, seed=0, n_posts=300, ground_frac=0.5)
+    pose = make_trajectory(1, speed=0.6, turn=0.02, device=dev)[0]
+    scan = simulate_scans(world, [pose], max_range=25.0, points_per_scan=n_scan, noise=0.01,
+                          seed=1, device=dev)[0]
+    delta = make_rigid_perturbation(axis=(0.0, 0.0, 1.0), angle=0.04,
+                                    translation=(0.08, -0.05, 0.02), device=dev)
+    xyz = delta.inverse().apply(pose.apply(scan.xyz))
+    src = estimate_normals(PointCloud.create(xyz[scan.mask], capacity=scan.capacity, device=dev),
+                           k=10)
+    world_c = estimate_normals(PointCloud.create(world, device=dev), k=10)
+    return world_c, src, delta
+
+
+def _map_config():
+    from icpx_torch.registration.icp import ICPConfig
+
+    return ICPConfig(objective="p2plane", max_iters=15, diff_threshold=0.0, rmse_change_tol=1e-6,
+                     max_corr_dist=1.0, robust="huber")
+
+
+def _pipe_pairs(dev, n, b):
+    """(g)'s batch: b pairs of n points, tests/test_pipeline.py's GT, with
+    normals (brute kNN): (stacked tensors, GTs, config)."""
+    from icpx_torch.kernels.normals import estimate_normals
+    from icpx_torch.registration.icp import ICPConfig
+
+    pairs = [_gt_pair(n, 60 + i, dev, angle=0.25, translation=(0.12, -0.08, 0.05),
+                      axis=(0.1, 0.15, 0.98)) for i in range(b)]
+    pairs = [(estimate_normals(s, k=10), estimate_normals(t, k=10), g) for s, t, g in pairs]
+    stack = lambda i, f: torch.stack([getattr(p[i], f) for p in pairs])  # noqa: E731
+    args = [stack(i, f) for i in (0, 1) for f in ("xyz", "mask", "normals")]
+    cfg = ICPConfig(objective="symmetric", max_iters=6, diff_threshold=0.0, robust="huber")
+    return args, [p[2] for p in pairs], cfg
+
+
+PIPE_KW = dict(iters_per_level=8, subsample=4)
+
+
+def _flag_block_config():
+    """The flagship config on the sharded block path: every iteration a
+    full tile-index NN (no coarse phase, nothing frozen, as the
+    reference's sharded block path), so 20 iterations from the GT's
+    0.2 rad."""
+    return dataclasses.replace(_flag_configs()["kernels"], nn_method="block", max_iters=20)
+
+
+def _busy(run, wall):
+    """One profiled call of `run`: its device time and that time's share of
+    the unprofiled wall, as a line's tail."""
+    _, prof_ms, busy_ms, rows, _ = _device_profile(run)
+    top = ", ".join(f"{e.key[:40]} {_device_us(e) / 1e3:.2f} ms" for e in rows[:3])
+    return (f"; profiled: device {busy_ms:.2f} ms = {100 * busy_ms / (wall * 1e3):.1f}% of the "
+            f"wall (profiled call {prof_ms:.2f} ms; largest: {top})")
+
+
+def _dist_items(mesh_of, flag, map_in, pipe_in, graph):
+    """The items both the one-rank and the two-rank runs make, on whatever
+    group is open: {label: (result, launches, seconds)}. `mesh_of(names)`
+    builds a mesh over every rank of it."""
+    from icpx_torch.distributed.map_ep import partition_map, sharded_map_register
+    from icpx_torch.distributed.pipeline import pipelined_pyramid_register
+    from icpx_torch.distributed.sharded_icp import sharded_register
+    from icpx_torch.odometry.posegraph import optimize_pose_graph_sharded, pad_edges
+
+    out = {}
+    src, tgt = flag
+    cfg_b = _flag_block_config()
+    mesh = mesh_of(("points",))
+    out["b ring"] = _dist_counted(lambda: sharded_register(src, tgt, cfg_b, mesh, ring=True))
+    world, scan = map_in
+    blocks_mesh = mesh_of(("blocks",))
+    w = len(blocks_mesh.mesh.reshape(-1))
+    mb = partition_map(world.xyz, world.normals, world.mask, n_blocks=w)
+    out["f"] = _dist_counted(
+        lambda: sharded_map_register(scan, mb, _map_config(), blocks_mesh, nn="block"))
+    args, cfg_p = pipe_in
+    out["g"] = _dist_counted(
+        lambda: pipelined_pyramid_register(*args, cfg_p, mesh_of(("stages",)), **PIPE_KW))
+    out["h"] = _dist_counted(
+        lambda: optimize_pose_graph_sharded(pad_edges(graph, w), mesh, iters=8))
+    return out
+
+
+def _dist_rank(rank, world, tmp, dev_type):
+    """One rank of the two-rank check (spawned): gloo over a FileStore in
+    `tmp`, both ranks on the same device; reads the inputs the parent saved
+    and saves its results (numpy) and launches."""
+    import os
+
+    import torch.distributed as dist
+
+    from icpx_torch.cloud import PointCloud
+    from icpx_torch.distributed.mesh import make_mesh
+
+    torch.set_num_threads(2)
+    dev = torch.device("cuda", 0) if dev_type == "cuda" else torch.device("cpu")
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    _dist_open(rank, world, tmp, "gloo")
+    try:
+        inp = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=False)
+
+        def cloud(d):
+            return PointCloud(**{k: (v.to(dev) if torch.is_tensor(v) else v) for k, v in d.items()})
+
+        def mesh_of(names):
+            return make_mesh(None, names, device=dev.type)
+
+        from icpx_torch.odometry.posegraph import PoseGraph
+        from icpx_torch.geometry.se3 import SE3
+
+        g = inp["graph"]
+        graph = PoseGraph(poses=SE3(R=g["pR"].to(dev), t=g["pt"].to(dev)),
+                          edge_i=g["i"].to(dev), edge_j=g["j"].to(dev),
+                          edge_meas=SE3(R=g["mR"].to(dev), t=g["mt"].to(dev)),
+                          edge_weight=g["w"].to(dev))
+        t0 = time.perf_counter()
+        items = _dist_items(mesh_of, (cloud(inp["src"]), cloud(inp["tgt"])),
+                            (cloud(inp["world"]), cloud(inp["scan"])),
+                            ([a.to(dev) for a in inp["pipe_args"]], inp["pipe_cfg"]), graph)
+        res = {}
+        for label, (r, counts, secs) in items.items():
+            T = r[0] if isinstance(r, tuple) else (r.transform if hasattr(r, "transform") else r)
+            res[label] = {"R": T.R.detach().cpu().numpy(), "t": T.t.detach().cpu().numpy(),
+                          "launches": counts, "secs": secs}
+        res["secs"] = time.perf_counter() - t0
+        torch.save(res, os.path.join(tmp, f"result{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _host_dict(cloud):
+    return {f.name: (getattr(cloud, f.name).cpu() if torch.is_tensor(getattr(cloud, f.name))
+                     else getattr(cloud, f.name)) for f in dataclasses.fields(cloud)}
+
+
+def _two_ranks(dev, inputs):
+    """Spawn two ranks (gloo, both on `dev`) running `_dist_items` on
+    `inputs`; their results, rank 0's first, and the seconds it took."""
+    import os
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    tmp = tempfile.mkdtemp(prefix="icpx_dist_")
+    try:
+        torch.save(inputs, os.path.join(tmp, "inputs.pt"))
+        t0 = time.perf_counter()
+        mp.start_processes(_dist_rank, args=(2, tmp, dev.type), nprocs=2, join=True,
+                           start_method="spawn")
+        secs = time.perf_counter() - t0
+        return [torch.load(os.path.join(tmp, f"result{r}.pt"), weights_only=False)
+                for r in range(2)], secs
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _phase_distributed(dev, n_pair, n_flag, n_batch, b_batch, odo, kernels, n_map=N_MAP,
+                       n_scan=N_ODO, n_graph=N_GRAPH, n_pipe=N_PIPE, b_pipe=B_PIPE):
+    """The distributed layer (`icpx_torch.distributed`) through its entry
+    points, at one rank over NCCL (gloo off the card), then at two ranks.
+
+    One rank, each item held to its GT gate, its launches counted around
+    it (a distributed path launches the kernels of its shards: the nn
+    kernel once an NN pass, the sort kernel once a KD level) and its wall
+    printed (median of 3): (a) `sharded_register` brute, replicated and
+    ring, on the 65,536-point pair against `register()` (exact robust
+    settings: 1e-5); (b) the block path, replicated and ring, on the 1M
+    flagship; (c) GICP there; (d) `sharded_register_pairs` on
+    `_phase_batch`'s 8 x 8,000 pairs against `register_batch`, and as GICP
+    pairs against `register()` pair by pair (neither package's
+    register_batch takes covariances); (e) `parallel_odometry` on the
+    compiled odometry phase's 65,536-point scans (`odo`) at max_iters 30,
+    its unaligned ATE gated at max(2 x that phase's sequential ATE, 0.08)
+    and 0.5 m; (f) `sharded_map_register` (nn="block") of a scan against
+    the bench world as one block; (g) `pipelined_pyramid_register` on 6
+    pairs of 8,000; (h) `optimize_pose_graph_sharded` on a 1,000-keyframe
+    chain against the dense `optimize_pose_graph` (1e-5 of the chain's
+    extent).
+
+    Two ranks (spawned, gloo, both on the same card): (b) ring at 524,288
+    source points a rank, (f) at 2 blocks, (g) at 2 stages, (h) at 2 edge
+    shards, each against the one-rank result (1e-5, 1e-4 for (f), whose
+    MAD scale comes from histogram quantiles, and for (h) 1e-5 of the
+    chain's extent) and its GT gate."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from icpx_torch.distributed.mesh import make_mesh
+    from icpx_torch.distributed.sharded_icp import sharded_register, sharded_register_pairs
+    from icpx_torch.geometry.se3 import SE3
+    from icpx_torch.kernels.blocknn import kd_level_sorts
+    from icpx_torch.kernels.normals import estimate_covariances, estimate_normals
+    from icpx_torch.odometry.evaluate import ate_rmse
+    from icpx_torch.odometry.parallel import parallel_odometry
+    from icpx_torch.odometry.posegraph import optimize_pose_graph
+    from icpx_torch.registration.icp import ICPConfig, register, register_batch
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="icpx_dist_")
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    _dist_open(0, 1, tmp, backend)
+    launches = {"nn": 0, "sort": 0}
+    try:
+        if dev.type == "cuda":
+            print(f"distributed: one rank over {dist.get_backend()} (torch {torch.__version__})")
+
+        def mesh_of(names, shape=None):
+            return make_mesh(shape, names, device=dev.type)
+
+        t_item = [time.perf_counter()]
+
+        def line(label, res_ok, counts, wall, extra=""):
+            for k in launches:
+                launches[k] += counts.get(k, 0)
+            now = time.perf_counter()
+            print(f"distributed {label}: {res_ok}; launches={counts}; wall {wall * 1e3:.2f} ms "
+                  f"(median of 3){extra}; item {now - t_item[0]:.2f} s")
+            t_item[0] = now
+
+        def gated(label, res, gt, tol=5e-3):
+            rot, terr = (float(x) for x in res.transform.distance_to(gt))
+            if not (math.isfinite(float(res.final_rmse)) and rot < tol and terr < tol):
+                _fail(f"distributed {label}: GT not recovered (rot {rot:.3e}, t {terr:.3e})")
+            return f"iters={res.iters} rot_err={rot:.3e} t_err={terr:.3e}"
+
+        mesh = mesh_of(("points",))
+        # (a) brute, on the 65k pair with normals given
+        src, tgt, gt = _gt_pair(n_pair, 0, dev)
+        cfg_pair = ICPConfig(objective="symmetric", max_iters=10, diff_threshold=0.0,
+                             rmse_change_tol=1e-6, k_normals=10, nn_method="brute",
+                             tile_q=2048, tile_r=8192)
+        s_n = estimate_normals(src, k=10, method="brute")
+        t_n = estimate_normals(tgt, k=10, method="brute")
+        single = register(s_n, t_n, cfg_pair)
+        for ring in (False, True):
+            run = lambda: sharded_register(s_n, t_n, cfg_pair, mesh, ring=ring)  # noqa: E731
+            res, counts = _counted(run)
+            ok = gated(f"(a) brute {'ring' if ring else 'replicated'}", res, gt)
+            _check_counts(f"distributed (a) ring={ring}", counts, {"nn": res.iters})
+            d_rot, d_t = _transform_diff(res.transform, single.transform)
+            if max(d_rot, d_t) > DIST_TOL:
+                _fail(f"distributed (a) ring={ring}: {d_rot:.2e} rad, {d_t:.2e} from register()")
+            wall, _ = _sync_time(run, reps=3)
+            line(f"(a) sharded_register {n_pair} brute {'ring' if ring else 'replicated'}", ok,
+                 counts, wall, f"; against register() rot {d_rot:.1e}, t {d_t:.1e}")
+        del src, tgt, s_n, t_n
+
+        # (b), (c): the 1M flagship on the block path, normals (covariances) first
+        f_src, f_tgt, f_gt = _gt_pair(n_flag, 0, dev)
+        t0 = time.perf_counter()
+        f_src, f_tgt = estimate_normals(f_src, k=10), estimate_normals(f_tgt, k=10)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        normals_s = time.perf_counter() - t0
+        cfg_b = _flag_block_config()
+        q_tile = cfg_b.resolve_q_tile(n_flag)
+        sorts = kd_level_sorts(n_flag, q_tile) + kd_level_sorts(n_flag, cfg_b.block_tile)
+        flag_w1 = {}
+        for ring in (False, True):
+            run = lambda: sharded_register(f_src, f_tgt, cfg_b, mesh, ring=ring)  # noqa: E731
+            res, counts = _counted(run)
+            flag_w1[ring] = res
+            ok = gated(f"(b) ring={ring}", res, f_gt)
+            _check_counts(f"distributed (b) ring={ring}", counts, {"sort": sorts})
+            wall, _ = _sync_time(run, reps=3)
+            line(f"(b) sharded_register {n_flag} block {'ring' if ring else 'replicated'}", ok,
+                 counts, wall, f"; normals (both clouds, before) {normals_s * 1e3:.2f} ms"
+                 + _busy(run, wall))
+        cfg_c = dataclasses.replace(cfg_b, objective="gicp")
+        g_src = estimate_covariances(f_src.replace(normals=None), k=15)
+        g_tgt = estimate_covariances(f_tgt.replace(normals=None), k=15)
+        run = lambda: sharded_register(g_src, g_tgt, cfg_c, mesh)  # noqa: E731
+        res, counts = _counted(run)
+        ok = gated("(c) gicp", res, f_gt)
+        _check_counts("distributed (c)", counts, {"sort": sorts})
+        wall, _ = _sync_time(run, reps=3)
+        line(f"(c) sharded_register {n_flag} gicp", ok, counts, wall)
+        del g_src, g_tgt
+
+        # (d) DP pairs: the batch phase's pairs, then as GICP pairs
+        pmesh = mesh_of(("pairs", "points"), (1, 1))
+        pairs, args, cfg_d = _batch_run(dev, n_batch, b_batch)
+        res, counts = _counted(lambda: sharded_register_pairs(*args, cfg_d, pmesh))
+        _check_counts("distributed (d)", counts, {"nn": int(res.iters.sum())})
+        ref = register_batch(*args, cfg_d)
+        gap = max(float((res.transform.R - ref.transform.R).abs().max()),
+                  float((res.transform.t - ref.transform.t).abs().max()))
+        worst = 0.0
+        for i, (_, _, g) in enumerate(pairs):
+            one = SE3(R=res.transform.R[i], t=res.transform.t[i])
+            rot, terr = (float(x) for x in one.distance_to(g))
+            worst = max(worst, rot, terr)
+        if gap > 1e-6 or worst > 5e-3:
+            _fail(f"distributed (d): {gap:.2e} from register_batch, GT worst {worst:.2e}")
+        wall, _ = _sync_time(lambda: sharded_register_pairs(*args, cfg_d, pmesh), reps=3)
+        line(f"(d) sharded_register_pairs {b_batch} x {n_batch}", f"iters {res.iters.tolist()}, "
+             f"GT worst {worst:.2e}, within {gap:.1e} of register_batch", counts, wall)
+        cov = [(estimate_covariances(s, k=15), estimate_covariances(t, k=15)) for s, t, _ in pairs]
+        cfg_dg = dataclasses.replace(cfg_d, objective="gicp")
+        g_args = [torch.stack([getattr(c[i], f) for c in cov]) for i in (0, 1)
+                  for f in ("xyz", "mask", "covs")]
+        g_args = [a.reshape(a.shape[0], a.shape[1], 9) if a.ndim == 4 else a for a in g_args]
+        res, counts = _counted(lambda: sharded_register_pairs(*g_args, cfg_dg, pmesh))
+        _check_counts("distributed (d) gicp", counts, {"nn": int(res.iters.sum())})
+        gap, worst = 0.0, 0.0
+        for i, ((s, t), (_, _, g)) in enumerate(zip(cov, pairs)):
+            one = SE3(R=res.transform.R[i], t=res.transform.t[i])
+            alone = register(s, t, cfg_dg)
+            gap = max(gap, *_transform_diff(one, alone.transform))
+            worst = max(worst, *(float(x) for x in one.distance_to(g)))
+        if gap > 1e-6 or worst > 5e-3:
+            _fail(f"distributed (d) gicp: {gap:.2e} from register(), GT worst {worst:.2e}")
+        wall, _ = _sync_time(lambda: sharded_register_pairs(*g_args, cfg_dg, pmesh), reps=3)
+        line(f"(d) sharded_register_pairs {b_batch} x {n_batch} gicp", f"iters "
+             f"{res.iters.tolist()}, GT worst {worst:.2e}, each within {gap:.1e} of register()",
+             counts, wall)
+        del pairs, args, cov, g_args
+
+        # (e) parallel odometry on the compiled phase's scans
+        scans, gt_odo, ate_seq = odo["scans"], odo["gt"], odo["ate"]
+        t0 = time.perf_counter()
+        with_n = [estimate_normals(f, k=10) for f in scans]
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        normals_s = time.perf_counter() - t0
+        cfg_e = dataclasses.replace(_odo_config(), max_iters=30)
+        # the pairs' iterations, read off the batch call parallel_odometry makes
+        from icpx_torch.distributed import sharded_icp
+
+        calls = []
+
+        def spy(*a, **kw):
+            calls.append(sharded_register_pairs(*a, **kw))
+            return calls[-1]
+
+        sharded_icp.sharded_register_pairs = spy
+        try:
+            (poses, edges, rmse), counts = _counted(
+                lambda: parallel_odometry(with_n, cfg_e, pmesh))
+        finally:
+            sharded_icp.sharded_register_pairs = sharded_register_pairs
+        iters = calls[0].iters
+        _check_counts("distributed (e)", counts, {"nn": int(iters.sum())})
+        ate = ate_rmse(poses, gt_odo, align=False)
+        gate = max(2.0 * ate_seq, 0.08)
+        if not (math.isfinite(ate) and ate < gate and ate < ODO_ATE_BOUND):
+            _fail(f"distributed (e): ATE {ate:.4f} m (gate {gate:.4f}, {ODO_ATE_BOUND})")
+        wall, _ = _sync_time(lambda: parallel_odometry(with_n, cfg_e, pmesh), reps=3)
+        busy_e = _busy(lambda: parallel_odometry(with_n, cfg_e, pmesh), wall)
+        line(f"(e) parallel_odometry {len(scans)} x {scans[0].capacity}",
+             f"ATE {ate:.4f} m (unaligned; gate {gate:.4f}: the sequential {ate_seq:.4f} m x 2, "
+             f"at least 0.08), final RMSE <= {float(rmse.max()):.3e}", counts, wall,
+             f"; registrations only, the normals of the {len(scans)} scans "
+             f"{normals_s * 1e3:.2f} ms before; ICP iterations {iters.tolist()}{busy_e}")
+        del with_n
+
+        # (f) scan-to-map, one block
+        world, scan, delta = _map_case(dev, n_map, n_scan)
+        from icpx_torch.distributed.map_ep import partition_map, sharded_map_register
+
+        bmesh = mesh_of(("blocks",))
+        mb = partition_map(world.xyz, world.normals, world.mask, n_blocks=1)
+        run = lambda: sharded_map_register(scan, mb, _map_config(), bmesh, nn="block")  # noqa: E731
+        res_f, counts = _counted(run)
+        ok = gated("(f) map", res_f, delta)
+        _check_counts("distributed (f)", counts,
+                      {"sort": kd_level_sorts(mb.block_size, _map_config().block_tile)})
+        wall, _ = _sync_time(run, reps=3)
+        line(f"(f) sharded_map_register {scan.capacity} scan against {mb.block_size} map points",
+             ok, counts, wall)
+
+        # (g) the stage pipeline
+        p_args, p_gts, cfg_g = _pipe_pairs(dev, n_pipe, b_pipe)
+        from icpx_torch.distributed.pipeline import pipelined_pyramid_register
+
+        smesh = mesh_of(("stages",))
+        run = lambda: pipelined_pyramid_register(*p_args, cfg_g, smesh, **PIPE_KW)  # noqa: E731
+        out_g, counts = _counted(run)
+        _check_counts("distributed (g)", counts, {"nn": b_pipe * PIPE_KW["iters_per_level"]})
+        worst = max(max(float(x) for x in SE3(R=out_g.R[i], t=out_g.t[i]).distance_to(g))
+                    for i, g in enumerate(p_gts))
+        if worst > 8e-3:
+            _fail(f"distributed (g): GT worst {worst:.2e} (gate 8e-3)")
+        wall, _ = _sync_time(run, reps=3)
+        line(f"(g) pipelined_pyramid_register {b_pipe} x {n_pipe}, 1 stage",
+             f"GT worst {worst:.2e}", counts, wall)
+
+        # (h) the edge-sharded pose graph against the dense solver
+        graph, gt_t = _pose_chain(n_graph, dev)
+        from icpx_torch.odometry.posegraph import optimize_pose_graph_sharded
+
+        run = lambda: optimize_pose_graph_sharded(graph, mesh, iters=8)  # noqa: E731
+        (opt_h, chi2), counts = _counted(run)
+        _check_counts("distributed (h)", counts, {})
+        dense, chi2_d = optimize_pose_graph(graph, iters=8)
+        gap_h = max(float((opt_h.t - dense.t).abs().max()), float((opt_h.R - dense.R).abs().max()))
+        # relative to the chain's extent: fp32 holds a pose 300 m out to 3e-5 m,
+        # and the dense assembly's accumulating index_put_ sums in no fixed
+        # order on the card (two dense runs differ the same way)
+        extent = max(1.0, float(dense.t.abs().max()))
+        if gap_h > DIST_TOL * extent or not float(chi2[-1]) < float(chi2[0]) * 1e-2:
+            _fail(f"distributed (h): {gap_h:.2e} from the dense solver, chi2 {chi2.tolist()}")
+        wall, _ = _sync_time(run, reps=3)
+        line(f"(h) optimize_pose_graph_sharded {n_graph} keyframes, {graph.n_edges} edges",
+             f"within {gap_h:.1e} of optimize_pose_graph (extent {extent:.1f}), chi2 "
+             f"{float(chi2[0]):.3e} -> "
+             f"{float(chi2[-1]):.3e}", counts, wall)
+        one = {"b ring": flag_w1[True].transform, "f": res_f.transform, "g": out_g, "h": opt_h}
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    kernels["nn"]["launches_distributed"] = launches["nn"]
+    kernels["sort"]["launches_distributed"] = launches["sort"]
+    secs_one = time.perf_counter() - t_phase
+
+    # two ranks, gloo, both on this device
+    g = graph
+    inputs = {"src": _host_dict(f_src), "tgt": _host_dict(f_tgt), "world": _host_dict(world),
+              "scan": _host_dict(scan), "pipe_args": [a.cpu() for a in p_args], "pipe_cfg": cfg_g,
+              "graph": {"pR": g.poses.R.cpu(), "pt": g.poses.t.cpu(), "i": g.edge_i.cpu(),
+                        "j": g.edge_j.cpu(), "mR": g.edge_meas.R.cpu(), "mt": g.edge_meas.t.cpu(),
+                        "w": g.edge_weight.cpu()}}
+    (r0, r1), secs_two = _two_ranks(dev, inputs)
+    tols = {"b ring": DIST_TOL, "f": DIST_TOL_HIST, "g": DIST_TOL, "h": DIST_TOL}
+    gts = {"b ring": f_gt, "f": delta}
+    parts = []
+    for label, tol in tols.items():
+        for k in ("R", "t"):
+            if not np.array_equal(r0[label][k], r1[label][k]):
+                _fail(f"distributed 2 ranks ({label}): the ranks' results differ")
+        gap = max(float(np.abs(r0[label]["R"] - one[label].R.cpu().numpy()).max()),
+                  float(np.abs(r0[label]["t"] - one[label].t.cpu().numpy()).max()))
+        if label == "h":
+            tol *= max(1.0, float(one[label].t.abs().max()))  # as at one rank
+        if gap > tol:
+            _fail(f"distributed 2 ranks ({label}): {gap:.2e} from the one-rank result (tol {tol})")
+        if label in gts:
+            T = SE3(R=torch.as_tensor(r0[label]["R"], device=dev),
+                    t=torch.as_tensor(r0[label]["t"], device=dev))
+            rot, terr = (float(x) for x in T.distance_to(gts[label]))
+            if rot > 5e-3 or terr > 5e-3:
+                _fail(f"distributed 2 ranks ({label}): GT rot {rot:.2e}, t {terr:.2e}")
+        elif label == "g":
+            T = SE3(R=torch.as_tensor(r0[label]["R"], device=dev),
+                    t=torch.as_tensor(r0[label]["t"], device=dev))
+            worst = max(max(float(x) for x in SE3(R=T.R[i], t=T.t[i]).distance_to(gg))
+                        for i, gg in enumerate(p_gts))
+            if worst > 8e-3:
+                _fail(f"distributed 2 ranks (g): GT worst {worst:.2e}")
+        if dev.type == "cuda" and label in ("b ring", "g"):
+            kern = "sort" if label == "b ring" else "nn"
+            if min(r[label]["launches"][kern] for r in (r0, r1)) < 1:
+                _fail(f"distributed 2 ranks ({label}): no {kern} launch on a rank")
+        parts.append(f"{label} within {gap:.1e} ({r0[label]['secs']:.2f} s, launches "
+                     f"{ {k: v for k, v in r0[label]['launches'].items() if v} })")
+    print(f"distributed 2 ranks (gloo, one device): " + "; ".join(parts)
+          + f"; the ranks' work {r0['secs']:.1f} s, spawn to join {secs_two:.1f} s")
+    print(f"distributed phase: {time.perf_counter() - t_phase:.1f} s (one rank {secs_one:.1f} s, "
+          f"two ranks {secs_two:.1f} s)")
+
+
 def _sample_clocks(when: str) -> None:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,temperature.gpu", "--format=csv,noheader"],
@@ -2681,7 +3221,8 @@ def _counted(fn):
         blocknn_cuda.LAUNCHES[name] = 0
     sort_cuda.LAUNCHES["sort"] = 0
     out = fn()
-    torch.cuda.synchronize()
+    if torch.cuda.is_available():  # the spawned ranks of a CPU rehearsal have none
+        torch.cuda.synchronize()
     return out, dict(nn=nn_cuda.LAUNCHES, **blocknn_cuda.LAUNCHES, **sort_cuda.LAUNCHES)
 
 
@@ -2693,7 +3234,8 @@ def main(dev=None, n_pair: int = N_PAIR, n_flag: int = N_FLAG, n_small: int = N_
          n_batch: int = N_BATCH, n_scan: int = N_PAIR, n_plane: int = N_PLANE, b_batch: int = 8,
          b_block: int = 4, n_odo: int = N_ODO, n_odo_brute: int = N_ODO_BRUTE,
          n_odo_small: int = N_ODO_SMALL, odo_frames: int = ODO_FRAMES, map_capacity: int = 65536,
-         n_slam: int = N_ODO_SMALL) -> None:
+         n_slam: int = N_ODO_SMALL, n_map: int = N_MAP, n_graph: int = N_GRAPH,
+         n_pipe: int = N_PIPE, n_map_scan: int = N_ODO, par_odometry: str = "compiled") -> None:
     """`dev` and the sizes exist for rehearsing the script's control flow off
     the card; run as a program it always takes the first CUDA device.
     n_scan sizes the block-path batch and the pyramid; n_odo the compiled
@@ -2701,7 +3243,12 @@ def main(dev=None, n_pair: int = N_PAIR, n_flag: int = N_FLAG, n_small: int = N_
     scans, n_odo_small the card-vs-CPU sequence's and the host frontend's,
     n_slam the loop's second run, after the one at the reference test's
     SLAM_REF_POINTS (held to its 0.7 x); at SLAM_REF_POINTS the loop runs
-    once."""
+    once. The distributed phase takes the world of n_map points for its
+    map block and a scan of n_map_scan points, a pose graph of n_graph
+    keyframes, pipeline pairs of n_pipe points, and `parallel_odometry`
+    runs on the scans of the compiled
+    odometry phase `par_odometry` ("compiled": n_odo points, "brute":
+    n_odo_brute)."""
     if dev is None:
         if not torch.cuda.is_available():
             _fail("torch.cuda.is_available() is false: this check needs an NVIDIA GPU")
@@ -2965,9 +3512,12 @@ def main(dev=None, n_pair: int = N_PAIR, n_flag: int = N_FLAG, n_small: int = N_
     # 11. Odometry: the compiled whole-sequence path at bench.py's 65,536-point
     #     scans and on the brute path, the card against the CPU, the host
     #     frontend (both modes, the sliding window, resume) and SLAM on a loop
+    odo = {}
     odo_phases = {
-        "compiled": lambda: _phase_compiled_odometry(dev, n_odo, odo_frames, kernels),
-        "brute": lambda: _phase_compiled_brute(dev, n_odo_brute, odo_frames, kernels),
+        "compiled": lambda: odo.setdefault(
+            "compiled", _phase_compiled_odometry(dev, n_odo, odo_frames, kernels)),
+        "brute": lambda: odo.setdefault(
+            "brute", _phase_compiled_brute(dev, n_odo_brute, odo_frames, kernels)),
         "card vs CPU": lambda: _phase_compiled_card_vs_cpu(dev, n_odo_small, max(odo_frames // 2, 3)),
         "host": lambda: _phase_host_odometry(dev, n_odo_small, odo_frames, kernels, map_capacity),
         f"slam {SLAM_REF_POINTS}": lambda: _phase_slam(dev, SLAM_REF_POINTS)}
@@ -2985,6 +3535,11 @@ def main(dev=None, n_pair: int = N_PAIR, n_flag: int = N_FLAG, n_small: int = N_
     #     reader: the cat pair, the 1M flagship, the 65k KITTI directory and
     #     the CLI's own synthetic odometry ----------------------------------------
     _phase_cli(dev, n_flag, n_odo, odo_frames, n_odo_small, shapes)
+
+    # 13. The distributed layer: one rank over NCCL, then two ranks over gloo
+    #     on this card ---------------------------------------------------------------
+    _phase_distributed(dev, n_pair, n_flag, n_batch, b_batch, odo[par_odometry], kernels,
+                       n_map=n_map, n_scan=n_map_scan, n_graph=n_graph, n_pipe=n_pipe)
 
     cu = "icpx_torch/csrc/blocknn.cu"
     sources = {"nn": "icpx_torch/csrc/nn.cu", "moments6": cu, "fold6": cu, "fold7": cu,

@@ -33,10 +33,15 @@ each Pallas kernel of the reference: the exact 1-NN search
 (`kernels/nn_cuda.py` + `csrc/nn.cu`), the block path's radius moments,
 folds, payload selection, union fold and union moments
 (`kernels/blocknn_cuda.py` + `csrc/blocknn.cu`), and the KD build's
-segmented sort (`kernels/sort_cuda.py` + `csrc/sort.cu`). Entry points
-create tensors on the first CUDA device unless given `device="cpu"`. The
-sharded pose graph, `parallel_odometry`, the rest of `distributed/` and
-the HLO tooling wait for ROADMAP queue 1 step 9.
+segmented sort (`kernels/sort_cuda.py` + `csrc/sort.cu`). The distributed
+layer (`distributed/`, on `torch.distributed`: NCCL on the cards, gloo on
+the CPU): meshes (`make_mesh`), the collectives (`distributed/comm.py`),
+sharded and ring ICP, data-parallel pairs and `odometry.parallel_odometry`,
+map blocks with all-to-all routing (`map_ep`), the stage pipeline, the
+edge-sharded pose graph, multi-host bring-up, and the collective-traffic
+audit (`utils/collectives.py`, the torch side of the reference's HLO
+traffic tools). Entry points create tensors on the first CUDA device
+unless given `device="cpu"`.
 """
 
 import torch as _torch

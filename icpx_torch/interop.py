@@ -3,9 +3,10 @@
 The JAX package's objects convert to numpy (`np.asarray(cloud.xyz)`,
 `dataclasses.asdict(config)`, ...) and these functions turn that into the
 port's objects (clouds, transforms, tile indexes, configs, pose graphs,
-voxel maps), and results back into numpy (ICP results, voxel maps,
-whole-sequence odometry), so both packages can compute on identical bits
-and carry state across. Nothing here imports JAX.
+voxel maps, map blocks), and results back into numpy (ICP results, voxel
+maps, whole-sequence odometry, map blocks), so both packages
+can compute on identical bits and carry state across. Nothing here imports
+JAX.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from icpx_torch.cloud import DEFAULT_DEVICE, PointCloud
+from icpx_torch.distributed.map_ep import MapBlocks
 from icpx_torch.geometry.se3 import SE3
 from icpx_torch.kernels.blocknn import TileIndex
 from icpx_torch.odometry.compiled import CompiledOdometry
@@ -150,6 +152,20 @@ def pose_graph_from_numpy(graph, *, device=DEFAULT_DEVICE) -> PoseGraph:
         edge_meas=se3_from_numpy(graph.edge_meas.R, graph.edge_meas.t, device=device),
         edge_weight=torch.tensor(np.asarray(graph.edge_weight, np.float32), device=device),
     )
+
+
+_MAP_FIELDS = ("block_xyz", "block_normals", "block_mask", "boundaries", "lo", "inv_extent")
+
+
+def map_blocks_from_numpy(blocks, *, device=DEFAULT_DEVICE) -> MapBlocks:
+    """The port's MapBlocks from any object with the JAX `MapBlocks`
+    fields, taken as they are (the same partition in both packages)."""
+    return MapBlocks(**{f: torch.tensor(np.asarray(getattr(blocks, f)), device=device)
+                        for f in _MAP_FIELDS})
+
+
+def map_blocks_to_numpy(blocks: MapBlocks) -> Dict[str, np.ndarray]:
+    return {f: _host(getattr(blocks, f)) for f in _MAP_FIELDS}
 
 
 def voxel_map_from_numpy(vmap, *, device=DEFAULT_DEVICE) -> VoxelMap:

@@ -231,6 +231,16 @@ def build_kd_index(xyz: torch.Tensor, mask: Optional[torch.Tensor] = None, *,
     return _finish_index(tiles, orig)
 
 
+def sort_queries(xyz: torch.Tensor, mask: Optional[torch.Tensor] = None, *,
+                 tile_size: int = 256) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Morton-sort queries once: (query_tiles (Tq, S, 3), perm (Tq*S,)
+    int32), perm mapping each sorted position to its original row (-1 on
+    padding), to unsort the answers. Rigid motion keeps the sort's spatial
+    coherence, so a registration sorts once and moves the sorted copy."""
+    idx = build_tile_index(xyz, mask, tile_size=tile_size)
+    return idx.tiles, idx.order.reshape(-1)
+
+
 def trim_index(index: TileIndex, capacity: int, multiple: int = 1) -> TileIndex:
     """View of the leading tiles that can hold valid rows (both builders keep
     valid rows in a global prefix), rounded up to a multiple of `multiple`

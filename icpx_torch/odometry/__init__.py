@@ -7,10 +7,12 @@ from icpx_torch.odometry.frontend import (
     blend_velocity,
     run_odometry,
 )
+from icpx_torch.odometry.parallel import batched_pair_seed, parallel_odometry
 from icpx_torch.odometry.posegraph import (
     PoseGraph,
     SlidingWindowBackend,
     optimize_pose_graph,
+    optimize_pose_graph_sharded,
     optimize_pose_graph_sparse,
 )
 
@@ -22,10 +24,13 @@ __all__ = [
     "PoseGraph",
     "SlidingWindowBackend",
     "ate_rmse",
+    "batched_pair_seed",
     "kitti_relative_error",
     "blend_velocity",
     "optimize_pose_graph",
+    "optimize_pose_graph_sharded",
     "optimize_pose_graph_sparse",
+    "parallel_odometry",
     "rpe",
     "run_odometry",
     "run_odometry_compiled",

@@ -1,7 +1,6 @@
 """Pose-graph back end: Gauss-Newton over SE(3) with Schur marginalization.
 
-Mirrors `icpx/odometry/posegraph.py` (not `optimize_pose_graph_sharded`,
-which waits for ROADMAP queue 1 step 9). Nodes are keyframe poses, edges
+Mirrors `icpx/odometry/posegraph.py`. Nodes are keyframe poses, edges
 relative-pose measurements:
 
   * each edge's residual is r = log(meas^-1 (T_i E(d_i))^-1 (T_j E(d_j)))
@@ -9,7 +8,10 @@ relative-pose measurements:
     autodiff vmapped over edges: `torch.func.jacrev`, the exact derivative
     the reference takes with `jax.jacfwd`, in fp32 (torch's forward mode
     mixes fp64 tangents into the SE3 log's fp32 matmuls at the identity);
-  * `optimize_pose_graph` assembles the dense (6M, 6M) normal system;
+  * `optimize_pose_graph` assembles the dense (6M, 6M) normal system, and
+    `optimize_pose_graph_sharded` the same from edge shards over a mesh
+    axis, one psum of (H, b, chi2) an iteration and the same dense solve
+    on every rank;
     `optimize_pose_graph_sparse` keeps it edge-indexed, applies it as a
     matvec and solves it by block-Jacobi preconditioned CG, with robust
     edge kernels and an optional marginal prior;
@@ -22,6 +24,7 @@ and its PCG `while_loop` a loop of the same stop rule and cap.
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
+from functools import partial
 from typing import Optional, Tuple
 
 import numpy as np
@@ -29,6 +32,7 @@ import torch
 from torch.func import jacrev, vmap
 
 from icpx_torch.geometry.se3 import SE3
+from icpx_torch.registration.step import identity_reduce
 
 
 @dataclass(frozen=True)
@@ -96,6 +100,24 @@ def optimize_pose_graph(
 ) -> Tuple[SE3, torch.Tensor]:
     """Damped Gauss-Newton on the dense normal system: (optimized poses,
     per-iteration chi2 (iters,))."""
+    return _optimize_impl(graph, iters=iters, damping=damping, anchor=anchor,
+                          anchor_weight=anchor_weight)
+
+
+def _optimize_impl(
+    graph: PoseGraph,
+    *,
+    iters: int,
+    damping: float,
+    anchor: int,
+    anchor_weight: float,
+    reduce=identity_reduce,
+    anchor_scale: float = 1.0,
+) -> Tuple[SE3, torch.Tensor]:
+    """The shared Gauss-Newton core. `reduce` sums the assembled (H, b,
+    chi2) across an edge partition (the identity on one device);
+    `anchor_scale` scales the gauge prior so psum'd shards add it exactly
+    once."""
     m = graph.n_nodes
     dev = graph.poses.t.device
     ei, ej = graph.edge_i.long(), graph.edge_j.long()
@@ -115,8 +137,11 @@ def optimize_pose_graph(
         b.index_add_(0, ei, torch.einsum("eki,ek->ei", Ji, wr))
         b.index_add_(0, ej, torch.einsum("eki,ek->ei", Jj, wr))
         # gauge: a strong prior pinning the anchor node at its current pose
-        H[anchor, anchor] += anchor_weight * eye6
-        chi2s.append(torch.sum(graph.edge_weight * torch.sum(r * r, dim=1)))
+        # (scaled so a psum across edge shards adds it exactly once)
+        H[anchor, anchor] += anchor_scale * anchor_weight * eye6
+        chi2 = torch.sum(graph.edge_weight * torch.sum(r * r, dim=1))
+        H, b, chi2 = reduce((H, b, chi2))
+        chi2s.append(chi2)
 
         Hd = H.permute(0, 2, 1, 3).reshape(6 * m, 6 * m)
         Hd = Hd + torch.diag(damping * torch.diagonal(Hd) + 1e-9)
@@ -124,6 +149,44 @@ def optimize_pose_graph(
         poses = _retract(poses, delta)
     chi2 = torch.stack(chi2s) if chi2s else torch.zeros((0,), dtype=torch.float32, device=dev)
     return poses, chi2
+
+
+def optimize_pose_graph_sharded(
+    graph: PoseGraph,
+    mesh,
+    *,
+    iters: int = 10,
+    damping: float = 1e-6,
+    anchor: int = 0,
+    anchor_weight: float = 1e6,
+    edge_axis: str = "points",
+) -> Tuple[SE3, torch.Tensor]:
+    """Edge-sharded Gauss-Newton (data parallel over edges).
+
+    Every rank passes the same graph and linearizes its shard of the edges
+    into a partial (6M, 6M) system; one psum over `edge_axis` merges them
+    and every rank runs the same dense solve, so the poses stay the same
+    on every rank (the sharded ICP's sufficient-statistics pattern). The
+    edge count must divide by the axis size (`pad_edges` pads with
+    zero-weight self-edges)."""
+    from icpx_torch.distributed import comm
+
+    group = mesh.get_group(edge_axis)
+    n_dev = comm.axis_size(group)
+    if graph.n_edges % n_dev:
+        raise ValueError(f"{graph.n_edges} edges not divisible by '{edge_axis}' size {n_dev}; "
+                         "pad with pad_edges()")
+    local = PoseGraph(
+        poses=graph.poses,
+        edge_i=comm.shard(graph.edge_i, group),
+        edge_j=comm.shard(graph.edge_j, group),
+        edge_meas=SE3(R=comm.shard(graph.edge_meas.R, group),
+                      t=comm.shard(graph.edge_meas.t, group)),
+        edge_weight=comm.shard(graph.edge_weight, group),
+    )
+    return _optimize_impl(local, iters=iters, damping=damping, anchor=anchor,
+                          anchor_weight=anchor_weight, reduce=partial(comm.psum, group=group),
+                          anchor_scale=1.0 / n_dev)
 
 
 def pad_edges(graph: PoseGraph, multiple: int) -> PoseGraph:

@@ -59,6 +59,7 @@ from icpx_torch.kernels.voxel import auto_cell_size
 from icpx_torch.registration.step import (
     correspondence_weights,
     estimate_increment,
+    identity_reduce,
     step_stats,
 )
 
@@ -610,11 +611,12 @@ def _icp_scan(
     src_n: torch.Tensor,
     init: SE3,
     nn_fn,
+    reduce=identity_reduce,
     aux_rot=None,
     prev_rmse0: Optional[torch.Tensor] = None,
     src_w: Optional[torch.Tensor] = None,
 ) -> ICPResult:
-    """The ICP iteration core.
+    """The ICP iteration core shared by every execution mode.
 
     `nn_fn(p) -> (q, n_q, dist)` gives matched target rows for the
     transformed source; `src_n` / `n_q` are the objective's auxiliary
@@ -627,6 +629,11 @@ def _icp_scan(
     transform_tol tests; converged = stop and no step was rejected.
     `prev_rmse0` seeds the previous RMSE (the coarse phase's final one), so
     an already converged refine phase can stop after one iteration.
+    `reduce` sums the step's statistics across a points partition
+    (`identity_reduce` on one device, which changes nothing; `comm.psum`
+    over the points group when sharded). Sharded, the stop flag is reduced
+    too (any rank stopping stops all), so every rank leaves the loop on
+    the same iteration, as the reference's reduced `while_loop` predicate.
     """
     dev = src_xyz.device
     f32 = dict(dtype=torch.float32, device=dev)
@@ -647,14 +654,14 @@ def _icp_scan(
         n_p = aux_rot(transform, src_n)
         q, n_q, dist = nn_fn(p)
 
-        w = correspondence_weights(config, p, n_p, q, n_q, dist, src_mask)
+        w = correspondence_weights(config, p, n_p, q, n_q, dist, src_mask, reduce)
         if src_w is not None:
             w = w * src_w
-        incre = estimate_increment(config, p, q, n_p, n_q, w)
+        incre = estimate_increment(config, p, q, n_p, n_q, w, reduce)
         new_transform = incre @ transform
 
         # post-update diagnostics against the same correspondences
-        stats = step_stats(config, new_transform.apply(src_xyz), q, dist, src_mask)
+        stats = step_stats(config, new_transform.apply(src_xyz), q, dist, src_mask, reduce)
         # a non-finite or correspondence-starved update is rejected: the
         # previous transform is kept, and the loop stops and reports failure
         new_transform, ok = degenerate_solve_guard(new_transform, stats, transform)
@@ -674,6 +681,8 @@ def _icp_scan(
         rmses[it] = rmse
         counts[it] = stats.inlier_count
         failed = failed | ~ok
+        if reduce is not identity_reduce:
+            now_stop = reduce(now_stop.to(torch.float32)) > 0
         transform, prev_rmse, stop_t = new_transform, rmse, now_stop
         it += 1
         stop = bool(stop_t)  # the loop's one host sync per iteration

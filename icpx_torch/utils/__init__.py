@@ -1,7 +1,12 @@
 from icpx_torch.utils.metrics import MetricsLogger, icp_iteration_records
 from icpx_torch.utils.profiling import Timer, kernel_speed_of_light, time_fn, trace_context
 from icpx_torch.utils.checkpoint import OdometryCheckpoint, load_checkpoint, save_checkpoint
-from icpx_torch.utils.debug import assert_all_finite, deterministic_mode, nan_checks
+from icpx_torch.utils.debug import (
+    assert_all_finite,
+    deterministic_mode,
+    nan_checks,
+    shard_equivalence_report,
+)
 
 __all__ = [
     "MetricsLogger",
@@ -16,4 +21,5 @@ __all__ = [
     "assert_all_finite",
     "deterministic_mode",
     "nan_checks",
+    "shard_equivalence_report",
 ]

@@ -1,8 +1,9 @@
 """Debug and correctness-audit helpers.
 
 Mirrors `icpx/utils/debug.py`: NaN trapping, the fp32 matmul precision
-pinned inside a scope, and a finiteness audit. `shard_equivalence_report`
-serves the sharded paths and comes with them.
+pinned inside a scope, a finiteness audit, and `shard_equivalence_report`,
+which holds a sharded run against its replay on one device (the data-race
+detector of SPMD code).
 """
 
 from __future__ import annotations
@@ -60,3 +61,33 @@ def assert_all_finite(tree, name: str = "tree") -> None:
         if arr.dtype.kind == "f" and not np.isfinite(arr).all():
             bad = int((~np.isfinite(arr)).sum())
             raise FloatingPointError(f"{name}{path}: {bad} non-finite values")
+
+
+def shard_equivalence_report(sharded_out, single_out, *, atol: float = 1e-5,
+                             rtol: float = 1e-5) -> dict:
+    """Compare a sharded run against its single-device replay, leaf by leaf
+    in `utils.pytree`'s flatten order (the reference's). Returns {leaf path:
+    max abs diff} for the leaves that differ beyond tolerance (NaN where a
+    non-float leaf differs, inf where the finite entries differ); an empty
+    dict means equivalent."""
+    def host(x):
+        return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+    diffs = {}
+    flat_a, _ = pytree.flatten(sharded_out)
+    flat_b, _ = pytree.flatten(single_out)
+    for (path, a), (_, b) in zip(flat_a, flat_b):
+        a, b = host(a), host(b)
+        if a.dtype.kind not in "fc":
+            if not np.array_equal(a, b):
+                diffs[path] = float("nan")
+            continue
+        if not np.array_equal(np.isfinite(a), np.isfinite(b)):
+            diffs[path] = float("inf")
+            continue
+        finite = np.isfinite(a) & np.isfinite(b)
+        if finite.any():
+            d = np.abs(a[finite] - b[finite])
+            if (d > atol + rtol * np.abs(b[finite])).any():
+                diffs[path] = float(d.max())
+    return diffs

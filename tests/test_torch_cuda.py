@@ -663,3 +663,70 @@ def test_cuda_cli_register_matches_the_cpu(cuda_device, tmp_path, capsys):
         i = lines.index("transform:")
         outs.append(np.array([[float(v) for v in ln.split()] for ln in lines[i + 1:i + 5]]))
     assert np.abs(outs[0] - outs[1]).max() <= 1e-4, outs
+
+
+# ---- the distributed layer at one rank over NCCL --------------------------------------
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """A one-rank NCCL mesh (make_mesh's own FileStore group) for the
+    module; the group is destroyed after it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (NCCL runs on the card only)")
+    import torch.distributed as dist
+
+    from icpx_torch.distributed.mesh import make_mesh
+
+    yield make_mesh(axis_names=("points",))
+    dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_cuda_make_mesh_is_nccl_on_the_card(cuda_device, nccl_mesh):
+    import torch.distributed as dist
+
+    assert dist.get_backend() == "nccl" and nccl_mesh.device_type == "cuda"
+    assert tuple(nccl_mesh.shape) == (1,) and nccl_mesh.mesh_dim_names == ("points",)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ring", [False, True])
+def test_cuda_sharded_register_matches_cpu(cuda_device, nccl_mesh, ring):
+    """sharded_register at one NCCL rank on the card (the nn kernel a fold,
+    the step's sums through NCCL all-reduces) against register() on the
+    CPU, the same pair and normals, exact robust settings: within 1e-5."""
+    from icpx_torch.distributed.sharded_icp import sharded_register
+    from icpx_torch.kernels.normals import estimate_normals
+    from icpx_torch.registration.icp import ICPConfig, register
+
+    src, tgt, gt = chip_smoke._gt_pair(4096, 5, torch.device("cpu"))
+    src, tgt = estimate_normals(src, k=10), estimate_normals(tgt, k=10)
+    cfg = ICPConfig(objective="symmetric", max_iters=15, diff_threshold=0.0,
+                    rmse_change_tol=1e-7, nn_method="brute")
+    before = nn_cuda.LAUNCHES
+    res = sharded_register(src.to(cuda_device), tgt.to(cuda_device), cfg, nccl_mesh, ring=ring)
+    assert nn_cuda.LAUNCHES - before == res.iters
+    assert res.transform.R.is_cuda
+    cpu = register(src, tgt, cfg)
+    d_rot, d_t = chip_smoke._transform_diff(res.transform, cpu.transform)
+    assert d_rot < 1e-5 and d_t < 1e-5, (d_rot, d_t, res.iters, cpu.iters)
+    rot, terr = (float(x) for x in res.transform.distance_to(gt.to(cuda_device)))
+    assert rot < 5e-3 and terr < 5e-3
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_pose_graph_matches_cpu(cuda_device, nccl_mesh):
+    """The edge-sharded pose graph at one NCCL rank against the dense
+    solver on the CPU (a 100-keyframe chain): 1e-5 of its extent."""
+    from icpx_torch.odometry.posegraph import optimize_pose_graph, optimize_pose_graph_sharded
+
+    graph, _ = chip_smoke._pose_chain(100, cuda_device)
+    poses, chi2 = optimize_pose_graph_sharded(graph, nccl_mesh, iters=6)
+    cpu_graph = type(graph)(poses=graph.poses.to("cpu"), edge_i=graph.edge_i.cpu(),
+                            edge_j=graph.edge_j.cpu(), edge_meas=graph.edge_meas.to("cpu"),
+                            edge_weight=graph.edge_weight.cpu())
+    dense, _ = optimize_pose_graph(cpu_graph, iters=6)
+    scale = max(1.0, float(dense.t.abs().max()))
+    assert float((poses.t.cpu() - dense.t).abs().max()) < 1e-5 * scale
+    assert float(chi2[-1]) < float(chi2[0]) * 1e-2

@@ -15,6 +15,7 @@ import torch
 
 import chip_smoke
 import torch_parity  # noqa: F401  (pins torch's thread count per worker)
+from icpx_torch.distributed import map_ep, pipeline, ring, sharded_icp
 from icpx_torch.kernels import blocknn, blocknn_cuda, cuda_build, nn_cuda, normals, sort_cuda
 from icpx_torch.odometry import compiled
 from icpx_torch.registration import icp
@@ -156,6 +157,8 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
     monkeypatch.setattr(icp, "block_nn_fused4", fused4_wrapper)
     monkeypatch.setattr(icp, "nearest_neighbor", dispatch)
     monkeypatch.setattr(compiled, "nearest_neighbor", dispatch)
+    for module in (sharded_icp, ring, map_ep, pipeline):  # the distributed paths' NN
+        monkeypatch.setattr(module, "nearest_neighbor", dispatch)
     # no device to profile: the run itself, no device time
     monkeypatch.setattr(chip_smoke, "_device_profile", lambda run: (run(), 1.0, 0.0, [], 0.0))
     for name in ("resolve_payload", "resolve_moments"):
@@ -186,7 +189,8 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
 
     chip_smoke.main(dev=torch.device("cpu"), n_pair=2048, n_flag=8192, n_small=8192, n_batch=1000,
                     n_scan=8192, n_plane=8192, b_batch=3, b_block=2, n_odo=8192, n_odo_brute=2048,
-                    n_odo_small=8192, odo_frames=4, map_capacity=16384, n_slam=2048)
+                    n_odo_small=8192, odo_frames=4, map_capacity=16384, n_slam=2048, n_map=16384,
+                    n_graph=100, n_pipe=1000, n_map_scan=2048, par_odometry="brute")
     lines = capsys.readouterr().out.strip().splitlines()
     assert json.loads(lines[-1]) == {
         "ok": True, "device": {"platform": "gpu", "kind": "Fake GPU", "count": 1}}
@@ -200,7 +204,7 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
     mid = {f"{k}_sq{q}" for k in ("ms", "device_ms", "plain_ms", "bound_ms") for q in (32, 16)}
     extras = {"nn": {"ms_3456", "plain_ms_3456", "library_ms_3456", "bound_ms_3456", "splits",
                      "splits_3456", "device_ms", "device_ms_3456", "library_device_ms_3456",
-                     "launches_odometry"},
+                     "launches_odometry", "launches_distributed"},
               "moments6": {"cov_max_abs_err", "cov_err_over_tol", "device_ms", "bytes_ms", "band_pairs",
                            "screened_pairs", "mean_count", "ms_k8", "device_ms_k8", "plain_ms_k8",
                            "bound_ms_k8", "bytes_ms_k8", "band_pairs_k8", "screened_pairs_k8",
@@ -215,7 +219,7 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
               "fused4": {"union_mean", "union_max", "device_ms"},
               "moments_fused": {"cov_err_over_tol", "union_mean", "union_max", "padded_share",
                                 "rows_below_xla", "margin_used", "device_ms"},
-              "sort": device | {"launches_odometry"}}
+              "sort": device | {"launches_odometry", "launches_distributed"}}
     for k in ks:
         assert set(k) == keys | extras.get(k["name"], set())
         assert k["device_ms"] > 0  # every row of the kernel table has a device time
@@ -293,6 +297,22 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
                    "cli odometry --synthetic (4 x 8192", "cli odometry --resume: ",
                    "cli fresh process: ", "cli phase: "):
         assert any(line.startswith(prefix) for line in lines), prefix
+    # the distributed layer: each item at one rank (gloo here, NCCL on the
+    # card), then the two-rank check, with its kernels launched where it must
+    for prefix in ("distributed (a) sharded_register 2048 brute replicated: ",
+                   "distributed (a) sharded_register 2048 brute ring: ",
+                   "distributed (b) sharded_register 8192 block replicated: ",
+                   "distributed (b) sharded_register 8192 block ring: ",
+                   "distributed (c) sharded_register 8192 gicp: ",
+                   "distributed (d) sharded_register_pairs 3 x 1000: ",
+                   "distributed (d) sharded_register_pairs 3 x 1000 gicp: ",
+                   "distributed (e) parallel_odometry 4 x 2048: ",
+                   "distributed (f) sharded_map_register 2048 scan against ",
+                   "distributed (g) pipelined_pyramid_register 6 x 1000, 1 stage: ",
+                   "distributed (h) optimize_pose_graph_sharded 100 keyframes",
+                   "distributed 2 ranks (gloo, one device): b ring within ", "distributed phase: "):
+        assert any(line.startswith(prefix) for line in lines), prefix
+    assert nn["launches_distributed"] >= 2 * 4 + 3 * 4 + 48 and sort["launches_distributed"] >= 3 * 9
     # n_slam at the reference test's 2,048 points: the loop runs once, at its gate
     slam = [line for line in lines if line.startswith("slam 2048 x 30 (two laps): ")]
     assert len(slam) == 1 and slam[0].endswith("(gate 0.7 x)")
