@@ -30,6 +30,15 @@ def _eye(like: torch.Tensor) -> torch.Tensor:
     return torch.eye(3, dtype=like.dtype, device=like.device)
 
 
+def _tensor(x, device) -> torch.Tensor:
+    """A tensor on its device (or `device`); anything else as float32 on
+    `device`, the first CUDA device unless given."""
+    if torch.is_tensor(x):
+        return x if device is None else x.to(device)
+    return torch.as_tensor(x, dtype=torch.float32,
+                           device=DEFAULT_DEVICE if device is None else device)
+
+
 def _matvec(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.einsum("...ij,...j->...i", M, v)
 
@@ -48,6 +57,35 @@ class SE3:
         R = torch.eye(3, dtype=dtype, device=device).expand(*batch_shape, 3, 3)
         t = torch.zeros((*batch_shape, 3), dtype=dtype, device=device)
         return cls(R=R.clone(), t=t)
+
+    @classmethod
+    def from_matrix(cls, m, device=None) -> "SE3":
+        """From a (..., 4, 4) homogeneous matrix. A tensor stays on its
+        device (or moves to `device`); an array becomes float32 on `device`
+        (default the first CUDA device)."""
+        m = _tensor(m, device)
+        return cls(R=m[..., :3, :3], t=m[..., :3, 3])
+
+    @classmethod
+    def from_rotvec(cls, rotvec, t=None, device=None) -> "SE3":
+        """Axis-angle vector (angle = |rotvec|); placed as `from_matrix`
+        places its input."""
+        rotvec = _tensor(rotvec, device).to(torch.float32)
+        angle = torch.linalg.vector_norm(rotvec, dim=-1)
+        return cls.from_axis_angle(rotvec / angle[..., None].clamp_min(_EPS), angle, t)
+
+    @classmethod
+    def random(cls, generator: torch.Generator, batch_shape=(), max_angle=math.pi,
+               max_trans=1.0) -> "SE3":
+        """A uniformly random axis, an angle in [0, max_angle) and a
+        translation in [-max_trans, max_trans)^3, drawn from `generator` on
+        its device (the reference draws from a JAX key)."""
+        dev = generator.device
+        axis = torch.randn((*batch_shape, 3), generator=generator, device=dev)
+        axis = axis / torch.linalg.vector_norm(axis, dim=-1, keepdim=True)
+        angle = max_angle * torch.rand(tuple(batch_shape), generator=generator, device=dev)
+        t = max_trans * (2.0 * torch.rand((*batch_shape, 3), generator=generator, device=dev) - 1.0)
+        return cls.from_axis_angle(axis, angle, t)
 
     @classmethod
     def from_axis_angle(cls, axis, angle, t=None) -> "SE3":

@@ -7,6 +7,7 @@ transform, normals are rotated only.
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
 import torch
 
@@ -49,3 +50,23 @@ def make_rigid_perturbation(
         torch.tensor(angle, dtype=torch.float32, device=device),
         torch.as_tensor(translation, dtype=torch.float32, device=device),
     )
+
+
+def perturb_cloud(
+    cloud: PointCloud,
+    generator: torch.Generator,
+    *,
+    max_angle: float = 0.3,
+    max_trans: float = 0.5,
+    noise_sigma: float = 0.0,
+) -> Tuple[PointCloud, SE3]:
+    """A random rigid perturbation (`SE3.random` from `generator`) and
+    optional Gaussian noise of sigma `noise_sigma` on the valid rows:
+    (perturbed cloud, ground truth mapping the original onto it), on the
+    cloud's device whatever the generator's."""
+    gt = SE3.random(generator, max_angle=max_angle, max_trans=max_trans).to(cloud.xyz.device)
+    out = transform_cloud(cloud, gt)
+    if noise_sigma > 0.0:
+        noise = torch.randn(out.xyz.shape, generator=generator, device=generator.device)
+        out = out.with_xyz(out.xyz + noise_sigma * noise.to(out.xyz.device))
+    return out, gt

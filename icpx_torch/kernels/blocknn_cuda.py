@@ -465,6 +465,19 @@ def block_fold_fused_pre(query_tiles: torch.Tensor, ops: Fold6Operands) -> Tuple
     return fold6_reference(query_tiles, ops)
 
 
+def block_fold_fused(query_tiles: torch.Tensor, cand_tiles: torch.Tensor, index: TileIndex,
+                     payload_tiles: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's one-shot wrapper, `fold6_prepare` then
+    `block_fold_fused_pre`: (d2 (Tq*Sq,), payload rows (Tq*Sq, D)) from
+    payload tiles (T, S, D). The registration prepares once a phase and
+    folds once an iteration instead. The reference's `group` (its Pallas
+    screen's) has no counterpart: the kernel's is its compiled shape's
+    (`fold6_shape()`)."""
+    t, s, _ = index.tiles.shape
+    ops = fold6_prepare(cand_tiles, index, payload_tiles.reshape(t * s, -1))
+    return block_fold_fused_pre(query_tiles, ops)
+
+
 # ---- kernel #4: the bf16-scored frozen-candidate fold ---------------------------
 #
 # Contract (blocknn_pallas.py:694-855): fold6's outputs, but scored in bf16

@@ -1,7 +1,8 @@
 """Appearance-based place recognition for loop closure.
 
 Mirrors `icpx/odometry/placerec.py`: a Scan-Context-style polar
-descriptor, made with scatter-adds over one cloud or a batch of clouds:
+descriptor, made with fixed-order segment sums (`utils.segsum`: the same
+bits on every run) over one cloud or a batch of clouds:
 
   * ring features (radial annuli about the sensor): point density, mean
     height, height spread, max height; invariant to sensor yaw, so the
@@ -20,6 +21,7 @@ from typing import Optional, Tuple
 import torch
 
 from icpx_torch.cloud import PointCloud
+from icpx_torch.utils.segsum import segment_plan, segment_sum
 
 
 def place_descriptor(
@@ -62,9 +64,11 @@ def place_descriptor(
     w = mask.to(torch.float32)
     zm = torch.where(mask, z, 0.0)
     z_or_ninf = torch.where(mask, z, float("-inf"))
-    cnt = torch.zeros((b, n_rings), **f32).scatter_add_(1, ring, w)
-    sz = torch.zeros((b, n_rings), **f32).scatter_add_(1, ring, zm)
-    szz = torch.zeros((b, n_rings), **f32).scatter_add_(1, ring, zm * zm)
+    # a ring's sums over its points in point order (the reference's
+    # `.at[ring].add`), one destination a (cloud, ring)
+    plan = segment_plan(ring + n_rings * torch.arange(b, device=dev)[:, None], b * n_rings)
+    sums = segment_sum(torch.stack([w, zm, zm * zm], -1).reshape(b * n, 3), plan)
+    cnt, sz, szz = sums.reshape(b, n_rings, 3).unbind(-1)
     zmax = torch.full((b, n_rings), float("-inf"), **f32).scatter_reduce_(
         1, ring, z_or_ninf, reduce="amax")
     safe = torch.clamp(cnt, min=1.0)

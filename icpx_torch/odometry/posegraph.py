@@ -18,7 +18,10 @@ relative-pose measurements:
   * `schur_condense` and `SlidingWindowBackend` marginalize old nodes.
 
 The reference's `lax.scan` over Gauss-Newton iterations is a loop here,
-and its PCG `while_loop` a loop of the same stop rule and cap.
+and its PCG `while_loop` a loop of the same stop rule and cap. Its
+scatter-adds (`.at[].add`) are `utils.segsum` sums, in the reference's
+order of adds and the same order on every run, so the card gives the same
+bits twice; each plan is built once a call.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from torch.func import jacrev, vmap
 
 from icpx_torch.geometry.se3 import SE3
 from icpx_torch.registration.step import identity_reduce
+from icpx_torch.utils.segsum import segment_plan, segment_sum
 
 
 @dataclass(frozen=True)
@@ -123,19 +127,24 @@ def _optimize_impl(
     ei, ej = graph.edge_i.long(), graph.edge_j.long()
     w = graph.edge_weight[:, None, None]
     eye6 = torch.eye(6, dtype=torch.float32, device=dev)
+    # the (i, j) blocks the edges touch, in the reference's order of adds
+    # (all ii, then ij, ji, jj), each block's sum over its edges in that order
+    keys, inv = torch.unique(torch.cat([ei * m + ei, ei * m + ej, ej * m + ei, ej * m + ej]),
+                             return_inverse=True)
+    h_plan = segment_plan(inv, keys.shape[0])
+    b_plan = segment_plan(torch.cat([ei, ej]), m)
     poses = graph.poses
     chi2s = []
     for _ in range(iters):
         r, Ji, Jj = _linearize_edges(graph, poses)
-        H = torch.zeros((m, m, 6, 6), dtype=torch.float32, device=dev)
-        H.index_put_((ei, ei), w * torch.einsum("eki,ekj->eij", Ji, Ji), accumulate=True)
-        H.index_put_((ei, ej), w * torch.einsum("eki,ekj->eij", Ji, Jj), accumulate=True)
-        H.index_put_((ej, ei), w * torch.einsum("eki,ekj->eij", Jj, Ji), accumulate=True)
-        H.index_put_((ej, ej), w * torch.einsum("eki,ekj->eij", Jj, Jj), accumulate=True)
-        b = torch.zeros((m, 6), dtype=torch.float32, device=dev)
+        blocks = torch.cat([torch.einsum("eki,ekj->eij", A, B)
+                            for A, B in ((Ji, Ji), (Ji, Jj), (Jj, Ji), (Jj, Jj))])
+        H = torch.zeros((m * m, 6, 6), dtype=torch.float32, device=dev)
+        H[keys] = segment_sum(torch.cat([w] * 4) * blocks, h_plan)
+        H = H.reshape(m, m, 6, 6)
         wr = graph.edge_weight[:, None] * r
-        b.index_add_(0, ei, torch.einsum("eki,ek->ei", Ji, wr))
-        b.index_add_(0, ej, torch.einsum("eki,ek->ei", Jj, wr))
+        b = segment_sum(torch.cat([torch.einsum("eki,ek->ei", Ji, wr),
+                                   torch.einsum("eki,ek->ei", Jj, wr)]), b_plan)
         # gauge: a strong prior pinning the anchor node at its current pose
         # (scaled so a psum across edge shards adds it exactly once)
         H[anchor, anchor] += anchor_scale * anchor_weight * eye6
@@ -315,6 +324,7 @@ def optimize_pose_graph_sparse(
     eye6 = torch.eye(6, dtype=torch.float32, device=dev)
     pn = prior.nodes.long() if prior is not None else None
     Hp_diag = _prior_diag(prior) if prior is not None else None
+    plan = segment_plan(torch.cat([ei, ej]), m)  # every edge sum, the matvec's too
     poses = graph.poses
     chi2s = []
     for _ in range(iters):
@@ -331,21 +341,19 @@ def optimize_pose_graph_sparse(
         Hjj = wc * torch.einsum("eki,ekj->eij", Jj, Jj)
         Hij = wc * torch.einsum("eki,ekj->eij", Ji, Jj)
 
-        Hdiag = torch.zeros((m, 6, 6), dtype=torch.float32, device=dev)
-        Hdiag.index_add_(0, ei, Hii)
-        Hdiag.index_add_(0, ej, Hjj)
+        Hdiag = segment_sum(torch.cat([Hii, Hjj]), plan)
         wr = w[:, None] * r
-        b = torch.zeros((m, 6), dtype=torch.float32, device=dev)
-        b.index_add_(0, ei, torch.einsum("eki,ek->ei", Ji, wr))
-        b.index_add_(0, ej, torch.einsum("eki,ek->ei", Jj, wr))
+        b = segment_sum(torch.cat([torch.einsum("eki,ek->ei", Ji, wr),
+                                   torch.einsum("eki,ek->ei", Jj, wr)]), plan)
         Hdiag[anchor] += anchor_weight * eye6
 
         if prior is not None:
+            # the prior's nodes are distinct: a plain add at each
             p = prior.n_nodes
             xi = (prior.lin.inverse() @ SE3(R=poses.R[pn], t=poses.t[pn])).log()
             grad_p = (prior.H @ xi.reshape(p * 6) + prior.b).reshape(p, 6)
-            b.index_add_(0, pn, grad_p)
-            Hdiag.index_add_(0, pn, Hp_diag)
+            b[pn] = b[pn] + grad_p
+            Hdiag[pn] = Hdiag[pn] + Hp_diag
 
         # Levenberg damping on the diagonal blocks
         dmask = eye6[None]
@@ -353,14 +361,14 @@ def optimize_pose_graph_sparse(
 
         def matvec(x, Hdiag_d=Hdiag_d, Hij=Hij):
             y = torch.einsum("mij,mj->mi", Hdiag_d, x)
-            y = y.index_add(0, ei, torch.einsum("eij,ej->ei", Hij, x[ej]))
-            y = y.index_add(0, ej, torch.einsum("eji,ej->ei", Hij, x[ei]))
+            y = y + segment_sum(torch.cat([torch.einsum("eij,ej->ei", Hij, x[ej]),
+                                           torch.einsum("eji,ej->ei", Hij, x[ei])]), plan)
             if prior is not None:
                 p = prior.n_nodes
                 yp = (prior.H @ x[pn].reshape(p * 6)).reshape(p, 6)
                 # the diagonal blocks are already in Hdiag: take them back out
                 yp = yp - torch.einsum("mij,mj->mi", Hp_diag, x[pn])
-                y = y.index_add(0, pn, yp)
+                y[pn] = y[pn] + yp
             return y
 
         step = _pcg(matvec, -b, torch.linalg.inv(Hdiag_d), cg_iters, cg_tol)

@@ -122,6 +122,7 @@ def _reduced_quantile(x: torch.Tensor, vmask: torch.Tensor, q: float, reduce: Ca
     for _ in range(2):
         width = torch.clamp(hi - lo, min=_EPS)
         idx = torch.clamp((xs - lo) / width * n_bins, 0.0, n_bins - 1).to(torch.int64)
+        # 0/1 counts: exact in any order of adds below 2^24 a bin
         h = reduce(torch.zeros((n_bins,), **f32).index_add_(0, idx, vf))
         csum = torch.cumsum(h, 0)
         b = torch.argmax((csum >= rank).to(torch.int32))  # the first bin reaching the rank

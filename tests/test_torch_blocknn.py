@@ -360,6 +360,13 @@ def _fold_case(seed=12):
     return jq, ji, table, np.asarray(cand)
 
 
+def _same_bits(got, want):
+    """(d2, payload) pairs equal bit for bit, NaN and inf included."""
+    for a, b in zip(got, want):
+        a, b = to_np(a), np.asarray(b)
+        assert a.shape == b.shape and np.array_equal(a.view(np.int32), b.view(np.int32))
+
+
 def test_fold6_plain_matches_pallas_interpret():
     jq, ji, table, cand = _fold_case()
     pl_tiles = jnp.asarray(table.reshape(ji.n_tiles, ji.tile_size, 6))
@@ -378,6 +385,10 @@ def test_fold6_plain_matches_pallas_interpret():
     assert sep[fin].mean() > 0.9
     np.testing.assert_array_equal(pl_t[sep], pl_j[sep])
     assert np.isfinite(pl_t).all()
+    # the port's one-shot wrapper is prepare + fold: the same bits
+    _same_bits(blocknn_cuda.block_fold_fused(torch.as_tensor(np.asarray(jq.tiles)),
+                                             torch.as_tensor(cand), ti,
+                                             torch.as_tensor(np.asarray(pl_tiles))), (d_t, pl_t))
 
 
 @pytest.mark.parametrize("cand", [[0, 1, 2, 3], [3, 2, 1, 0]])
@@ -397,6 +408,9 @@ def test_fold6_tie_rule_lane_then_candidate(cand):
                                  jnp.asarray(payload.reshape(4, 8, 6)), interpret=True)
     np.testing.assert_array_equal(to_np(pl_t), np.asarray(pl_j))
     np.testing.assert_array_equal(to_np(d_t), np.asarray(d_j))
+    _same_bits(blocknn_cuda.block_fold_fused(torch.as_tensor(query), torch.tensor([cand]), index,
+                                             torch.as_tensor(payload.reshape(4, 8, 6))),
+               (d_j, pl_j))
     _, pos = tb.block_nn(torch.as_tensor(query), index, return_pos=True,
                          cand_tiles=torch.tensor([cand]))
     assert int(pos[0]) == (3 if cand.index(0) < cand.index(1) else want0)
@@ -423,6 +437,9 @@ def test_fold6_all_sentinel_candidates_miss():
     np.testing.assert_array_equal(to_np(pl_t)[miss], np.asarray(pl_j)[miss])
     np.testing.assert_array_equal(to_np(pl_t)[miss][0], [PAD_COORD] * 3 + [0.0] * 3)
     assert np.isfinite(to_np(d_t)[:64]).all()
+    _same_bits(blocknn_cuda.block_fold_fused(
+        torch.as_tensor(query), torch.as_tensor(cand), ti,
+        torch.as_tensor(table.reshape(ji.n_tiles, ji.tile_size, 6))), (d_t, pl_t))
 
 
 # ---- the fold6 kernel's screen: emulation, margin, plan ------------------------------

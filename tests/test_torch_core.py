@@ -13,7 +13,7 @@ from icpx.geometry.se3 import SE3 as JSE3
 from icpx.geometry.transforms import make_rigid_perturbation as j_perturb
 from icpx_torch.cloud import PAD_COORD, PointCloud
 from icpx_torch.geometry.se3 import SE3
-from icpx_torch.geometry.transforms import make_rigid_perturbation, transform_cloud
+from icpx_torch.geometry.transforms import make_rigid_perturbation, perturb_cloud, transform_cloud
 from torch_parity import clouds, to_np, torch_se3
 
 ATOL = 1e-6
@@ -119,6 +119,60 @@ def test_make_rigid_perturbation_matches_jax():
         j, t = j_perturb(**kw), make_rigid_perturbation(**kw, device="cpu")
         np.testing.assert_allclose(to_np(t.R), np.asarray(j.R), atol=ATOL)
         np.testing.assert_allclose(to_np(t.t), np.asarray(j.t), atol=ATOL)
+
+
+def test_se3_from_matrix_and_from_rotvec_match_jax():
+    """The same numpy input to both packages: a batch of (4, 4) matrices,
+    rotation vectors (a zero one among them) with and without t."""
+    rng = np.random.default_rng(4)
+    m = np.asarray(JSE3.exp(jnp.asarray(_twists(rng))).matrix())
+    j, t = JSE3.from_matrix(jnp.asarray(m)), SE3.from_matrix(m, device="cpu")
+    np.testing.assert_allclose(to_np(t.R), np.asarray(j.R), atol=ATOL)
+    np.testing.assert_allclose(to_np(t.t), np.asarray(j.t), atol=ATOL)
+    assert t.R.dtype == torch.float32 and SE3.from_matrix(torch.as_tensor(m, dtype=torch.float64)).R.dtype == torch.float64
+    rv = rng.normal(size=(10, 3)).astype(np.float32)
+    rv[3] = 0.0
+    tr = rng.normal(size=(10, 3)).astype(np.float32)
+    for tt in (None, tr):
+        j = JSE3.from_rotvec(rv, None if tt is None else jnp.asarray(tt))
+        t = SE3.from_rotvec(rv, None if tt is None else torch.as_tensor(tt), device="cpu")
+        np.testing.assert_allclose(to_np(t.R), np.asarray(j.R), atol=ATOL)
+        np.testing.assert_allclose(to_np(t.t), np.asarray(j.t), atol=ATOL)
+
+
+def test_se3_random_and_perturb_cloud_bounds():
+    """The JAX key stream has no torch counterpart, so the draws are held
+    to their contract: over 256 draws the angles lie in [0, max_angle) and
+    the translations in [-max_trans, max_trans)^3 and spread across both;
+    a noiseless perturbed cloud is `transform_cloud(cloud, gt)` to 1e-6;
+    the noise's sigma is the one asked for; the same seed repeats."""
+    gen = torch.Generator().manual_seed(3)
+    T = SE3.random(gen, (256,), max_angle=0.3, max_trans=0.5)
+    angle = to_np(T.log()[:, :3].norm(dim=1))
+    tt = to_np(T.t)
+    assert T.R.shape == (256, 3, 3) and (angle < 0.3 + 1e-6).all() and angle.max() > 0.25
+    assert angle.min() < 0.05 and (np.abs(tt) <= 0.5).all() and tt.min() < -0.4 and tt.max() > 0.4
+    np.testing.assert_allclose(to_np(T.R @ T.R.transpose(1, 2)), np.broadcast_to(np.eye(3), (256, 3, 3)),
+                               atol=1e-6)
+    one = SE3.random(torch.Generator().manual_seed(3), max_angle=0.3, max_trans=0.5)
+    assert one.R.shape == (3, 3) and torch.equal(one.R, SE3.random(
+        torch.Generator().manual_seed(3), max_angle=0.3, max_trans=0.5).R)
+    xyz = np.random.default_rng(5).normal(size=(300, 3)).astype(np.float32)
+    cloud = PointCloud.create(xyz, capacity=384, device="cpu")
+    gen = torch.Generator().manual_seed(9)
+    resid = []
+    for k in range(256):
+        out, gt = perturb_cloud(cloud, gen, noise_sigma=0.0 if k % 2 else 0.01)
+        exact = transform_cloud(cloud, gt)
+        rot, trans = (float(x) for x in gt.distance_to(SE3.identity(device="cpu")))
+        assert rot < 0.3 + 1e-3 and float(gt.t.abs().max()) <= 0.5
+        assert torch.equal(out.xyz[300:], cloud.xyz[300:])  # pad rows keep their sentinel
+        if k % 2:
+            np.testing.assert_allclose(to_np(out.xyz), to_np(exact.xyz), atol=1e-6)
+        else:
+            resid.append(to_np(out.xyz[:300] - exact.xyz[:300]))
+    sigma = float(np.concatenate(resid).std())
+    assert abs(sigma - 0.01) < 2e-4, sigma
 
 
 _FORBIDDEN = re.compile(

@@ -14,7 +14,8 @@ kernels, whose counts are bit for bit and whose sums are held to
 tolerances stated at each test.
 
 The fixtures, the fixture lists and the copies of the kernels' shapes are
-`torch_fixtures.py`'s, which the CPU tests share.
+`torch_fixtures.py`'s, which the CPU tests share. The last tests run the
+pose-graph solvers and `place_descriptor` twice on the card: the same bits.
 """
 
 import numpy as np
@@ -730,3 +731,65 @@ def test_cuda_sharded_pose_graph_matches_cpu(cuda_device, nccl_mesh):
     scale = max(1.0, float(dense.t.abs().max()))
     assert float((poses.t.cpu() - dense.t).abs().max()) < 1e-5 * scale
     assert float(chi2[-1]) < float(chi2[0]) * 1e-2
+
+
+# ---- the same bits twice: fixed-order sums on the card ----------------------------------
+
+
+@pytest.mark.cuda
+def test_cuda_segment_sum_equals_the_cpu_bit_for_bit(cuda_device):
+    """The fixed-order segment sum adds with elementwise IEEE adds in one
+    order: the card's bits are the CPU's (a hub of degree 300, runs of
+    RUN, duplicate destinations)."""
+    from icpx_torch.utils.segsum import segment_plan, segment_sum
+
+    rng = np.random.default_rng(21)
+    index = torch.as_tensor(np.concatenate([np.zeros(300, np.int64), rng.integers(1, 40, 2000)]))
+    values = torch.as_tensor((rng.normal(size=(2300, 6, 6)) * np.exp(rng.uniform(-6, 6, (2300, 1, 1))))
+                             .astype(np.float32))
+    cpu = segment_sum(values, segment_plan(index, 41))
+    card = segment_sum(values.to(cuda_device), segment_plan(index.to(cuda_device), 41))
+    assert torch.equal(card.cpu().view(torch.int32), cpu.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["dense", "pcg"])
+def test_cuda_pose_graph_repeats_bit_for_bit(cuda_device, solver):
+    """Both pose-graph solvers at 1,000 keyframes (chip_smoke's chain with
+    its loop edges), run twice on the card: the same bits."""
+    from icpx_torch.odometry.posegraph import optimize_pose_graph, optimize_pose_graph_sparse
+
+    graph, _ = chip_smoke._pose_chain(1000, cuda_device)
+    solve = optimize_pose_graph if solver == "dense" else optimize_pose_graph_sparse
+    runs = [solve(graph, iters=8) for _ in range(2)]
+    chip_smoke._check_repeats(f"{solver} pose graph", runs)
+    assert runs[0][0].t.is_cuda and float(runs[0][1][-1]) < float(runs[0][1][0]) * 1e-2
+
+
+@pytest.mark.cuda
+def test_cuda_place_descriptor_repeats_bit_for_bit(cuda_device):
+    """`place_descriptor` on a batch of four 65,536-point scans (bench.py
+    --odometry's sequence), twice on the card: the same bits; and each
+    scan's descriptor within 1e-5 of the CPU's."""
+    from icpx_torch.odometry.placerec import place_descriptor
+
+    scans, _ = chip_smoke._odo_sequence(65536, 4, cuda_device)
+    xyz, mask = torch.stack([f.xyz for f in scans]), torch.stack([f.mask for f in scans])
+    runs = [place_descriptor(xyz, mask) for _ in range(2)]
+    chip_smoke._check_repeats("place_descriptor", runs)
+    cpu = place_descriptor(xyz.cpu(), mask.cpu())
+    for a, b in zip(runs[0], cpu):
+        assert float((a.cpu() - b).abs().max()) < 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_block_fold_fused_one_shot_launches_fold6(cuda_device):
+    """The one-shot `block_fold_fused` (prepare + fold) launches the fold6
+    kernel once and equals the plain version bit for bit."""
+    tq, ti, table, cand = _fold_case(31, cuda_device)
+    before = blocknn_cuda.LAUNCHES["fold6"]
+    d, pl = blocknn_cuda.block_fold_fused(tq.tiles, cand, ti, table.reshape(ti.tiles.shape[0],
+                                                                            ti.tiles.shape[1], -1))
+    assert blocknn_cuda.LAUNCHES["fold6"] == before + 1
+    d_p, pl_p = fold6_reference(tq.tiles, fold6_prepare(cand, ti, table))
+    assert torch.equal(d.view(torch.int32), d_p.view(torch.int32)) and torch.equal(pl, pl_p)

@@ -79,9 +79,23 @@ def test_pose_graph_from_edge_list_matches_interop():
     assert mine.n_edges == 6
 
 
-@pytest.mark.parametrize("case", ["loop", "weighted bad edge", "consistent"])
+def _hub_edges(m, seed):
+    """A chain over m nodes, every node tied to node 0 and a few edges
+    given twice (the sums' duplicate destinations): (init, edges)."""
+    init, edges, gt = _chain(m, seed, noise=0.05, loop=False)
+    pose = lambda k: JSE3(R=gt.R[k], t=gt.t[k])  # noqa: E731
+    edges += [(0, k, pose(0).inverse() @ pose(k)) for k in range(2, m)]
+    edges += [edges[3], edges[3], edges[m + 1]]
+    return init, edges
+
+
+@pytest.mark.parametrize("case", ["loop", "weighted bad edge", "consistent",
+                                  "hub and duplicate edges"])
 def test_dense_matches_jax(case):
-    if case == "loop":
+    if case == "hub and duplicate edges":
+        init, edges = _hub_edges(10, 11)
+        weights, iters = None, 6
+    elif case == "loop":
         init, edges, _ = _chain(12, 1)
         weights, iters = None, 10
     elif case == "weighted bad edge":
@@ -107,6 +121,14 @@ def test_sparse_matches_jax(robust, delta):
     jg, tg = _graphs(init, edges)
     jp, jchi = jpg.optimize_pose_graph_sparse(jg, iters=8, robust=robust, robust_delta=delta)
     tp_, tchi = tpg.optimize_pose_graph_sparse(tg, iters=8, robust=robust, robust_delta=delta)
+    _close(jp, tp_, jchi, tchi)
+
+
+def test_sparse_with_hub_and_duplicate_edges_matches_jax():
+    init, edges = _hub_edges(10, 11)
+    jg, tg = _graphs(init, edges)
+    jp, jchi = jpg.optimize_pose_graph_sparse(jg, iters=6, robust="huber")
+    tp_, tchi = tpg.optimize_pose_graph_sparse(tg, iters=6, robust="huber")
     _close(jp, tp_, jchi, tchi)
 
 

@@ -204,7 +204,8 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
     mid = {f"{k}_sq{q}" for k in ("ms", "device_ms", "plain_ms", "bound_ms") for q in (32, 16)}
     extras = {"nn": {"ms_3456", "plain_ms_3456", "library_ms_3456", "bound_ms_3456", "splits",
                      "splits_3456", "device_ms", "device_ms_3456", "library_device_ms_3456",
-                     "launches_odometry", "launches_distributed"},
+                     "launches_odometry", "launches_distributed", "ms_lidar", "plain_ms_lidar",
+                     "bound_ms_lidar", "device_ms_lidar", "splits_lidar", "valid_refs_lidar"},
               "moments6": {"cov_max_abs_err", "cov_err_over_tol", "device_ms", "bytes_ms", "band_pairs",
                            "screened_pairs", "mean_count", "ms_k8", "device_ms_k8", "plain_ms_k8",
                            "bound_ms_k8", "bytes_ms_k8", "band_pairs_k8", "screened_pairs_k8",
@@ -255,8 +256,12 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
         assert all(k[f"{f}_sq{q}"] > 0 for f in ("device_ms", "bound_ms") for q in (32, 16))
     assert mom["library_ms"] is None and fold["library_ms"] is None
     assert "Fake GPU, 700.00 W" in lines
+    assert 0 < nn["valid_refs_lidar"] <= 8192 and nn["bound_ms_lidar"] > 0
     prefixes = ["cat: ", "65k pair: ", "nn kernel vs plain 3456x3456 (56 pad rows): d2 and index "
-                "bit-equal", "nn kernel vs plain 300x700 (all masked)", "moments6 kernel vs plain", "fold6 kernel vs plain",
+                "bit-equal", "nn kernel vs plain 300x700 (all masked)",
+                "nn kernel vs plain 8192x8192 LiDAR scans: d2 and index bit-equal",
+                "flagship 8192 against the JAX package: not held",
+                "moments6 kernel vs plain", "fold6 kernel vs plain",
                 "fold7 kernel vs plain", "select kernel vs plain", "fused4 kernel vs plain",
                 "KD index (64, 128, 3): equal", "KD index (128, 64, 3): equal",
                 "sort kernel vs plain: bit-equal", "moments_fused kernel vs plain",
@@ -315,10 +320,48 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
     assert nn["launches_distributed"] >= 2 * 4 + 3 * 4 + 48 and sort["launches_distributed"] >= 3 * 9
     # n_slam at the reference test's 2,048 points: the loop runs once, at its gate
     slam = [line for line in lines if line.startswith("slam 2048 x 30 (two laps): ")]
-    assert len(slam) == 1 and slam[0].endswith("(gate 0.7 x)")
+    assert len(slam) == 1 and slam[0].endswith("(gate 0.7 x)") and "found again bit for bit" in slam[0]
+    assert any(line.startswith("distributed (h) ") and "bit-equal to optimize_pose_graph" in line
+               for line in lines)
     for kernel in ("fold6", "fold7", "select"):  # the mid phase's shapes on each kernel's line
         assert any(line.startswith(f"{kernel} kernel vs plain") and "the mid phase's shapes" in line
                    for line in lines), kernel
+
+
+def test_repeat_check_names_the_first_differing_leaf():
+    """`_sync_time`'s repeat check: results equal bit for bit pass (NaN
+    pads included); a run that differs in one bit of one leaf, or in a
+    number, fails naming the path, the run and the leaf."""
+    from icpx_torch.geometry.se3 import SE3
+
+    def result(t_bits=0, rmse=0.5):
+        t = torch.tensor([1.0, float("nan"), -0.0])
+        t.view(torch.int32)[0] += t_bits
+        return {"pose": SE3(R=torch.eye(3), t=t), "iters": 4,
+                "rmse": [rmse, float("nan")], "flags": (torch.tensor([True, False]), None)}
+
+    chip_smoke._check_repeats("same", [result(), result(), result()])
+    with pytest.raises(RuntimeError, match=r"path A: run 2 differs from run 0 at leaf "
+                                           r"`\['pose'\]\.t`: 1 of 3 elements differ"):
+        chip_smoke._check_repeats("path A", [result(), result(), result(t_bits=1)])
+    with pytest.raises(RuntimeError, match=r"run 1 differs from run 0 at leaf `\['rmse'\]\[0\]`"):
+        chip_smoke._check_repeats("path B", [result(), result(rmse=0.5000001)])
+    zero = result()
+    zero["pose"].t[2] = 0.0  # +0.0 against -0.0: other bits
+    with pytest.raises(RuntimeError, match="path C"):
+        chip_smoke._check_repeats("path C", [result(), zero])
+
+
+def test_sync_time_holds_every_run(monkeypatch):
+    """`_sync_time` returns the last output when every run (the warm-up's
+    too) repeats, and fails naming its caller when one does not."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    wall, out = chip_smoke._sync_time(lambda: torch.ones(3), reps=3)
+    assert wall >= 0 and torch.equal(out, torch.ones(3))
+    counter = iter(range(10))
+    with pytest.raises(RuntimeError, match=r"test_sync_time_holds_every_run \(test_torch_smoke\.py:"
+                                           r"\d+\): run 1 differs from run 0"):
+        chip_smoke._sync_time(lambda: torch.full((3,), float(next(counter))), reps=3)
 
 
 @pytest.mark.parametrize("where", ("key", "xyz", "orig"))
