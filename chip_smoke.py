@@ -1345,17 +1345,17 @@ def _kd_equal(label, xyz, mask, s):
     """Build the KD index of (xyz, mask) at tiles of s through the sort
     kernel, once a level, and fail unless it equals the plain build bit for
     bit: (the build, its index, the level shapes)."""
-    from icpx_torch.kernels import sort_cuda
     from icpx_torch.kernels.blocknn import build_kd_index
+    from icpx_torch.utils.profiling import LAUNCHES
 
     def build():
         return build_kd_index(xyz, mask, tile_size=s)
 
-    before = sort_cuda.LAUNCHES["sort"]
+    before = LAUNCHES["sort"]
     got, shapes = _level_shapes(build)
-    if sort_cuda.LAUNCHES["sort"] - before != len(shapes):
+    if LAUNCHES["sort"] - before != len(shapes):
         _fail(f"{label} (tiles of {s}): {len(shapes)} level sorts but "
-              f"{sort_cuda.LAUNCHES['sort'] - before} kernel launches")
+              f"{LAUNCHES['sort'] - before} kernel launches")
     want = _plain_build(build)
     torch.cuda.synchronize()
     for f in ("tiles", "order", "box_lo", "box_hi", "centroids"):
@@ -3400,16 +3400,14 @@ def _sample_clocks(when: str) -> None:
 
 def _counted(fn):
     """Run fn with every launch counter at 0; (result, {kernel: launches})."""
-    from icpx_torch.kernels import blocknn_cuda, nn_cuda, sort_cuda
+    from icpx_torch.utils.profiling import LAUNCHES
 
-    nn_cuda.LAUNCHES = 0
-    for name in blocknn_cuda.LAUNCHES:
-        blocknn_cuda.LAUNCHES[name] = 0
-    sort_cuda.LAUNCHES["sort"] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
     out = fn()
     if torch.cuda.is_available():  # the spawned ranks of a CPU rehearsal have none
         torch.cuda.synchronize()
-    return out, dict(nn=nn_cuda.LAUNCHES, **blocknn_cuda.LAUNCHES, **sort_cuda.LAUNCHES)
+    return out, dict(LAUNCHES)
 
 
 def _refine_iters(res) -> int:

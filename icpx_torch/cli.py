@@ -12,9 +12,14 @@ that parses one CLI's output parses the other's:
   info      - cloud stats
   bench     - not yet: the port has no benchmark harness
 
-One option is the port's own: ``--device`` (default ``cuda``), the CLI form
-of the entry points' ``device=``; ``--device cpu`` runs on the CPU. Run it
-as ``python -m icpx_torch.cli`` or, installed, ``icpx-torch``.
+Two options are the port's own: ``--device`` (default ``cuda``), the CLI
+form of the entry points' ``device=``, where ``--device cpu`` runs on the
+CPU; and ``--profile DIR`` on ``register`` and ``odometry``, which writes a
+``torch.profiler`` trace of the command to DIR (`trace_context` of
+`utils.profiling`): the program's ``icpx.*`` spans (entry points, stages,
+ICP iterations, host fetches, odometry frames) beside the card's kernels,
+for TensorBoard or Perfetto. Run it as ``python -m icpx_torch.cli`` or,
+installed, ``icpx-torch``.
 """
 
 from __future__ import annotations
@@ -450,6 +455,13 @@ def _device(name: str):
     return dev
 
 
+def _add_profile_flag(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of the command to DIR "
+                        "(the program's icpx.* spans beside the card's "
+                        "kernels; TensorBoard or Perfetto)")
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="icpx-torch",
@@ -465,6 +477,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--out", default=None, help="save aligned source cloud")
     p.add_argument("--render", default=None, help="save PNG snapshot (needs matplotlib)")
     p.add_argument("--metrics", default=None, help="JSONL metrics path")
+    _add_profile_flag(p)
     _add_icp_flags(p)
     p.set_defaults(fn=cmd_register)
 
@@ -558,6 +571,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", default=None,
                    help="continue from a --checkpoint file (host path)")
     p.add_argument("--render", default=None, help="save PNG trajectory (needs matplotlib)")
+    _add_profile_flag(p)
     p.set_defaults(fn=cmd_odometry)
 
     p = sub.add_parser("info", help="cloud stats")
@@ -582,6 +596,11 @@ def main(argv=None) -> int:
     if args.command == "odometry" and not args.synthetic and not args.velodyne_dir:
         ap.error("odometry needs --velodyne-dir or --synthetic")
     args.device = _device(args.device)
+    if getattr(args, "profile", None):
+        from icpx_torch.utils.profiling import trace_context
+
+        with trace_context(args.profile):
+            return args.fn(args)
     return args.fn(args)
 
 

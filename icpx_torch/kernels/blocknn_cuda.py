@@ -50,7 +50,8 @@ d2 by ~1e-7 |q|^2: radius-border counts and near-tie winners may differ
 from the JAX package on a few rows.
 
 On a CUDA tensor each wrapper launches its kernel (or raises); on a CPU
-tensor it runs the plain version. `LAUNCHES[name]` counts kernel launches.
+tensor it runs the plain version. Each wrapper adds one to its kernel's key of
+`profiling.LAUNCHES` where it launches, and nowhere else.
 """
 
 from __future__ import annotations
@@ -64,11 +65,7 @@ import torch
 
 from icpx_torch.kernels import cuda_build
 from icpx_torch.kernels.blocknn import _VALID_ABS, TileIndex, _candidate_tiles, _query_boxes
-
-# Kernel launches in this process, by kernel: each wrapper adds one where it
-# launches and nowhere else, so a caller can show that a run went through the
-# kernels (reset to 0, run, read).
-LAUNCHES = {"moments6": 0, "fold6": 0, "fold7": 0, "select": 0, "fused4": 0, "moments_fused": 0}
+from icpx_torch.utils import profiling
 
 _MISS_D2 = 1.0e15  # a fold d2 at or beyond this is a miss
 # Query tiles (fused4: groups) per step of the plain versions: bounds their
@@ -272,7 +269,7 @@ def moments6_cuda(query_tiles, tiles, cand, q_cent, r2) -> torch.Tensor:
         out.data_ptr(), dev.index, stream,
     )
     cuda_build.check(lib, rc, "moments6 kernel")
-    LAUNCHES["moments6"] += 1
+    profiling.LAUNCHES["moments6"] += 1
     return out
 
 
@@ -428,7 +425,7 @@ def fold6_cuda(query_tiles: torch.Tensor, ops: Fold6Operands) -> Tuple[torch.Ten
         plan["lanes_per_stage"], d.data_ptr(), pl.data_ptr(), dev.index, stream,
     )
     cuda_build.check(lib, rc, "fold6 kernel")
-    LAUNCHES["fold6"] += 1
+    profiling.LAUNCHES["fold6"] += 1
     return d, pl
 
 
@@ -590,7 +587,7 @@ def fold7_cuda(query_tiles: torch.Tensor, ops: Fold7Operands) -> Tuple[torch.Ten
         plan["lanes_per_stage"], d.data_ptr(), pl.data_ptr(), dev.index, stream,
     )
     cuda_build.check(lib, rc, "fold7 kernel")
-    LAUNCHES["fold7"] += 1
+    profiling.LAUNCHES["fold7"] += 1
     return d, pl
 
 
@@ -684,7 +681,7 @@ def select_cuda(pos: torch.Tensor, cand: torch.Tensor, payload_table: torch.Tens
         torch.cuda.current_stream(dev).cuda_stream,
     )
     cuda_build.check(lib, rc, "select kernel")
-    LAUNCHES["select"] += 1
+    profiling.LAUNCHES["select"] += 1
     return out
 
 
@@ -805,7 +802,7 @@ def fused4_cuda(query_tiles: torch.Tensor, tiles: torch.Tensor, unions: torch.Te
         d.data_ptr(), pos.data_ptr(), dev.index, stream,
     )
     cuda_build.check(lib, rc, "fused4 kernel")
-    LAUNCHES["fused4"] += 1
+    profiling.LAUNCHES["fused4"] += 1
     return d, pos
 
 
@@ -943,7 +940,7 @@ def moments_fused_cuda(query_tiles: torch.Tensor, tiles: torch.Tensor, unions: t
         r2.data_ptr(), g, group * sq, s, u_max, out.data_ptr(), dev.index, stream,
     )
     cuda_build.check(lib, rc, "moments_fused kernel")
-    LAUNCHES["moments_fused"] += 1
+    profiling.LAUNCHES["moments_fused"] += 1
     return out
 
 

@@ -28,12 +28,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from icpx_torch.kernels import cuda_build
-
-# Calls of `nn_cuda` in this process: it adds one per call and nothing else
-# touches it, so a caller can show that a run went through the kernel (reset
-# it to 0, run, read it). One call launches two kernels (pack, search) and
-# counts once.
-LAUNCHES = 0
+from icpx_torch.utils import profiling
 
 
 class KernelShape(NamedTuple):
@@ -155,8 +150,8 @@ def nn_cuda(
     query: torch.Tensor, ref: torch.Tensor, ref_mask: Optional[torch.Tensor] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run the CUDA 1-NN kernels (pack, search) on PyTorch's current stream;
-    counts one call in `LAUNCHES`."""
-    global LAUNCHES
+    counts one call in `profiling.LAUNCHES["nn"]` (one call launches two
+    kernels, pack and search, and counts once)."""
     if not query.is_cuda:
         raise ValueError("nn_cuda needs CUDA tensors")
     _check_points("query", query, query.device)
@@ -181,7 +176,7 @@ def nn_cuda(
         d.data_ptr(), idx.data_ptr(), dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
     cuda_build.check(lib, rc, "nn kernel")
-    LAUNCHES += 1
+    profiling.LAUNCHES["nn"] += 1
     return d, idx
 
 

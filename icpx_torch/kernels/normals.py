@@ -29,6 +29,7 @@ from icpx_torch.kernels.blocknn_cuda import block_radius_moments_fused, use_fuse
 from icpx_torch.kernels.eigh3 import eigh3x3, smallest_eigenvector_3x3
 from icpx_torch.kernels.knn import knn
 from icpx_torch.kernels.voxel import auto_cell_size
+from icpx_torch.utils import profiling
 
 BLOCK_THRESHOLD = 32768
 # Reference-tile width of the neighbourhood kNN. Results do not depend on
@@ -135,10 +136,11 @@ def estimate_normals(
     method: str = "auto",
 ) -> PointCloud:
     """The cloud with PCA normals attached (k=10 default)."""
-    normals, _ = estimate_normals_xyz(
-        cloud.xyz, cloud.mask, k=k, viewpoint=viewpoint, method=method
-    )
-    return cloud.replace(normals=normals)
+    with profiling.span("icpx.normals"):
+        normals, _ = estimate_normals_xyz(
+            cloud.xyz, cloud.mask, k=k, viewpoint=viewpoint, method=method
+        )
+        return cloud.replace(normals=normals)
 
 
 def _covariances_xyz(xyz: torch.Tensor, mask: torch.Tensor, *, k: int, epsilon: float,
@@ -176,8 +178,10 @@ def estimate_covariances(
     (Segal et al. 2009: eigenvalues replaced by (epsilon, 1, 1), a
     plane-to-plane information model per point); it also fills normals
     (the smallest-eigenvalue directions, unoriented) where there are none."""
-    covs, normal = _covariances_xyz(cloud.xyz, cloud.mask, k=k, epsilon=epsilon, method=method)
-    out = cloud.replace(covs=covs)
-    if out.normals is None:
-        out = out.replace(normals=torch.where(cloud.mask[:, None], normal, 0.0))
-    return out
+    with profiling.span("icpx.covariances"):
+        covs, normal = _covariances_xyz(cloud.xyz, cloud.mask, k=k, epsilon=epsilon,
+                                        method=method)
+        out = cloud.replace(covs=covs)
+        if out.normals is None:
+            out = out.replace(normals=torch.where(cloud.mask[:, None], normal, 0.0))
+        return out

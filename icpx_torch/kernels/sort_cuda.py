@@ -12,7 +12,8 @@ its plain PyTorch version with the same contract:
   bits. PAD_COORD keys sink to each segment's tail in their original order.
 
 `sort_segments` launches the kernel on a CUDA tensor (or raises) and runs the
-plain version on a CPU tensor. `LAUNCHES["sort"]` counts kernel launches.
+plain version on a CPU tensor; it adds one to `profiling.LAUNCHES["sort"]`
+where it launches the kernel (one call sorts every segment).
 `plan` says how a call runs (whole segments in a block, a segment a
 cluster pair of blocks, or the chunked path) from the kernel's shape, which
 `kernel_shape` reads from the built library.
@@ -28,10 +29,7 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from icpx_torch.kernels import cuda_build
-
-# Kernel launches in this process: `sort_segments` adds one where it launches
-# the kernel (one call sorts every segment), and nowhere else.
-LAUNCHES = {"sort": 0}
+from icpx_torch.utils import profiling
 
 _WORD_TYPES = (torch.float32, torch.int32)
 
@@ -169,7 +167,7 @@ def sort_cuda(key: torch.Tensor, payloads: Sequence[torch.Tensor]) -> Tuple[torc
         torch.cuda.current_stream(dev).cuda_stream,
     )
     cuda_build.check(lib, rc, "sort kernel")
-    LAUNCHES["sort"] += 1
+    profiling.LAUNCHES["sort"] += 1
     return (out_key, *outs)
 
 

@@ -26,6 +26,7 @@ import torch
 
 from icpx_torch.cloud import PAD_COORD
 from icpx_torch.kernels.knn import knn
+from icpx_torch.utils import profiling
 
 # Large primes for the 3D spatial hash (Teschner et al. 2003).
 _P1, _P2, _P3 = 73856093, 19349663, 83492791
@@ -130,11 +131,12 @@ def voxel_nn(query: torch.Tensor, grid: VoxelGrid) -> Tuple[torch.Tensor, torch.
 def _nanmedian_valid(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """Median of x over valid entries, the mean of the two middle values
     for an even count (as `jnp.nanmedian`; `torch.nanmedian` returns the
-    lower one); NaN when nothing is valid. No host sync."""
+    lower one); NaN when nothing is valid. The two middle ranks are read on
+    the host (`profiling.fetch_int`), as indexing by a 0-d tensor reads it."""
     vals = torch.sort(torch.where(valid, x, float("inf"))).values
     cnt = valid.sum()
-    lo = vals[torch.clamp((cnt - 1) // 2, min=0)]
-    hi = vals[torch.clamp(cnt // 2, max=x.shape[0] - 1)]
+    lo = vals[profiling.fetch_int(torch.clamp((cnt - 1) // 2, min=0))]
+    hi = vals[profiling.fetch_int(torch.clamp(cnt // 2, max=x.shape[0] - 1))]
     med = 0.5 * lo + 0.5 * hi
     return torch.where(cnt > 0, med, float("nan"))
 

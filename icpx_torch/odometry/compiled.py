@@ -9,10 +9,12 @@ frames on the scans' device:
   * each frame registers against the current keyframe with the
     constant-velocity initial guess; the motion gate, the pose, the
     velocity model and the keyframe decision are tensor selects;
-  * the keyframe decision is fetched to the host once a frame (on top of
-    `_icp_scan`'s one fetch an iteration): on a spawn the keyframe state
-    is replaced and, on the block path, the keyframe's tile index, payload
-    table and centroid are rebuilt, as the reference's `lax.cond` does.
+  * the keyframe decision is fetched to the host once a frame
+    (`profiling.fetch`, on top of `_icp_scan`'s one fetch an iteration):
+    on a spawn the keyframe state is replaced and, on the block path, the
+    keyframe's tile index, payload table and centroid are rebuilt, as the
+    reference's `lax.cond` does;
+  * each frame is an `icpx.frame` span in a profiler's trace.
 
 NN against the keyframe follows `ICPConfig.nn_method` ("auto"): below
 `block_auto_threshold` points the brute search (`nearest_neighbor`: the
@@ -42,6 +44,7 @@ from icpx_torch.kernels.blocknn import (
 from icpx_torch.kernels.knn import nearest_neighbor
 from icpx_torch.odometry.frontend import blend_velocity
 from icpx_torch.registration.icp import ICPConfig, _icp_scan, gicp_cov_rot
+from icpx_torch.utils import profiling
 
 
 def resolve_odo_freeze(n_pts: int, freeze: Optional[bool] = None) -> bool:
@@ -167,8 +170,9 @@ def run_odometry_compiled(
         payload table in sorted order."""
         center = _masked_center(fx, fm)
         fx_c = torch.where(fm[:, None], fx - center[None, :], fx)
-        t_idx = trim_index(builder(fx_c, fm, tile_size=config.block_tile), n_pts,
-                           multiple=_SUPER_G)
+        with profiling.span("icpx.index"):
+            t_idx = trim_index(builder(fx_c, fm, tile_size=config.block_tile), n_pts,
+                               multiple=_SUPER_G)
         return t_idx, fused_payload_table(t_idx, fn), center
 
     def brute_register(fx_c, fm, fn, kf_c, kf_mask, kf_n, init_c):
@@ -183,7 +187,8 @@ def run_odometry_compiled(
         """One frame-to-keyframe registration through the tile indexes,
         both clouds in keyframe-centroid coordinates: the single-pair block
         path without its coarse phase."""
-        s_idx = trim_index(builder(fx_c, fm, tile_size=q_tile), n_pts)
+        with profiling.span("icpx.index"):
+            s_idx = trim_index(builder(fx_c, fm, tile_size=q_tile), n_pts)
         order = s_idx.order.long()
         valid = order >= 0
         safe = torch.clamp(order, min=0)
@@ -240,55 +245,56 @@ def run_odometry_compiled(
 
     poses, spawns, rmses, srcs, rels, iters = [eye], [True], [], [0], [eye], [0]
     for k in range(1, f):
-        fx, fm, fn = frames_xyz[k], frames_mask[k], frames_normals[k]
-        init = prev_rel @ velocity
-        # solve in keyframe-centroid coordinates (the conjugation register()
-        # applies); on the block path the centroid comes with the spawn cache
-        center = kf_cache[2] if use_block else _masked_center(kf_xyz, kf_mask)
-        shift, unshift = SE3(R=eye3, t=-center), SE3(R=eye3, t=center)
-        fx_c = torch.where(fm[:, None], fx - center[None, :], fx)
-        init_c = shift @ init @ unshift
-        if use_block:
-            res = block_register(fx_c, fm, fn, kf_cache[0], kf_cache[1], init_c)
-        else:
-            kf_c = torch.where(kf_mask[:, None], kf_xyz - center[None, :], kf_xyz)
-            res = brute_register(fx_c, fm, fn, kf_c, kf_mask, kf_n, init_c)
-        rel = unshift @ res.transform @ shift
-
-        # the motion gate: warm model, at most 2 rejections in a row
-        corr = init.inverse() @ rel
-        corr_t = torch.linalg.vector_norm(corr.t)
-        corr_r = corr.rotation_angle()
-        finite = torch.isfinite(corr_t) & torch.isfinite(rel.t).all()
-        gate_on = model_warm & (rejects < 2) & (max_correction_trans > 0)
-        rejected = (~finite) | (gate_on & ((corr_t > max_correction_trans)
-                                           | (corr_r > max_correction_rot)))
-        rel = _select(rejected, init, rel)
-        pose = kf_pose @ rel
-        rmse = torch.where(rejected, torch.full_like(res.final_rmse, float("inf")),
-                           res.final_rmse)
-        velocity = blend_velocity(velocity, prev_rel.inverse() @ rel, damping=velocity_damping,
-                                  adaptive=adaptive_velocity, innovation_scale=innovation_scale,
-                                  damping_min=velocity_damping_min)
-        model_warm = model_warm | ~rejected
-        rejects = torch.where(rejected, rejects + 1, torch.zeros_like(rejects))
-        spawn_t = (~rejected) & ((torch.linalg.vector_norm(rel.t) > keyframe_trans)
-                                 | (rel.rotation_angle() > keyframe_rot))
-        spawn = bool(spawn_t)  # the frame's one fetch besides the ICP loop's
-
-        poses.append(pose)
-        spawns.append(spawn)
-        rmses.append(rmse)
-        srcs.append(kf_idx)
-        rels.append(rel)
-        iters.append(res.iters)
-        if spawn:
-            kf_xyz, kf_mask, kf_n = fx, fm, fn
-            kf_pose, kf_idx, prev_rel = pose, k, eye
+        with profiling.span("icpx.frame"):
+            fx, fm, fn = frames_xyz[k], frames_mask[k], frames_normals[k]
+            init = prev_rel @ velocity
+            # solve in keyframe-centroid coordinates (the conjugation register()
+            # applies); on the block path the centroid comes with the spawn cache
+            center = kf_cache[2] if use_block else _masked_center(kf_xyz, kf_mask)
+            shift, unshift = SE3(R=eye3, t=-center), SE3(R=eye3, t=center)
+            fx_c = torch.where(fm[:, None], fx - center[None, :], fx)
+            init_c = shift @ init @ unshift
             if use_block:
-                kf_cache = build_target(fx, fm, fn)
-        else:
-            prev_rel = rel
+                res = block_register(fx_c, fm, fn, kf_cache[0], kf_cache[1], init_c)
+            else:
+                kf_c = torch.where(kf_mask[:, None], kf_xyz - center[None, :], kf_xyz)
+                res = brute_register(fx_c, fm, fn, kf_c, kf_mask, kf_n, init_c)
+            rel = unshift @ res.transform @ shift
+
+            # the motion gate: warm model, at most 2 rejections in a row
+            corr = init.inverse() @ rel
+            corr_t = torch.linalg.vector_norm(corr.t)
+            corr_r = corr.rotation_angle()
+            finite = torch.isfinite(corr_t) & torch.isfinite(rel.t).all()
+            gate_on = model_warm & (rejects < 2) & (max_correction_trans > 0)
+            rejected = (~finite) | (gate_on & ((corr_t > max_correction_trans)
+                                               | (corr_r > max_correction_rot)))
+            rel = _select(rejected, init, rel)
+            pose = kf_pose @ rel
+            rmse = torch.where(rejected, torch.full_like(res.final_rmse, float("inf")),
+                               res.final_rmse)
+            velocity = blend_velocity(velocity, prev_rel.inverse() @ rel, damping=velocity_damping,
+                                      adaptive=adaptive_velocity, innovation_scale=innovation_scale,
+                                      damping_min=velocity_damping_min)
+            model_warm = model_warm | ~rejected
+            rejects = torch.where(rejected, rejects + 1, torch.zeros_like(rejects))
+            spawn_t = (~rejected) & ((torch.linalg.vector_norm(rel.t) > keyframe_trans)
+                                     | (rel.rotation_angle() > keyframe_rot))
+            spawn = profiling.fetch(spawn_t)  # the frame's one fetch besides the loop's
+
+            poses.append(pose)
+            spawns.append(spawn)
+            rmses.append(rmse)
+            srcs.append(kf_idx)
+            rels.append(rel)
+            iters.append(res.iters)
+            if spawn:
+                kf_xyz, kf_mask, kf_n = fx, fm, fn
+                kf_pose, kf_idx, prev_rel = pose, k, eye
+                if use_block:
+                    kf_cache = build_target(fx, fm, fn)
+            else:
+                prev_rel = rel
 
     def stack(ts):
         return SE3(R=torch.stack([t.R for t in ts]), t=torch.stack([t.t for t in ts]))

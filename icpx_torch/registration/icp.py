@@ -11,12 +11,20 @@ refine phase, with the optional feature-augmented metric), for every
 objective of the reference: symmetric, point-to-plane, point-to-point and
 GICP (whose per-point auxiliary channel is the flattened (N, 9) covariance
 instead of the normal). The JAX `lax.while_loop` becomes a Python `while`
-loop that syncs the stop flag to the host once per iteration; everything
-else stays on the clouds' device. The block path runs every `payload_mode`
-("gather", "infold", "select", "vmem", "vmem7") and `block_fused` value of
-the reference. The batched entry points run their pairs one after another
-through the single-pair path and stack the results: each pair's result is
-what it would be alone, as under the reference's `vmap`.
+loop that reads the stop flag on the host once per iteration
+(`profiling.fetch`); everything else stays on the clouds' device. The
+block path runs every `payload_mode` ("gather", "infold", "select",
+"vmem", "vmem7") and `block_fused` value of the reference. The batched
+entry points run their pairs one after another through the single-pair
+path and stack the results: each pair's result is what it would be alone,
+as under the reference's `vmap`.
+
+Spans (`profiling.span`, on only while a profiler records) name the entry
+points (`icpx.register`, `icpx.register_batch` and its `icpx.pair`s), the
+block path's KD builds and stages (`icpx.index`, `icpx.coarse`,
+`icpx.freeze`, `icpx.mid`, `icpx.refine`), each phase's loop
+(`icpx.loop`), each iteration (`icpx.iter`) and its parts (`icpx.nn`,
+`icpx.weights`, `icpx.solve`, `icpx.stats`, `icpx.fetch`).
 """
 
 from __future__ import annotations
@@ -62,6 +70,7 @@ from icpx_torch.registration.step import (
     identity_reduce,
     step_stats,
 )
+from icpx_torch.utils import profiling
 
 OBJECTIVES = ("symmetric", "p2plane", "p2p", "gicp")
 
@@ -253,49 +262,51 @@ def register(
     estimated in that centred frame, so their orientation viewpoint is the
     target centroid, as in the JAX package.
     """
-    dev = tgt.device
-    if config.feat_nn and config.feat_nn_weight > 0 and config.resolve_nn(tgt.capacity) != "block":
-        raise ValueError(
-            "feature-augmented matching (feat_nn) needs the block NN "
-            "path; set nn_method='block'"
-        )
-    if init is None:
-        init = SE3.identity(device=dev)
+    with profiling.span("icpx.register"):
+        dev = tgt.device
+        if (config.feat_nn and config.feat_nn_weight > 0
+                and config.resolve_nn(tgt.capacity) != "block"):
+            raise ValueError(
+                "feature-augmented matching (feat_nn) needs the block NN "
+                "path; set nn_method='block'"
+            )
+        if init is None:
+            init = SE3.identity(device=dev)
 
-    # Centring first: normal estimation and NN scoring lose precision at
-    # large coordinate magnitudes. Solve in target-centroid coordinates.
-    center = tgt.centroid()
-    eye = torch.eye(3, dtype=torch.float32, device=dev)
-    shift, unshift = SE3(R=eye, t=-center), SE3(R=eye, t=center)
-    src = src.with_xyz(src.xyz - center[None, :])
-    tgt = tgt.with_xyz(tgt.xyz - center[None, :])
-    init_c = shift @ init @ unshift
+        # Centring first: normal estimation and NN scoring lose precision at
+        # large coordinate magnitudes. Solve in target-centroid coordinates.
+        center = tgt.centroid()
+        eye = torch.eye(3, dtype=torch.float32, device=dev)
+        shift, unshift = SE3(R=eye, t=-center), SE3(R=eye, t=center)
+        src = src.with_xyz(src.xyz - center[None, :])
+        tgt = tgt.with_xyz(tgt.xyz - center[None, :])
+        init_c = shift @ init @ unshift
 
-    needs_normals = config.objective in ("symmetric", "p2plane")
-    block = config.resolve_nn(tgt.capacity) == "block"
-    normals_for = []  # the block path estimates these off its own indexes
-    if needs_normals and config.objective == "symmetric" and src.normals is None:
+        needs_normals = config.objective in ("symmetric", "p2plane")
+        block = config.resolve_nn(tgt.capacity) == "block"
+        normals_for = []  # the block path estimates these off its own indexes
+        if needs_normals and config.objective == "symmetric" and src.normals is None:
+            if block:
+                normals_for.append("src")
+            else:
+                src = estimate_normals(src, k=config.k_normals)
+        if needs_normals and tgt.normals is None:
+            if block:
+                normals_for.append("tgt")
+            else:
+                tgt = estimate_normals(tgt, k=config.k_normals)
+        if config.objective == "gicp":
+            k_cov = max(config.k_normals, 15)
+            if src.covs is None:
+                src = estimate_covariances(src, k=k_cov)
+            if tgt.covs is None:
+                tgt = estimate_covariances(tgt, k=k_cov)
+
         if block:
-            normals_for.append("src")
+            res = _register_block(src, tgt, init_c, config, tuple(normals_for), src_w=src_weight)
         else:
-            src = estimate_normals(src, k=config.k_normals)
-    if needs_normals and tgt.normals is None:
-        if block:
-            normals_for.append("tgt")
-        else:
-            tgt = estimate_normals(tgt, k=config.k_normals)
-    if config.objective == "gicp":
-        k_cov = max(config.k_normals, 15)
-        if src.covs is None:
-            src = estimate_covariances(src, k=k_cov)
-        if tgt.covs is None:
-            tgt = estimate_covariances(tgt, k=k_cov)
-
-    if block:
-        res = _register_block(src, tgt, init_c, config, tuple(normals_for), src_w=src_weight)
-    else:
-        res = _register_brute(src, tgt, init_c, config, src_w=src_weight)
-    return res.replace(transform=unshift @ res.transform @ shift)
+            res = _register_brute(src, tgt, init_c, config, src_w=src_weight)
+        return res.replace(transform=unshift @ res.transform @ shift)
 
 
 def gicp_cov_rot(T: SE3, aux: torch.Tensor) -> torch.Tensor:
@@ -350,21 +361,23 @@ def _index_normals(index, k_normals: int, k_tiles: int = 4, prec: str = "highest
     eigensolver; `"xla"` the plain `block_radius_moments`. Normals face the
     centred frame's origin; rows with fewer than 3 neighbours, and pad
     rows, get 0."""
-    flat = index.tiles.reshape(-1, 3)
-    valid = index.order >= 0
-    radius = auto_cell_size(flat, valid, scale=3.0 * math.sqrt(max(k_normals, 1) / 10.0))
-    if mode == "vmem":
-        cnt, _, comps = block_radius_moments_fused6(index.tiles, index, radius, k_tiles=k_tiles)
-        (vx, vy, vz), _ = smallest_eigenvector_3x3_soa(*comps)
-        flip = (vx * flat[:, 0] + vy * flat[:, 1] + vz * flat[:, 2]) > 0.0
-        normal = torch.stack([vx, vy, vz], dim=1) * torch.where(flip, -1.0, 1.0)[:, None]
-    else:
-        cnt, _, cov = block_radius_moments(index.tiles, index, radius, k_tiles=k_tiles, prec=prec)
-        normal, _ = smallest_eigenvector_3x3(cov)
-        flip = (normal * (-flat)).sum(-1) < 0.0
-        normal = torch.where(flip[:, None], -normal, normal)
-    ok = (cnt >= 3.0) & valid
-    return torch.where(ok[:, None], normal, 0.0)
+    with profiling.span("icpx.normals"):
+        flat = index.tiles.reshape(-1, 3)
+        valid = index.order >= 0
+        radius = auto_cell_size(flat, valid, scale=3.0 * math.sqrt(max(k_normals, 1) / 10.0))
+        if mode == "vmem":
+            cnt, _, comps = block_radius_moments_fused6(index.tiles, index, radius, k_tiles=k_tiles)
+            (vx, vy, vz), _ = smallest_eigenvector_3x3_soa(*comps)
+            flip = (vx * flat[:, 0] + vy * flat[:, 1] + vz * flat[:, 2]) > 0.0
+            normal = torch.stack([vx, vy, vz], dim=1) * torch.where(flip, -1.0, 1.0)[:, None]
+        else:
+            cnt, _, cov = block_radius_moments(index.tiles, index, radius, k_tiles=k_tiles,
+                                               prec=prec)
+            normal, _ = smallest_eigenvector_3x3(cov)
+            flip = (normal * (-flat)).sum(-1) < 0.0
+            normal = torch.where(flip[:, None], -normal, normal)
+        ok = (cnt >= 3.0) & valid
+        return torch.where(ok[:, None], normal, 0.0)
 
 
 def _register_block(
@@ -402,11 +415,12 @@ def _register_block(
     """
     dev = tgt.device
     q_tile = config.resolve_q_tile(src.capacity)
-    src_idx = trim_index(
-        config.tile_builder(config.src_tile_index)(src.xyz, src.mask, tile_size=q_tile),
-        src.capacity,
-        multiple=4,  # the coarse phase needs tq % 4 == 0
-    )
+    with profiling.span("icpx.index"):
+        src_idx = trim_index(
+            config.tile_builder(config.src_tile_index)(src.xyz, src.mask, tile_size=q_tile),
+            src.capacity,
+            multiple=4,  # the coarse phase needs tq % 4 == 0
+        )
     order = src_idx.order.long()
     valid = order >= 0
     safe = torch.clamp(order, min=0)
@@ -417,11 +431,12 @@ def _register_block(
     use_feat = bool(config.feat_nn) and config.feat_nn_weight > 0
     # the source's feature column in tile order, 0 on pad rows
     src_f = torch.where(valid, src.feat(config.feat_nn)[safe], 0.0) if use_feat else None
-    tgt_index = trim_index(
-        config.tile_builder()(tgt.xyz, tgt.mask, tile_size=config.block_tile),
-        tgt.capacity,
-        multiple=_SUPER_G,  # hierarchical ranking needs T % 64 == 0
-    )
+    with profiling.span("icpx.index"):
+        tgt_index = trim_index(
+            config.tile_builder()(tgt.xyz, tgt.mask, tile_size=config.block_tile),
+            tgt.capacity,
+            multiple=_SUPER_G,  # hierarchical ranking needs T % 64 == 0
+        )
     tgt_f_tiles = (tile_payload(tgt_index, tgt.feat(config.feat_nn)[:, None])[..., 0]
                    if use_feat else None)
 
@@ -531,22 +546,16 @@ def _register_block(
             return rows.reshape((-1, d) if d else (-1,))
 
         cfg_c = dataclasses.replace(config, max_iters=config.coarse_iters, diff_threshold=0.0)
-        res_c = _icp_scan(
-            cfg_c, sub(src_xyz, 3), sub(src_mask), sub(src_n_s, dn), init,
-            make_nn(tq // 4, 4 * sq // stride, config.block_k,
-                    qfeat=None if src_f is None else sub(src_f)),
-            aux_rot=aux_rot, src_w=None if src_w is None else sub(src_w),
-        )
+        with profiling.span("icpx.coarse"):
+            res_c = _icp_scan(
+                cfg_c, sub(src_xyz, 3), sub(src_mask), sub(src_n_s, dn), init,
+                make_nn(tq // 4, 4 * sq // stride, config.block_k,
+                        qfeat=None if src_f is None else sub(src_f)),
+                aux_rot=aux_rot, src_w=None if src_w is None else sub(src_w),
+            )
         init = res_c.transform
         k_ref = config.block_k_refine if config.block_k_refine > 0 else config.block_k
         prev_rmse0 = res_c.final_rmse
-
-    # freeze the refine candidates at the coarse-aligned pose: the residual
-    # motion is well under a tile extent, so ranking once is enough
-    cand_ref = qcent_ref = None
-    if will_freeze:
-        cand_ref, qcent_ref = _candidate_tiles(init.apply(src_xyz).reshape(tq, sq, 3),
-                                               tgt_index, k_ref)
 
     # the mid phase: every stride_r-th row of each query tile, against the
     # same tiles and frozen candidates, for all but the last
@@ -554,30 +563,46 @@ def _register_block(
     stride_r = config.resolve_refine_stride(src.capacity, tgt.capacity)
     mid = (stride_r > 1 and sq % stride_r == 0 and sq // stride_r >= 8 and not fused
            and config.max_iters > config.refine_full_iters)
+
+    def substride(x, d=None):
+        rows = x.reshape((tq, sq) + ((d,) if d else ()))[:, ::stride_r]
+        return rows.reshape((-1, d) if d else (-1,))
+
+    def refine_nns():
+        # the mid and refine phases' searches; the fold kernels prepare
+        # their operands from the frozen candidates here, once a phase
+        nn_m = (make_nn(tq, sq // stride_r, k_ref, cand=cand_ref, qcent=qcent_ref,
+                        qfeat=None if src_f is None else substride(src_f)) if mid else None)
+        return nn_m, make_nn(tq, sq, k_ref, cand=cand_ref, qcent=qcent_ref, qfeat=src_f)
+
+    # freeze the refine candidates at the coarse-aligned pose: the residual
+    # motion is well under a tile extent, so ranking once is enough
+    cand_ref = qcent_ref = None
+    if will_freeze:
+        with profiling.span("icpx.freeze"):
+            cand_ref, qcent_ref = _candidate_tiles(init.apply(src_xyz).reshape(tq, sq, 3),
+                                                   tgt_index, k_ref)
+            nn_mid, nn_ref = refine_nns()
+    else:
+        nn_mid, nn_ref = refine_nns()
+
     cfg_r = config
     if mid:
-        sq_m = sq // stride_r
-
-        def substride(x, d=None):
-            rows = x.reshape((tq, sq) + ((d,) if d else ()))[:, ::stride_r]
-            return rows.reshape((-1, d) if d else (-1,))
-
         cfg_m = dataclasses.replace(config, max_iters=config.max_iters - config.refine_full_iters,
                                     diff_threshold=config.diff_threshold / stride_r)
-        res_m = _icp_scan(
-            cfg_m, substride(src_xyz, 3), substride(src_mask), substride(src_n_s, dn), init,
-            make_nn(tq, sq_m, k_ref, cand=cand_ref, qcent=qcent_ref,
-                    qfeat=None if src_f is None else substride(src_f)),
-            aux_rot=aux_rot, prev_rmse0=prev_rmse0,
-            src_w=None if src_w is None else substride(src_w),
-        )
+        with profiling.span("icpx.mid"):
+            res_m = _icp_scan(
+                cfg_m, substride(src_xyz, 3), substride(src_mask), substride(src_n_s, dn), init,
+                nn_mid, aux_rot=aux_rot, prev_rmse0=prev_rmse0,
+                src_w=None if src_w is None else substride(src_w),
+            )
         init = res_m.transform
         prev_rmse0 = res_m.final_rmse
         cfg_r = dataclasses.replace(config, max_iters=config.refine_full_iters)
 
-    res = _icp_scan(cfg_r, src_xyz, src_mask, src_n_s, init,
-                    make_nn(tq, sq, k_ref, cand=cand_ref, qcent=qcent_ref, qfeat=src_f),
-                    aux_rot=aux_rot, prev_rmse0=prev_rmse0, src_w=src_w)
+    with profiling.span("icpx.refine"):
+        res = _icp_scan(cfg_r, src_xyz, src_mask, src_n_s, init, nn_ref, aux_rot=aux_rot,
+                        prev_rmse0=prev_rmse0, src_w=src_w)
     if mid:
         # the mid phase's histories first, then the tail's, NaN past the
         # work done; a mid phase that met its stop counts as converged
@@ -649,43 +674,50 @@ def _icp_scan(
     if aux_rot is None:
         aux_rot = lambda T, aux: T.rotate(aux)  # noqa: E731
 
-    while it < config.max_iters and not stop:
-        p = transform.apply(src_xyz)
-        n_p = aux_rot(transform, src_n)
-        q, n_q, dist = nn_fn(p)
+    with profiling.span("icpx.loop"):
+        while it < config.max_iters and not stop:
+            with profiling.span("icpx.iter"):
+                p = transform.apply(src_xyz)
+                n_p = aux_rot(transform, src_n)
+                with profiling.span("icpx.nn"):
+                    q, n_q, dist = nn_fn(p)
 
-        w = correspondence_weights(config, p, n_p, q, n_q, dist, src_mask, reduce)
-        if src_w is not None:
-            w = w * src_w
-        incre = estimate_increment(config, p, q, n_p, n_q, w, reduce)
-        new_transform = incre @ transform
+                with profiling.span("icpx.weights"):
+                    w = correspondence_weights(config, p, n_p, q, n_q, dist, src_mask, reduce)
+                    if src_w is not None:
+                        w = w * src_w
+                with profiling.span("icpx.solve"):
+                    incre = estimate_increment(config, p, q, n_p, n_q, w, reduce)
+                    new_transform = incre @ transform
 
-        # post-update diagnostics against the same correspondences
-        stats = step_stats(config, new_transform.apply(src_xyz), q, dist, src_mask, reduce)
-        # a non-finite or correspondence-starved update is rejected: the
-        # previous transform is kept, and the loop stops and reports failure
-        new_transform, ok = degenerate_solve_guard(new_transform, stats, transform)
-        diff = torch.where(ok, stats.diff, inf)
-        rmse = torch.where(ok, stats.rmse, prev_rmse)
+                with profiling.span("icpx.stats"):
+                    # post-update diagnostics against the same correspondences
+                    stats = step_stats(config, new_transform.apply(src_xyz), q, dist, src_mask,
+                                       reduce)
+                    # a non-finite or correspondence-starved update is rejected: the
+                    # previous transform is kept, and the loop stops and reports failure
+                    new_transform, ok = degenerate_solve_guard(new_transform, stats, transform)
+                    diff = torch.where(ok, stats.diff, inf)
+                    rmse = torch.where(ok, stats.rmse, prev_rmse)
 
-        now_stop = (~ok) | (diff < config.diff_threshold)
-        if config.rmse_change_tol > 0:
-            now_stop = now_stop | ((prev_rmse - rmse).abs() < config.rmse_change_tol)
-        if config.transform_tol > 0:
-            tr = torch.diagonal(incre.R).sum()
-            cos_a = torch.clamp((tr - 1.0) * 0.5, -1.0, 1.0)
-            inc_mag = torch.arccos(cos_a) + torch.linalg.vector_norm(incre.t)
-            now_stop = now_stop | (inc_mag < config.transform_tol)
+                    now_stop = (~ok) | (diff < config.diff_threshold)
+                    if config.rmse_change_tol > 0:
+                        now_stop = now_stop | ((prev_rmse - rmse).abs() < config.rmse_change_tol)
+                    if config.transform_tol > 0:
+                        tr = torch.diagonal(incre.R).sum()
+                        cos_a = torch.clamp((tr - 1.0) * 0.5, -1.0, 1.0)
+                        inc_mag = torch.arccos(cos_a) + torch.linalg.vector_norm(incre.t)
+                        now_stop = now_stop | (inc_mag < config.transform_tol)
 
-        diffs[it] = diff
-        rmses[it] = rmse
-        counts[it] = stats.inlier_count
-        failed = failed | ~ok
-        if reduce is not identity_reduce:
-            now_stop = reduce(now_stop.to(torch.float32)) > 0
-        transform, prev_rmse, stop_t = new_transform, rmse, now_stop
-        it += 1
-        stop = bool(stop_t)  # the loop's one host sync per iteration
+                    diffs[it] = diff
+                    rmses[it] = rmse
+                    counts[it] = stats.inlier_count
+                    failed = failed | ~ok
+                    if reduce is not identity_reduce:
+                        now_stop = reduce(now_stop.to(torch.float32)) > 0
+                transform, prev_rmse, stop_t = new_transform, rmse, now_stop
+                it += 1
+                stop = profiling.fetch(stop_t)  # the stop flag, read once an iteration
 
     last = counts[max(it - 1, 0)] if config.max_iters else torch.zeros((), **f32)
     return ICPResult(
@@ -750,19 +782,21 @@ def register_batch(
     if init is None:
         init = SE3.identity((b,), device=tgt_xyz.device)
     results = []
-    for i in range(b):
-        tm, tn = tgt_mask[i], tgt_normals[i]
-        sx, tx, init_c, shift, unshift = _centre_pair(
-            src_xyz[i], src_mask[i], tgt_xyz[i], tm, SE3(R=init.R[i], t=init.t[i]))
+    with profiling.span("icpx.register_batch"):
+        for i in range(b):
+            with profiling.span("icpx.pair"):
+                tm, tn = tgt_mask[i], tgt_normals[i]
+                sx, tx, init_c, shift, unshift = _centre_pair(
+                    src_xyz[i], src_mask[i], tgt_xyz[i], tm, SE3(R=init.R[i], t=init.t[i]))
 
-        def nn_fn(p, tx=tx, tm=tm, tn=tn):
-            d2, idx = nearest_neighbor(p, tx, ref_mask=tm, tile_q=config.tile_q,
-                                       tile_r=config.tile_r)
-            return tx.index_select(0, idx), tn.index_select(0, idx), torch.sqrt(d2)
+                def nn_fn(p, tx=tx, tm=tm, tn=tn):
+                    d2, idx = nearest_neighbor(p, tx, ref_mask=tm, tile_q=config.tile_q,
+                                               tile_r=config.tile_r)
+                    return tx.index_select(0, idx), tn.index_select(0, idx), torch.sqrt(d2)
 
-        res = _icp_scan(config, sx, src_mask[i], src_normals[i], init_c, nn_fn)
-        results.append(res.replace(transform=unshift @ res.transform @ shift))
-    return _stack_results(results)
+                res = _icp_scan(config, sx, src_mask[i], src_normals[i], init_c, nn_fn)
+                results.append(res.replace(transform=unshift @ res.transform @ shift))
+        return _stack_results(results)
 
 
 def register_batch_block(

@@ -15,6 +15,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from icpx_torch.geometry.se3 import skew
+from icpx_torch.utils import profiling
 
 _EPS = 1e-12
 
@@ -143,6 +144,6 @@ def mad_scale(r_abs: torch.Tensor, w_valid: torch.Tensor) -> torch.Tensor:
     valid = w_valid > 0
     vals = torch.sort(torch.where(valid, r_abs, float("inf"))).values
     mid = torch.div(valid.sum(), 2, rounding_mode="floor").clamp(0, n - 1)
-    med = vals[mid]
+    med = vals[profiling.fetch_int(mid)]  # indexing by a 0-d tensor reads it on the host
     med = torch.where(torch.isfinite(med), med, torch.ones_like(med))
     return 1.4826 * torch.clamp(med, min=_EPS)

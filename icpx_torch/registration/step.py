@@ -38,6 +38,7 @@ from icpx_torch.registration.solve import (
     reconstruct_symmetric_transform,
     solve_damped_6x6,
 )
+from icpx_torch.utils import profiling
 
 _EPS = 1e-12
 
@@ -127,7 +128,7 @@ def _reduced_quantile(x: torch.Tensor, vmask: torch.Tensor, q: float, reduce: Ca
         csum = torch.cumsum(h, 0)
         b = torch.argmax((csum >= rank).to(torch.int32))  # the first bin reaching the rank
         b = torch.where(csum[n_bins - 1] >= rank, b, n_bins - 1)
-        below = torch.where(b > 0, csum[torch.clamp(b - 1, min=0)], 0.0)
+        below = torch.where(b > 0, csum[profiling.fetch_int(torch.clamp(b - 1, min=0))], 0.0)
         step = width / n_bins
         bf = b.to(torch.float32)
         lo, hi = lo + bf * step, lo + (bf + 1.0) * step
@@ -143,7 +144,7 @@ def _masked_quantile(x: torch.Tensor, w_valid: torch.Tensor, q: float) -> torch.
     vals = torch.sort(torch.where(valid, x, float("inf"))).values
     cnt = valid.sum().to(torch.float32)
     idx = (cnt * q).to(torch.int64).clamp(0, n - 1)
-    return vals[idx]
+    return vals[profiling.fetch_int(idx)]  # indexing by a 0-d tensor reads it on the host
 
 
 def estimate_increment(config, p, q, n_p, n_q, w, reduce: Callable = identity_reduce) -> SE3:

@@ -1,5 +1,5 @@
 from icpx_torch.utils.metrics import MetricsLogger, icp_iteration_records
-from icpx_torch.utils.profiling import Timer, kernel_speed_of_light, time_fn, trace_context
+from icpx_torch.utils.profiling import Timer, time_fn, trace_context
 from icpx_torch.utils.checkpoint import OdometryCheckpoint, load_checkpoint, save_checkpoint
 from icpx_torch.utils.debug import (
     assert_all_finite,
@@ -12,7 +12,6 @@ __all__ = [
     "MetricsLogger",
     "icp_iteration_records",
     "Timer",
-    "kernel_speed_of_light",
     "time_fn",
     "trace_context",
     "save_checkpoint",

@@ -1,18 +1,34 @@
-"""Profiling helpers: wall timers fenced on the device, `torch.profiler`
-traces, speed-of-light estimates.
+"""Profiling helpers: spans and fetches on `torch.profiler`'s clock, one
+launch counter for the hand-written kernels, wall timers fenced on the
+device, and `torch.profiler` traces.
 
-Mirrors `icpx/utils/profiling.py`. `PEAKS` are one H100 SXM's (NVIDIA's
-data sheet, at its 700 W power limit; a card capped lower runs slower
-under load, so quote the card's name and limit beside every time).
+Mirrors `icpx/utils/profiling.py`, and adds what the port's host loop
+needs measured:
+
+  * `span(name)`: a `record_function` range while a profiler records, and
+    one shared no-op context otherwise (a flag read; nothing allocated).
+    The ranges land in the profiler's chrome trace as "user_annotation"
+    events beside the device's kernels, nested by time. Every name starts
+    with `icpx.`; PERF.md lists them and the metrics that read them.
+  * `fetch(t)` / `fetch_int(t)`: `bool(t)` / `int(t)` inside an
+    `icpx.fetch` span. The ICP loop, the normals and covariances and the
+    compiled odometry read the device only through them, so a trace counts
+    and times those syncs.
+  * `LAUNCHES`: launches of each hand-written kernel, keyed by kernel
+    (each launch site adds one to its key).
+
+`HBM_BYTES_PER_S` and `FP32_FLOPS` are one H100 SXM's (NVIDIA's data
+sheet, at its 700 W power limit; a card capped lower runs slower under
+load, so quote the card's name and limit beside every time).
 """
 
 from __future__ import annotations
 
 import contextlib
 import time
-from typing import Dict, Optional
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 from icpx_torch.utils import pytree
 
@@ -21,12 +37,34 @@ from icpx_torch.utils import pytree
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 
-PEAKS = {
-    "bf16_flops": 989.4e12,  # dense bf16 on the tensor cores
-    "f32_flops": FP32_FLOPS,
-    "hbm_bytes": HBM_BYTES_PER_S,
-    "vpu_ops": FP32_FLOPS,  # element-wise fp32 work runs on the same CUDA cores
-}
+LAUNCHES = {"nn": 0, "moments6": 0, "fold6": 0, "fold7": 0, "select": 0, "fused4": 0,
+            "moments_fused": 0, "sort": 0}
+
+_OFF = contextlib.nullcontext()  # what `span` returns while no profiler records
+
+
+def span(name: str):
+    """A context naming the scope `name` in a running profiler's trace;
+    with no profiler recording, a shared no-op."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return torch.profiler.record_function(name)
+
+
+def fetch(t) -> bool:
+    """`bool(t)`, a device-to-host read, inside an `icpx.fetch` span."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return bool(t)
+    with torch.profiler.record_function("icpx.fetch"):
+        return bool(t)
+
+
+def fetch_int(t) -> int:
+    """`int(t)`, a device-to-host read, inside an `icpx.fetch` span."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return int(t)
+    with torch.profiler.record_function("icpx.fetch"):
+        return int(t)
 
 
 def _fence(out) -> None:
@@ -91,29 +129,3 @@ def trace_context(log_dir: str):
     ):
         yield
 
-
-def kernel_speed_of_light(
-    *,
-    seconds: float,
-    flops: float = 0.0,
-    vpu_ops: float = 0.0,
-    hbm_bytes: float = 0.0,
-    peaks: Optional[Dict[str, float]] = None,
-) -> Dict[str, float]:
-    """Fraction-of-peak summary for a measured kernel time: `flops` over
-    the fp32 rate (`PEAKS["f32_flops"]`, CUDA cores), `vpu_ops` over the
-    element-wise fp32 rate (`PEAKS["vpu_ops"]`, the same cores), `hbm_bytes`
-    over the HBM rate (`PEAKS["hbm_bytes"]`); `bound_frac` is the largest
-    fraction, the resource the kernel would be limited by at peak."""
-    p = dict(PEAKS)
-    if peaks:
-        p.update(peaks)
-    out = {}
-    if flops:
-        out["f32_flops_frac"] = flops / seconds / p["f32_flops"]
-    if vpu_ops:
-        out["vpu_frac"] = vpu_ops / seconds / p["vpu_ops"]
-    if hbm_bytes:
-        out["hbm_frac"] = hbm_bytes / seconds / p["hbm_bytes"]
-    out["bound_frac"] = max(out.values()) if out else 0.0
-    return out

@@ -59,9 +59,10 @@ def main(out=None):
     from icpx_torch.distributed import comm
     from icpx_torch.distributed.mesh import make_mesh
     from icpx_torch.distributed.sharded_icp import sharded_register_pairs
-    from icpx_torch.kernels import cuda_build, nn_cuda
+    from icpx_torch.kernels import cuda_build
     from icpx_torch.kernels.normals import estimate_normals
     from icpx_torch.registration.icp import register_batch
+    from icpx_torch.utils.profiling import LAUNCHES
 
     dev = torch.device("cuda", 0)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -100,11 +101,11 @@ def main(out=None):
         report["pair"] = {}
         for label, run in runs.items():
             wall, res = chip_smoke._sync_time(run, reps=3)
-            before = nn_cuda.LAUNCHES
+            before = LAUNCHES["nn"]
             with torch.profiler.profile(activities=acts) as prof:
                 run()
                 torch.cuda.synchronize()
-            launches = nn_cuda.LAUNCHES - before
+            launches = LAUNCHES["nn"] - before
             avgs = prof.key_averages()
             kern = [e for e in avgs if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
                     and chip_smoke._device_us(e) > 0]

@@ -44,11 +44,11 @@ from icpx_torch.geometry.se3 import SE3
 from icpx_torch.geometry.transforms import make_rigid_perturbation
 from icpx_torch.io.loaders import load_bunny, load_cat_pair, load_cloud, reference_data_dir
 from icpx_torch.io.prefetch import prefetch_kitti
-from icpx_torch.kernels import blocknn_cuda
 from icpx_torch.odometry import kitti
 from icpx_torch.odometry.mapping import VoxelMap
 from icpx_torch.registration.horn import horn_align, umeyama_align
 from icpx_torch.registration.icp import ICPConfig, _effective_payload_mode, register, register_xyz
+from icpx_torch.utils import profiling
 from icpx_torch.utils.checkpoint import OdometryCheckpoint, load_checkpoint, save_checkpoint
 from torch_parity import to_np, torch_cloud, torch_config, torch_se3
 
@@ -109,9 +109,9 @@ def test_block_register_matches_jax(jax_runs, mode):
     assert cfg.resolve_nn(N) == "block"
     assert cfg.resolve_fused() == (mode == "fused")
     assert cfg.resolve_payload(N, CPU) == ("gather" if mode == "fused" else mode)
-    before = dict(blocknn_cuda.LAUNCHES)
+    before = dict(profiling.LAUNCHES)
     res = register(torch_cloud(src), torch_cloud(tgt), cfg)
-    assert blocknn_cuda.LAUNCHES == before  # the CPU runs the plain versions
+    assert profiling.LAUNCHES == before  # the CPU runs the plain versions
     rot, t = (float(x) for x in res.transform.distance_to(torch_se3(gt)))
     j_rot, j_t = (float(x) for x in jres.transform.distance_to(gt))
     assert rot < 5e-3 and t < 5e-3 and j_rot < 5e-3 and j_t < 5e-3

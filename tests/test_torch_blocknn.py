@@ -56,6 +56,7 @@ from icpx_torch.kernels.blocknn_cuda import (
 from icpx_torch.kernels.knn import nearest_neighbor_reference
 from icpx_torch.kernels.normals import estimate_normals
 from icpx_torch.kernels.voxel import auto_cell_size
+from icpx_torch.utils import profiling
 import chip_smoke
 from torch_fixtures import (F4_SHAPE, F6_FIXTURE_SHAPES, F6_FIXTURES, F6_SHAPE, F7_FIXTURE_SHAPES,
                             F7_FIXTURES, F7_SHAPE, M6_FIXTURE_SHAPES, M6_FIXTURES, M6_SHAPE,
@@ -302,9 +303,9 @@ def test_moments6_plain_matches_pallas_interpret():
     cnt_j, mean_j, comps_j = j_moments6(ji.tiles, ji, jnp.float32(radius), k_tiles=2,
                                         interpret=True, soa=True)
     ti = _same_index(ji)
-    before = dict(blocknn_cuda.LAUNCHES)
+    before = dict(profiling.LAUNCHES)
     cnt_t, mean_t, comps_t = block_radius_moments_fused6(ti.tiles, ti, radius, k_tiles=2)
-    assert blocknn_cuda.LAUNCHES == before  # CPU tensors: the plain version ran
+    assert profiling.LAUNCHES == before  # CPU tensors: the plain version ran
     _check_moments(cnt_t, mean_t, comps_t, cnt_j, mean_j, comps_j, valid, ji)
 
 
@@ -373,9 +374,9 @@ def test_fold6_plain_matches_pallas_interpret():
     d_j, pl_j = block_fold_fused(jq.tiles, jnp.asarray(cand), ji, pl_tiles, interpret=True)
     ti = _same_index(ji)
     ops = fold6_prepare(torch.as_tensor(cand), ti, torch.as_tensor(table))
-    before = dict(blocknn_cuda.LAUNCHES)
+    before = dict(profiling.LAUNCHES)
     d_t, pl_t = block_fold_fused_pre(torch.as_tensor(np.asarray(jq.tiles)), ops)
-    assert blocknn_cuda.LAUNCHES == before  # CPU tensors: the plain version ran
+    assert profiling.LAUNCHES == before  # CPU tensors: the plain version ran
     d_j, d_t, pl_j, pl_t = np.asarray(d_j), to_np(d_t), np.asarray(pl_j), to_np(pl_t)
     fin = np.isfinite(d_j)
     np.testing.assert_array_equal(np.isfinite(d_t), fin)  # misses (pad query rows) together
@@ -1005,9 +1006,9 @@ def test_select_plain_matches_pallas_interpret():
                          cand_tiles=torch.as_tensor(cand))
     pos = pos.reshape(jq.n_tiles, jq.tile_size)
     pl_tiles = table.reshape(ji.n_tiles, ji.tile_size, 6)
-    before = dict(blocknn_cuda.LAUNCHES)
+    before = dict(profiling.LAUNCHES)
     pl_t = blocknn_cuda.payload_select_fused(pos, torch.as_tensor(cand), torch.as_tensor(pl_tiles))
-    assert blocknn_cuda.LAUNCHES == before  # CPU tensors: the plain version ran
+    assert profiling.LAUNCHES == before  # CPU tensors: the plain version ran
     pl_j = j_select(jnp.asarray(to_np(pos)), jnp.asarray(cand, jnp.int32), jnp.asarray(pl_tiles),
                     interpret=True)
     np.testing.assert_array_equal(to_np(pl_t), np.asarray(pl_j))
@@ -1061,9 +1062,9 @@ def test_fold7_plain_matches_pallas_interpret():
     d_j, pl_j = j_fold7(jq.tiles, b, pl_c, qc, d_pl, interpret=True)
     ops = blocknn_cuda.fold7_prepare(torch.as_tensor(cand), torch.as_tensor(np.asarray(q_cent)),
                                      _same_index(ji), torch.as_tensor(table))
-    before = dict(blocknn_cuda.LAUNCHES)
+    before = dict(profiling.LAUNCHES)
     d_t, pl_t = blocknn_cuda.block_fold7_pre(torch.as_tensor(np.asarray(jq.tiles)), ops)
-    assert blocknn_cuda.LAUNCHES == before
+    assert profiling.LAUNCHES == before
     d_j, d_t, pl_j, pl_t = np.asarray(d_j), to_np(d_t), np.asarray(pl_j), to_np(pl_t)
     fin = np.isfinite(d_j)
     np.testing.assert_array_equal(np.isfinite(d_t), fin)
@@ -1363,9 +1364,9 @@ def test_fused4_plain_matches_pallas_interpret():
     jq = jb.build_kd_index(jnp.asarray(q), tile_size=32)
     d_j, i_j = j_fused4(jq.tiles, ji, k_tiles=12, group=4, u_max=32, interpret=True)
     qt = torch.as_tensor(np.asarray(jq.tiles))
-    before = dict(blocknn_cuda.LAUNCHES)
+    before = dict(profiling.LAUNCHES)
     d_t, i_t = blocknn_cuda.block_nn_fused4(qt, _same_index(ji), k_tiles=12, group=4, u_max=32)
-    assert blocknn_cuda.LAUNCHES == before
+    assert profiling.LAUNCHES == before
     valid = np.asarray(jq.order) >= 0
     d_b, i_b = nearest_neighbor_reference(qt.reshape(-1, 3), torch.as_tensor(r))
     i_t, d_t = to_np(i_t), to_np(d_t)
@@ -1553,10 +1554,10 @@ def union_moments_case():
     want = j_moments_fused(ji.tiles, ji, jnp.float32(RADIUS_U), k_tiles=8, group=4, u_max=32,
                            interpret=True)
     ti = _same_index(ji)
-    before = dict(blocknn_cuda.LAUNCHES)
+    before = dict(profiling.LAUNCHES)
     got = blocknn_cuda.block_radius_moments_fused(ti.tiles, ti, RADIUS_U, k_tiles=8, group=4,
                                                   u_max=32)
-    assert blocknn_cuda.LAUNCHES == before  # CPU tensors: the plain version ran
+    assert profiling.LAUNCHES == before  # CPU tensors: the plain version ran
     return r, ji, ti, want, got
 
 

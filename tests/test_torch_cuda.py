@@ -31,6 +31,7 @@ from icpx_torch.kernels.blocknn_cuda import fold6_prepare, fold6_reference, mome
 from icpx_torch.kernels.knn import nearest_neighbor_reference
 from icpx_torch.kernels.sort_cuda import sort_segments_reference
 from icpx_torch.kernels.voxel import auto_cell_size
+from icpx_torch.utils import profiling
 from torch_fixtures import (CSRC_SHAPE, F4_SHAPE, F6_FIXTURE_SHAPES, F6_FIXTURES, F6_SHAPE,
                             F7_FIXTURES, F7_SHAPE, M6_FIXTURE_SHAPES, M6_FIXTURES, M6_SHAPE,
                             MF_SHAPE, RADIUS_U, SCREEN_FIXTURES, SORT_SHAPE, _cov_tol,
@@ -134,11 +135,11 @@ def test_cuda_sort_matches_plain(cuda_device, c, m):
     key, a, _, o = _sort_keys(c, m, seed=7)
     args = [torch.as_tensor(x, device=cuda_device) for x in (key, a, o)]
     xyz = torch.randn((c, m, 3), device=cuda_device)
-    before = sort_cuda.LAUNCHES["sort"]
+    before = profiling.LAUNCHES["sort"]
     got = sort_cuda.sort_cuda(args[0], [args[1], args[2], xyz])
     want = sort_segments_reference(args[0], [args[1], args[2], xyz])
     torch.cuda.synchronize()
-    assert sort_cuda.LAUNCHES["sort"] == before + 1
+    assert profiling.LAUNCHES["sort"] == before + 1
     for g, w in zip(got, want):
         assert torch.equal(g.view(torch.int32) if g.dtype == torch.float32 else g,
                            w.view(torch.int32) if w.dtype == torch.float32 else w)
@@ -158,11 +159,11 @@ def test_cuda_moments6_matches_plain(cuda_device):
     ti, radius = _moments_case(cuda_device)
     cand, q_cent = tb._candidate_tiles(ti.tiles, ti, 2)
     r2 = torch.tensor(radius * radius, device=cuda_device)
-    before = blocknn_cuda.LAUNCHES["moments6"]
+    before = profiling.LAUNCHES["moments6"]
     out_k = blocknn_cuda.moments6_cuda(ti.tiles, ti.tiles, cand.to(torch.int32), q_cent, r2.reshape(1))
     out_p = moments6_reference(ti.tiles, ti.tiles, cand, q_cent, r2)
     torch.cuda.synchronize()
-    assert blocknn_cuda.LAUNCHES["moments6"] == before + 1
+    assert profiling.LAUNCHES["moments6"] == before + 1
     assert torch.equal(out_k[0], out_p[0])  # the same d2 bits: the same counts
     assert torch.isfinite(out_k).all()
     torch.testing.assert_close(out_k[1:4], out_p[1:4], rtol=0, atol=1e-5)
@@ -185,11 +186,11 @@ def test_cuda_moments6_fixtures_match_plain(cuda_device, name, tq, sq, s, k):
     query, tiles, cand, q_cent, r2 = chip_smoke.moments6_fixture(name, tq, sq, s, k,
                                                                  n_tiles=max(12, k + 2),
                                                                  device=cuda_device)
-    before = blocknn_cuda.LAUNCHES["moments6"]
+    before = profiling.LAUNCHES["moments6"]
     out_k = blocknn_cuda.moments6_cuda(query, tiles, cand.to(torch.int32), q_cent, r2.reshape(1))
     out_p = moments6_reference(query, tiles, cand, q_cent, r2)
     torch.cuda.synchronize()
-    assert blocknn_cuda.LAUNCHES["moments6"] == before + 1
+    assert profiling.LAUNCHES["moments6"] == before + 1
     assert torch.equal(out_k[0], out_p[0])
     none = out_p[0] == 0
     assert torch.equal(out_k[:, none], out_p[:, none])
@@ -242,11 +243,11 @@ def test_cuda_fold6_fixtures_match_plain(cuda_device, name, tq, sq, s, k):
     query, index, cand, payload = chip_smoke.fold6_fixture(name, tq, sq, s, k, n_tiles=max(12, k + 2),
                                                            device=cuda_device)
     ops = fold6_prepare(cand, index, payload)
-    before = blocknn_cuda.LAUNCHES["fold6"]
+    before = profiling.LAUNCHES["fold6"]
     d_k, pl_k = blocknn_cuda.fold6_cuda(query, ops)
     d_p, pl_p = fold6_reference(query, ops)
     torch.cuda.synchronize()
-    assert blocknn_cuda.LAUNCHES["fold6"] == before + 1
+    assert profiling.LAUNCHES["fold6"] == before + 1
     assert torch.equal(d_k.view(torch.int32), d_p.view(torch.int32)) and torch.equal(pl_k, pl_p)
 
 
@@ -271,11 +272,11 @@ def test_cuda_fold7_matches_plain(cuda_device, name, shape):
         query, index, cand, q_cent, payload = chip_smoke.fold7_fixture(
             name, *shape, n_tiles=max(12, shape[3] + 2), device=cuda_device)
     ops = blocknn_cuda.fold7_prepare(cand, q_cent, index, payload)
-    before = blocknn_cuda.LAUNCHES["fold7"]
+    before = profiling.LAUNCHES["fold7"]
     d_k, pl_k = blocknn_cuda.fold7_cuda(query, ops)
     d_p, pl_p = blocknn_cuda.fold7_reference(query, ops)
     torch.cuda.synchronize()
-    assert blocknn_cuda.LAUNCHES["fold7"] == before + 1
+    assert profiling.LAUNCHES["fold7"] == before + 1
     assert torch.equal(d_k.view(torch.int32), d_p.view(torch.int32)) and torch.equal(pl_k, pl_p)
 
 
@@ -362,11 +363,11 @@ def test_cuda_moments_fused_matches_plain(cuda_device):
     r2 = torch.tensor([RADIUS_U * RADIUS_U], dtype=torch.float32, device=cuda_device)
     for u_max in (32, 8, 128):
         unions = blocknn_cuda.group_unions(cand, 4, u_max)
-        before = blocknn_cuda.LAUNCHES["moments_fused"]
+        before = profiling.LAUNCHES["moments_fused"]
         out_k = blocknn_cuda.moments_fused_cuda(ti.tiles, ti.tiles, unions.to(torch.int32), q_cent, r2, 4)
         out_p = blocknn_cuda.moments_fused_reference(ti.tiles, ti.tiles, unions, q_cent, r2[0], 4)
         torch.cuda.synchronize()
-        assert blocknn_cuda.LAUNCHES["moments_fused"] == before + 1
+        assert profiling.LAUNCHES["moments_fused"] == before + 1
         assert torch.equal(out_k[0], out_p[0]), u_max  # the same verdicts: the same counts
         torch.testing.assert_close(out_k[1:], out_p[1:], rtol=1e-5, atol=1e-4)
     query, tiles, unions = _slot_weights_fixture()
@@ -705,9 +706,9 @@ def test_cuda_sharded_register_matches_cpu(cuda_device, nccl_mesh, ring):
     src, tgt = estimate_normals(src, k=10), estimate_normals(tgt, k=10)
     cfg = ICPConfig(objective="symmetric", max_iters=15, diff_threshold=0.0,
                     rmse_change_tol=1e-7, nn_method="brute")
-    before = nn_cuda.LAUNCHES
+    before = profiling.LAUNCHES["nn"]
     res = sharded_register(src.to(cuda_device), tgt.to(cuda_device), cfg, nccl_mesh, ring=ring)
-    assert nn_cuda.LAUNCHES - before == res.iters
+    assert profiling.LAUNCHES["nn"] - before == res.iters
     assert res.transform.R.is_cuda
     cpu = register(src, tgt, cfg)
     d_rot, d_t = chip_smoke._transform_diff(res.transform, cpu.transform)
@@ -787,9 +788,9 @@ def test_cuda_block_fold_fused_one_shot_launches_fold6(cuda_device):
     """The one-shot `block_fold_fused` (prepare + fold) launches the fold6
     kernel once and equals the plain version bit for bit."""
     tq, ti, table, cand = _fold_case(31, cuda_device)
-    before = blocknn_cuda.LAUNCHES["fold6"]
+    before = profiling.LAUNCHES["fold6"]
     d, pl = blocknn_cuda.block_fold_fused(tq.tiles, cand, ti, table.reshape(ti.tiles.shape[0],
                                                                             ti.tiles.shape[1], -1))
-    assert blocknn_cuda.LAUNCHES["fold6"] == before + 1
+    assert profiling.LAUNCHES["fold6"] == before + 1
     d_p, pl_p = fold6_reference(tq.tiles, fold6_prepare(cand, ti, table))
     assert torch.equal(d.view(torch.int32), d_p.view(torch.int32)) and torch.equal(pl, pl_p)

@@ -43,8 +43,8 @@ from icpx.registration.icp import ICPConfig as JConfig
 from icpx.registration.icp import gicp_cov_rot as j_gicp_cov_rot
 from icpx.registration.icp import register as j_register
 from icpx_torch.geometry.se3 import SE3
-from icpx_torch.kernels import blocknn_cuda
 from icpx_torch.kernels.normals import estimate_covariances
+from icpx_torch.utils import profiling
 from icpx_torch.registration import linearize as tlin
 from icpx_torch.registration.icp import gicp_cov_rot, register
 from torch_parity import clouds, to_np, torch_cloud, torch_config, torch_se3
@@ -162,10 +162,10 @@ def test_block_covariances_through_the_fused_moments():
         mp.setattr(blocknn_pallas, "block_radius_moments_fused",
                    functools.partial(blocknn_pallas.block_radius_moments_fused, interpret=True))
         cnt_j, cov_j = (np.asarray(a) for a in j_cov(jc.xyz, jc.mask, 15))
-    before = dict(blocknn_cuda.LAUNCHES)
+    before = dict(profiling.LAUNCHES)
     cnt_t, cov_t = (to_np(a) for a in _block_radius_cov(tc.xyz, tc.mask, 15, fused=True))
     cnt_x, _ = _block_radius_cov(tc.xyz, tc.mask, 15, fused=False)
-    assert blocknn_cuda.LAUNCHES == before
+    assert profiling.LAUNCHES == before
     valid = np.asarray(jc.mask)
     same = (cnt_t == cnt_j)[valid]
     assert same.mean() >= 0.999
@@ -250,9 +250,9 @@ def test_gicp_register_block_matches_jax(block_pair, mode):
     assert cfg.resolve_nn(N) == "block"
     assert cfg.resolve_fused() == (mode == "fused")
     assert cfg.resolve_payload(N, torch.device("cpu")) == ("gather" if mode in ("auto", "fused") else mode)
-    before = dict(blocknn_cuda.LAUNCHES)
+    before = dict(profiling.LAUNCHES)
     res = register(torch_cloud(src), torch_cloud(tgt), cfg)
-    assert blocknn_cuda.LAUNCHES == before  # the CPU runs the plain versions
+    assert profiling.LAUNCHES == before  # the CPU runs the plain versions
     np.testing.assert_allclose(to_np(res.transform.R), np.asarray(jres.transform.R), atol=1e-5)
     np.testing.assert_allclose(to_np(res.transform.t), np.asarray(jres.transform.t), atol=1e-5)
     rot, t = (float(x) for x in res.transform.distance_to(torch_se3(gt)))

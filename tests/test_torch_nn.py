@@ -26,6 +26,7 @@ from icpx.kernels.knn import knn as j_knn
 from icpx.kernels.knn_pallas import nn_pallas
 from icpx_torch.kernels import nn_cuda
 from icpx_torch.kernels.knn import knn, nearest_neighbor, nearest_neighbor_reference
+from icpx_torch.utils import profiling
 from torch_fixtures import CSRC_SHAPE, SCREEN_FIXTURES, duplicate_fixture, screen_fixture
 from torch_fixtures import _nn_inputs as _inputs
 from torch_parity import to_np
@@ -138,11 +139,11 @@ def test_knn_duplicates_and_short_rows_match_jax():
 
 def test_cpu_dispatch_uses_plain_version_and_kernel_refuses_cpu():
     q, r, mask = _inputs(100, 300, seed=3, masked_frac=0.2)
-    before = nn_cuda.LAUNCHES
+    before = profiling.LAUNCHES["nn"]
     d, i = nearest_neighbor(torch.as_tensor(q), torch.as_tensor(r), ref_mask=torch.as_tensor(mask))
     d_p, i_p = _plain(q, r, mask, tile_q=2048, tile_r=4096)
     assert torch.equal(d, d_p) and torch.equal(i, i_p) and i.dtype == torch.int32
-    assert nn_cuda.LAUNCHES == before
+    assert profiling.LAUNCHES["nn"] == before
     with pytest.raises(ValueError):
         nn_cuda.nn_cuda(torch.as_tensor(q), torch.as_tensor(r))
 

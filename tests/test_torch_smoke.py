@@ -19,6 +19,7 @@ from icpx_torch.distributed import map_ep, pipeline, ring, sharded_icp
 from icpx_torch.kernels import blocknn, blocknn_cuda, cuda_build, nn_cuda, normals, sort_cuda
 from icpx_torch.odometry import compiled
 from icpx_torch.registration import icp
+from icpx_torch.utils import profiling
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -74,44 +75,44 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
     it, so GICP's covariances take the block method as at 1M), and every
     timed call runs once."""
     def fake_kernel(q, r, m=None):
-        nn_cuda.LAUNCHES += 1
+        profiling.LAUNCHES["nn"] += 1
         return nn_cuda.nearest_neighbor_reference(q, r, ref_mask=m)
 
     def dispatch(query, ref, *, ref_mask=None, tile_q=2048, tile_r=4096):
         return fake_kernel(query.contiguous(), ref.contiguous(), ref_mask)
 
     def fake_moments6(query, tiles, cand, q_cent, r2):
-        blocknn_cuda.LAUNCHES["moments6"] += 1
+        profiling.LAUNCHES["moments6"] += 1
         return blocknn_cuda.moments6_reference(query, tiles, cand, q_cent, r2.reshape(()))
 
     def fake_fold6(query, ops):
-        blocknn_cuda.LAUNCHES["fold6"] += 1
+        profiling.LAUNCHES["fold6"] += 1
         return blocknn_cuda.fold6_reference(query, ops)
 
     def fake_fold7(query, ops):
-        blocknn_cuda.LAUNCHES["fold7"] += 1
+        profiling.LAUNCHES["fold7"] += 1
         return blocknn_cuda.fold7_reference(query, ops)
 
     def fake_select(pos, cand, table, s):
-        blocknn_cuda.LAUNCHES["select"] += 1
+        profiling.LAUNCHES["select"] += 1
         return blocknn_cuda.select_reference(pos, cand, table, s)
 
     def fake_fused4(query, tiles, unions, group):
-        blocknn_cuda.LAUNCHES["fused4"] += 1
+        profiling.LAUNCHES["fused4"] += 1
         return blocknn_cuda.fused4_reference(query, tiles, unions, group)
 
     def fake_moments_fused(query, tiles, unions, q_cent, r2, group):
-        blocknn_cuda.LAUNCHES["moments_fused"] += 1
+        profiling.LAUNCHES["moments_fused"] += 1
         return blocknn_cuda.moments_fused_reference(query, tiles, unions, q_cent, r2.reshape(()), group)
 
     def fake_sort(key, payloads):
-        sort_cuda.LAUNCHES["sort"] += 1
+        profiling.LAUNCHES["sort"] += 1
         return sort_cuda.sort_segments_reference(key, payloads)
 
     real_fused4 = blocknn_cuda.block_nn_fused4
 
     def fused4_wrapper(*a, **kw):  # the CPU wrapper runs the plain version: count it
-        blocknn_cuda.LAUNCHES["fused4"] += 1
+        profiling.LAUNCHES["fused4"] += 1
         return real_fused4(*a, **kw)
 
     def select_wrapper(pos, cand, pl_tiles):

@@ -15,7 +15,6 @@ from icpx.registration.icp import register as j_register
 from icpx.utils import checkpoint as j_checkpoint
 from icpx.utils import debug as j_debug
 from icpx.utils import metrics as j_metrics
-from icpx.utils import profiling as j_profiling
 from icpx_torch.cloud import PointCloud
 from icpx_torch.distributed.fault import corrupt_points, drop_shard
 from icpx_torch.geometry.se3 import SE3
@@ -172,21 +171,6 @@ def test_time_fn_counts_reps_and_cache_bust():
     with profiling.Timer() as timer:
         out = timer.block({"a": torch.ones(2), "b": [torch.zeros(1)]})
     assert timer.elapsed >= 0 and out["a"].sum() == 2
-
-
-def test_speed_of_light_uses_the_h100_rates():
-    out = profiling.kernel_speed_of_light(seconds=1e-3, flops=67e9, hbm_bytes=335e6)
-    assert out["f32_flops_frac"] == pytest.approx(1.0) and out["hbm_frac"] == pytest.approx(0.1)
-    assert out["bound_frac"] == out["f32_flops_frac"]
-    assert profiling.PEAKS["hbm_bytes"] == profiling.HBM_BYTES_PER_S == 3.35e12
-    assert profiling.PEAKS["f32_flops"] == profiling.FP32_FLOPS == 67e12
-    # the same keyword names as the reference, each over its own peak
-    assert set(j_profiling.PEAKS) == set(profiling.PEAKS)
-    vpu = profiling.kernel_speed_of_light(seconds=1.0, vpu_ops=33.5e12)
-    assert vpu["vpu_frac"] == pytest.approx(0.5) and vpu["bound_frac"] == vpu["vpu_frac"]
-    assert profiling.kernel_speed_of_light(seconds=1.0) == {"bound_frac": 0.0}
-    custom = profiling.kernel_speed_of_light(seconds=1.0, hbm_bytes=1.0, peaks={"hbm_bytes": 2.0})
-    assert custom["hbm_frac"] == 0.5
 
 
 def test_trace_context_writes_a_trace(tmp_path):
