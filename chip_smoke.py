@@ -470,21 +470,30 @@ def _lidar_pair(n, dev):
 
 def _nn_equal(name, qc, rc, mc):
     """The nn kernel against its plain version on (query, ref, ref mask):
-    fail unless d2 and index are bit-equal; (kernel d2, kernel index, the
-    plain version's finite rows, max |dd2|)."""
+    fail unless d2 and index are bit-equal and the call adds to
+    `profiling.nn_counters` what `nn_cuda.path_counts` expects; (kernel d2,
+    kernel index, the plain version's finite rows, max |dd2|, (far rows,
+    empty tiles) as the kernel counted them in this call)."""
     from icpx_torch.kernels import nn_cuda
     from icpx_torch.kernels.knn import nearest_neighbor_reference
+    from icpx_torch.utils import profiling
 
+    before = profiling.nn_counters(qc.device)
     d_k, i_k = nn_cuda.nn_cuda(qc, rc, mc)
     d_p, i_p = nearest_neighbor_reference(qc, rc, ref_mask=mc)
     torch.cuda.synchronize()
+    after = profiling.nn_counters(qc.device)
+    counted = tuple(after[k] - before[k] for k in profiling.NN_COUNTERS)
+    want = nn_cuda.path_counts(qc, rc, mc, nn_cuda.kernel_shape())
+    if counted != want:
+        _fail(f"nn {name}: the kernel counted (far rows, empty tiles) {counted}, expected {want}")
     fin = torch.isfinite(d_p)
     err = _max_err(d_k, d_p) if torch.equal(fin, torch.isfinite(d_k)) else math.inf
     # the same direct-form d2 bits and the lowest index among ties
     if not (torch.equal(d_k.view(torch.int32), d_p.view(torch.int32)) and torch.equal(i_k, i_p)):
         _fail(f"nn {name}: kernel and plain version differ on "
               f"{int(((d_k != d_p) | (i_k != i_p)).sum())} rows (max |dd2| {err:.3e})")
-    return d_k, i_k, fin, err
+    return d_k, i_k, fin, err, counted
 
 
 def _phase_nn(dev, n_pair, rng, lidar=None):
@@ -501,7 +510,7 @@ def _phase_nn(dev, n_pair, rng, lidar=None):
     fields = {}
     for name, (q, r, m, expect) in cases.items():
         qc, rc, mc = (torch.as_tensor(x, device=dev) for x in (q, r, m))
-        d_k, i_k, fin, err = _nn_equal(name, qc, rc, mc)
+        d_k, i_k, fin, err, (far, empty) = _nn_equal(name, qc, rc, mc)
         max_abs_err = max(max_abs_err, err)
         if expect is not None and not np.array_equal(i_k.cpu().numpy(), expect):
             _fail(f"nn {name}: tie rule broken (lowest index must win)")
@@ -544,12 +553,14 @@ def _phase_nn(dev, n_pair, rng, lidar=None):
                 fields["library_device_ms_3456"] = library_device_ms
             if name == big:
                 fields["bound_by"] = bound_by
+            fields.update({f"far_rows{suffix}": far, f"empty_tiles{suffix}": empty})
             if name == scans:
                 fields["valid_refs_lidar"] = int(m.sum())
-            line += (f"; grid {plan['q_blocks']} query blocks x {plan['splits']} "
-                     f"splits of {plan['tiles_per_split']} tiles of {plan['tile_r']} rows, "
-                     f"Q={plan['queries_per_thread']} queries a thread, G={plan['group']}, "
-                     f"{plan['blocks_per_sm']} blocks an SM x {plan['sms']} SMs")
+            line += (f"; counted by the kernel: {far} far rows, {empty} empty tiles skipped; "
+                     f"near items {plan['q_blocks']} query blocks x {plan['splits']} splits of "
+                     f"the non-empty tiles of {plan['tile_r']} rows, "
+                     f"Q={plan['queries_per_thread']} queries a thread, G={plan['group']}, grid "
+                     f"{plan['grid']} = {plan['blocks_per_sm']} blocks an SM x {plan['sms']} SMs")
         print(line)
         del qc, rc, mc, d_k
     return dict(fields, max_abs_err=max_abs_err)
@@ -2241,7 +2252,7 @@ def _phase_compiled_brute(dev, n, frames, kernels):
     xyz, mask, _ = fx
     center = _masked_center(xyz[0], mask[0])
     query, ref = (torch.where(mask[k][:, None], xyz[k] - center[None, :], xyz[k]) for k in (1, 0))
-    _, _, fin, _ = _nn_equal(f"compiled odometry {n} (brute) frame 1", query, ref, mask[0])
+    _, _, fin, _, _ = _nn_equal(f"compiled odometry {n} (brute) frame 1", query, ref, mask[0])
     print(f"compiled odometry {n} x {frames} (brute): nn kernel vs plain on frame 1's operands "
           f"({n} x {n}, {int(mask[0].sum())} valid reference rows): d2 and index bit-equal "
           f"({int(fin.sum())} finite)")

@@ -18,8 +18,9 @@ CPU; and ``--profile DIR`` on ``register`` and ``odometry``, which writes a
 ``torch.profiler`` trace of the command to DIR (`trace_context` of
 `utils.profiling`): the program's ``icpx.*`` spans (entry points, stages,
 ICP iterations, host fetches, odometry frames) beside the card's kernels,
-for TensorBoard or Perfetto. Run it as ``python -m icpx_torch.cli`` or,
-installed, ``icpx-torch``.
+for TensorBoard or Perfetto; on the card it also prints the nn kernel's
+path counters (`profiling.nn_counters`) to standard error. Run it as
+``python -m icpx_torch.cli`` or, installed, ``icpx-torch``.
 """
 
 from __future__ import annotations
@@ -597,10 +598,13 @@ def main(argv=None) -> int:
         ap.error("odometry needs --velodyne-dir or --synthetic")
     args.device = _device(args.device)
     if getattr(args, "profile", None):
-        from icpx_torch.utils.profiling import trace_context
+        from icpx_torch.utils.profiling import nn_counters, trace_context
 
         with trace_context(args.profile):
-            return args.fn(args)
+            rc = args.fn(args)
+        if args.device.type == "cuda":  # the nn kernel's far rows and skipped empty tiles
+            print(f"nn kernel paths: {nn_counters(args.device)}", file=sys.stderr)
+        return rc
     return args.fn(args)
 
 

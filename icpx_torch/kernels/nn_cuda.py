@@ -5,7 +5,13 @@ The kernel (`csrc/nn.cu`) replaces the Pallas
 `cuda_build` (plain `nvcc`, a C entry point, `ctypes`). It screens pairs in
 the expansion form and rescores the few groups that pass in the direct
 form; `screen_margin` is the proven margin of that screen and `plan` the
-split of the references across blocks (see the source note).
+work items of a launch (see the source note). Two kinds of rows carry
+nothing for the screen, and the kernel finds both in its own inputs:
+reference tiles with no valid row are skipped, and far query rows
+(`far_rows`: every group of theirs would pass the screen, as for rows at
+PAD_COORD) are scored in the direct form alone, in pieces spread over the
+card. `path_counts` gives what the kernel adds to
+`profiling.nn_counters` for a call.
 
 Contract of both versions: ``(d2 (Nq,) f32, idx (Nq,) i32)`` with the exact
 fp32 squared distance to the nearest VALID reference row, in the direct
@@ -58,7 +64,7 @@ def build() -> ctypes.CDLL:
         return _lib
     lib = cuda_build.load("nn")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.icpx_nn_forward.argtypes = [p, p, p, i, i, p, ll, i, p, p, i, p]
+    lib.icpx_nn_forward.argtypes = [p, p, p, i, i, p, ll, i, i, p, p, p, i, p]
     lib.icpx_nn_forward.restype = i
     lib.icpx_nn_scratch_bytes.argtypes = [i, i]
     lib.icpx_nn_scratch_bytes.restype = ll
@@ -90,17 +96,54 @@ def screen_margin(qq: torch.Tensor, rr_max: torch.Tensor) -> torch.Tensor:
     return (2.0 ** -19) * (total * total)
 
 
+def far_rows(query: torch.Tensor, rr_max: torch.Tensor) -> torch.Tensor:
+    """The query rows the kernel scores in the direct form alone, as it
+    finds them in float32: delta_q (`screen_margin`) >= R (R + 4 |q|), R^2
+    = `rr_max` the largest |r|^2 over the valid rows. The screen scores
+    |r|^2 - 2 q.r of such a row lie in [-2 |q| R, R^2 + 2 |q| R], so each
+    of its groups would pass. Rows at PAD_COORD are far; a row in or near
+    the references is not. Which rows are far decides only where the kernel
+    spends its time, never its answers."""
+    q = query.to(torch.float32)
+    qq = (q[:, 0] * q[:, 0] + q[:, 1] * q[:, 1]) + q[:, 2] * q[:, 2]
+    big_r = torch.sqrt(rr_max.to(torch.float32))
+    return screen_margin(qq, rr_max) >= big_r * (big_r + 4.0 * torch.sqrt(qq))
+
+
+def path_counts(query: torch.Tensor, ref: torch.Tensor, ref_mask: Optional[torch.Tensor],
+                shape: KernelShape) -> Tuple[int, int]:
+    """(far rows, empty tiles skipped) that one call of a kernel of `shape`
+    adds to `profiling.nn_counters`: the far rows when any reference row is
+    valid (none otherwise), and every query block skips each tile of
+    `shape.tile_r` reference rows that holds no valid row."""
+    nr = ref.shape[0]
+    valid = torch.ones(nr, dtype=torch.bool) if ref_mask is None else ref_mask.cpu()
+    tiles = math.ceil(nr / shape.tile_r)
+    per_tile = torch.zeros(tiles * shape.tile_r, dtype=torch.bool)
+    per_tile[:nr] = valid
+    empty = tiles - int(per_tile.reshape(tiles, shape.tile_r).any(1).sum())
+    q_blocks = math.ceil(query.shape[0] / (shape.threads * shape.queries_per_thread))
+    if not bool(valid.any()):
+        return 0, empty * q_blocks
+    r = ref.cpu()[valid].to(torch.float32)
+    rr = (r[:, 0] * r[:, 0] + r[:, 1] * r[:, 1]) + r[:, 2] * r[:, 2]
+    return int(far_rows(query.cpu(), rr.max()).sum()), empty * q_blocks
+
+
 def plan(nq: int, nr: int, sms: int, blocks_per_sm: int,
          shape: KernelShape) -> Tuple[int, int, int]:
-    """(query blocks, reference splits, tiles a split) of one search launch
-    of a kernel of `shape`: as many splits of the reference tiles as keep
-    the grid within one wave of resident blocks (sms x blocks_per_sm), at
-    least one, at most one a tile."""
+    """(query blocks, reference splits, grid blocks) of one search launch of
+    a kernel of `shape`: as many splits of the reference tiles as keep the
+    near work items (query block, split) within one wave of resident
+    blocks (sms x blocks_per_sm), at least one, at most one a tile; the
+    grid is two blocks a near item, at most that wave. Its blocks take the
+    near and then the far items from a counter, so the blocks beyond the
+    near items start on far rows while the near items run."""
     q_blocks = max(1, math.ceil(nq / (shape.threads * shape.queries_per_thread)))
     tiles = max(1, math.ceil(nr / shape.tile_r))
-    splits = min(tiles, max(1, (sms * blocks_per_sm) // q_blocks))
-    per_split = math.ceil(tiles / splits)
-    return q_blocks, math.ceil(tiles / per_split), per_split
+    wave = sms * blocks_per_sm
+    splits = min(tiles, max(1, wave // q_blocks))
+    return q_blocks, splits, min(wave, 2 * q_blocks * splits)
 
 
 def _occupancy(index: int) -> Tuple[int, int]:
@@ -116,10 +159,10 @@ def _occupancy(index: int) -> Tuple[int, int]:
 
 
 @functools.lru_cache(maxsize=64)
-def _launch_args(index: int, nq: int, nr: int) -> Tuple[int, int]:
-    """(tiles a split, scratch bytes) of a call on device `index`."""
-    _, _, per_split = plan(nq, nr, *_occupancy(index), kernel_shape())
-    return per_split, build().icpx_nn_scratch_bytes(nq, nr)
+def _launch_args(index: int, nq: int, nr: int) -> Tuple[int, int, int]:
+    """(splits, grid blocks, scratch bytes) of a call on device `index`."""
+    _, splits, grid = plan(nq, nr, *_occupancy(index), kernel_shape())
+    return splits, grid, build().icpx_nn_scratch_bytes(nq, nr)
 
 
 def launch_plan(nq: int, nr: int, device: torch.device) -> Dict[str, int]:
@@ -128,9 +171,9 @@ def launch_plan(nq: int, nr: int, device: torch.device) -> Dict[str, int]:
     index = torch.device(device).index or 0
     sms, per_sm = _occupancy(index)
     shape = kernel_shape()
-    q_blocks, splits, per_split = plan(nq, nr, sms, per_sm, shape)
-    return dict(shape._asdict(), q_blocks=q_blocks, splits=splits, tiles_per_split=per_split,
-                sms=sms, blocks_per_sm=per_sm)
+    q_blocks, splits, grid = plan(nq, nr, sms, per_sm, shape)
+    return dict(shape._asdict(), q_blocks=q_blocks, splits=splits, grid=grid, sms=sms,
+                blocks_per_sm=per_sm)
 
 
 def _check_points(name: str, x: torch.Tensor, device: torch.device) -> None:
@@ -151,7 +194,8 @@ def nn_cuda(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run the CUDA 1-NN kernels (pack, search) on PyTorch's current stream;
     counts one call in `profiling.LAUNCHES["nn"]` (one call launches two
-    kernels, pack and search, and counts once)."""
+    kernels, pack and search, and counts once), and the kernel adds its far
+    rows and skipped empty tiles to `profiling.nn_counters` on the card."""
     if not query.is_cuda:
         raise ValueError("nn_cuda needs CUDA tensors")
     _check_points("query", query, query.device)
@@ -165,15 +209,16 @@ def nn_cuda(
             raise ValueError("ref_mask must be contiguous and on the query's device")
     lib = build()
     dev = query.device
-    per_split, n_scratch = _launch_args(dev.index or 0, nq, nr)
+    splits, grid, n_scratch = _launch_args(dev.index or 0, nq, nr)
     scratch = torch.empty((n_scratch,), dtype=torch.uint8, device=dev)
     d = torch.empty((nq,), dtype=torch.float32, device=dev)
     idx = torch.empty((nq,), dtype=torch.int32, device=dev)
     rc = lib.icpx_nn_forward(
         query.data_ptr(), ref.data_ptr(),
         None if ref_mask is None else ref_mask.data_ptr(),
-        nq, nr, scratch.data_ptr(), n_scratch, per_split,
-        d.data_ptr(), idx.data_ptr(), dev.index, torch.cuda.current_stream(dev).cuda_stream,
+        nq, nr, scratch.data_ptr(), n_scratch, splits, grid,
+        profiling.nn_counter_tensor(dev).data_ptr(), d.data_ptr(), idx.data_ptr(), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     cuda_build.check(lib, rc, "nn kernel")
     profiling.LAUNCHES["nn"] += 1

@@ -16,6 +16,12 @@ needs measured:
     and times those syncs.
   * `LAUNCHES`: launches of each hand-written kernel, keyed by kernel
     (each launch site adds one to its key).
+  * `nn_counters(device)`: how often the nn kernel's paths for rows that
+    carry nothing for its screen engage, summed over its calls on a
+    device: far query rows and empty reference tiles skipped. The kernel
+    adds to one persistent int64 tensor a device (`nn_counter_tensor`) in
+    atomics it runs anyway, so counting costs no launch and no read;
+    `nn_counters` reads it (a sync: keep it off timed paths).
 
 `HBM_BYTES_PER_S` and `FP32_FLOPS` are one H100 SXM's (NVIDIA's data
 sheet, at its 700 W power limit; a card capped lower runs slower under
@@ -39,6 +45,9 @@ FP32_FLOPS = 67e12
 
 LAUNCHES = {"nn": 0, "moments6": 0, "fold6": 0, "fold7": 0, "select": 0, "fused4": 0,
             "moments_fused": 0, "sort": 0}
+
+NN_COUNTERS = ("far_rows", "empty_tiles")  # the nn kernel's counters, in its order
+_NN_COUNTS = {}  # device index -> int64 (len(NN_COUNTERS),) on that device
 
 _OFF = contextlib.nullcontext()  # what `span` returns while no profiler records
 
@@ -65,6 +74,29 @@ def fetch_int(t) -> int:
         return int(t)
     with torch.profiler.record_function("icpx.fetch"):
         return int(t)
+
+
+def nn_counter_tensor(device) -> torch.Tensor:
+    """The nn kernel's counters on CUDA `device`, made (zero) at first use:
+    the tensor the kernel adds its far rows and skipped empty tiles to.
+    A first use inside a CUDA graph capture is refused: the zero fill
+    would be a node of the graph, run again at every replay."""
+    index = torch.device(device).index or 0
+    if index not in _NN_COUNTS:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"the nn kernel's counters on cuda:{index} are made at its first "
+                               "call, which must come before any CUDA graph capture")
+        _NN_COUNTS[index] = torch.zeros(len(NN_COUNTERS), dtype=torch.int64,
+                                        device=torch.device("cuda", index))
+    return _NN_COUNTS[index]
+
+
+def nn_counters(device="cuda") -> dict:
+    """The nn kernel's counters on `device`, summed over its calls there
+    (zeros before the first): {"far_rows": n, "empty_tiles": n}."""
+    index = torch.device(device).index or 0
+    counts = _NN_COUNTS[index].tolist() if index in _NN_COUNTS else [0] * len(NN_COUNTERS)
+    return dict(zip(NN_COUNTERS, counts))
 
 
 def _fence(out) -> None:

@@ -33,10 +33,11 @@ from icpx_torch.kernels.sort_cuda import sort_segments_reference
 from icpx_torch.kernels.voxel import auto_cell_size
 from icpx_torch.utils import profiling
 from torch_fixtures import (CSRC_SHAPE, F4_SHAPE, F6_FIXTURE_SHAPES, F6_FIXTURES, F6_SHAPE,
-                            F7_FIXTURES, F7_SHAPE, M6_FIXTURE_SHAPES, M6_FIXTURES, M6_SHAPE,
-                            MF_SHAPE, RADIUS_U, SCREEN_FIXTURES, SORT_SHAPE, _cov_tol,
+                            F7_FIXTURES, F7_SHAPE, FAR_FIXTURES, M6_FIXTURE_SHAPES, M6_FIXTURES,
+                            M6_SHAPE, MF_SHAPE, RADIUS_U, SCREEN_FIXTURES, SORT_SHAPE, _cov_tol,
                             _fused4_tie_case, _nn_inputs, _slot_weights_fixture, _sort_keys,
-                            _table_view, _tie_fixture, duplicate_fixture, screen_fixture)
+                            _table_view, _tie_fixture, duplicate_fixture, far_fixture,
+                            screen_fixture)
 
 
 def _np(x) -> np.ndarray:
@@ -118,9 +119,31 @@ def test_cuda_library_shape_and_scratch_check(cuda_device):
     d = torch.empty((10,), device=cuda_device)
     i = torch.empty((10,), dtype=torch.int32, device=cuda_device)
     rc = lib.icpx_nn_forward(q.data_ptr(), q.data_ptr(), None, 10, 10, scratch.data_ptr(),
-                             need - 1, 1, d.data_ptr(), i.data_ptr(), q.device.index,
+                             need - 1, 1, 1, profiling.nn_counter_tensor(cuda_device).data_ptr(),
+                             d.data_ptr(), i.data_ptr(), q.device.index,
                              torch.cuda.current_stream(cuda_device).cuda_stream)
     assert rc != 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", FAR_FIXTURES)
+def test_cuda_nn_far_rows_and_empty_tiles(cuda_device, name):
+    """Far query rows (pad rows at the end, one in 7, one alone in a warp,
+    every row, none) and empty reference tiles (a masked tail, interleaved,
+    every row masked, fewer rows than a tile): bit-equal to the plain
+    version on every row, pad rows included, and the call adds to
+    `profiling.nn_counters` what `nn_cuda.path_counts` expects."""
+    q, r, mask = (torch.as_tensor(x, device=cuda_device) for x in far_fixture(name))
+    before = profiling.nn_counters(cuda_device)
+    d_k, i_k = nn_cuda.nn_cuda(q, r, mask)
+    d_p, i_p = nearest_neighbor_reference(q, r, ref_mask=mask)
+    torch.cuda.synchronize()
+    assert torch.equal(d_k.view(torch.int32), d_p.view(torch.int32)) and torch.equal(i_k, i_p)
+    after = profiling.nn_counters(cuda_device)
+    counted = tuple(after[k] - before[k] for k in profiling.NN_COUNTERS)
+    assert counted == nn_cuda.path_counts(q, r, mask, CSRC_SHAPE)
+    if name == "all masked":
+        assert torch.isinf(d_k).all() and (i_k == 0).all()
 
 
 # ---- kernel #8: the segmented sort ------------------------------------------------------------

@@ -74,8 +74,13 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
     8,192 points, the block path's threshold (BLOCK_THRESHOLD is lowered to
     it, so GICP's covariances take the block method as at 1M), and every
     timed call runs once."""
-    def fake_kernel(q, r, m=None):
+    shape = nn_cuda.KernelShape(threads=256, queries_per_thread=4, group=8, tile_r=256)
+    nn_counts = dict.fromkeys(profiling.NN_COUNTERS, 0)
+
+    def fake_kernel(q, r, m=None):  # counts as the kernel does
         profiling.LAUNCHES["nn"] += 1
+        for key, n in zip(profiling.NN_COUNTERS, nn_cuda.path_counts(q, r, m, shape)):
+            nn_counts[key] += n
         return nn_cuda.nearest_neighbor_reference(q, r, ref_mask=m)
 
     def dispatch(query, ref, *, ref_mask=None, tile_q=2048, tile_r=4096):
@@ -131,9 +136,10 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
 
     monkeypatch.setattr(nn_cuda, "nn_cuda", fake_kernel)
     monkeypatch.setattr(nn_cuda, "build", lambda: None)
-    shape = nn_cuda.KernelShape(threads=256, queries_per_thread=4, group=8, tile_r=256)
+    monkeypatch.setattr(nn_cuda, "kernel_shape", lambda: shape)
+    monkeypatch.setattr(profiling, "nn_counters", lambda device="cuda": dict(nn_counts))
     monkeypatch.setattr(nn_cuda, "launch_plan", lambda nq, nr, device: dict(
-        zip(("q_blocks", "splits", "tiles_per_split"), nn_cuda.plan(nq, nr, 132, 4, shape)),
+        zip(("q_blocks", "splits", "grid"), nn_cuda.plan(nq, nr, 132, 4, shape)),
         sms=132, blocks_per_sm=4, **shape._asdict()))
     monkeypatch.setattr(blocknn_cuda, "build", lambda: None)
     monkeypatch.setattr(sort_cuda, "build", lambda: None)
@@ -206,7 +212,9 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
     extras = {"nn": {"ms_3456", "plain_ms_3456", "library_ms_3456", "bound_ms_3456", "splits",
                      "splits_3456", "device_ms", "device_ms_3456", "library_device_ms_3456",
                      "launches_odometry", "launches_distributed", "ms_lidar", "plain_ms_lidar",
-                     "bound_ms_lidar", "device_ms_lidar", "splits_lidar", "valid_refs_lidar"},
+                     "bound_ms_lidar", "device_ms_lidar", "splits_lidar", "valid_refs_lidar",
+                     "far_rows", "empty_tiles", "far_rows_3456", "empty_tiles_3456",
+                     "far_rows_lidar", "empty_tiles_lidar"},
               "moments6": {"cov_max_abs_err", "cov_err_over_tol", "device_ms", "bytes_ms", "band_pairs",
                            "screened_pairs", "mean_count", "ms_k8", "device_ms_k8", "plain_ms_k8",
                            "bound_ms_k8", "bytes_ms_k8", "band_pairs_k8", "screened_pairs_k8",
@@ -228,6 +236,10 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
         assert k["route"] == "cuda" and (ROOT / k["source"]).exists()
         assert k["bound_ms"] > 0 and k["bound_by"] in ("bytes", "operations")
     nn, mom, fold, fold7, select, fused4, mfused, sort = ks
+    # the surface has no far row and no empty tile; the cat shape's 56 pad
+    # query rows are far (every case's counts are held in the phase itself)
+    assert nn["far_rows"] == nn["empty_tiles"] == nn["empty_tiles_3456"] == 0
+    assert nn["far_rows_3456"] == 56
     assert 0.0 <= mom["cov_err_over_tol"] <= 1.0 and fold["max_abs_err"] == 0.0
     for k in (fold7, select, fused4, sort):  # bit equality with the plain versions
         assert k["max_abs_err"] == 0.0 and k["launches"] >= 1

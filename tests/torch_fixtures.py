@@ -110,6 +110,60 @@ SCREEN_FIXTURES = ["uniform", "coords at 100", "exact duplicates", "ulp neighbou
                    "PAD_COORD queries", "half masked"]
 
 
+def far_fixture(name):
+    """(query, ref, ref_mask) float32 / bool numpy arrays for the nn
+    kernel's far rows and empty tiles, made from a seed: rows within 25 of
+    the origin (a LiDAR scan's range), capacity rows at PAD_COORD."""
+    rng = np.random.default_rng(sum(map(ord, name)) + 1)
+
+    def scan(n):
+        return rng.uniform(-25.0, 25.0, size=(n, 3)).astype(np.float32)
+
+    if name == "scan layout":  # pad rows at the end of both sides, as PointCloud.create leaves them
+        q, r = scan(3000), scan(4000)
+        q[2500:] = PAD_COORD
+        r[2900:] = PAD_COORD
+        return q, r, np.arange(4000) < 2900
+    if name == "pad one in 7":
+        q = scan(2100)
+        q[::7] = PAD_COORD
+        return q, scan(3000), np.ones(3000, bool)
+    if name == "one far row":  # a single far row in an otherwise clean warp
+        q = scan(1024)
+        q[37] = -PAD_COORD
+        return q, scan(2000), np.ones(2000, bool)
+    if name == "all far":
+        q = np.where(rng.uniform(size=(1500, 1)) < 0.5, PAD_COORD, -PAD_COORD) * np.ones((1, 3))
+        q = (q + rng.uniform(-1e4, 1e4, size=(1500, 3))).astype(np.float32)
+        return q, scan(2500), rng.uniform(size=2500) < 0.9
+    if name == "none far":
+        return scan(2048), scan(3000), np.ones(3000, bool)
+    if name == "masked tail":  # the reference's last splits hold no valid row
+        return scan(2000), scan(6000), np.arange(6000) < 2500
+    if name == "masked interleaved":
+        return scan(2000), scan(5000), np.arange(5000) % 5 != 0
+    if name == "all masked":
+        q = scan(1100)
+        q[1000:] = PAD_COORD
+        return q, scan(700), np.zeros(700, bool)
+    if name == "nq ragged":  # not a multiple of a query block
+        q = scan(1029)
+        q[1020:] = PAD_COORD
+        return q, scan(3000), np.arange(3000) < 2800
+    if name == "nr below a tile":
+        q = scan(700)
+        q[650:] = PAD_COORD
+        r = scan(100)
+        r[90:] = PAD_COORD
+        return q, r, np.arange(100) < 90
+    raise KeyError(name)
+
+
+FAR_FIXTURES = ["scan layout", "pad one in 7", "one far row", "all far", "none far",
+                "masked tail", "masked interleaved", "all masked", "nq ragged",
+                "nr below a tile"]
+
+
 # ---- sort fixtures (kernel #8) ------------------------------------------------------------
 
 
