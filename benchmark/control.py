@@ -19,7 +19,7 @@ reference answers:
 * "reference-float32", "reference-tf32": the reference in the program's
   place, in that working precision;
 * "reference-guarantee": the reference with one stated guarantee broken
-  (`entries.py`).
+  (the entry's `reference`, `benchmark/entry/<entry>.py`).
 
 One JSON line a seed and reading. Needs a CUDA card; the benchmark's runs
 do not run this.
@@ -81,7 +81,7 @@ def readings(cell, seed: int, device, names, requests: int):
     """One reading a name: the compared numbers of that program or control."""
     import entries
 
-    entry = entries.ENTRIES[cell.traffic["entry"]](cell.config, cell.traffic, seed, device)
+    entry = entries.load(cell.traffic["entry"])(cell.config, cell.traffic, seed, device)
     entry.setup()
     runs = {n: _program(entry, n, requests) for n in names if n.startswith("program")}
     judged = {n: sum(not entry.judge(r) for r in recs) for n, recs in runs.items()}

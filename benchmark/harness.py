@@ -3,7 +3,8 @@ plain reference, and the result line.
 
 Everything that belongs to one cell is found by name from
 `BENCHMARK.json`: the configuration's file (its `file` entry), the traffic
-mix (`benchmark/traffic/<traffic>.json`, naming an entry of `entries.py`),
+mix (`benchmark/traffic/<traffic>.json`, naming its entry,
+`benchmark/entry/<entry>.py`, which `entries.load` finds),
 the limits of the check (`benchmark/limits/<workload>.json`) and one reader
 a metric (`benchmark/metrics/<metric>.py`, with `read(ctx)` returning a
 number or None, and optional `WRAP`: functions of the program, as
@@ -160,7 +161,7 @@ def run(args, *, root: Path, device=None, t_start: float) -> int:
         return 2
     import entries
 
-    entry = entries.ENTRIES[cell.traffic["entry"]](cell.config, cell.traffic, args.seed, device)
+    entry = entries.load(cell.traffic["entry"])(cell.config, cell.traffic, args.seed, device)
     entry.setup()
     entry.warm()
     cuda = device.type == "cuda"

@@ -1,8 +1,11 @@
-"""The harness on the CPU, at small sizes: each cell's code path through
-the harness's internals (the look for a card skipped), with no JAX module
-loaded; a new cell, traffic mix and metric added as data; the timed path
-broken underneath and `correct` coming out false; and, on the card, the
-control failing a full-size cell's limits."""
+"""The harness on the CPU, at small sizes: each small cell's code path
+through the harness's internals (the look for a card skipped), with no JAX
+module loaded; a new cell, traffic mix and metric added as data, and a new
+entry with its small cell and fault; the timed path broken underneath by
+each fault its small cell lists and `correct` coming out false; and, on the
+card, the control failing a full-size cell's limits. The small cells,
+their faults, windows and controls come from `benchmark/tiny/*.json` and
+`benchmark/faults/*.py`."""
 
 import hashlib
 import json
@@ -18,7 +21,7 @@ sys.path.insert(0, str(HERE))
 import tinycells  # noqa: E402
 
 SEED = 2147483659  # past 32 signed bits
-TINY = sorted(tinycells.SHRINKS)
+TINY = tinycells.cells()
 
 _RUN = """
 import json, sys, time
@@ -34,11 +37,13 @@ sys.exit(rc)
 """
 
 
-def run_cell(root, workload, *, trace=0, patch="", seconds=1.0):
-    """One run of `workload` on the CPU in a fresh process: (result line,
+def run_cell(root, workload, *, trace=0, fault=None, seconds=1.0):
+    """One run of `workload` on the CPU in a fresh process, its timed path
+    broken by `benchmark/faults/<fault>.py` if given: (result line,
     top-level names of every module it loaded)."""
     argv = ["--workload", workload, "--seed", str(SEED), "--seconds", str(seconds),
             "--trace", str(trace)]
+    patch = "" if fault is None else (root / "benchmark" / "faults" / f"{fault}.py").read_text()
     code = _RUN.format(root=str(root), patch=patch, argv=argv)
     p = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=900,
                        cwd=root)
@@ -54,7 +59,7 @@ def root(tmp_path_factory):
     return tinycells.make_root(tmp_path_factory.mktemp("bench"))
 
 
-@pytest.mark.parametrize("workload", TINY)
+@pytest.mark.parametrize("workload", sorted(TINY))
 def test_cell_runs_correct_and_loads_no_jax(root, workload):
     spec = json.loads((root / "BENCHMARK.json").read_text())
     result, modules = run_cell(root, workload)
@@ -88,17 +93,17 @@ def test_new_cell_is_taken_as_data(tmp_path):
     root = tinycells.make_root(tmp_path)
     bench = root / "benchmark"
     before = _digests(bench)
-    cfg = json.loads((bench / "configs" / "tiny-pair.json").read_text())
+    cfg = json.loads((bench / "configs" / "tiny-pair.stream.json").read_text())
     cfg.update(name="tiny-pair-b", points=1024)
     (bench / "configs" / "tiny-pair-b.json").write_text(json.dumps(cfg))
+    stream = json.loads((bench / "traffic" / "stream.json").read_text())
     (bench / "traffic" / "pairs-b.json").write_text(json.dumps(
-        {"entry": "register", "pool": 2, "warm_requests": 1, "trace_from": 1,
-         "trace_requests": 1, "check_answers": 1000}))
+        dict(stream, pool=2, warm_requests=1, trace_from=1, trace_requests=1, check_answers=1000)))
     (bench / "metrics" / "pool_pairs_answered.py").write_text(
         '"""Distinct pool pairs answered in the window."""\n\n\n'
         'def read(ctx):\n    return len({r["pool"] for r in ctx.records})\n')
     (bench / "limits" / "tiny-pair-b.pairs.json").write_text(
-        json.dumps(tinycells.LIMITS["tiny-pair.stream"]))
+        json.dumps(TINY["tiny-pair.stream"]["limits"]))
     spec = json.loads((root / "BENCHMARK.json").read_text())
     spec["configs"].append(dict(spec["configs"][0], name="tiny-pair-b",
                                 file="benchmark/configs/tiny-pair-b.json"))
@@ -120,76 +125,154 @@ def test_new_cell_is_taken_as_data(tmp_path):
     assert {p: d for p, d in after.items() if p in before} == before
 
 
-_PROGRAM = """
-import dataclasses, torch
+_BLOCK_ENTRY = '''"""Entry "register_batch_block": a request registers the traffic's `pairs`
+ground-truth pairs (config kind "gt_pairs") in one `register_batch_block`
+call; work = the pairs; gate = every pair within the configured bounds of
+its ground truth."""
+
+import numpy as np
+import torch
+
+import generators as gen
+import reference as ref
+from entries import Entry, _mod, _se3_np, _settings, pool_gt
+
+
+class BlockPairs(Entry):
+    def setup(self):
+        c = self.config
+        self.configure()
+        pairs = [gen.gt_pair(int(c["points"]), gen.sub_seed(self.seed, 1, i),
+                             gen.sub_seed(self.seed, 2, i), **pool_gt(c["gt"], i))
+                 for i in range(int(self.traffic["pairs"]))]
+        self.src_np, self.tgt_np = [p[0] for p in pairs], [p[1] for p in pairs]
+        self.gts = [ref.se3(p[3], p[4]) for p in pairs]
+        self.src = torch.as_tensor(np.stack(self.src_np), device=self.device)
+        self.tgt = torch.as_tensor(np.stack(self.tgt_np), device=self.device)
+        self.mask = torch.ones(self.src.shape[:2], dtype=torch.bool, device=self.device)
+
+    def request(self, j):
+        res = _mod("icpx_torch.registration.icp").register_batch_block(
+            self.src, self.mask, self.tgt, self.mask, self.cfg)
+        return dict(R=res.transform.R, t=res.transform.t, rmse=res.final_rmse,
+                    iters=res.iters, work=len(self.gts))
+
+    def judge(self, rec):
+        g = self.config["gate"]
+        gaps = [ref.gap(_se3_np(rec["R"][b], rec["t"][b]), gt) for b, gt in enumerate(self.gts)]
+        return all(rot < g["rot"] and t < g["t"] for rot, t in gaps)
+
+    def sample(self, records):
+        return [(rec, b) for rec in records for b in range(len(self.gts))]
+
+    def answers(self, sample):
+        return [(b, _se3_np(rec["R"][b], rec["t"][b]), float(rec["rmse"][b])) for rec, b in sample]
+
+    def reference(self, b, control):
+        src, tgt = self.src_np[b], self.tgt_np[b]
+        v = np.ones(len(src), bool)
+        k, view = int(self.icp["k_normals"]), tgt.mean(0)  # normals face the target's centroid
+        return ref.register(src, v, ref.normals(src, v, k, self.device, view),
+                            tgt, v, ref.normals(tgt, v, k, self.device, view),
+                            _settings(self.icp), self.device)
+
+
+ENTRY = BlockPairs
+'''
+
+_BLOCK_FAULT = """# every answer of register_batch_block moved by 5 cm where it is produced
 import icpx_torch.registration.icp as I
 from icpx_torch.geometry.se3 import SE3
+
+_block = I.register_batch_block
+def register_batch_block(*a, **k):
+    res = _block(*a, **k)
+    return res.replace(transform=SE3(R=res.transform.R, t=res.transform.t + 0.05))
+I.register_batch_block = register_batch_block
 """
 
-FAULTS = {
-    # every ICP loop returns the state it was given
-    "unchanged": _PROGRAM + """
-_scan = I._icp_scan
-def _unchanged(config, src_xyz, src_mask, src_n, init, nn_fn, *a, **k):
-    return _scan(config, src_xyz, src_mask, src_n, init, nn_fn, *a, **k).replace(transform=init)
-I._icp_scan = _unchanged
-""",
-    # half of each batch left out, its answers taken from the rest: every
-    # other pair of the stream, the second half of a request's pairs
-    "half": _PROGRAM + """
-_register, _batch = I.register, I.register_batch
-_last = {}
-def register(src, tgt, cfg, *a, **k):
-    _last["n"] = _last.get("n", 0) + 1
-    if _last["n"] % 2 == 0 and "res" in _last:
-        return _last["res"]
-    _last["res"] = _register(src, tgt, cfg, *a, **k)
-    return _last["res"]
-def _take(res, idx):
-    return I.ICPResult(transform=SE3(R=res.transform.R[idx], t=res.transform.t[idx]),
-                       iters=res.iters[idx], converged=res.converged[idx],
-                       diff_history=res.diff_history[idx], rmse_history=res.rmse_history[idx],
-                       final_rmse=res.final_rmse[idx], inlier_count=res.inlier_count[idx])
-def register_batch(sx, sm, sn, tx, tm, tn, cfg, init=None):
-    h = max(sx.shape[0] // 2, 1)
-    sub = None if init is None else SE3(R=init.R[:h], t=init.t[:h])
-    res = _batch(sx[:h], sm[:h], sn[:h], tx[:h], tm[:h], tn[:h], cfg, init=sub)
-    return _take(res, torch.arange(sx.shape[0]) % h)
-I.register, I.register_batch = register, register_batch
-""",
-    # every answer moved by 5 cm where it is produced
-    "altered": _PROGRAM + """
-_register, _batch = I.register, I.register_batch
-def _moved(T):
-    return SE3(R=T.R, t=T.t + 0.05)
-def register(*a, **k):
-    res = _register(*a, **k)
-    return res.replace(transform=_moved(res.transform))
-def register_batch(*a, **k):
-    res = _batch(*a, **k)
-    return res.replace(transform=_moved(res.transform))
-I.register, I.register_batch = register, register_batch
-""",
-}
+
+def test_new_entry_is_taken_as_data(tmp_path):
+    """A new entry that calls a program function no other entry calls,
+    with its configuration, traffic mix, limits, end-to-end metric, small
+    cell and fault, all added as new files (and entries added to
+    BENCHMARK.json): the small cell runs correct, the fault makes it not
+    correct, and no file the benchmark has changes."""
+    root = tinycells.make_root(tmp_path)
+    bench = root / "benchmark"
+    before = _digests(bench)
+    pair = json.loads((bench / "configs" / "pair1m-gicp.json").read_text())
+    cfg = {"name": "blocks65k", "kind": "gt_pairs", "points": 65536, "gt": pair["gt"],
+           "gate": pair["gate"],
+           "icp": {"objective": "symmetric", "max_iters": 10, "diff_threshold": 0.0,
+                   "rmse_change_tol": 1e-6, "k_normals": 10, "nn_method": "block",
+                   "coarse_iters": 2, "coarse_stride": 4}}
+    limits = {"rot_gap_rad": 1e-6, "t_gap_m": 1e-6}
+    files = {
+        "entry/register_batch_block.py": _BLOCK_ENTRY,
+        "configs/blocks65k.json": json.dumps(cfg),
+        "traffic/batch.json": json.dumps({"entry": "register_batch_block", "pairs": 2,
+                                          "warm_requests": 1, "trace_from": 1,
+                                          "trace_requests": 1}),
+        "limits/blocks65k.batch.json": json.dumps(limits),
+        "metrics/block_pairs_per_s.py": '"""Pairs that pass the gate, over the window."""\n\n\n'
+                                        'def read(ctx):\n'
+                                        '    return sum(r["work"] for r in ctx.records'
+                                        ' if r["passed"]) / ctx.window_s\n',
+        # limits ~10x the gaps of SEED on the CPU (rot 7.6e-8 rad, t 1.4e-8 m)
+        "tiny/tiny-blocks.batch.json": json.dumps(
+            {"shrinks": "blocks65k.batch", "config": {"points": 1024}, "traffic": {},
+             "limits": limits, "faults": ["moved-blocks"], "fault_seconds": 1.0,
+             "control": "program-tf32"}),
+        "faults/moved-blocks.py": _BLOCK_FAULT,
+    }
+    for name, text in files.items():
+        assert not (bench / name).exists()
+        (bench / name).write_text(text)
+    spec = json.loads((root / "BENCHMARK.json").read_text())
+    spec["configs"].append(dict(spec["configs"][0], name="blocks65k",
+                                file="benchmark/configs/blocks65k.json"))
+    spec["workloads"].append({"name": "blocks65k.batch", "config": "blocks65k",
+                              "traffic": "batch", "chips": 1, "why": "added as data"})
+    spec["end_to_end"].append({"name": "block_pairs_per_s", "unit": "pairs/s", "better": "higher",
+                               "bound": 0.25, "source": "host_clock",
+                               "workloads": ["blocks65k.batch"]})
+    (root / "BENCHMARK.json").write_text(json.dumps(spec))
+    tinycells.shrink(root)
+    tiny = tinycells.cells(bench)["tiny-blocks.batch"]
+    result, modules = run_cell(root, "tiny-blocks.batch")
+    assert result["correct"] is True and result["failed"] == 0
+    assert {"block_pairs_per_s", "setup_s"} == set(result["metrics"])
+    assert {"jax", "jaxlib", "flax", "icpx"}.isdisjoint(modules)
+    for fault in tiny["faults"]:
+        result, _ = run_cell(root, "tiny-blocks.batch", fault=fault,
+                             seconds=tiny["fault_seconds"])
+        assert result["correct"] is False
+    after = _digests(bench)
+    assert {p: d for p, d in after.items() if p in before} == before
 
 
-# every pool pair of the stream has its own ground truth, so another pair's
-# answer is a wrong one
-BROKEN = [(w, f) for w in TINY for f in sorted(FAULTS)]
+def test_unknown_entry_names_the_file_it_looked_for():
+    import entries
+
+    with pytest.raises(FileNotFoundError) as e:
+        entries.load("no-such-entry")
+    assert str(HERE / "entry" / "no-such-entry.py") in str(e.value)
+
+
+# every small cell with each fault its file lists
+BROKEN = [(w, f) for w, t in TINY.items() for f in t["faults"]]
 
 
 @pytest.mark.parametrize("workload,fault", BROKEN)
 def test_broken_timed_path_is_not_correct(root, workload, fault):
-    # the window has to hold two of the stream's requests (~3 s each here)
-    # for "half" to leave one of them out
-    seconds = 6.0 if workload == "tiny-pair.stream" else 2.0
-    result, _ = run_cell(root, workload, patch=FAULTS[fault], seconds=seconds)
+    result, _ = run_cell(root, workload, fault=fault, seconds=TINY[workload]["fault_seconds"])
     assert result["correct"] is False
 
 
 # each full-size cell's control: the one whose smallest reading set the
 # upper end of its limits (PERF.md)
-CONTROL = {"pair1m-gicp.stream": "program-tf32", "lidar65k.offline": "program-tf32"}
+CONTROL = {t["shrinks"]: t["control"] for t in TINY.values()}
 
 
 @pytest.mark.cuda

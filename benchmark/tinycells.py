@@ -1,18 +1,20 @@
 """Small cells for the CPU tests, added as data.
 
+Each file `benchmark/tiny/<tiny-cell>.json` describes one small cell:
+`shrinks`, the full-size cell of `BENCHMARK.json` it is cut from;
+`config`, the configuration's keys it changes (nested objects change key
+by key); `traffic`, the traffic mix's keys it changes; `limits`, its
+limits; `faults`, the files of `benchmark/faults/` that break its timed
+path; `fault_seconds`, its window under a fault; `control`, the full-size
+cell's control (`control.py`) for the test on the card.
+
 `make_root(tmp)` copies `BENCHMARK.json` and the benchmark's files into
-`tmp`, links the program beside them, and adds, as new files and new
-entries only, one small cell for each of the benchmark's traffic entries:
-`tiny-pair.stream` (2,048-point ground-truth pairs) and
-`tiny-lidar.offline` (5 scans of 4,096 rows, requests of 2 pairs). The
-metrics of the cell each shrinks list it too. Its limits are its own
-(`LIMITS`): about ten times the gaps the tests' seed gives on the CPU, far
-under the guarantee controls' (the covariances left out: 0.04 rad and m; a
-third of the iterations: 0.1 m and more). A cell this small converges
+`tmp`, links the program beside them, and adds every small cell (`shrink`)
+as new files and new entries only: its configuration, traffic mix and
+limits, each named after the small cell, and the cell itself, which the
+metrics of the cell it shrinks list too. A cell this small converges
 otherwise than its full-size parent, and its gaps swing from seed to seed,
-so they hold only for that seed (at 2,048 rows the first phase's 512
-source rows leave pairs a quarter metre from the truth, and the gaps
-swing by orders of magnitude).
+so its limits hold only for the tests' seed.
 """
 
 from __future__ import annotations
@@ -20,57 +22,59 @@ from __future__ import annotations
 import json
 import shutil
 from pathlib import Path
+from typing import Dict
 
 REPO = Path(__file__).resolve().parent.parent
-LIMITS = {
-    "tiny-pair.stream": {"rot_gap_rad": 1e-6, "t_gap_m": 1e-6},
-    "tiny-lidar.offline": {"rot_gap_rad": 3e-5, "t_gap_m": 5e-4, "rmse_gap_m": 3e-6},
-}
-SHRINKS = {"tiny-pair.stream": "pair1m-gicp.stream", "tiny-lidar.offline": "lidar65k.offline"}
 
 
 def _write(path: Path, obj) -> None:
     path.write_text(json.dumps(obj, indent=1))
 
 
-def make_root(tmp: Path) -> Path:
-    root = Path(tmp) / "checkout"
+def _merge(base: dict, over: dict) -> dict:
+    out = dict(base)
+    for k, v in over.items():
+        out[k] = _merge(base[k], v) if isinstance(v, dict) and isinstance(base.get(k), dict) else v
+    return out
+
+
+def cells(bench: Path = REPO / "benchmark") -> Dict[str, dict]:
+    """The small cells of `bench/tiny/`, by name (the file's stem)."""
+    return {p.stem: json.loads(p.read_text()) for p in sorted((bench / "tiny").glob("*.json"))}
+
+
+def shrink(root: Path) -> None:
+    """Add to the checkout at `root` each small cell of its
+    `benchmark/tiny/` that its `BENCHMARK.json` does not have yet."""
     bench = root / "benchmark"
-    shutil.copytree(REPO / "benchmark", bench,
-                    ignore=shutil.ignore_patterns("_runs", "_cache", "__pycache__"))
-    (root / "icpx_torch").symlink_to(REPO / "icpx_torch")
-    spec = json.loads((REPO / "BENCHMARK.json").read_text())
+    spec = json.loads((root / "BENCHMARK.json").read_text())
+    workloads = {w["name"]: w for w in spec["workloads"]}
     configs = {c["name"]: c for c in spec["configs"]}
-
-    pair = json.loads((REPO / configs["pair1m-gicp"]["file"]).read_text())
-    pair.update(name="tiny-pair", points=2048)
-    _write(bench / "configs" / "tiny-pair.json", pair)
-    lidar = json.loads((REPO / configs["lidar65k"]["file"]).read_text())
-    lidar.update(name="tiny-lidar")
-    lidar["scans"]["points"] = 4096
-    lidar["trajectory"]["frames"] = 5
-    _write(bench / "configs" / "tiny-lidar.json", lidar)
-    spec["configs"] += [dict(configs["pair1m-gicp"], name="tiny-pair",
-                             file="benchmark/configs/tiny-pair.json"),
-                        dict(configs["lidar65k"], name="tiny-lidar",
-                             file="benchmark/configs/tiny-lidar.json")]
-
-    # every answer of the window checked: a fault that spoils some of them
-    # cannot hide behind the sample
-    stream = json.loads((bench / "traffic" / "stream.json").read_text())
-    stream.update(check_answers=1000)
-    _write(bench / "traffic" / "tiny-stream.json", stream)
-    offline = json.loads((bench / "traffic" / "offline.json").read_text())
-    offline.update(starts=[0, 2], scans_per_request=3, check_answers=1000)
-    _write(bench / "traffic" / "tiny-offline.json", offline)
-
-    traffic = {"tiny-pair.stream": "tiny-stream", "tiny-lidar.offline": "tiny-offline"}
-    for name, big in SHRINKS.items():
-        spec["workloads"].append({"name": name, "config": name.split(".")[0],
-                                  "traffic": traffic[name], "chips": 1, "why": "a CPU test"})
-        _write(bench / "limits" / f"{name}.json", LIMITS[name])
+    for name, tiny in cells(bench).items():
+        if name in workloads:
+            continue
+        big = workloads[tiny["shrinks"]]
+        config = configs[big["config"]]
+        cfg = _merge(json.loads((root / config["file"]).read_text()), tiny["config"])
+        cfg["name"] = name
+        _write(bench / "configs" / f"{name}.json", cfg)
+        spec["configs"].append(dict(config, name=name, file=f"benchmark/configs/{name}.json"))
+        traffic = json.loads((bench / "traffic" / f"{big['traffic']}.json").read_text())
+        _write(bench / "traffic" / f"{name}.json", _merge(traffic, tiny["traffic"]))
+        _write(bench / "limits" / f"{name}.json", tiny["limits"])
+        spec["workloads"].append({"name": name, "config": name, "traffic": name, "chips": 1,
+                                  "why": "a CPU test"})
         for m in spec["end_to_end"] + spec["per_layer"]:
-            if big in m.get("workloads", []):
+            if big["name"] in m.get("workloads", []):
                 m["workloads"].append(name)
     _write(root / "BENCHMARK.json", spec)
+
+
+def make_root(tmp: Path) -> Path:
+    root = Path(tmp) / "checkout"
+    shutil.copytree(REPO / "benchmark", root / "benchmark",
+                    ignore=shutil.ignore_patterns("_runs", "_cache", "__pycache__"))
+    (root / "icpx_torch").symlink_to(REPO / "icpx_torch")
+    shutil.copy(REPO / "BENCHMARK.json", root / "BENCHMARK.json")
+    shrink(root)
     return root
