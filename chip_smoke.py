@@ -2172,9 +2172,11 @@ def _phase_compiled_odometry(dev, n, frames, kernels):
     build need (`kd_level_sorts`); no other kernel. Frame 1's source index
     (tiles of the q-tile) and the first keyframe's (tiles of block_tile),
     built from the run's own operands, equal the plain builds bit for bit.
-    Then the device time and busy share of one profiled run."""
+    The same scans pushed one at a time through `OdometryStream`, each a
+    copy of its own, give the direct call's result bit for bit. Then the
+    device time and busy share of one profiled run."""
     from icpx_torch.kernels.blocknn import kd_level_sorts
-    from icpx_torch.odometry.compiled import (_masked_center, resolve_odo_freeze,
+    from icpx_torch.odometry.compiled import (OdometryStream, _masked_center, resolve_odo_freeze,
                                               resolve_odo_q_tile, resolve_odo_refine_stride,
                                               run_odometry_compiled)
 
@@ -2200,6 +2202,14 @@ def _phase_compiled_odometry(dev, n, frames, kernels):
     want = {"sort": frames * kd_level_sorts(n, 128) + (frames - 1) * kd_level_sorts(n, q_tile)
             + (1 + spawns) * kd_level_sorts(n, cfg.block_tile)}
     _check_counts(f"compiled odometry {n} x {frames}", counts, want)
+    stream = OdometryStream(n, dev, cfg, **kw)
+    for k in range(frames):
+        stream.push(*(x[k].clone() for x in stacked["fx"]))
+    _check_repeats(f"compiled odometry {n} x {frames}: OdometryStream against the direct call",
+                   [res, stream.result()])
+    print(f"compiled odometry {n} x {frames}: the scans pushed one at a time through "
+          f"OdometryStream equal the direct call bit for bit ({spawns} spawns, "
+          f"{int(res.rejections)} gate rejections)")
     # the builds of frame 1 against keyframe 0, in the keyframe's centroid
     # coordinates, as run_odometry_compiled makes them
     xyz, mask, _ = stacked["fx"]

@@ -1,4 +1,9 @@
-from icpx_torch.odometry.compiled import CompiledOdometry, run_odometry_compiled
+from icpx_torch.odometry.compiled import (
+    CompiledOdometry,
+    OdometryFrame,
+    OdometryStream,
+    run_odometry_compiled,
+)
 from icpx_torch.odometry.evaluate import ate_rmse, kitti_relative_error, rpe
 from icpx_torch.odometry.frontend import (
     MotionState,
@@ -20,7 +25,9 @@ __all__ = [
     "CompiledOdometry",
     "MotionState",
     "OdometryConfig",
+    "OdometryFrame",
     "OdometryResult",
+    "OdometryStream",
     "PoseGraph",
     "SlidingWindowBackend",
     "ate_rmse",

@@ -1,12 +1,11 @@
-"""Whole-sequence odometry over stacked scans.
+"""Whole-sequence odometry, one scan at a time or over stacked scans.
 
 Mirrors `icpx/odometry/compiled.py`, where the sequence runs as one
 `lax.scan` inside one compiled program. Here the scan is a Python loop over
-frames on the scans' device:
+frames on the scans' device, and its body is `OdometryStream.push`:
 
-  * frames arrive stacked (F, N, 3) with normals (or, for GICP, flattened
-    (F, N, 9) covariances) computed beforehand;
-  * each frame registers against the current keyframe with the
+  * a scan arrives with its normals (or, for GICP, flattened (N, 9)
+    covariances) and registers against the current keyframe with the
     constant-velocity initial guess; the motion gate, the pose, the
     velocity model and the keyframe decision are tensor selects;
   * the keyframe decision is fetched to the host once a frame
@@ -14,7 +13,12 @@ frames on the scans' device:
     on a spawn the keyframe state is replaced and, on the block path, the
     keyframe's tile index, payload table and centroid are rebuilt, as the
     reference's `lax.cond` does;
-  * each frame is an `icpx.frame` span in a profiler's trace.
+  * the stream counts spawns and gate rejections on the device;
+  * each registered frame (every push but the first) is an `icpx.frame`
+    span in a profiler's trace, each keyframe build an `icpx.keyframe`
+    span, each KD build an `icpx.index` span.
+
+`run_odometry_compiled` pushes stacked (F, N, 3) scans in turn.
 
 NN against the keyframe follows `ICPConfig.nn_method` ("auto"): below
 `block_auto_threshold` points the brute search (`nearest_neighbor`: the
@@ -88,8 +92,11 @@ class CompiledOdometry:
     final_kf: torch.Tensor  # 0-d int32: keyframe index after the last frame
     final_rel: SE3  # prev_rel after the last frame
     # ICP iterations each frame ran (0 at frame 0); the reference's
-    # compiled program does not report them
+    # compiled program does not report them, nor the three below
     iters: Optional[torch.Tensor] = None
+    rejected: Optional[torch.Tensor] = None  # (F,) bool: the motion gate kept the guess
+    spawns: Optional[torch.Tensor] = None  # 0-d int32 keyframes spawned after frame 0
+    rejections: Optional[torch.Tensor] = None  # 0-d int32 frames the gate rejected
 
     def edge_list(self) -> List[Tuple[int, int, SE3]]:
         """Measured pose-graph edges, the same structure as
@@ -118,87 +125,118 @@ def _masked_center(xyz: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return torch.where(mask[:, None], xyz, 0.0).sum(0) / denom
 
 
-def run_odometry_compiled(
-    frames_xyz: torch.Tensor,  # (F, N, 3) sensor-frame scans
-    frames_mask: torch.Tensor,  # (F, N)
-    frames_normals: torch.Tensor,  # (F, N, 3), or (F, N, 9) covariances for GICP
-    config: ICPConfig = ICPConfig(
-        objective="symmetric",
-        max_iters=12,
-        diff_threshold=0.0,
-        rmse_change_tol=1e-6,
-        robust="huber",
-        max_corr_dist=2.0,
-    ),
-    *,
-    keyframe_trans: float = 1.0,
-    keyframe_rot: float = 0.2,
-    max_correction_trans: float = 1.0,
-    max_correction_rot: float = 0.5,
-    velocity_damping: float = 1.0,
-    adaptive_velocity: bool = True,
-    innovation_scale: float = 0.5,
-    velocity_damping_min: float = 0.25,
-    freeze_candidates: Optional[bool] = None,
-    q_tile: int = 0,
-    refine_stride: int = 0,
-) -> CompiledOdometry:
-    """A `CompiledOdometry` with poses[0] = identity (world = the first
-    sensor frame), on the scans' device.
+_DEFAULT_CONFIG = ICPConfig(
+    objective="symmetric",
+    max_iters=12,
+    diff_threshold=0.0,
+    rmse_change_tol=1e-6,
+    robust="huber",
+    max_corr_dist=2.0,
+)
 
-    `freeze_candidates` (block path) ranks each frame's candidate tiles once
-    at the warm-started initial pose; `q_tile` sets the source query-tile
-    size; `refine_stride` runs each frame's bulk iterations on every
-    stride-th row of each query tile and the last `refine_full_iters` at
-    full resolution. 0 / None take the reference's ladders
-    (`resolve_odo_freeze`, `resolve_odo_q_tile`,
-    `resolve_odo_refine_stride`)."""
-    f, n_pts = frames_xyz.shape[0], frames_xyz.shape[1]
-    dev = frames_xyz.device
-    freeze = resolve_odo_freeze(n_pts, freeze_candidates)
-    q_tile = resolve_odo_q_tile(config, n_pts, q_tile)
-    stride_r = resolve_odo_refine_stride(config, n_pts, refine_stride)
-    aux_rot = gicp_cov_rot if config.objective == "gicp" else None
-    use_block = config.resolve_nn(n_pts) == "block"
-    builder = config.tile_builder()
-    score_prec = config.resolve_score_prec()
-    eye3 = torch.eye(3, dtype=torch.float32, device=dev)
 
-    def build_target(fx, fm, fn):
+@dataclass(frozen=True)
+class OdometryFrame:
+    """One pushed scan's result (tensors on the stream's device)."""
+
+    pose: SE3  # world_T_frame
+    rel: SE3  # measured kf_T_frame (identity for the first scan)
+    rmse: torch.Tensor  # 0-d; inf when the motion gate rejected the frame
+    iters: torch.Tensor  # 0-d int32 ICP iterations (0 for the first scan)
+    is_keyframe: torch.Tensor  # 0-d bool: the scan became the keyframe
+    edge_src: torch.Tensor  # 0-d int32 keyframe the frame was measured from
+    rejected: torch.Tensor  # 0-d bool: the motion gate kept the initial guess
+    spawns: torch.Tensor  # 0-d int32 keyframes spawned so far (the first scan's not counted)
+    rejections: torch.Tensor  # 0-d int32 frames the gate rejected so far
+
+
+class OdometryStream:
+    """Compiled odometry one scan at a time: `push` registers a scan
+    against the current keyframe and returns its `OdometryFrame`; `result`
+    gives the `CompiledOdometry` of every scan pushed so far.
+
+    The state between pushes is the frame loop's: the keyframe's scan,
+    pose and index, the previous frame's measurement (`prev_rel`), the
+    velocity model, whether it is warm, the run of gate rejections, and on
+    the block path the keyframe's tile index, payload table and centroid
+    (rebuilt on each spawn). `capacity` is the scans' row count N (every
+    scan the same), `device` theirs; the rest is `run_odometry_compiled`'s.
+    A push makes one host read, the spawn flag, besides the ICP loop's."""
+
+    def __init__(
+        self,
+        capacity: int,
+        device,
+        config: ICPConfig = _DEFAULT_CONFIG,
+        *,
+        keyframe_trans: float = 1.0,
+        keyframe_rot: float = 0.2,
+        max_correction_trans: float = 1.0,
+        max_correction_rot: float = 0.5,
+        velocity_damping: float = 1.0,
+        adaptive_velocity: bool = True,
+        innovation_scale: float = 0.5,
+        velocity_damping_min: float = 0.25,
+        freeze_candidates: Optional[bool] = None,
+        q_tile: int = 0,
+        refine_stride: int = 0,
+    ):
+        dev = torch.device(device)
+        self.n_pts, self.device, self.config = capacity, dev, config
+        self.keyframe_trans, self.keyframe_rot = keyframe_trans, keyframe_rot
+        self.max_correction_trans, self.max_correction_rot = max_correction_trans, max_correction_rot
+        self.velocity_kw = dict(damping=velocity_damping, adaptive=adaptive_velocity,
+                                innovation_scale=innovation_scale,
+                                damping_min=velocity_damping_min)
+        self.freeze = resolve_odo_freeze(capacity, freeze_candidates)
+        self.q_tile = resolve_odo_q_tile(config, capacity, q_tile)
+        self.stride_r = resolve_odo_refine_stride(config, capacity, refine_stride)
+        self.aux_rot = gicp_cov_rot if config.objective == "gicp" else None
+        self.use_block = config.resolve_nn(capacity) == "block"
+        self.builder = config.tile_builder()
+        self.score_prec = config.resolve_score_prec()
+        self.eye3 = torch.eye(3, dtype=torch.float32, device=dev)
+        self.frames: List[OdometryFrame] = []
+
+    def _build_target(self, fx, fm, fn):
         """The keyframe's state, built once a spawn: its centroid, the
         trimmed tile index over the centred cloud and the fused (N, 3+D)
         payload table in sorted order."""
-        center = _masked_center(fx, fm)
-        fx_c = torch.where(fm[:, None], fx - center[None, :], fx)
-        with profiling.span("icpx.index"):
-            t_idx = trim_index(builder(fx_c, fm, tile_size=config.block_tile), n_pts,
-                               multiple=_SUPER_G)
-        return t_idx, fused_payload_table(t_idx, fn), center
+        with profiling.span("icpx.keyframe"):
+            center = _masked_center(fx, fm)
+            fx_c = torch.where(fm[:, None], fx - center[None, :], fx)
+            with profiling.span("icpx.index"):
+                t_idx = trim_index(self.builder(fx_c, fm, tile_size=self.config.block_tile),
+                                   self.n_pts, multiple=_SUPER_G)
+            return t_idx, fused_payload_table(t_idx, fn), center
 
-    def brute_register(fx_c, fm, fn, kf_c, kf_mask, kf_n, init_c):
+    def _brute_register(self, fx_c, fm, fn, kf_c, kf_mask, kf_n, init_c):
+        config = self.config
+
         def nn_fn(p):
             d2, idx = nearest_neighbor(p, kf_c, ref_mask=kf_mask, tile_q=config.tile_q,
                                        tile_r=config.tile_r)
             return kf_c.index_select(0, idx), kf_n.index_select(0, idx), torch.sqrt(d2)
 
-        return _icp_scan(config, fx_c, fm, fn, init_c, nn_fn, aux_rot=aux_rot)
+        return _icp_scan(config, fx_c, fm, fn, init_c, nn_fn, aux_rot=self.aux_rot)
 
-    def block_register(fx_c, fm, fn, t_idx, tgt_pl, init_c):
+    def _block_register(self, fx_c, fm, fn, t_idx, tgt_pl, init_c):
         """One frame-to-keyframe registration through the tile indexes,
         both clouds in keyframe-centroid coordinates: the single-pair block
         path without its coarse phase."""
+        config, aux_rot, stride_r = self.config, self.aux_rot, self.stride_r
         with profiling.span("icpx.index"):
-            s_idx = trim_index(builder(fx_c, fm, tile_size=q_tile), n_pts)
+            s_idx = trim_index(self.builder(fx_c, fm, tile_size=self.q_tile), self.n_pts)
         order = s_idx.order.long()
         valid = order >= 0
         safe = torch.clamp(order, min=0)
         s_xyz = s_idx.tiles.reshape(-1, 3)
         s_n = torch.where(valid[:, None], fn[safe], 0.0)
-        sq = q_tile
+        sq = self.q_tile
         tq = s_xyz.shape[0] // sq
 
         cand = None
-        if freeze:
+        if self.freeze:
             # ranked once a frame, at the warm initial pose
             cand = _candidate_tiles(init_c.apply(s_xyz).reshape(tq, sq, 3), t_idx,
                                     config.block_k)[0]
@@ -206,7 +244,7 @@ def run_odometry_compiled(
         def make_nn(sq_n):
             def nn_fn(p):
                 d2, pos = block_nn(p.reshape(tq, sq_n, 3), t_idx, k_tiles=config.block_k,
-                                   return_pos=True, cand_tiles=cand, score_prec=score_prec)
+                                   return_pos=True, cand_tiles=cand, score_prec=self.score_prec)
                 pl = tgt_pl[pos.long()]
                 return pl[:, :3], pl[:, 3:], torch.sqrt(d2)
 
@@ -235,78 +273,137 @@ def run_odometry_compiled(
                         prev_rmse0=prev_rmse0)
         return res.replace(iters=res.iters + mid_iters)
 
-    eye = SE3.identity(device=dev)
-    kf_xyz, kf_mask, kf_n = frames_xyz[0], frames_mask[0], frames_normals[0]
-    kf_pose, kf_idx = eye, 0
-    prev_rel, velocity = eye, eye
-    model_warm = torch.zeros((), dtype=torch.bool, device=dev)
-    rejects = torch.zeros((), dtype=torch.int32, device=dev)
-    kf_cache = build_target(kf_xyz, kf_mask, kf_n) if use_block else None
+    def _int(self, value: int) -> torch.Tensor:
+        # a fill on the device, not a copy from the host
+        return torch.full((), value, dtype=torch.int32, device=self.device)
 
-    poses, spawns, rmses, srcs, rels, iters = [eye], [True], [], [0], [eye], [0]
-    for k in range(1, f):
-        with profiling.span("icpx.frame"):
-            fx, fm, fn = frames_xyz[k], frames_mask[k], frames_normals[k]
-            init = prev_rel @ velocity
-            # solve in keyframe-centroid coordinates (the conjugation register()
-            # applies); on the block path the centroid comes with the spawn cache
-            center = kf_cache[2] if use_block else _masked_center(kf_xyz, kf_mask)
-            shift, unshift = SE3(R=eye3, t=-center), SE3(R=eye3, t=center)
-            fx_c = torch.where(fm[:, None], fx - center[None, :], fx)
-            init_c = shift @ init @ unshift
-            if use_block:
-                res = block_register(fx_c, fm, fn, kf_cache[0], kf_cache[1], init_c)
-            else:
-                kf_c = torch.where(kf_mask[:, None], kf_xyz - center[None, :], kf_xyz)
-                res = brute_register(fx_c, fm, fn, kf_c, kf_mask, kf_n, init_c)
-            rel = unshift @ res.transform @ shift
+    def push(self, xyz: torch.Tensor, mask: torch.Tensor, normals: torch.Tensor) -> OdometryFrame:
+        """Register one (N, 3) sensor-frame scan with its (N,) mask and its
+        (N, 3) normals (GICP: (N, 9) covariances); the first scan becomes
+        keyframe 0 at the identity."""
+        if xyz.shape[0] != self.n_pts:
+            raise ValueError(f"a scan of {xyz.shape[0]} rows; this stream takes {self.n_pts}")
+        if not self.frames:
+            out = self._first(xyz, mask, normals)
+        else:
+            with profiling.span("icpx.frame"):
+                out = self._register(xyz, mask, normals)
+        self.frames.append(out)
+        return out
 
-            # the motion gate: warm model, at most 2 rejections in a row
-            corr = init.inverse() @ rel
-            corr_t = torch.linalg.vector_norm(corr.t)
-            corr_r = corr.rotation_angle()
-            finite = torch.isfinite(corr_t) & torch.isfinite(rel.t).all()
-            gate_on = model_warm & (rejects < 2) & (max_correction_trans > 0)
-            rejected = (~finite) | (gate_on & ((corr_t > max_correction_trans)
-                                               | (corr_r > max_correction_rot)))
-            rel = _select(rejected, init, rel)
-            pose = kf_pose @ rel
-            rmse = torch.where(rejected, torch.full_like(res.final_rmse, float("inf")),
-                               res.final_rmse)
-            velocity = blend_velocity(velocity, prev_rel.inverse() @ rel, damping=velocity_damping,
-                                      adaptive=adaptive_velocity, innovation_scale=innovation_scale,
-                                      damping_min=velocity_damping_min)
-            model_warm = model_warm | ~rejected
-            rejects = torch.where(rejected, rejects + 1, torch.zeros_like(rejects))
-            spawn_t = (~rejected) & ((torch.linalg.vector_norm(rel.t) > keyframe_trans)
-                                     | (rel.rotation_angle() > keyframe_rot))
-            spawn = profiling.fetch(spawn_t)  # the frame's one fetch besides the loop's
+    def _first(self, fx, fm, fn) -> OdometryFrame:
+        dev = self.device
+        eye = SE3.identity(device=dev)
+        self.kf_xyz, self.kf_mask, self.kf_n = fx, fm, fn
+        self.kf_pose, self.kf_idx = eye, 0
+        self.prev_rel, self.velocity = eye, eye
+        self.model_warm = torch.zeros((), dtype=torch.bool, device=dev)
+        self.rejects = torch.zeros((), dtype=torch.int32, device=dev)
+        self.spawns = torch.zeros((), dtype=torch.int32, device=dev)
+        self.rejections = torch.zeros((), dtype=torch.int32, device=dev)
+        self.kf_cache = self._build_target(fx, fm, fn) if self.use_block else None
+        return OdometryFrame(pose=eye, rel=eye, rmse=torch.zeros((), dtype=torch.float32, device=dev),
+                             iters=self._int(0), is_keyframe=torch.ones((), dtype=torch.bool, device=dev),
+                             edge_src=self._int(0), rejected=torch.zeros((), dtype=torch.bool, device=dev),
+                             spawns=self.spawns, rejections=self.rejections)
 
-            poses.append(pose)
-            spawns.append(spawn)
-            rmses.append(rmse)
-            srcs.append(kf_idx)
-            rels.append(rel)
-            iters.append(res.iters)
-            if spawn:
-                kf_xyz, kf_mask, kf_n = fx, fm, fn
-                kf_pose, kf_idx, prev_rel = pose, k, eye
-                if use_block:
-                    kf_cache = build_target(fx, fm, fn)
-            else:
-                prev_rel = rel
+    def _register(self, fx, fm, fn) -> OdometryFrame:
+        k = len(self.frames)
+        eye3, prev_rel = self.eye3, self.prev_rel
+        init = prev_rel @ self.velocity
+        # solve in keyframe-centroid coordinates (the conjugation register()
+        # applies); on the block path the centroid comes with the spawn cache
+        center = self.kf_cache[2] if self.use_block else _masked_center(self.kf_xyz, self.kf_mask)
+        shift, unshift = SE3(R=eye3, t=-center), SE3(R=eye3, t=center)
+        fx_c = torch.where(fm[:, None], fx - center[None, :], fx)
+        init_c = shift @ init @ unshift
+        if self.use_block:
+            res = self._block_register(fx_c, fm, fn, self.kf_cache[0], self.kf_cache[1], init_c)
+        else:
+            kf_c = torch.where(self.kf_mask[:, None], self.kf_xyz - center[None, :], self.kf_xyz)
+            res = self._brute_register(fx_c, fm, fn, kf_c, self.kf_mask, self.kf_n, init_c)
+        rel = unshift @ res.transform @ shift
 
-    def stack(ts):
-        return SE3(R=torch.stack([t.R for t in ts]), t=torch.stack([t.t for t in ts]))
+        # the motion gate: warm model, at most 2 rejections in a row
+        corr = init.inverse() @ rel
+        corr_t = torch.linalg.vector_norm(corr.t)
+        corr_r = corr.rotation_angle()
+        finite = torch.isfinite(corr_t) & torch.isfinite(rel.t).all()
+        gate_on = self.model_warm & (self.rejects < 2) & (self.max_correction_trans > 0)
+        rejected = (~finite) | (gate_on & ((corr_t > self.max_correction_trans)
+                                           | (corr_r > self.max_correction_rot)))
+        rel = _select(rejected, init, rel)
+        pose = self.kf_pose @ rel
+        rmse = torch.where(rejected, torch.full_like(res.final_rmse, float("inf")),
+                           res.final_rmse)
+        self.velocity = blend_velocity(self.velocity, prev_rel.inverse() @ rel, **self.velocity_kw)
+        self.model_warm = self.model_warm | ~rejected
+        self.rejects = torch.where(rejected, self.rejects + 1, torch.zeros_like(self.rejects))
+        spawn_t = (~rejected) & ((torch.linalg.vector_norm(rel.t) > self.keyframe_trans)
+                                 | (rel.rotation_angle() > self.keyframe_rot))
+        spawn = profiling.fetch(spawn_t)  # the frame's one fetch besides the loop's
+        self.spawns = self.spawns + spawn_t
+        self.rejections = self.rejections + rejected
 
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
-    return CompiledOdometry(
-        poses=stack(poses),
-        is_keyframe=torch.tensor(spawns, dtype=torch.bool, device=dev),
-        rmse=torch.stack([zero] + rmses),
-        edge_src=torch.tensor(srcs, dtype=torch.int32, device=dev),
-        edge_rel=stack(rels),
-        final_kf=torch.tensor(kf_idx, dtype=torch.int32, device=dev),
-        final_rel=prev_rel,
-        iters=torch.tensor(iters, dtype=torch.int32, device=dev),
-    )
+        out = OdometryFrame(pose=pose, rel=rel, rmse=rmse, iters=self._int(res.iters),
+                            is_keyframe=spawn_t, edge_src=self._int(self.kf_idx), rejected=rejected,
+                            spawns=self.spawns, rejections=self.rejections)
+        if spawn:
+            self.kf_xyz, self.kf_mask, self.kf_n = fx, fm, fn
+            self.kf_pose, self.kf_idx, self.prev_rel = pose, k, SE3.identity(device=self.device)
+            if self.use_block:
+                self.kf_cache = self._build_target(fx, fm, fn)
+        else:
+            self.prev_rel = rel
+        return out
+
+    def result(self) -> CompiledOdometry:
+        """The `CompiledOdometry` of every scan pushed so far."""
+        if not self.frames:
+            raise ValueError("no scan pushed yet")
+        fr = self.frames
+
+        def stack(name):
+            return torch.stack([getattr(f, name) for f in fr])
+
+        return CompiledOdometry(
+            poses=SE3(R=torch.stack([f.pose.R for f in fr]), t=torch.stack([f.pose.t for f in fr])),
+            is_keyframe=stack("is_keyframe"),
+            rmse=stack("rmse"),
+            edge_src=stack("edge_src"),
+            edge_rel=SE3(R=torch.stack([f.rel.R for f in fr]), t=torch.stack([f.rel.t for f in fr])),
+            final_kf=self._int(self.kf_idx),
+            final_rel=self.prev_rel,
+            iters=stack("iters"),
+            rejected=stack("rejected"),
+            spawns=self.spawns,
+            rejections=self.rejections,
+        )
+
+
+def run_odometry_compiled(
+    frames_xyz: torch.Tensor,  # (F, N, 3) sensor-frame scans
+    frames_mask: torch.Tensor,  # (F, N)
+    frames_normals: torch.Tensor,  # (F, N, 3), or (F, N, 9) covariances for GICP
+    config: ICPConfig = _DEFAULT_CONFIG,
+    **kwargs,
+) -> CompiledOdometry:
+    """A `CompiledOdometry` with poses[0] = identity (world = the first
+    sensor frame), on the scans' device: each scan pushed in turn through
+    an `OdometryStream`, whose keyword arguments these are.
+
+    `freeze_candidates` (block path) ranks each frame's candidate tiles once
+    at the warm-started initial pose; `q_tile` sets the source query-tile
+    size; `refine_stride` runs each frame's bulk iterations on every
+    stride-th row of each query tile and the last `refine_full_iters` at
+    full resolution. 0 / None take the reference's ladders
+    (`resolve_odo_freeze`, `resolve_odo_q_tile`,
+    `resolve_odo_refine_stride`). The motion gate (`max_correction_trans`,
+    `max_correction_rot`), the keyframe thresholds (`keyframe_trans`,
+    `keyframe_rot`) and the velocity model (`velocity_damping`,
+    `adaptive_velocity`, `innovation_scale`, `velocity_damping_min`) are
+    `OdometryStream`'s."""
+    stream = OdometryStream(frames_xyz.shape[1], frames_xyz.device, config, **kwargs)
+    for k in range(frames_xyz.shape[0]):
+        stream.push(frames_xyz[k], frames_mask[k], frames_normals[k])
+    return stream.result()

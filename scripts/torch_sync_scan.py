@@ -4,8 +4,8 @@
 
 from the repo root, on a machine with an NVIDIA GPU. For each cell of
 `BENCHMARK.json` it makes the cell's inputs (the benchmark's own entry,
-`benchmark/entries.py`), warms it as the harness does, and runs one more
-request under `torch.cuda.set_sync_debug_mode("warn")` and a CPU
+`benchmark/entry/<name>.py` through `entries.load`), warms it as the
+harness does, and runs one more request under `torch.cuda.set_sync_debug_mode("warn")` and a CPU
 `torch.profiler`. Each sync warning (other warnings are left out) is put
 down to the innermost frame of `icpx_torch` that made it, and counted as
 one of:
@@ -44,13 +44,20 @@ FETCHERS = ("fetch", "fetch_int")
 SYNC = "synchronizing CUDA operation"  # in the text of torch's sync debug warning
 
 
+def _harness(filename: str) -> bool:
+    """A file of the benchmark's entries: `entries.py` or `entry/<name>.py`."""
+    path = Path(filename)
+    return path.name == "entries.py" or (path.parent.name == "entry"
+                                         and path.parent.parent.name == "benchmark")
+
+
 def _site(stack) -> tuple:
     """(kind, the innermost icpx_torch frame, its icpx_torch callers); the
     innermost frames of any file where no icpx_torch frame is on the stack."""
     ours = [f for f in stack if "icpx_torch" in f.filename]
     if any(f.name in FETCHERS and f.filename.endswith("profiling.py") for f in ours):
         kind = "fetch"
-    elif not ours and any(f.filename.endswith("entries.py") for f in stack):
+    elif not ours and any(_harness(f.filename) for f in stack):
         kind = "harness"
     else:
         kind = "other"
@@ -60,7 +67,7 @@ def _site(stack) -> tuple:
 
 def scan(workload: str, seed: int, dev) -> dict:
     cell = harness.Cell(ROOT, workload)
-    entry = entries.ENTRIES[cell.traffic["entry"]](cell.config, cell.traffic, seed, dev)
+    entry = entries.load(cell.traffic["entry"])(cell.config, cell.traffic, seed, dev)
     entry.setup()
     entry.warm()
     torch.cuda.synchronize(dev)
